@@ -6,9 +6,14 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compiles the CUDA kernels from ``objcavit_torch/csrc`` with nvcc;
+2. build: compiles the CUDA kernels from ``objcavit_torch/csrc`` with nvcc,
+   one process per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (TF32 off), then both timed in turns with CUDA events;
+   main paths' shapes (TF32 off), then both timed in turns with CUDA events:
+   kernel 1 (resize) and kernel 2 (factored bins head) at the server's
+   shapes, kernel 3 (the bins head with one shared weight) at
+   (8, 240, 320, 128), kernel 4 (bins expectation) forward and backward at
+   the train step's (8, 56576, 256);
 4. slice: the flagship server (GraphBins-B5, bf16, BN folded, 480x640, 300
    object slots, random weights from seed 0) answers requests of 8 uint8
    frames, with detector-style object slots and with the no-detection
@@ -18,6 +23,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    version on the very tensors the forward gave it; and ObjCAViT's outputs
    must stay close to an fp32 run of the same weights (plain versions, no
    kernel) on a small input. Then the served rate and peak memory.
+5. unfactored head: ``ops.bins.bins_head_depth`` at inference, bf16, on
+   (8, 240, 320, 128) range maps, the route of kernel 3 (no model of this
+   slice takes it: GraphBins's head is the factored one);
+6. train: the flagship train step (``build_flagship_train``: GraphBins-B5,
+   bs 8, 416x544, 221 slots, bf16 compute on fp32 parameters, dropout 0.1,
+   device-side augmentation, silog + 0.1 bins chamfer, AdamW under
+   OneCycle, clip 0.1) takes a warm-up step, then 6 steps. Every loss must
+   be finite; the launch counters, zeroed just before, must show one kernel-4
+   forward and one backward per step and no launch of kernels 1-3; kernel
+   4's forward and backward outputs in the first of them must match their
+   plain versions on the very tensors the step gave them; one step's
+   gradients on the bf16 kernel route must stay close to an fp32 step of the
+   same weights and batch (plain versions, no kernel) on a small input.
+   Then ms/step, img/s, peak memory and the stage split.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -35,10 +54,21 @@ import numpy as np
 import torch
 
 from objcavit_torch.kernels import bins as kbins
+from objcavit_torch.kernels import bins_expectation as kexp
 from objcavit_torch.kernels import build
 from objcavit_torch.kernels import resize as kresize
+from objcavit_torch.losses import LossWrapper
+from objcavit_torch.ops.bins import bins_head_depth
 from objcavit_torch.serving import DepthPipeline, build_flagship_pipeline, image_seq_len
-from objcavit_torch.utils.kernel_io import plain_outputs, record_kernel_io
+from objcavit_torch.training.steps import make_train_loss_fn
+from objcavit_torch.utils.benchkit import TRAIN_LOSSES, build_flagship_train
+from objcavit_torch.utils.kernel_io import (
+    bins_expectation_plain_outputs,
+    plain_outputs,
+    record_bins_expectation_io,
+    record_kernel_io,
+)
+from objcavit_torch.utils.profile_stages import train_stage_split
 
 BATCH = 8
 EVAL_DIMS = (480, 640)
@@ -50,6 +80,10 @@ RESIZE_SHAPES = [
     (120, 160, 256, 240, 320),
 ]
 BINS_SHAPE = (BATCH, 240, 320, 128)  # decoder features at half resolution
+TRAIN_DIMS = (416, 544)
+TRAIN_SLOTS = 221  # min(max_det 1000, the 13 x 17 image tokens at 416x544)
+# kernel 4's logits at the train step: (B, 208 x 272 pixels, 256 bins)
+EXP_SHAPE = (BATCH, (TRAIN_DIMS[0] // 2) * (TRAIN_DIMS[1] // 2), 256)
 # kernel vs plain: both lerp in fp32 and round to bf16 once, but the kernel's
 # FMAs round differently from the plain version's separate multiply and add,
 # so a value next to a bf16 rounding boundary may land one bf16 ulp
@@ -58,6 +92,15 @@ RESIZE_RTOL, RESIZE_ATOL = 2.0 ** -7, 1e-5
 # both sum the same bf16-exact products in fp32 (128 terms, other order) and
 # the kernel's exp is __expf: a few fp32 ulps of the depth
 BINS_RTOL, BINS_ATOL = 1e-5, 1e-5
+# kernel 4 vs plain. Forward: fp32 sums of 256 terms in another order and
+# __expf, as kernel 2. Backward: dlogits is rounded to bf16 on both sides,
+# so two fp32 values a few ulps apart may round one bf16 ulp (<= 2^-7
+# relative) apart, and p (c - depth) g carries the forward's depth error
+# (<= 1e-4 m at 10 m) times |g|; dcenters sums p g over 56,576 rows per
+# image in another order (block partials vs PyTorch's reduction)
+EXP_RTOL, EXP_ATOL = 1e-5, 1e-5
+DLOGITS_RTOL, DLOGITS_ATOL_PER_G = 2.0 ** -7, 1e-4
+DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX = 1e-4, 1e-5
 # the served depth must spread over at least this many bins tolerances, or
 # the bins check on served tensors could not tell a right depth from a flat one
 MIN_SPREAD_IN_TOLERANCES = 10
@@ -65,6 +108,28 @@ MIN_SPREAD_IN_TOLERANCES = 10
 # significant bits (2^-9 relative rounding) through ~100 layers. Measured on
 # an H100: rel L2 0.0030 on ObjCAViT's image features, 0.0069 on its queries
 FEATURE_REL_BOUND = 0.02
+# one train step's gradients, bf16 kernel route vs fp32 plain route, rel L2
+# per named group. The deep groups sit behind train-mode BatchNorms, whose
+# backward subtracts the batch mean of the incoming gradient and so
+# magnifies its bf16 rounding: on the CPU, at efficientnet-tiny, JAX's own
+# bf16 step lands 0.006 (conv_out), 0.018 (regressor), 0.42 (decoder.conv2)
+# and 0.21 (stem) from its fp32 step (tests/test_torch_train.py); at B5 on
+# an H100 the port measured 0.011, 0.019, 0.70 and 0.71. The deep groups'
+# bound of 0.9 still fails a missing gradient (1.0) or a flipped one (2.0).
+TRAIN_GRAD_GROUPS = {
+    "conv_out": (("conv_out.",), 0.05),
+    "regressor": (("objcavit.regressor.",), 0.1),
+    "decoder.conv2": (("dense_feature_extractor.decoder.conv2.",), 0.9),
+    "encoder stem": (("dense_feature_extractor.encoder.original_model.conv_stem.",
+                      "dense_feature_extractor.encoder.original_model.bn1."), 0.9),
+}
+COUNTERS = {
+    "resize": kresize.resize_bilinear_align_corners,
+    "bins": kbins.conv_bins_depth_batched,
+    "bins_shared": kbins.conv_bins_depth,
+    "bins_expectation_fwd": kexp.bins_expectation_fwd,
+    "bins_expectation_bwd": kexp.bins_expectation_bwd,
+}
 
 
 def log(msg: str) -> None:
@@ -81,6 +146,24 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float, a
     if bad or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: {bad} elements out of tolerance, max abs err {max_abs}")
     return max_abs
+
+
+def zero_counters() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def expect_launches(what: str, **want: int) -> dict:
+    got = read_counters()
+    want = {name: want.get(name, 0) for name in COUNTERS}
+    log(f"  {what}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{what}: want launches {want}, got {got}")
+    return got
 
 
 def time_ms(fn, iters: int) -> float:
@@ -159,7 +242,63 @@ def phase_kernels() -> dict:
     ms, plain_ms = compare_times(kernel, plain)
     log(f"kernel bins {BINS_SHAPE}: max_abs_err {err} (rtol 1e-5, atol 1e-5); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"resize": resize, "bins": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}}
+    out = {"resize": resize, "bins": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}}
+
+    shared = wts[0].contiguous()  # one (C, 256) weight for the batch
+    kernel = lambda: kbins.conv_bins_depth(x, shared, bias, centers)  # noqa: E731
+    plain = lambda: kbins.conv_bins_depth_plain(x, shared, bias, centers)  # noqa: E731
+    err = check_close("bins shared W", kernel(), plain(), BINS_RTOL, BINS_ATOL)
+    ms, plain_ms = compare_times(kernel, plain)
+    log(f"kernel bins, shared W (kernel 3) {BINS_SHAPE}: max_abs_err {err} (rtol 1e-5, "
+        f"atol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    out["bins_shared"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    del x, wts
+    out.update(check_bins_expectation(g, dev))
+    return out
+
+
+def close_backward(name: str, dlogits, dcenters, want_dl, want_dc, g) -> tuple[float, float]:
+    """Kernel 4's backward outputs against the plain backward's, at the
+    stated tolerances (dlogits' absolute part scales with |g|)."""
+    err_dl = check_close(f"{name} dlogits", dlogits, want_dl, DLOGITS_RTOL,
+                         DLOGITS_ATOL_PER_G * float(g.abs().max()))
+    err_dc = check_close(f"{name} dcenters", dcenters, want_dc, DCENTERS_RTOL,
+                         DCENTERS_ATOL_PER_MAX * float(want_dc.abs().max()))
+    return err_dl, err_dc
+
+
+def check_bins_expectation(gen: torch.Generator, dev) -> dict:
+    """Kernel 4 at the train step's shape: forward against the plain
+    forward, backward against the plain backward formula; times against the
+    plain forward, and against autograd's backward of it (softmax and matmul
+    keeping fp32 probabilities), which is what PyTorch runs without the
+    kernel."""
+    b, s, k = EXP_SHAPE
+    logits = (2.0 * torch.randn((b, s, k), generator=gen, device=dev)).to(torch.bfloat16)
+    centers = torch.sort(0.001 + 10 * torch.rand((b, k), generator=gen, device=dev), dim=1).values
+    g = torch.randn((b, s), generator=gen, device=dev)
+    kernel = lambda: kexp.bins_expectation_fwd(logits, centers)  # noqa: E731
+    plain = lambda: kexp.bins_expectation_plain(logits, centers)  # noqa: E731
+    err = check_close("bins expectation forward", kernel(), plain(), EXP_RTOL, EXP_ATOL)
+    ms, plain_ms = compare_times(kernel, plain)
+    log(f"kernel bins expectation forward {EXP_SHAPE}: max_abs_err {err} (rtol 1e-5, atol "
+        f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    fwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    dl, dc = kexp.bins_expectation_bwd(logits, centers, g)
+    err_dl, err_dc = close_backward("bins expectation backward", dl, dc,
+                                    *kexp.bins_expectation_bwd_plain(logits, centers, g), g)
+    del dl, dc
+    lg, cg = logits.detach().requires_grad_(), centers.detach().requires_grad_()
+    out = kexp.bins_expectation_plain(lg, cg)
+    kernel = lambda: kexp.bins_expectation_bwd(logits, centers, g)  # noqa: E731
+    plain = lambda: torch.autograd.grad(out, (lg, cg), g, retain_graph=True)  # noqa: E731
+    ms, plain_ms = compare_times(kernel, plain, iters=10)
+    log(f"kernel bins expectation backward {EXP_SHAPE}: max_abs_err dlogits {err_dl} (rtol "
+        f"2^-7, atol 1e-4 max|g|), dcenters {err_dc} (rtol 1e-4, atol 1e-5 max|dcenters|); "
+        f"kernel {ms:.4f} ms, plain (autograd of the plain forward) {plain_ms:.4f} ms")
+    return {"bins_expectation_fwd": fwd,
+            "bins_expectation_bwd": {"max_abs_err": err_dl, "ms": ms, "plain_ms": plain_ms}}
 
 
 def make_provider(rng: np.random.Generator, n_obj: int):
@@ -258,19 +397,12 @@ def phase_slice() -> dict:
 
     pipe(frames[0])  # warm-up: cuDNN set-up, library load
     torch.cuda.synchronize()
-    kresize.resize_bilinear_align_corners.launches = 0
-    kbins.conv_bins_depth_batched.launches = 0
+    zero_counters()
     with record_kernel_io(model) as records:
         depths = [server(f) for (_, server), f in zip(routes, frames)]
     torch.cuda.synchronize()
-    launches = {
-        "resize": kresize.resize_bilinear_align_corners.launches,
-        "bins": kbins.conv_bins_depth_batched.launches,
-    }
     n = len(routes)
-    log(f"  {n} requests of {BATCH} frames: launches {launches}")
-    if launches != {"resize": 4 * n, "bins": n}:
-        raise AssertionError(f"want 4 resize and 1 bins launch per forward, got {launches}")
+    launches = expect_launches(f"{n} requests of {BATCH} frames", resize=4 * n, bins=n)
     for i, ((route, _), depth) in enumerate(zip(routes, depths)):
         check_depth(f"request {i} ({route})", depth, model.min_depth, model.max_depth)
     slots = with_objects.provider(np.zeros((BATCH, 1, 1, 3), np.float32))["valid"].sum(1)
@@ -301,20 +433,161 @@ def phase_slice() -> dict:
     return launches
 
 
+def phase_unfactored_head() -> dict:
+    """``ops.bins.bins_head_depth`` at inference in bf16: kernel 3."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, h, w, c = BINS_SHAPE
+    maps = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    widths = torch.rand((b, 256), generator=gen, device="cuda") + 0.1
+    widths = widths / widths.sum(1, keepdim=True)
+    weight = 0.1 * torch.randn((256, c, 1, 1), generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(256, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    zero_counters()
+    with torch.no_grad():
+        depth, _ = bins_head_depth(widths, maps, weight, bias, 0.001, 10.0, train=False)
+    torch.cuda.synchronize()
+    log(f"unfactored head: bins_head_depth, eval, bf16 range maps {BINS_SHAPE}")
+    launches = expect_launches("unfactored head", bins_shared=1)
+    if not torch.isfinite(depth).all() or depth.shape != (b, h, w, 1):
+        raise AssertionError(f"unfactored head: bad depth {tuple(depth.shape)}")
+    return launches
+
+
+def check_train_kernels(record: dict) -> None:
+    """Kernel 4's outputs in a recorded train step against its plain
+    versions on the same tensors."""
+    pairs = bins_expectation_plain_outputs(record)
+    err = check_close("train step bins expectation forward", *pairs["depth"], EXP_RTOL, EXP_ATOL)
+    (dl, want_dl), (dc, want_dc) = pairs["dlogits"], pairs["dcenters"]
+    err_dl, err_dc = close_backward("train step bins expectation backward", dl, dc, want_dl,
+                                    want_dc, record["g"])
+    plain_depth = pairs["depth"][1]
+    spread = float(plain_depth.max() - plain_depth.min())
+    band = EXP_ATOL + EXP_RTOL * float(plain_depth.abs().max())
+    log(f"  recorded step: kernel 4 vs plain on its own tensors: depth max abs err {err}, "
+        f"dlogits {err_dl}, dcenters {err_dc}; depth spread {spread:.5f} m, "
+        f"{spread / band:.0f}x the forward tolerance; max|g| {float(record['g'].abs().max()):.3e}")
+    if spread < MIN_SPREAD_IN_TOLERANCES * band:
+        raise AssertionError("train step: depth too flat to check kernel 4")
+
+
+def check_train_against_fp32(model, rng: np.random.Generator) -> None:
+    """One step's gradients on the bf16 kernel route against the same
+    weights in fp32 (plain versions, cuDNN without TF32) on a small input,
+    with the same draws of augmentation and dropout (one generator seed)."""
+    small, b, n_obj = (384, 352), 2, 64
+    batch = {
+        "image": torch.as_tensor(rng.uniform(0, 1, (b, *small, 3)).astype(np.float32), device="cuda"),
+        "depth": torch.as_tensor(rng.uniform(0.01, 9.0, (b, *small, 1)).astype(np.float32),
+                                 device="cuda"),
+    }
+    valid = np.zeros((b, n_obj), bool)
+    valid[0, :40], valid[1, :5] = True, True
+    objects = {
+        "features": torch.as_tensor((0.02 * rng.standard_normal((b, n_obj, 512))).astype(np.float32),
+                                    device="cuda"),
+        "xywh": torch.as_tensor(rng.uniform(0, 350, (b, n_obj, 4)).astype(np.float32), device="cuda"),
+        "valid": torch.as_tensor(valid, device="cuda"),
+    }
+    names, params = zip(*model.named_parameters())
+    grads, losses = {}, {}
+    for dtype, want in ((torch.bfloat16, 1), (torch.float32, 0)):
+        loss_fn = make_train_loss_fn(model, LossWrapper(*TRAIN_LOSSES), model.min_depth,
+                                     augment_on_device=True, compute_dtype=dtype)
+        zero_counters()
+        loss = loss_fn(batch, objects, torch.Generator(device="cuda").manual_seed(7))
+        g = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        expect_launches(f"{dtype} step on 2x{small}", bins_expectation_fwd=want,
+                        bins_expectation_bwd=want)
+        grads[dtype] = {n: t for n, t in zip(names, g) if t is not None}
+        losses[dtype] = float(loss.detach())
+    rels = {}
+    for group, (prefixes, _) in TRAIN_GRAD_GROUPS.items():
+        keys = [n for n in grads[torch.float32] if n.startswith(prefixes)]
+        if not keys:
+            raise AssertionError(f"no gradient in group {group}")
+        got = torch.cat([grads[torch.bfloat16][n].float().ravel() for n in keys])
+        want = torch.cat([grads[torch.float32][n].float().ravel() for n in keys])
+        rels[group] = rel_l2(got, want)
+    log(f"  bf16 kernel route vs fp32 plain route, one step on 2x{small}: loss "
+        f"{losses[torch.bfloat16]:.6f} vs {losses[torch.float32]:.6f}; gradient rel L2 "
+        + ", ".join(f"{k} {v:.5f} (bound {TRAIN_GRAD_GROUPS[k][1]})" for k, v in rels.items()))
+    if any(rels[k] > TRAIN_GRAD_GROUPS[k][1] for k in rels):
+        raise AssertionError("the bf16 train step's gradients stray from the fp32 reference")
+    if not abs(losses[torch.bfloat16] - losses[torch.float32]) <= 0.01 * abs(losses[torch.float32]):
+        raise AssertionError("the bf16 train step's loss strays from the fp32 reference")
+
+
+def phase_train() -> dict:
+    t0 = time.perf_counter()
+    step, batch, objects = build_flagship_train(batch=BATCH, h=TRAIN_DIMS[0], w=TRAIN_DIMS[1],
+                                                n_obj=TRAIN_SLOTS, seed=0)
+    model = step.model
+    if image_seq_len(*TRAIN_DIMS) != TRAIN_SLOTS:
+        raise AssertionError(f"expected {TRAIN_SLOTS} image tokens at {TRAIN_DIMS}")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"train: GraphBins-B5, {n_params} fp32 parameters, bf16 compute, bs {BATCH} at "
+        f"{TRAIN_DIMS[0]}x{TRAIN_DIMS[1]}, {TRAIN_SLOTS} slots; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    losses = [step(batch, objects)]  # warm-up: cuDNN set-up
+    torch.cuda.synchronize()
+    log(f"  warm-up step {1000 * (time.perf_counter() - t0):.1f} ms")
+    zero_counters()
+    with record_bins_expectation_io() as records:
+        losses.append(step(batch, objects))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_timed = 5
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        losses.append(step(batch, objects))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = n_timed + 1
+    launches = expect_launches(f"{n} train steps", bins_expectation_fwd=n, bins_expectation_bwd=n)
+    values = torch.stack(losses).tolist()
+    log(f"  losses {values}")
+    if not all(np.isfinite(values)):
+        raise AssertionError("train: a loss is not finite")
+    log(f"  {1000 * dt / n_timed:.2f} ms/step, {BATCH * n_timed / dt:.2f} img/s over {n_timed} "
+        f"steps; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if len(records) != 1 or "dcenters" not in records[0]:
+        raise AssertionError(f"train: recorded {len(records)} kernel-4 calls, want 1 with its backward")
+    check_train_kernels(records[0])
+    del records
+    split = train_stage_split(step, batch, objects, iters=6, warmup=1)
+    log("  stage split, ms (CUDA events, median of 5 steps): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    check_train_against_fp32(model, np.random.default_rng(99))
+    return launches
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
     kernels = phase_kernels()
-    launches = phase_slice()
+    serving = phase_slice()
+    unfactored = phase_unfactored_head()
+    train = phase_train()
+
+    def entry(name, source, replaces, launches, key):
+        return {"name": name, "route": "cuda", "source": f"objcavit_torch/csrc/{source}",
+                "replaces": f"objcavit_tpu/ops/{replaces}", "launches": launches, **kernels[key]}
+
     print(json.dumps({"kernels": [
-        {"name": "resize_bilinear_align_corners_nhwc_bf16", "route": "cuda",
-         "source": "objcavit_torch/csrc/resize_bilinear.cu",
-         "replaces": "objcavit_tpu/ops/resize_pallas.py:104",
-         "launches": launches["resize"], **kernels["resize"]},
-        {"name": "conv_bins_depth_batched", "route": "cuda",
-         "source": "objcavit_torch/csrc/bins_depth.cu",
-         "replaces": "objcavit_tpu/ops/pallas_bins.py:214",
-         "launches": launches["bins"], **kernels["bins"]},
+        entry("resize_bilinear_align_corners_nhwc_bf16", "resize_bilinear.cu",
+              "resize_pallas.py:104", serving["resize"], "resize"),
+        entry("conv_bins_depth_batched", "bins_depth.cu", "pallas_bins.py:214",
+              serving["bins"], "bins"),
+        entry("conv_bins_depth (kernel 2, shared W)", "bins_depth.cu", "pallas_bins.py:163",
+              unfactored["bins_shared"], "bins_shared"),
+        entry("bins_expectation_fwd", "bins_expectation.cu", "pallas_bins.py:63",
+              train["bins_expectation_fwd"], "bins_expectation_fwd"),
+        entry("bins_expectation_bwd", "bins_expectation.cu", "pallas_bins.py:91",
+              train["bins_expectation_bwd"], "bins_expectation_bwd"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -2,6 +2,7 @@
 
 The JAX package ``objcavit_tpu`` is the reference; this package imports torch
 and numpy only. Slice 1 ports the GraphBins-B5 bf16 inference server
-(``objcavit_torch.serving``) with its two CUDA kernels
+(``objcavit_torch.serving``), slice 2 its train step
+(``objcavit_torch.training``), with their CUDA kernels
 (``objcavit_torch.kernels``).
 """

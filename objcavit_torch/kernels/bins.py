@@ -1,15 +1,22 @@
-"""Kernel 2: the factored bins head (1x1 conv, softmax over bins, expectation).
+"""Kernels 2 and 3: 1x1 conv, softmax over bins, expectation, in one pass.
 
-CUDA source: ``objcavit_torch/csrc/bins_depth.cu``, which replaces
-``objcavit_tpu/ops/pallas_bins.py::fused_conv_bins_depth_batched``. It is
-bound by operations on the H100; the source note says how its design answers
-that.
+CUDA source: ``objcavit_torch/csrc/bins_depth.cu``. It is bound by
+operations on the H100; the source note says how its design answers that.
 
-``conv_bins_depth_batched`` launches the kernel for CUDA tensors and raises
-on anything the kernel does not take; for CPU tensors it runs
-``conv_bins_depth_batched_plain``, the plain PyTorch version. The bins head
-calls it for bf16 only: an fp32 model on the card takes the plain version
-there (``ops/bins.py``), the reference route, and launches no kernel.
+* Kernel 2, ``conv_bins_depth_batched``, one (C, K) weight per image:
+  replaces ``objcavit_tpu/ops/pallas_bins.py::fused_conv_bins_depth_batched``,
+  the factored bins head of inference.
+* Kernel 3, ``conv_bins_depth``, one (C, K) weight for the whole batch:
+  replaces ``::fused_conv_bins_depth``, the unfactored bins head of
+  inference. It is the same CUDA kernel launched with a weight batch stride
+  of 0, and it counts its own launches.
+
+Each wrapper launches the kernel for CUDA tensors and raises on anything the
+kernel does not take; for CPU tensors it runs its plain PyTorch version. The
+kernel has no backward, so a wrapper also raises, on any device, when
+autograd would need its gradient. The bins heads call them for bf16 outside
+training only: an fp32 model on the card takes the plain version there
+(``ops/bins.py``), the reference route, and launches no kernel.
 """
 
 from __future__ import annotations
@@ -74,18 +81,19 @@ def check_bins_inputs(
         raise ValueError("bins kernel needs 16-byte aligned x and W")
 
 
-def conv_bins_depth_batched(
-    x: torch.Tensor, kernels: torch.Tensor, bias: torch.Tensor, centers: torch.Tensor
-) -> torch.Tensor:
-    """depth[b,h,w] = sum_k softmax_k(x[b,h,w] @ kernels[b] + bias)_k * centers[b,k].
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise RuntimeError if autograd would need the gradient of a
+    forward-only kernel's output."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is a forward-only kernel, but autograd needs its gradient here "
+            "(grad mode is on and an input requires grad): run it under torch.no_grad() "
+            "or take the differentiable route"
+        )
 
-    x (B, H, W, C) bf16, kernels (B, C, 256) bf16, bias (256,) fp32,
-    centers (B, 256) fp32 -> (B, H, W, 1) fp32.
-    """
-    if x.device.type == "cpu":
-        return conv_bins_depth_batched_plain(x, kernels, bias, centers)
-    if x.device.type != "cuda":
-        raise ValueError(f"bins kernel runs on CUDA tensors, got {x.device}")
+
+def _launch(x: torch.Tensor, kernels: torch.Tensor, bias: torch.Tensor,
+            centers: torch.Tensor) -> torch.Tensor:
     check_bins_inputs(x, kernels, bias, centers)
     b, h, w, c = x.shape
     s = h * w
@@ -102,8 +110,53 @@ def conv_bins_depth_batched(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_launch(_ENTRY, rc)
+    return depth
+
+
+def conv_bins_depth_batched(
+    x: torch.Tensor, kernels: torch.Tensor, bias: torch.Tensor, centers: torch.Tensor
+) -> torch.Tensor:
+    """Kernel 2. depth[b,h,w] = sum_k softmax_k(x[b,h,w] @ kernels[b] + bias)_k * centers[b,k].
+
+    x (B, H, W, C) bf16, kernels (B, C, 256) bf16, bias (256,) fp32,
+    centers (B, 256) fp32 -> (B, H, W, 1) fp32.
+    """
+    check_no_grad("conv_bins_depth_batched", x, kernels, bias, centers)
+    if x.device.type == "cpu":
+        return conv_bins_depth_batched_plain(x, kernels, bias, centers)
+    if x.device.type != "cuda":
+        raise ValueError(f"bins kernel runs on CUDA tensors, got {x.device}")
+    depth = _launch(x, kernels, bias, centers)
     conv_bins_depth_batched.launches += 1
     return depth
 
 
+def conv_bins_depth_plain(
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, centers: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel 3: kernel 2's with the weight shared."""
+    return conv_bins_depth_batched_plain(x, kernel.expand(x.shape[0], *kernel.shape), bias, centers)
+
+
+def conv_bins_depth(
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, centers: torch.Tensor
+) -> torch.Tensor:
+    """Kernel 3. depth[b,h,w] = sum_k softmax_k(x[b,h,w] @ kernel + bias)_k * centers[b,k].
+
+    x (B, H, W, C) bf16, kernel (C, 256) bf16 contiguous, bias (256,) fp32,
+    centers (B, 256) fp32 -> (B, H, W, 1) fp32.
+    """
+    check_no_grad("conv_bins_depth", x, kernel, bias, centers)
+    if x.device.type == "cpu":
+        return conv_bins_depth_plain(x, kernel, bias, centers)
+    if x.device.type != "cuda":
+        raise ValueError(f"bins kernel runs on CUDA tensors, got {x.device}")
+    if kernel.dim() != 2:
+        raise ValueError(f"bins kernel 3 takes one (C, K) weight, got {tuple(kernel.shape)}")
+    depth = _launch(x, kernel.expand(x.shape[0], *kernel.shape), bias, centers)
+    conv_bins_depth.launches += 1
+    return depth
+
+
 conv_bins_depth_batched.launches = 0
+conv_bins_depth.launches = 0

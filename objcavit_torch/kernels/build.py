@@ -1,12 +1,13 @@
 """Build the package's CUDA kernels with nvcc and bind them with ctypes.
 
 Every ``objcavit_torch/csrc/*.cu`` file exports plain C entry points (device
-pointers and the stream as ``void*``). They are compiled together, for
-Hopper (``sm_90a``), into one shared library under ``objcavit_torch/_build/``
-(a directory git ignores) the first time a kernel is called. A hash of the
-sources and flags is stored beside the library, so an edited source rebuilds
-and an unchanged one loads at once. Building takes seconds: no source
-includes PyTorch's headers.
+pointers and the stream as ``void*``). The first time a kernel is called,
+each source is compiled for Hopper (``sm_90a``) by its own nvcc process, all
+started together, and the objects are linked into one shared library under
+``objcavit_torch/_build/`` (a directory git ignores). A hash of the sources
+and flags is stored beside the library, so an edited source rebuilds and an
+unchanged one loads at once. Building takes seconds: no source includes
+PyTorch's headers.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ STAMP_PATH = BUILD_DIR / "libobjcavit_kernels.sha256"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -41,6 +42,8 @@ SIGNATURES = {
     "objcavit_conv_bins_depth_batched": (
         _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P,
     ),
+    "objcavit_bins_expectation_fwd": (_P, _P, _P, _I, _I, _I, _P),
+    "objcavit_bins_expectation_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -78,23 +81,37 @@ def build(ptxas_verbose: bool = False) -> str:
     if LIB_PATH.is_file() and STAMP_PATH.is_file() and STAMP_PATH.read_text() == digest:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent loader never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS]
-    if ptxas_verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", f"{tmp}/{src.stem}.o", str(src)]
+            if ptxas_verbose:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        log = ""
+        for cmd, proc in jobs:
+            out = proc.communicate()[0]
+            log += out
+            if proc.returncode != 0:
+                for _, other in jobs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        # link to a private name, then rename: a concurrent loader never sees
+        # a half-written library
+        lib_tmp = f"{tmp}/{LIB_PATH.name}"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp,
+               *(f"{tmp}/{src.stem}.o" for src in _sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(lib_tmp, LIB_PATH)
     STAMP_PATH.write_text(digest)
-    return proc.stdout + proc.stderr
+    return log + proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,14 +7,17 @@ bytes on the H100; the source note says how its design answers that.
 ``resize_bilinear_align_corners`` launches the kernel for a CUDA tensor and
 raises on anything the kernel does not take; for a CPU tensor it runs
 ``resize_bilinear_align_corners_plain``, the plain PyTorch version. The
-decoder calls it for bf16 only: an fp32 model on the card takes the plain
-version there, the reference route, and launches no kernel.
+kernel has no backward, so the wrapper also raises, on any device, when
+autograd would need its gradient. The decoder calls it for bf16 outside
+training only: an fp32 model on the card takes the plain version there, the
+reference route, and launches no kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
+from objcavit_torch.kernels.bins import check_no_grad
 from objcavit_torch.kernels.build import check_launch, load_library
 from objcavit_torch.ops.resize import device_taps, resize_bilinear
 
@@ -48,6 +51,7 @@ def resize_bilinear_align_corners(
     x: torch.Tensor, out_h: int, out_w: int
 ) -> torch.Tensor:
     """(B, Hi, Wi, C) -> (B, out_h, out_w, C), align_corners=True bilinear."""
+    check_no_grad("resize_bilinear_align_corners", x)
     if x.device.type == "cpu":
         return resize_bilinear_align_corners_plain(x, out_h, out_w)
     if x.device.type != "cuda":

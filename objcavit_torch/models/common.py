@@ -6,7 +6,10 @@ gen-efficientnet names (``conv_pw``, ``bn1``, ``conv_dw``, ``se.conv_reduce``,
 These blocks run inside the encoder on NCHW tensors in
 ``torch.channels_last`` memory (the memory of the NHWC tensors the public
 modules take). BN eps is 1e-3 and the activation SiLU, as in the
-``tf_efficientnet_*`` encoders.
+``tf_efficientnet_*`` encoders. In training mode each ``nn.BatchNorm2d``
+normalises with the batch statistics and updates its running mean and its
+unbiased running variance with momentum 0.1, which is what the JAX
+package's ``_TorchBN`` copies (``objcavit_tpu/models/common.py:165-213``).
 
 Not ported: ``SpaceToDepthConv`` (an exact rewrite of the stride-2 stem for
 the TPU's layout; the plain strided conv with the same weights stands here),
@@ -46,7 +49,8 @@ class Conv2dSame(nn.Conv2d):
 def conv_bn_act(conv: nn.Module, bn: nn.Module, x: torch.Tensor, act: bool = True):
     """ConvBnAct: conv -> BN -> SiLU. Kept a function over the block's own
     attributes so the parameters keep the reference's flat names; after
-    ``utils.fold_bn.fold_batchnorm`` the BN is an ``nn.Identity``."""
+    ``utils.fold_bn.fold_batchnorm`` the BN is a ``FoldedBatchNorm``, an
+    identity that raises in training mode."""
     x = bn(conv(x))
     return F.silu(x) if act else x
 

@@ -9,11 +9,14 @@ names (``conv2``, ``up1..up4._net.{0,1,3,4}``, ``conv3``):
   the skip, then runs 2x [3x3 conv -> BN (eps 1e-5) -> LeakyReLU(0.01)]. The
   JAX package split that conv along its input channels to keep the concat out
   of TPU memory; here it is the concat and one conv.
-* In bf16 the upsample is CUDA kernel 1 (``kernels/resize.py``), whose
-  wrapper runs the plain version on a CPU tensor. An fp32 model runs the
-  plain version on any device, as the JAX package gates its Pallas resize
-  on bf16: on the card that is the reference route, which launches no
-  kernel.
+* In bf16, outside training, the upsample is CUDA kernel 1
+  (``kernels/resize.py``), whose wrapper runs the plain version on a CPU
+  tensor. The kernel has no backward, so a module in training mode takes
+  the differentiable plain version, as the JAX package gates its Pallas
+  resize on ``not train`` (``objcavit_tpu/models/decoder.py:91-98``). An
+  fp32 model runs the plain version on any device, as the JAX package gates
+  that kernel on bf16: on the card that is the reference route, which
+  launches no kernel.
 
 Modules take and return NHWC tensors; inside, they are NCHW views in
 ``torch.channels_last`` memory, which is the same memory.
@@ -31,10 +34,10 @@ from objcavit_torch.ops.resize import resize_bilinear
 DECODER_BN_EPS = 1e-5
 
 
-def upsample_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def upsample_align_corners(x: torch.Tensor, out_h: int, out_w: int, train: bool) -> torch.Tensor:
     """NCHW channels_last -> (out_h, out_w), align_corners=True bilinear."""
     x_nhwc = x.permute(0, 2, 3, 1)
-    if x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16 and not train:
         y = resize_bilinear_align_corners(x_nhwc, out_h, out_w)
     else:
         y = resize_bilinear(x_nhwc, out_h, out_w, align_corners=True)
@@ -57,7 +60,7 @@ class UpSampleWithSkip(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         """x, skip: NCHW channels_last."""
-        up = upsample_align_corners(x, skip.shape[2], skip.shape[3])
+        up = upsample_align_corners(x, skip.shape[2], skip.shape[3], self.training)
         return self._net(torch.cat([up, skip], dim=1))
 
 

@@ -1,13 +1,21 @@
 """GraphBins, the full ObjCAViT depth model (reference modules/GraphBins.py).
 
-Port of ``objcavit_tpu/models/graphbins.py`` for inference: image ->
+Port of ``objcavit_tpu/models/graphbins.py``: image ->
 DenseFeatureExtractor -> ObjCAViT (objects supplied as padded slots) ->
-factored bins head -> depth. Returns ``{'depth_pred', 'bin_edges'}``.
+bins head -> depth. Returns ``{'depth_pred', 'bin_edges'}``.
+
+``model.train()`` and ``model.eval()`` select what the JAX package's
+``train`` flag selects: BatchNorm on batch statistics with running-stat
+updates, transformer dropout (``dropout_rate``, drawn from the generator
+given to ``forward``), and the differentiable routes of the decoder resize
+and the bins head (kernel 4 instead of the forward-only kernels 1 and 2).
 
 ``conv_out.0`` has the reference's (n_bins, 128, 1, 1) shape, so the image
 must give at least 129 patch tokens (the regression token and 128 queries).
 The bins head reads ``conv_out`` in fp32, as the JAX bins head reads its
-fp32 parameters; ``cast`` keeps it so.
+fp32 parameters; ``cast`` keeps it so. Training keeps every parameter in
+fp32 and computes in bf16 through ``params_in``, the JAX package's
+``param.astype(dtype)`` at each op.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ class GraphBins(nn.Module):
     def __init__(self, encoder_name: str = "efficientnet-b5", n_bins: int = 256,
                  min_depth: float = 0.001, max_depth: float = 10.0,
                  embedding_dim: int = 128, obj_feature_dim: int = 512,
-                 pos_strategy: str = "learned_bbox_wh"):
+                 pos_strategy: str = "learned_bbox_wh", dropout_rate: float = 0.1):
         super().__init__()
         self.min_depth = min_depth
         self.max_depth = max_depth
@@ -35,7 +43,7 @@ class GraphBins(nn.Module):
         self.objcavit = ObjCAViT(
             im_feature_dim=128, obj_feature_dim=obj_feature_dim,
             n_query_channels=N_QUERIES, patch_size=16, dim_out=n_bins,
-            embed_dim=embedding_dim, pos_strategy=pos_strategy,
+            embed_dim=embedding_dim, pos_strategy=pos_strategy, dropout_rate=dropout_rate,
         )
         # the reference's Sequential(conv, Softmax); the bins head fuses both
         self.conv_out = nn.Sequential(nn.Conv2d(N_QUERIES, n_bins, 1))
@@ -50,13 +58,30 @@ class GraphBins(nn.Module):
         self.conv_out.float()
         return self
 
-    def forward(self, image, object_features, object_xywh, object_valid):
+    def params_in(self, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+        """Every parameter as a forward in ``dtype`` reads it, for
+        ``torch.func.functional_call``: cast to ``dtype`` (a differentiable
+        copy, so gradients reach the fp32 parameter in fp32), except
+        ``conv_out``, which the bins head reads in fp32, and the BatchNorm
+        affines, which BN applies in fp32 beside its fp32 statistics."""
+        out = {}
+        for mname, module in self.named_modules():
+            keep = isinstance(module, nn.BatchNorm2d) or mname.startswith("conv_out")
+            for pname, p in module.named_parameters(recurse=False):
+                out[f"{mname}.{pname}" if mname else pname] = p if keep else p.to(dtype)
+        return out
+
+    def forward(self, image, object_features, object_xywh, object_valid, generator=None):
         """image (B, H, W, 3) ImageNet-normalised NHWC; objects as padded
-        slots (B, N, F), (B, N, 4), (B, N) bool."""
+        slots (B, N, F), (B, N, 4), (B, N) bool; ``generator`` feeds the
+        dropout in training mode."""
         dense = self.dense_feature_extractor(image.to(self.dtype))
-        widths, feat, queries = self.objcavit(dense, object_features, object_xywh, object_valid)
+        widths, feat, queries = self.objcavit(
+            dense, object_features, object_xywh, object_valid, generator
+        )
         conv = self.conv_out[0]
         depth, edges = bins_head_depth_factored(
-            widths, feat, queries, conv.weight, conv.bias, self.min_depth, self.max_depth
+            widths, feat, queries, conv.weight, conv.bias, self.min_depth, self.max_depth,
+            train=self.training,
         )
         return {"depth_pred": depth, "bin_edges": edges}

@@ -5,9 +5,14 @@ Port of ``objcavit_tpu/models/layers.py``:
 * ``MultiHeadAttention``: ``nn.MultiheadAttention``'s parameters
   (``in_proj_weight`` (3E, E), ``in_proj_bias``, ``out_proj``) over
   ``ops.attention.mha_core``; batch-first (B, S, E).
-* ``TransformerEncoderLayer``: post-LN (eps 1e-5), ReLU FFN of width 1024;
-  dropout is the identity at eval and is left out.
+* ``TransformerEncoderLayer``: post-LN (eps 1e-5), ReLU FFN of width 1024,
+  and dropout (rate 0.1 by default) in training mode at the JAX package's
+  three places (``objcavit_tpu/models/layers.py:85, 90, 92``): after
+  self-attention, after the ReLU, after ``linear2``. It draws from the
+  ``torch.Generator`` passed to ``forward``.
 * ``TransformerEncoder``: ``layers.{i}``.
+* ``pixelwise_dot_product``: the range-attention maps of the bins head's
+  training route.
 * ``BinRegressor``: E -> 256 -> 256 -> dim_out with LeakyReLU, as the
   reference's Sequential (``regressor.{0,2,4}``).
 """
@@ -19,6 +24,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from objcavit_torch.ops.attention import mha_core
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout drawing its mask from ``generator`` (the default
+    generator if None), with flax ``nn.Dropout``'s semantics: the identity
+    outside training or at rate 0, zeros at rate 1."""
+    if not training or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class MultiHeadAttention(nn.Module):
@@ -46,32 +64,43 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int = 1024):
+    def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int = 1024,
+                 dropout_rate: float = 0.1):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.self_attn = MultiHeadAttention(embed_dim, num_heads)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, embed_dim)
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5)
 
-    def forward(self, x, key_padding_mask=None):
-        x = self.norm1(x + self.self_attn(x, x, x, key_padding_mask))
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+    def forward(self, x, key_padding_mask=None, generator=None):
+        def drop(t):
+            return dropout(t, self.dropout_rate, self.training, generator)
+
+        x = self.norm1(x + drop(self.self_attn(x, x, x, key_padding_mask)))
+        h = drop(F.relu(self.linear1(x)))
+        return self.norm2(x + drop(self.linear2(h)))
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
-                 dim_feedforward: int = 1024):
+                 dim_feedforward: int = 1024, dropout_rate: float = 0.1):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(embed_dim, num_heads, dim_feedforward)
+            TransformerEncoderLayer(embed_dim, num_heads, dim_feedforward, dropout_rate)
             for _ in range(num_layers)
         )
 
-    def forward(self, x, key_padding_mask=None):
+    def forward(self, x, key_padding_mask=None, generator=None):
         for layer in self.layers:
-            x = layer(x, key_padding_mask)
+            x = layer(x, key_padding_mask, generator)
         return x
+
+
+def pixelwise_dot_product(x: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) x (B, K, C) -> (B, H, W, K) range-attention maps."""
+    return torch.einsum("bhwc,bkc->bhwk", x, queries)
 
 
 class BinRegressor(nn.Sequential):

@@ -47,21 +47,25 @@ class LearnedPositionalMLP(nn.Sequential):
 class SelfAttnCrossAttn(nn.Module):
     """Image SA x4 + object SA x4 + bidirectional cross-attention."""
 
-    def __init__(self, embed_dim: int = 128, num_heads: int = 4, dim_feedforward: int = 1024):
+    def __init__(self, embed_dim: int = 128, num_heads: int = 4, dim_feedforward: int = 1024,
+                 dropout_rate: float = 0.1):
         super().__init__()
-        self.image_transformer_encoder = TransformerEncoder(4, embed_dim, num_heads, dim_feedforward)
-        self.obj_transformer_encoder = TransformerEncoder(4, embed_dim, num_heads, dim_feedforward)
+        self.image_transformer_encoder = TransformerEncoder(
+            4, embed_dim, num_heads, dim_feedforward, dropout_rate)
+        self.obj_transformer_encoder = TransformerEncoder(
+            4, embed_dim, num_heads, dim_feedforward, dropout_rate)
         self.cross_attn_obj_im = MultiHeadAttention(embed_dim, num_heads)
         self.cross_attn_im_obj = MultiHeadAttention(embed_dim, num_heads)
 
-    def forward(self, image_emb, obj_emb, obj_pad_mask):
-        """image_emb (B,S,E); obj_emb (B,N,E); obj_pad_mask (B,N) True = padding."""
+    def forward(self, image_emb, obj_emb, obj_pad_mask, generator=None):
+        """image_emb (B,S,E); obj_emb (B,N,E); obj_pad_mask (B,N) True = padding.
+        The cross-attention has no dropout, as in the JAX package."""
         b, s, _ = image_emb.shape
         n = obj_emb.shape[1]
         if n > s:
             raise ValueError(f"{n} object slots exceed the image sequence length {s}")
-        attended_image = self.image_transformer_encoder(image_emb)
-        attended_obj = self.obj_transformer_encoder(obj_emb, obj_pad_mask)
+        attended_image = self.image_transformer_encoder(image_emb, generator=generator)
+        attended_obj = self.obj_transformer_encoder(obj_emb, obj_pad_mask, generator)
 
         # place attended_obj[k] at position S - n_b + k, 0.0001 before it;
         # slots k >= n_b (never materialised by the ragged reference) fall off
@@ -87,7 +91,7 @@ class ObjCAViT(nn.Module):
     def __init__(self, im_feature_dim: int = 128, obj_feature_dim: int = 512,
                  n_query_channels: int = 128, patch_size: int = 16,
                  dim_out: int = 256, embed_dim: int = 128, num_heads: int = 4,
-                 pos_strategy: str = "learned_bbox_wh"):
+                 pos_strategy: str = "learned_bbox_wh", dropout_rate: float = 0.1):
         super().__init__()
         if pos_strategy != "learned_bbox_wh":
             raise NotImplementedError(
@@ -99,13 +103,15 @@ class ObjCAViT(nn.Module):
         self.positional_encoder = LearnedPositionalMLP(embed_dim)
         self.image_embedding_convPxP = PatchEmbedConv(im_feature_dim, embed_dim, patch_size)
         self.obj_embedding_layer = nn.Linear(obj_feature_dim, embed_dim)
-        self.saca_1 = SelfAttnCrossAttn(embed_dim, num_heads, 1024)
+        self.saca_1 = SelfAttnCrossAttn(embed_dim, num_heads, 1024, dropout_rate)
         self.conv3x3 = nn.Conv2d(im_feature_dim, embed_dim, 3, 1, 1)
         self.regressor = BinRegressor(embed_dim, dim_out)
 
-    def forward(self, image_features, object_features, object_xywh, object_valid):
+    def forward(self, image_features, object_features, object_xywh, object_valid,
+                generator=None):
         """image_features (B, fh, fw, C) NHWC; object_features (B, N, F);
-        object_xywh (B, N, 4) full-resolution pixels; object_valid (B, N) bool.
+        object_xywh (B, N, 4) full-resolution pixels; object_valid (B, N) bool;
+        ``generator`` feeds the transformers' dropout in training mode.
 
         Returns (bin widths (B, dim_out) normalised to sum 1, feat (B, fh, fw, E)
         NHWC, queries (B, n_query_channels, E)): the range-attention maps stay
@@ -141,7 +147,7 @@ class ObjCAViT(nn.Module):
         )
         img_emb = img_emb + self.positional_encoder(patch_coords.to(dtype))[None]
 
-        img_emb, _ = self.saca_1(img_emb, obj_emb, ~object_valid)
+        img_emb, _ = self.saca_1(img_emb, obj_emb, ~object_valid, generator)
         regression_head = img_emb[:, 0, :]
         queries = img_emb[:, 1 : self.n_query_channels + 1, :]
         feat = self.conv3x3(feat_nchw).permute(0, 2, 3, 1)

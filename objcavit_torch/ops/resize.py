@@ -38,11 +38,16 @@ def interp_taps(in_size: int, out_size: int, align_corners: bool):
 
 @functools.lru_cache(maxsize=128)
 def device_taps(in_size: int, out_size: int, align_corners: bool, device: torch.device):
-    """``interp_taps`` as (int32, int32, float32) tensors on ``device``."""
-    return tuple(
-        torch.from_numpy(a.copy()).to(device)
-        for a in interp_taps(in_size, out_size, align_corners)
-    )
+    """``interp_taps`` as (int32, int32, float32) tensors on ``device``.
+
+    Made outside inference mode even when the first caller is a served
+    request: a cached tensor made inside it could never be saved for the
+    backward of a later training step in the same process."""
+    with torch.inference_mode(False):
+        return tuple(
+            torch.from_numpy(a.copy()).to(device)
+            for a in interp_taps(in_size, out_size, align_corners)
+        )
 
 
 def resize_bilinear(

@@ -1,9 +1,10 @@
-"""The flagship model: GraphBins-B5, learned_bbox_wh, bf16, BN folded.
+"""The flagship model: GraphBins-B5, learned_bbox_wh, 256 bins.
 
 Port of ``objcavit_tpu/utils/benchkit.py::flagship_kwargs`` and
-``build_flagship``. Weights are random, drawn from a seeded CPU
-``torch.Generator`` (so every device gets the same model), then BN is folded
-in fp32, and the model is cast and moved.
+``build_flagship`` (the eval forward: bf16, BN folded), and of the train
+step that ``bench.py`` times (``build_flagship_train``). Weights are random,
+drawn from a seeded CPU ``torch.Generator``, so every device gets the same
+model; for serving, BN is then folded in fp32 and the model cast and moved.
 """
 
 from __future__ import annotations
@@ -14,9 +15,16 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from objcavit_torch.losses import LossWrapper
 from objcavit_torch.models.graphbins import GraphBins
 from objcavit_torch.models.layers import MultiHeadAttention
+from objcavit_torch.training.optim import build_optimizer
+from objcavit_torch.training.steps import TrainStep, make_train_step
 from objcavit_torch.utils.fold_bn import fold_batchnorm
+
+# the train step of bench.py (``train_ms_per_step_bs8_416x544``)
+TRAIN_LR, TRAIN_WD, TRAIN_CLIP, TRAIN_TOTAL_STEPS = 3.57e-4, 0.1, 0.1, 100
+TRAIN_LOSSES = (("silog", "bins_chamfer"), (1.0, 0.1))
 
 
 def flagship_kwargs() -> dict:
@@ -83,3 +91,47 @@ def build_flagship(batch: int, h: int = 480, w: int = 640, n_obj: int = 300,
         rng.uniform(size=(batch, n_obj)) < 0.5,
     )
     return model, tuple(torch.as_tensor(a, device=dev) for a in inputs)
+
+
+def build_flagship_train(batch: int = 8, h: int = 416, w: int = 544, n_obj: int = 221,
+                         seed: int = 0, device=None, **overrides):
+    """The flagship train step of ``bench.py``, with a batch and objects made
+    with numpy from ``seed``.
+
+    GraphBins-B5 (flagship kwargs, updated by ``overrides``) with fp32
+    parameters, BN unfolded and in training mode, transformer dropout 0.1;
+    bf16 compute; device-side augmentation; silog + 0.1 bins chamfer; AdamW
+    at lr 3.57e-4 and wd 0.1 under the per-step OneCycle schedule over 100
+    steps; gradients clipped at 0.1. At 416x544 the
+    image has 221 tokens, so 221 slots is min(max_det 1000, 221).
+
+    Returns (step, batch, objects): ``step(batch, objects)`` runs one step
+    and returns its loss.
+    """
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    model = GraphBins(**{**flagship_kwargs(), **overrides})
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    model.to(device, memory_format=torch.channels_last).train()
+    optimizer, scheduler = build_optimizer(model.parameters(), TRAIN_LR, TRAIN_WD,
+                                           TRAIN_TOTAL_STEPS)
+    step: TrainStep = make_train_step(
+        model, optimizer, scheduler, LossWrapper(*TRAIN_LOSSES), min_depth=model.min_depth,
+        augment_on_device=True, gradient_clip_val=TRAIN_CLIP, compute_dtype=torch.bfloat16,
+        generator=torch.Generator(device=device).manual_seed(seed),
+    )
+    rng = np.random.default_rng(seed)
+    batch_np = {
+        "image": rng.uniform(0, 1, (batch, h, w, 3)).astype(np.float32),
+        "depth": rng.uniform(0.01, 9.0, (batch, h, w, 1)).astype(np.float32),
+    }
+    objects_np = {
+        "features": (0.02 * rng.standard_normal((batch, n_obj, 512))).astype(np.float32),
+        "xywh": rng.uniform(0, 400, (batch, n_obj, 4)).astype(np.float32),
+        "valid": np.ones((batch, n_obj), bool),
+    }
+
+    def put(tree):
+        return {k: torch.as_tensor(v, device=device) for k, v in tree.items()}
+
+    return step, put(batch_np), put(objects_np)

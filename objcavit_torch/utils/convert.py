@@ -8,6 +8,10 @@ prefix, which are the port's parameter names. So JAX weights load into the
 port with ``load_state_dict``, and so does a released reference ``.ckpt``
 once its ``model.`` prefix is stripped.
 
+Given ``{'params': tree}`` alone, it writes the parameter keys only, so a
+JAX gradient tree (``jax.grad`` of a loss over the params) lands in the
+port's layout, key by key beside ``param.grad``.
+
 Layouts: conv HWIO -> OIHW (depthwise (kh, kw, 1, C) -> (C, 1, kh, kw));
 linear (in, out) -> (out, in); attention in_proj (E, 3E) -> (3E, E);
 BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
@@ -25,7 +29,7 @@ class _Reader:
 
     def __init__(self, variables):
         self.params = variables["params"]
-        self.stats = variables.get("batch_stats", {})
+        self.stats = variables.get("batch_stats")
         self.sd: dict[str, np.ndarray] = {}
 
     @staticmethod
@@ -53,6 +57,8 @@ class _Reader:
     def bn(self, fpath: str, tkey: str) -> None:
         self.put(f"{tkey}.weight", self.param(f"{fpath}/bn/scale"))
         self.put(f"{tkey}.bias", self.param(f"{fpath}/bn/bias"))
+        if self.stats is None:
+            return
         self.put(f"{tkey}.running_mean", self._get(self.stats, f"{fpath}/bn/mean"))
         self.put(f"{tkey}.running_var", self._get(self.stats, f"{fpath}/bn/var"))
         self.put(f"{tkey}.num_batches_tracked", np.zeros((), np.int64))
@@ -128,7 +134,8 @@ def _objcavit(r: _Reader, fpath: str, tkey: str) -> None:
 def state_dict_from_variables(
     variables, encoder_name: str, pos_strategy: str = "learned_bbox_wh"
 ) -> dict[str, np.ndarray]:
-    """Unfolded JAX GraphBins variables -> the port's GraphBins state dict."""
+    """Unfolded JAX GraphBins variables -> the port's GraphBins state dict
+    (parameters only when ``variables`` has no 'batch_stats')."""
     if pos_strategy != "learned_bbox_wh":
         raise NotImplementedError(
             f"pos_strategy {pos_strategy!r} is not ported yet (ROADMAP A.5)"

@@ -4,7 +4,9 @@ Port of ``objcavit_tpu/utils/fold_bn.py``. At eval,
 ``BN(conv(x)) = conv(x) * s + t`` with per-channel ``s = gamma / sqrt(var +
 eps)`` and ``t = beta - mean * s``: the conv's weight is scaled by ``s`` and
 its bias becomes ``t`` (plus ``bias * s`` where the conv had a bias, as the
-decoder's convs do). Each BN becomes an ``nn.Identity``. Folding is done in
+decoder's convs do). Each BN becomes a ``FoldedBatchNorm``, an identity that
+raises in training mode: a folded model has no BatchNorm left to train, as
+the JAX package asserts (``assert not (self.fold_bn and train)``). Folding is done in
 fp32 with each BN's own eps (1e-3 in the encoder, 1e-5 in the decoder), so
 the folded model matches the unfolded one to fp32 rounding; cast to bf16
 afterwards.
@@ -17,6 +19,17 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+
+
+class FoldedBatchNorm(nn.Identity):
+    """Stands where a BN was folded into its conv: the identity at eval."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise RuntimeError(
+                "BatchNorm was folded into the conv for inference; a folded model cannot train"
+            )
+        return x
 
 
 def _set_submodule(root: nn.Module, name: str, module: nn.Module) -> None:
@@ -45,5 +58,5 @@ def fold_batchnorm(model: nn.Module) -> nn.Module:
             if isinstance(bn, nn.Identity):  # folded already
                 continue
             fold_conv_bn(module.get_submodule(conv_name), bn)
-            _set_submodule(module, bn_name, nn.Identity())
+            _set_submodule(module, bn_name, FoldedBatchNorm().train(bn.training))
     return model

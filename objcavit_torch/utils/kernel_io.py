@@ -1,17 +1,23 @@
-"""What a GraphBins forward hands its two kernels, and what they give back.
+"""What GraphBins hands its kernels, and what they give back.
 
-``record_kernel_io`` hooks a model so that each forward leaves a record of
-the four decoder upsamples (input and output, NHWC) and of the bins head
-(ObjCAViT's outputs, which are its inputs, and the depth it returned).
-``plain_outputs`` runs the plain versions on a record's inputs, so a
-kernel's served output can be held against its plain version on the very
-tensors the main path gave it:
+Serving: ``record_kernel_io`` hooks a model so that each forward leaves a
+record of the four decoder upsamples (input and output, NHWC) and of the
+bins head (ObjCAViT's outputs, which are its inputs, and the depth it
+returned). ``plain_outputs`` runs the plain versions on a record's inputs,
+so a kernel's served output can be held against its plain version on the
+very tensors the main path gave it:
 
     with record_kernel_io(model) as records:
         pipeline(frames)
     resize_pairs, bins_pair = plain_outputs(model, records[0])
 
-The hooks only read tensors; the forward runs as it would without them.
+Training: ``record_bins_expectation_io`` records each call of kernel 4 on
+the bins head's training route, forward (logits, centres, depth) and
+backward (the depth's gradient, dlogits, dcenters), and
+``bins_expectation_plain_outputs`` runs kernel 4's plain forward and
+backward on a record's inputs.
+
+The hooks only read tensors; the step runs as it would without them.
 """
 
 from __future__ import annotations
@@ -20,7 +26,12 @@ import contextlib
 
 import torch
 
+import objcavit_torch.ops.bins as ops_bins
 from objcavit_torch.kernels.bins import conv_bins_depth_batched_plain
+from objcavit_torch.kernels.bins_expectation import (
+    bins_expectation_bwd_plain,
+    bins_expectation_plain,
+)
 from objcavit_torch.kernels.resize import resize_bilinear_align_corners_plain
 from objcavit_torch.ops.bins import bins_head_operands
 
@@ -75,3 +86,49 @@ def plain_outputs(model, record: dict):
         widths, queries, conv.weight, conv.bias, model.min_depth, model.max_depth, feat.dtype
     )
     return resize, (record["depth"], conv_bins_depth_batched_plain(feat, m, bias, centers))
+
+
+@contextlib.contextmanager
+def record_bins_expectation_io():
+    """Yield a list that gets one dict per call of kernel 4 from the bins
+    head (``ops.bins`` calls it through its module attribute
+    ``fused_bins_depth``, which this wraps for the duration): 'logits' and
+    'centers' (B, S, K) and (B, K), 'depth' (B, S), and, once the backward
+    has run, 'g' (B, S), 'dlogits' and 'dcenters', read by tensor hooks.
+    Nothing but kernel 4 reads the logits or the centres, so their
+    gradients are the kernel's outputs."""
+    original = ops_bins.fused_bins_depth
+    records: list[dict] = []
+
+    def recording(logits, centers):
+        b, h, w, k = logits.shape
+        rec = {"logits": logits.detach().reshape(b, h * w, k), "centers": centers.detach()}
+        depth = original(logits, centers)
+        rec["depth"] = depth.detach().reshape(b, h * w)
+        if depth.requires_grad:
+            def keep(key, shape=None):
+                def hook(grad):
+                    rec[key] = grad.detach().reshape(shape) if shape else grad.detach()
+                return hook
+
+            depth.register_hook(keep("g", (b, h * w)))
+            logits.register_hook(keep("dlogits", (b, h * w, k)))
+            centers.register_hook(keep("dcenters"))
+        records.append(rec)
+        return depth
+
+    ops_bins.fused_bins_depth = recording
+    try:
+        yield records
+    finally:
+        ops_bins.fused_bins_depth = original
+
+
+@torch.no_grad()
+def bins_expectation_plain_outputs(record: dict) -> dict:
+    """-> {'depth', 'dlogits', 'dcenters'}: each a (kernel, plain) pair on
+    the record's own inputs."""
+    depth = bins_expectation_plain(record["logits"], record["centers"])
+    dlogits, dcenters = bins_expectation_bwd_plain(record["logits"], record["centers"], record["g"])
+    return {"depth": (record["depth"], depth), "dlogits": (record["dlogits"], dlogits),
+            "dcenters": (record["dcenters"], dcenters)}

@@ -1,8 +1,9 @@
-"""Where the time of the flagship server goes, on one CUDA card.
+"""Where the time of the flagship server and train step goes, on one CUDA card.
 
-    python -m objcavit_torch.utils.profile_stages
+    python -m objcavit_torch.utils.profile_stages          # the server
+    python -m objcavit_torch.utils.profile_stages --train  # the train step
 
-Three measurements of ``build_flagship_pipeline()`` (GraphBins-B5, bf16, BN
+Server: three measurements of ``build_flagship_pipeline()`` (GraphBins-B5, bf16, BN
 folded, 480x640, 300 slots, random weights, sentinel objects):
 
 1. the stage split: CUDA events, recorded by forward hooks, around the
@@ -17,11 +18,18 @@ folded, 480x640, 300 slots, random weights, sentinel objects):
    21 synchronised requests, and peak memory, at bs 1, 8, 16 and 32, with
    ``cudnn.benchmark`` off and on.
 
+Train step (``--train``): ``build_flagship_train()`` (GraphBins-B5, bs 8,
+416x544, 221 slots, bf16 compute, fp32 parameters): the stage split by CUDA
+events (augmentation, forward, loss, backward, clip + AdamW + schedule),
+median of 5 steps after 3 warm-ups, and one trace of 3 steps read as the
+server's is, with its peak memory.
+
 Each line names the card (``nvidia-smi``) at the start and at the end.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import statistics
@@ -34,10 +42,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from objcavit_torch.serving import build_flagship_pipeline
+from objcavit_torch.utils.benchkit import build_flagship_train
 
 SMI = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
        "--format=csv,noheader"]
 STAGES = ("preprocess", "encoder", "decoder", "objcavit", "bins_head")
+TRAIN_STAGES = ("augment", "forward", "loss", "backward", "optimizer")
 
 
 def smi() -> str:
@@ -80,9 +90,48 @@ def stage_split(pipe, frames, iters: int = 30, warmup: int = 10) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+def train_stage_split(step, batch, objects, iters: int = 8, warmup: int = 3) -> dict:
+    """Median ms of each part of ``step`` (a ``training.steps.TrainStep``),
+    by CUDA events: augmentation up to the model's forward, the forward, the
+    loss, the backward, and the update (clip, AdamW, schedule)."""
+    events: dict[str, torch.cuda.Event] = {}
+
+    def mark(name):
+        def hook(*_):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+        return hook
+
+    model = step.model
+    handles = [model.register_forward_pre_hook(mark("forward_in")),
+               model.register_forward_hook(mark("forward_out"))]
+    bounds = ["start", "forward_in", "forward_out", "loss_out", "backward_out", "end"]
+    times = collections.defaultdict(list)
+    try:
+        for it in range(iters):
+            mark("start")()
+            loss = step.loss(batch, objects)
+            mark("loss_out")()
+            loss.backward()
+            mark("backward_out")()
+            step.update()
+            mark("end")()
+            torch.cuda.synchronize()
+            if it < warmup:
+                continue
+            for stage, a, b in zip(TRAIN_STAGES, bounds, bounds[1:]):
+                times[stage].append(events[a].elapsed_time(events[b]))
+            times["total"].append(events["start"].elapsed_time(events["end"]))
+    finally:
+        for h in handles:
+            h.remove()
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def kernel_kind(name: str) -> str:
     n = name.lower()
-    for needle, kind in (("conv_bins_depth", "kernel 2 (bins)"),
+    for needle, kind in (("bins_expectation", "kernel 4 (bins expectation)"),
+                         ("conv_bins_depth", "kernel 2 (bins)"),
                          ("resize_bilinear", "kernel 1 (resize)"), ("memcpy", "memcpy")):
         if needle in n:
             return kind
@@ -106,19 +155,22 @@ def union_us(intervals) -> float:
     return busy
 
 
-def trace(pipe, frames, n_req: int = 5) -> dict:
-    pipe(frames)
+def trace(run, n_req: int = 5) -> dict:
+    """One ``torch.profiler`` trace of ``n_req`` calls of ``run()``, per call."""
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("requests"):
             for _ in range(n_req):
-                pipe(frames)
+                run()
             torch.cuda.synchronize()
     events = prof.events()
     on_device = [str(e.device_type).endswith("CUDA") for e in events]
     window = next(e for e, d in zip(events, on_device) if e.name == "requests" and not d).time_range
-    # the trace mirrors the annotation on the device's timeline: not a kernel
-    device = [e for e, d in zip(events, on_device) if d and e.name != "requests"]
+    # the trace mirrors annotations ("requests", the optimizer's step) on the
+    # device's timeline: they are not kernels
+    device = [e for e, d in zip(events, on_device)
+              if d and e.name != "requests" and not getattr(e, "is_user_annotation", False)]
     busy = union_us((e.time_range.start, e.time_range.end) for e in device)
     by_kind = collections.Counter()
     for e in device:
@@ -166,15 +218,34 @@ def sweep(pipe, rng) -> list[str]:
     return lines
 
 
+def profile_train() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    step, batch, objects = build_flagship_train()
+    print("train_stage_ms_median", json.dumps(train_stage_split(step, batch, objects)), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t = trace(lambda: step(batch, objects), n_req=3)
+    print(t.pop("top"), flush=True)
+    print("train_trace (per step)", json.dumps(t), flush=True)
+    print(f"train peak {torch.cuda.max_memory_allocated() / 2**30:.4f} GiB", flush=True)
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--train", action="store_true", help="profile the train step")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_stages: needs a CUDA card")
     print(smi(), flush=True)
+    if args.train:
+        profile_train()
+        print(smi(), flush=True)
+        return
     pipe = build_flagship_pipeline()
     rng = np.random.default_rng(0)
     frames = rng.integers(0, 256, (8, *pipe.eval_dims, 3), dtype=np.uint8)
     print("stage_ms_median", json.dumps(stage_split(pipe, frames)), flush=True)
-    t = trace(pipe, frames)
+    t = trace(lambda: pipe(frames))
     print(t.pop("top"), flush=True)
     print("trace", json.dumps(t), flush=True)
     for line in sweep(pipe, rng):

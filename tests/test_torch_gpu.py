@@ -13,14 +13,24 @@ import pytest
 import torch
 
 from objcavit_torch.kernels import bins as kbins
+from objcavit_torch.kernels import bins_expectation as kexp
 from objcavit_torch.kernels import resize as kresize
-from objcavit_torch.utils.benchkit import build_flagship_model
-from objcavit_torch.utils.kernel_io import plain_outputs, record_kernel_io
+from objcavit_torch.utils.benchkit import build_flagship_model, build_flagship_train
+from objcavit_torch.utils.kernel_io import (
+    bins_expectation_plain_outputs,
+    plain_outputs,
+    record_bins_expectation_io,
+    record_kernel_io,
+)
 
 pytestmark = pytest.mark.gpu
 
 RESIZE_RTOL, RESIZE_ATOL = 2.0 ** -7, 1e-5  # one bf16 ulp; see chip_smoke.py
 BINS_RTOL, BINS_ATOL = 1e-5, 1e-5
+# kernel 4: see chip_smoke.py
+EXP_RTOL, EXP_ATOL = 1e-5, 1e-5
+DLOGITS_RTOL, DLOGITS_ATOL_PER_G = 2.0 ** -7, 1e-4
+DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX = 1e-4, 1e-5
 
 
 @pytest.fixture
@@ -136,3 +146,86 @@ def test_tiny_graphbins_runs_through_both_kernels(cuda):
     _assert_close(depth, plain_depth, BINS_RTOL, BINS_ATOL)
     feat, feat_ref = records[0]["objcavit"][1].float().cpu(), cpu_records[0]["objcavit"][1]
     assert float((feat - feat_ref).norm() / feat_ref.norm()) < 0.02
+
+
+def test_kernel3_matches_plain_and_counts_its_launches(cuda):
+    """Kernel 3 (one shared W) at the unfactored head's shape."""
+    x = torch.randn((8, 240, 320, 128), generator=cuda, device="cuda").to(torch.bfloat16)
+    w = (0.1 * torch.randn((128, 256), generator=cuda, device="cuda")).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(256, generator=cuda, device="cuda")
+    centers = torch.sort(10 * torch.rand((8, 256), generator=cuda, device="cuda"), dim=1).values
+    k2, k3 = kbins.conv_bins_depth_batched.launches, kbins.conv_bins_depth.launches
+    got = kbins.conv_bins_depth(x, w, bias, centers)
+    assert (kbins.conv_bins_depth_batched.launches, kbins.conv_bins_depth.launches) == (k2, k3 + 1)
+    _assert_close(got, kbins.conv_bins_depth_plain(x, w, bias, centers), BINS_RTOL, BINS_ATOL)
+
+
+def _assert_backward_close(dl, dc, want_dl, want_dc, g):
+    _assert_close(dl, want_dl, DLOGITS_RTOL, DLOGITS_ATOL_PER_G * float(g.abs().max()))
+    _assert_close(dc, want_dc, DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX * float(want_dc.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(8, 208 * 272, 256), (2, 5, 256), (3, 1000, 256), (1, 1, 256)],
+                         ids=["train", "tiny", "ragged", "one-row"])
+def test_kernel4_forward_and_backward_match_plain(cuda, shape):
+    b, s, k = shape
+    logits = (2.0 * torch.randn(shape, generator=cuda, device="cuda")).to(torch.bfloat16)
+    centers = torch.sort(10 * torch.rand((b, k), generator=cuda, device="cuda"), dim=1).values
+    g = torch.randn((b, s), generator=cuda, device="cuda")
+    f0, b0 = kexp.bins_expectation_fwd.launches, kexp.bins_expectation_bwd.launches
+    depth = kexp.bins_expectation_fwd(logits, centers)
+    dl, dc = kexp.bins_expectation_bwd(logits, centers, g)
+    assert (kexp.bins_expectation_fwd.launches, kexp.bins_expectation_bwd.launches) == (f0 + 1, b0 + 1)
+    assert depth.shape == (b, s) and dl.dtype == torch.bfloat16 and dc.shape == (b, k)
+    _assert_close(depth, kexp.bins_expectation_plain(logits, centers), EXP_RTOL, EXP_ATOL)
+    _assert_backward_close(dl, dc, *kexp.bins_expectation_bwd_plain(logits, centers, g), g)
+
+
+def test_kernel4_autograd_function_matches_autograd_of_plain(cuda):
+    logits = (2.0 * torch.randn((2, 6, 7, 256), generator=cuda, device="cuda")).to(torch.bfloat16)
+    centers = torch.sort(10 * torch.rand((2, 256), generator=cuda, device="cuda"), dim=1).values
+    g = torch.randn((2, 6, 7, 1), generator=cuda, device="cuda")
+    lk, ck = logits.clone().requires_grad_(), centers.clone().requires_grad_()
+    (kexp.fused_bins_depth(lk, ck) * g).sum().backward()
+    lp, cp = logits.clone().requires_grad_(), centers.clone().requires_grad_()
+    (kexp.bins_expectation_plain(lp.reshape(2, 42, 256), cp).reshape(2, 6, 7, 1) * g).sum().backward()
+    _assert_backward_close(lk.grad, ck.grad, lp.grad, cp.grad, g)
+
+
+def test_kernel4_wrappers_raise_instead_of_falling_back(cuda):
+    centers = torch.zeros(1, 256, device="cuda")
+    with pytest.raises(ValueError, match="bf16 logits"):
+        kexp.bins_expectation_fwd(torch.zeros(1, 4, 256, device="cuda"), centers)
+    with pytest.raises(ValueError, match="K = 256"):
+        kexp.bins_expectation_fwd(torch.zeros(1, 4, 128, dtype=torch.bfloat16, device="cuda"),
+                                  torch.zeros(1, 128, device="cuda"))
+    logits = torch.zeros(1, 4, 256, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="g as contiguous fp32"):
+        kexp.bins_expectation_bwd(logits, centers, torch.zeros(1, 4, dtype=torch.bfloat16,
+                                                               device="cuda"))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kbins.conv_bins_depth(
+            torch.zeros(1, 2, 2, 16, dtype=torch.bfloat16, device="cuda", requires_grad=True),
+            torch.zeros(16, 256, dtype=torch.bfloat16, device="cuda"),
+            torch.zeros(256, device="cuda"), centers)
+
+
+def test_tiny_train_step_runs_through_kernel4_only(cuda):
+    """Two bf16 train steps of the tiny model on the card: one kernel-4
+    forward and one backward launch a step, no launch of kernels 1-3, finite
+    losses, and kernel 4's outputs in the recorded step matching its plain
+    versions on the tensors the step gave it."""
+    step, batch, objects = build_flagship_train(batch=2, h=384, w=352, n_obj=8, device="cuda",
+                                                encoder_name="efficientnet-tiny")
+    counters = (kresize.resize_bilinear_align_corners, kbins.conv_bins_depth_batched,
+                kbins.conv_bins_depth, kexp.bins_expectation_fwd, kexp.bins_expectation_bwd)
+    before = [c.launches for c in counters]
+    with record_bins_expectation_io() as records:
+        losses = [float(step(batch, objects)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 0, 2, 2]
+    assert all(torch.isfinite(torch.tensor(losses)))
+    pairs = bins_expectation_plain_outputs(records[0])
+    _assert_close(*pairs["depth"], EXP_RTOL, EXP_ATOL)
+    (dl, want_dl), (dc, want_dc) = pairs["dlogits"], pairs["dcenters"]
+    _assert_backward_close(dl, dc, want_dl, want_dc, records[0]["g"])

@@ -18,6 +18,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from objcavit_tpu.ops.bins import bins_head_depth_factored as jax_bins_head_depth_factored
 from objcavit_tpu.ops.pallas_bins import (
+    fused_bins_depth,
     fused_conv_bins_depth,
     fused_conv_bins_depth_batched,
 )
@@ -26,6 +27,7 @@ from objcavit_tpu.ops.resize import resize_bilinear as jax_resize_bilinear
 from objcavit_tpu.ops.resize_pallas import resize_bilinear_pallas
 
 from objcavit_torch.kernels import bins as kbins
+from objcavit_torch.kernels import bins_expectation as kexp
 from objcavit_torch.kernels import build
 from objcavit_torch.kernels import resize as kresize
 from objcavit_torch.ops.bins import bins_head_depth_factored
@@ -213,6 +215,132 @@ def test_bins_kernel_checks_accept_shared_weight():
     args = _bins_args()
     args[1] = torch.zeros(16, 256, dtype=torch.bfloat16).expand(2, 16, 256)
     kbins.check_bins_inputs(*args)
+
+
+def test_kernel3_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 5, 16)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((16, 256)).astype(np.float32)).to(torch.bfloat16)
+    bias = torch.zeros(256)
+    centers = torch.linspace(0.1, 10, 256).expand(2, 256).contiguous()
+    before = kbins.conv_bins_depth.launches
+    got = kbins.conv_bins_depth(x, w, bias, centers)
+    assert torch.equal(got, kbins.conv_bins_depth_batched_plain(x, w.expand(2, 16, 256), bias, centers))
+    assert kbins.conv_bins_depth.launches == before
+
+
+def _forward_only_calls(requires_grad: bool):
+    x = torch.zeros(1, 3, 5, 16, dtype=torch.bfloat16, requires_grad=requires_grad)
+    w = torch.zeros(16, 256, dtype=torch.bfloat16)
+    bias, centers = torch.zeros(256), torch.zeros(1, 256)
+    return [
+        lambda: kresize.resize_bilinear_align_corners(x, 6, 10),
+        lambda: kbins.conv_bins_depth_batched(x, w.expand(1, 16, 256), bias, centers),
+        lambda: kbins.conv_bins_depth(x, w, bias, centers),
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["kernel1", "kernel2", "kernel3"])
+def test_forward_only_wrappers_raise_when_autograd_needs_them(which):
+    """The kernels have no backward: under grad mode with an input that
+    requires grad a wrapper raises, on the CPU as on the card, instead of
+    returning a tensor without grad_fn that silently cuts the gradient.
+    Under no_grad, or with no input requiring grad, it runs."""
+    with pytest.raises(RuntimeError, match="forward-only"):
+        _forward_only_calls(True)[which]()
+    with torch.no_grad():
+        _forward_only_calls(True)[which]()
+    _forward_only_calls(False)[which]()
+
+
+# ---------------------------------------------------- bins expectation (4)
+
+
+def _expectation_inputs(rng, b=2, h=4, w=8, k=256):
+    logits = (2.0 * rng.standard_normal((b, h, w, k))).astype(np.float32)
+    centers = np.sort(rng.uniform(0.001, 10, (b, k)), 1).astype(np.float32)
+    g = rng.standard_normal((b, h, w, 1)).astype(np.float32)
+    return logits, centers, g
+
+
+def test_bins_expectation_matches_pallas_forward_and_grads():
+    """Kernel 4's plain versions and its autograd.Function on the CPU
+    against fused_bins_depth and jax.grad in Pallas interpret mode (as
+    tests/test_pallas_bins.py runs them), K = 256, fp32: depth rtol 1e-5,
+    dlogits and dcenters rtol 1e-4 (that test's tolerances)."""
+    logits, centers, g = _expectation_inputs(np.random.default_rng(6))
+    b, h, w, k = logits.shape
+
+    def loss(l, c):
+        return jnp.sum(fused_bins_depth(l, c) * g)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = fused_bins_depth(jnp.asarray(logits), jnp.asarray(centers))
+        want_dl, want_dc = jax.grad(loss, argnums=(0, 1))(jnp.asarray(logits), jnp.asarray(centers))
+
+    tl, tc = torch.from_numpy(logits), torch.from_numpy(centers)
+    plain = kexp.bins_expectation_plain(tl.reshape(b, h * w, k), tc)
+    np.testing.assert_allclose(plain.reshape(b, h, w, 1).numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    dl, dc = kexp.bins_expectation_bwd_plain(tl.reshape(b, h * w, k), tc,
+                                             torch.from_numpy(g).reshape(b, h * w))
+    np.testing.assert_allclose(dl.reshape(b, h, w, k).numpy(), np.asarray(want_dl), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(dc.numpy(), np.asarray(want_dc), rtol=1e-4, atol=1e-6)
+
+    tl.requires_grad_()
+    tc.requires_grad_()
+    f0, b0 = kexp.bins_expectation_fwd.launches, kexp.bins_expectation_bwd.launches
+    depth = kexp.fused_bins_depth(tl, tc)
+    (depth * torch.from_numpy(g)).sum().backward()
+    assert depth.shape == (b, h, w, 1) and depth.dtype == torch.float32
+    np.testing.assert_allclose(depth.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tl.grad.numpy(), np.asarray(want_dl), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(tc.grad.numpy(), np.asarray(want_dc), rtol=1e-4, atol=1e-6)
+    # on CPU tensors the plain versions ran, so no launch was counted
+    assert (kexp.bins_expectation_fwd.launches, kexp.bins_expectation_bwd.launches) == (f0, b0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bins_expectation_plain_backward_is_autograd_of_plain_forward(dtype):
+    """The backward formula against autograd of softmax + matmul: fp32
+    rtol 1e-5; bf16 logits, whose dlogits both round to bf16, to one bf16
+    ulp (<= 2^-7 relative) plus 1e-7."""
+    logits, centers, g = _expectation_inputs(np.random.default_rng(7), b=2, h=3, w=5)
+    tl = torch.from_numpy(logits).reshape(2, 15, 256).to(dtype).requires_grad_()
+    tc = torch.from_numpy(centers).requires_grad_()
+    tg = torch.from_numpy(g).reshape(2, 15)
+    (kexp.bins_expectation_plain(tl, tc) * tg).sum().backward()
+    dl, dc = kexp.bins_expectation_bwd_plain(tl.detach(), tc.detach(), tg)
+    assert dl.dtype == dtype and dc.dtype == torch.float32
+    rtol, atol = (1e-5, 1e-7) if dtype == torch.float32 else (2.0 ** -7, 1e-7)
+    np.testing.assert_allclose(dl.float().numpy(), tl.grad.float().numpy(), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(dc.numpy(), tc.grad.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _expectation_args(b=2, s=6, k=256, ldt=torch.bfloat16, cdt=torch.float32):
+    return [torch.zeros(b, s, k, dtype=ldt), torch.zeros(b, k, dtype=cdt)]
+
+
+@pytest.mark.parametrize(
+    "make,match",
+    [
+        (lambda: _expectation_args(ldt=torch.float32), "bf16 logits"),
+        (lambda: _expectation_args(cdt=torch.bfloat16), "fp32 centers"),
+        (lambda: _expectation_args(k=128), "K = 256"),
+        (lambda: [torch.zeros(2, 4, 3, 256, dtype=torch.bfloat16), torch.zeros(2, 256)], r"\(B, S, K\)"),
+        (lambda: [torch.zeros(2, 256, 6, dtype=torch.bfloat16).transpose(1, 2), torch.zeros(2, 256)],
+         "contiguous"),
+    ],
+    ids=["logits-fp32", "centers-bf16", "bins", "4-d", "strided"],
+)
+def test_bins_expectation_checks_reject(make, match):
+    with pytest.raises(ValueError, match=match):
+        kexp.check_bins_expectation_inputs(*make())
+
+
+def test_bins_expectation_wrappers_reject_other_devices():
+    logits, centers = _expectation_args()
+    with pytest.raises(ValueError, match="CUDA"):
+        kexp.bins_expectation_fwd(logits.to("meta"), centers.to("meta"))
 
 
 # ------------------------------------------------------------------- build

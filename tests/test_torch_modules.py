@@ -81,9 +81,9 @@ def jax_graphbins(dtype=jnp.float32, fold_bn=False, encoder_name=ENC, n_bins=N_B
 
 
 @functools.lru_cache(maxsize=None)
-def graphbins_variables(seed: int = 0):
+def graphbins_variables(seed: int = 0, n_bins: int = N_BINS):
     """Unfolded JAX variables of the tiny GraphBins as numpy trees."""
-    model = jax_graphbins()
+    model = jax_graphbins(n_bins=n_bins)
     img = jnp.zeros((1, H, W, 3), jnp.float32)
     feats = jnp.zeros((1, 4, 512), jnp.float32)
     xywh = jnp.full((1, 4, 4), -1.0, jnp.float32)
