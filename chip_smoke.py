@@ -13,7 +13,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    kernel 1 (resize) and kernel 2 (factored bins head) at the server's
    shapes, kernel 3 (the bins head with one shared weight) at
    (8, 240, 320, 128), kernel 4 (bins expectation) forward and backward at
-   the train step's (8, 56576, 256);
+   the train step's (8, 56576, 256), kernel 6 (the detect head) at the three
+   NYU 480x640 levels and KITTI 352x1216's level 0, batch 8;
 4. slice: the flagship server (GraphBins-B5, bf16, BN folded, 480x640, 300
    object slots, random weights from seed 0) answers requests of 8 uint8
    frames, with detector-style object slots and with the no-detection
@@ -26,7 +27,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 5. unfactored head: ``ops.bins.bins_head_depth`` at inference, bf16, on
    (8, 240, 320, 128) range maps, the route of kernel 3 (no model of this
    slice takes it: GraphBins's head is the factored one);
-6. train: the flagship train step (``build_flagship_train``: GraphBins-B5,
+6. fused: the fused server (``build_fused_flagship``: GraphBins-B5 and
+   YOLOv7-seg, bf16, BN folded, 1203 classes, the class table from the
+   full-width CLIP text tower, random weights, 480x640, 300 slots) answers
+   4 requests of 8 uint8 frames on the class-max head. Launch counters,
+   zeroed just before, must show 3 kernel-6, 4 resize and 1 bins launches
+   per request; each kernel's output in those requests must match its
+   plain version on the very tensors the request gave it; depth finite and
+   in range; every frame must keep detections out of a full NMS pool. Then
+   the detector's bf16 kernel route against fp32 plain, the automatic head
+   gate (dense at 480x640, kernel 6 at KITTI 352x1216 with 418 slots), one
+   request each with det_topk=128, det_stride=2 and det_scale=0.5, the
+   stage split, and the served rate of both head routes;
+7. train: the flagship train step (``build_flagship_train``: GraphBins-B5,
    bs 8, 416x544, 221 slots, bf16 compute on fp32 parameters, dropout 0.1,
    device-side augmentation, silog + 0.1 bins chamfer, AdamW under
    OneCycle, clip 0.1) takes a warm-up step, then 6 steps. Every loss must
@@ -56,19 +69,29 @@ import torch
 from objcavit_torch.kernels import bins as kbins
 from objcavit_torch.kernels import bins_expectation as kexp
 from objcavit_torch.kernels import build
+from objcavit_torch.kernels import detect_head as kdetect
 from objcavit_torch.kernels import resize as kresize
 from objcavit_torch.losses import LossWrapper
+from objcavit_torch.models.yolov7 import n_anchors
 from objcavit_torch.ops.bins import bins_head_depth
-from objcavit_torch.serving import DepthPipeline, build_flagship_pipeline, image_seq_len
+from objcavit_torch.serving import (
+    DepthPipeline,
+    FusedDepthPipeline,
+    build_flagship_pipeline,
+    build_fused_flagship,
+    image_seq_len,
+)
 from objcavit_torch.training.steps import make_train_loss_fn
-from objcavit_torch.utils.benchkit import TRAIN_LOSSES, build_flagship_train
+from objcavit_torch.utils.benchkit import TRAIN_LOSSES, build_detector, build_flagship_train
 from objcavit_torch.utils.kernel_io import (
     bins_expectation_plain_outputs,
+    detect_head_errors,
     plain_outputs,
     record_bins_expectation_io,
+    record_detect_head_io,
     record_kernel_io,
 )
-from objcavit_torch.utils.profile_stages import train_stage_split
+from objcavit_torch.utils.profile_stages import fused_stage_split, served_rate, train_stage_split
 
 BATCH = 8
 EVAL_DIMS = (480, 640)
@@ -101,6 +124,24 @@ BINS_RTOL, BINS_ATOL = 1e-5, 1e-5
 EXP_RTOL, EXP_ATOL = 1e-5, 1e-5
 DLOGITS_RTOL, DLOGITS_ATOL_PER_G = 2.0 ** -7, 1e-4
 DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX = 1e-4, 1e-5
+# kernel 6 at the fused server's levels, (B, S, Cin): NYU 480x640's three,
+# then KITTI 352x1216's level 0; 1203 classes, 32 mask coefficients
+DETECT_SHAPES = [(BATCH, 4800, 256), (BATCH, 1200, 512), (BATCH, 300, 1024), (BATCH, 6688, 256)]
+NUM_CLASSES, NM = 1203, 32
+# kernel 6 vs plain: both round fp32 sums of the same bf16 products (Cin
+# terms, other order) plus the fp32 bias to bf16 once, so a value next to a
+# rounding boundary may land one bf16 ulp (<= 2^-7 relative) away; beside
+# that, kernel_io.detect_head_errors allows the fp32 accumulation bound of
+# the sum (Cin 2^-23 sum |x w|) and checks the argmax tie-aware
+DETECT_RTOL, DETECT_ATOL = 2.0 ** -7, 1e-5
+KITTI_DIMS, KITTI_SLOTS = (352, 1216), 418  # 11 x 38 image tokens
+# the detector's y5 and coef, bf16 kernel route vs the same weights in fp32
+# (plain versions, no TF32), rel L2 on 2x384x352: bf16 keeps 8 bits
+# through ~100 conv layers; the random detector is built in SiLU's
+# near-linear range (benchkit.DETECTOR_BN_AFFINE), where the CPU measures
+# 0.013-0.016 at 2x128x160 (GraphBins' features: 0.003 on an H100); 0.1
+# still fails a wrong or missing head (rel L2 ~1)
+DETECT_REL_BOUND = 0.1
 # the served depth must spread over at least this many bins tolerances, or
 # the bins check on served tensors could not tell a right depth from a flat one
 MIN_SPREAD_IN_TOLERANCES = 10
@@ -129,6 +170,7 @@ COUNTERS = {
     "bins_shared": kbins.conv_bins_depth,
     "bins_expectation_fwd": kexp.bins_expectation_fwd,
     "bins_expectation_bwd": kexp.bins_expectation_bwd,
+    "detect_head": kdetect.fused_detect_head,
 }
 
 
@@ -254,7 +296,44 @@ def phase_kernels() -> dict:
     out["bins_shared"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     del x, wts
     out.update(check_bins_expectation(g, dev))
+    out["detect_head"] = check_detect_head(g, dev)
     return out
+
+
+def check_detect_head_outputs(name: str, flat, packed, out) -> dict:
+    errs = detect_head_errors(flat, packed, out, DETECT_RTOL, DETECT_ATOL)
+    if errs["bad"]:
+        raise AssertionError(f"{name}: {errs['bad']} elements out of tolerance: {errs}")
+    return errs
+
+
+def check_detect_head(gen: torch.Generator, dev) -> dict:
+    """Kernel 6 at the fused server's level shapes: features ~N(0, 1) and
+    weights ~N(0, 1/Cin), so logits are of order 1 as the detector's are;
+    ms and plain_ms are the sum over the three NYU levels (one request)."""
+    no = 5 + NUM_CLASSES + NM
+    total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for b, s, cin in DETECT_SHAPES:
+        flat = torch.randn((b, s, cin), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((3 * no, cin), generator=gen, device=dev) / cin ** 0.5
+        bias = 0.1 * torch.randn(3 * no, generator=gen, device=dev)
+        packed = kdetect.pack_detect_head(w, bias, NUM_CLASSES, NM, torch.bfloat16)
+        errs = check_detect_head_outputs(f"detect head {(b, s, cin)}", flat, packed,
+                                         kdetect.fused_detect_head(flat, packed))
+        kernel = lambda: kdetect.fused_detect_head(flat, packed)  # noqa: E731
+        plain = lambda: kdetect.fused_detect_head_plain(flat, packed)  # noqa: E731
+        ms, plain_ms = compare_times(kernel, plain, iters=10)
+        tflops = 2 * b * s * cin * 3 * no / ms / 1e9
+        log(f"kernel detect head ({b},{s},{cin}) nc {NUM_CLASSES}: max_abs_err y5 {errs['y5']} "
+            f"coef {errs['coef']} cls_max {errs['cls_max']} (rtol 2^-7, atol 1e-5); cls_arg "
+            f"equal off near-ties, {errs['near_ties']} near-ties of {errs['rows']} rows; kernel "
+            f"{ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
+        total["max_abs_err"] = max(total["max_abs_err"], errs["y5"], errs["coef"], errs["cls_max"])
+        if (b, s, cin) != DETECT_SHAPES[-1]:
+            total["ms"] += ms
+            total["plain_ms"] += plain_ms
+        del flat, packed
+    return total
 
 
 def close_backward(name: str, dlogits, dcenters, want_dl, want_dc, g) -> tuple[float, float]:
@@ -322,8 +401,9 @@ def make_provider(rng: np.random.Generator, n_obj: int):
     return provider
 
 
-def check_depth(name: str, depth: torch.Tensor, lo: float, hi: float) -> None:
-    shape = (BATCH, EVAL_DIMS[0] // 2, EVAL_DIMS[1] // 2, 1)
+def check_depth(name: str, depth: torch.Tensor, lo: float, hi: float, batch: int = BATCH,
+                dims: tuple[int, int] = EVAL_DIMS) -> None:
+    shape = (batch, dims[0] // 2, dims[1] // 2, 1)
     if tuple(depth.shape) != shape or depth.dtype != torch.float32:
         raise AssertionError(f"{name}: depth {depth.dtype} {tuple(depth.shape)}, want fp32 {shape}")
     if not torch.isfinite(depth).all():
@@ -565,12 +645,117 @@ def phase_train() -> dict:
     return launches
 
 
+def serve_checked(pipe, frames, what: str, lo: float, hi: float, **launches) -> None:
+    """One request through a fused server, with its launch counts and depth."""
+    zero_counters()
+    depth = pipe(frames)
+    torch.cuda.synchronize()
+    expect_launches(what, **launches)
+    check_depth(what, depth, lo, hi, frames.shape[0], pipe.eval_dims)
+
+
+def check_detector_against_fp32(detector, rng: np.random.Generator) -> None:
+    """The detector's bf16 kernel route against the same weights in fp32
+    (the plain versions), y5 and coef of each level, on 2x384x352."""
+    ref = build_detector(NUM_CLASSES, dtype=torch.float32, seed=1)
+    image = torch.as_tensor(rng.uniform(0, 1, (2, 384, 352, 3)).astype(np.float32), device="cuda")
+    with torch.inference_mode():
+        zero_counters()
+        got, _ = detector(image, class_max=True, with_proto=False)
+        want, _ = ref(image, class_max=True, with_proto=False)
+        torch.cuda.synchronize()
+    expect_launches("detector bf16 vs fp32, 2x384x352", detect_head=3)
+    rels = {f"{k}{i}": rel_l2(g[k], w[k]) for i, (g, w) in enumerate(zip(got, want))
+            for k in ("y5", "coef")}
+    log("  detector bf16 kernel route vs fp32 plain route, 2x384x352: rel L2 "
+        + ", ".join(f"{k} {v:.5f}" for k, v in rels.items()) + f" (bound {DETECT_REL_BOUND})")
+    if not max(rels.values()) < DETECT_REL_BOUND:
+        raise AssertionError("the bf16 detector strays from the fp32 reference")
+
+
+def phase_fused() -> int:
+    """The fused server (see the module note); returns kernel 6's launches
+    in the 4 counted requests."""
+    t0 = time.perf_counter()
+    pipe = build_fused_flagship(dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0,
+                                class_max_head=True)
+    model, lo, hi = pipe.model, pipe.model.min_depth, pipe.model.max_depth
+    log(f"fused: GraphBins-B5 + YOLOv7-seg ({NUM_CLASSES} classes) bf16 folded, class table "
+        f"{tuple(pipe.class_table.shape)}, {pipe.n_obj_max} slots, {n_anchors(*EVAL_DIMS)} "
+        f"anchors; built in {time.perf_counter() - t0:.2f} s")
+    if pipe.n_obj_max != 300 or pipe.class_table.shape != (NUM_CLASSES + 1, 512):
+        raise AssertionError("fused: expected 300 slots and a (1204, 512) class table")
+    rng = np.random.default_rng(4321)
+    frames = [rng.integers(0, 256, (BATCH, *EVAL_DIMS, 3), dtype=np.uint8) for _ in range(4)]
+    pipe(frames[0])  # warm-up
+    torch.cuda.synchronize()
+    detections, run = [], pipe._detections
+    pipe._detections = lambda x: detections.append(run(x)) or detections[-1]
+    zero_counters()
+    with record_kernel_io(model) as records, record_detect_head_io() as det_records:
+        depths = [pipe(f) for f in frames]
+    torch.cuda.synchronize()
+    del pipe._detections
+    n = len(frames)
+    launches = expect_launches(f"fused, {n} requests of {BATCH} frames, class-max head",
+                               resize=4 * n, bins=n, detect_head=3 * n)["detect_head"]
+    for i, depth in enumerate(depths):
+        check_depth(f"fused request {i}", depth, lo, hi)
+    for i, det in enumerate(detections):
+        kept = det["valid"].sum(1).tolist()
+        cand = det["n_candidates"].tolist()
+        log(f"  request {i}: valid detections per image {kept}; n_candidates {cand}; "
+            f"pre_topk {det['pre_topk']}")
+        if min(kept) < 1 or min(cand) < det["pre_topk"]:
+            raise AssertionError("fused: NMS must run on a full pool and keep detections")
+    check_served_kernels(model, records)
+    for i, rec in enumerate(det_records):
+        errs = check_detect_head_outputs(f"fused call {i} detect head", rec["flat"],
+                                         rec["packed"], rec["out"])
+        if i % 3 == 0 or i == len(det_records) - 1:
+            log(f"  served kernel 6 call {i} {tuple(rec['flat'].shape)} vs plain on its own "
+                f"tensors: max abs err y5 {errs['y5']} coef {errs['coef']} cls_max "
+                f"{errs['cls_max']}; {errs['near_ties']} near-ties of {errs['rows']} rows")
+    del records, det_records, detections
+
+    check_detector_against_fp32(pipe.detector, np.random.default_rng(77))
+
+    pipe.class_max_head = None  # the automatic gate: dense at 18,900 anchors
+    serve_checked(pipe, frames[1], "fused, automatic gate at 480x640 (dense head)", lo, hi,
+                  resize=4, bins=1)
+    kitti = FusedDepthPipeline(model, pipe.detector, pipe.class_table, eval_dims=KITTI_DIMS)
+    if kitti.n_obj_max != KITTI_SLOTS or not kitti.uses_class_max():
+        raise AssertionError(f"KITTI: {kitti.n_obj_max} slots, class-max {kitti.uses_class_max()}")
+    kitti_frames = rng.integers(0, 256, (4, *KITTI_DIMS, 3), dtype=np.uint8)
+    kitti(kitti_frames)  # warm-up at the new size
+    serve_checked(kitti, kitti_frames, f"fused KITTI {KITTI_DIMS}, {n_anchors(*KITTI_DIMS)} "
+                  f"anchors, automatic gate", lo, hi, resize=4, bins=1, detect_head=3)
+    for knob in ({"det_topk": 128}, {"det_stride": 2}, {"det_scale": 0.5}):
+        other = FusedDepthPipeline(model, pipe.detector, pipe.class_table, eval_dims=EVAL_DIMS,
+                                   **knob)
+        other(frames[2])  # warm-up
+        serve_checked(other, frames[3], f"fused with {knob}", lo, hi, resize=4, bins=1)
+
+    for head in (True, False):
+        pipe.class_max_head = head
+        route = "class-max kernel" if head else "dense head"
+        split = fused_stage_split(pipe, frames[0], iters=11, warmup=3)
+        log(f"  stage split, {route}, ms (CUDA events, median of 8): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        r = served_rate(pipe, frames[:2])
+        log(f"  served {r['img_per_s']:.2f} img/s over 20 requests of {BATCH} ({route}); "
+            f"p50 {r['p50_ms']:.2f} ms, p90 {r['p90_ms']:.2f} ms per request; peak memory "
+            f"{r['peak_gib']:.3f} GiB")
+    return launches
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
     kernels = phase_kernels()
     serving = phase_slice()
     unfactored = phase_unfactored_head()
+    fused = phase_fused()
     train = phase_train()
 
     def entry(name, source, replaces, launches, key):
@@ -588,6 +773,8 @@ def main() -> None:
               train["bins_expectation_fwd"], "bins_expectation_fwd"),
         entry("bins_expectation_bwd", "bins_expectation.cu", "pallas_bins.py:91",
               train["bins_expectation_bwd"], "bins_expectation_bwd"),
+        entry("fused_detect_head", "detect_head.cu", "detect_head_pallas.py:65", fused,
+              "detect_head"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -12,6 +12,8 @@ and the bins head (kernel 4 instead of the forward-only kernels 1 and 2).
 
 ``conv_out.0`` has the reference's (n_bins, 128, 1, 1) shape, so the image
 must give at least 129 patch tokens (the regression token and 128 queries).
+``n_queries`` narrows it for images with fewer tokens, as the JAX package's
+lazily shaped ``conv_out`` does (tests at 64x96 have 5 queries).
 The bins head reads ``conv_out`` in fp32, as the JAX bins head reads its
 fp32 parameters; ``cast`` keeps it so. Training keeps every parameter in
 fp32 and computes in bf16 through ``params_in``, the JAX package's
@@ -34,7 +36,8 @@ class GraphBins(nn.Module):
     def __init__(self, encoder_name: str = "efficientnet-b5", n_bins: int = 256,
                  min_depth: float = 0.001, max_depth: float = 10.0,
                  embedding_dim: int = 128, obj_feature_dim: int = 512,
-                 pos_strategy: str = "learned_bbox_wh", dropout_rate: float = 0.1):
+                 pos_strategy: str = "learned_bbox_wh", dropout_rate: float = 0.1,
+                 n_queries: int = N_QUERIES):
         super().__init__()
         self.min_depth = min_depth
         self.max_depth = max_depth
@@ -42,11 +45,11 @@ class GraphBins(nn.Module):
         self.dense_feature_extractor = DenseFeatureExtractor(encoder_name)
         self.objcavit = ObjCAViT(
             im_feature_dim=128, obj_feature_dim=obj_feature_dim,
-            n_query_channels=N_QUERIES, patch_size=16, dim_out=n_bins,
+            n_query_channels=n_queries, patch_size=16, dim_out=n_bins,
             embed_dim=embedding_dim, pos_strategy=pos_strategy, dropout_rate=dropout_rate,
         )
         # the reference's Sequential(conv, Softmax); the bins head fuses both
-        self.conv_out = nn.Sequential(nn.Conv2d(N_QUERIES, n_bins, 1))
+        self.conv_out = nn.Sequential(nn.Conv2d(n_queries, n_bins, 1))
 
     @property
     def dtype(self) -> torch.dtype:

@@ -1,21 +1,29 @@
 """Serving: uint8 frames in, depth maps out, through GraphBins.
 
-Port of ``objcavit_tpu/serving.py::DepthPipeline`` and
-``build_flagship_pipeline``. One request runs on the model's device:
+Port of ``objcavit_tpu/serving.py``. ``DepthPipeline`` runs one request on
+the model's device:
 
     uint8 (B, H, W, 3) -> /255 -> resize to the eval size if it differs
     (bilinear, half-pixel) -> ImageNet normalise -> GraphBins -> depth
     (B, h/2, w/2, 1) in metres -> optionally resized back to (H, W)
 
 Objects come from ``provider`` (called with the normalised eval-size images
-as numpy, returning numpy ``features``/``xywh``/``valid`` slots) or, without
-one, the no-detection sentinel: slot 0 valid with xywh = -1 and a zero
-feature (the 'control_obj_zeros_512' ablation).
+as numpy, returning numpy ``features``/``xywh``/``valid`` slots, e.g.
+``language/provider.py::YoloClipObjectProvider``) or, without one, the
+no-detection sentinel: slot 0 valid with xywh = -1 and the ``unk_feature``
+(the '<UNK>' embedding of the language strategy; zeros by default, which is
+right for the 'control_obj_zeros_512' ablation only).
+
+``FusedDepthPipeline`` keeps the detector on the card too: uint8 frames ->
+YOLOv7-seg -> fixed-shape NMS -> a gather from the per-class phrase table
+-> GraphBins, with no host round trip but the NMS's convergence checks.
+``stream_depth`` keeps one batch on the card while the next is decoded.
 The port has no mesh and no spatial sharding: one process drives one card.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 
 import numpy as np
@@ -40,7 +48,7 @@ class DepthPipeline:
 
     def __init__(self, model, eval_dims: tuple[int, int] = (480, 640),
                  n_obj_max: int | None = None, output_at_input_res: bool = False,
-                 provider=None):
+                 provider=None, unk_feature=None):
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.eval_dims = tuple(eval_dims)
@@ -52,12 +60,18 @@ class DepthPipeline:
         self.provider = provider
         self.mean = torch.tensor(IMAGENET_MEAN, device=self.device)
         self.std = torch.tensor(IMAGENET_STD, device=self.device)
+        # the no-detection sentinel's feature: the reference's <UNK> embedding
+        # (ObjCAViT.py:310-315), e.g. embedder.embed(["<UNK>"])[0]
+        self.unk_feature = (None if unk_feature is None else
+                            torch.as_tensor(np.asarray(unk_feature, np.float32), device=self.device))
         self._sentinels: dict[int, tuple] = {}
 
     def _sentinel_objects(self, b: int):
         if b not in self._sentinels:
             n, dev = self.n_obj_max, self.device
             feats = torch.zeros((b, n, self.model.obj_feature_dim), device=dev)
+            if self.unk_feature is not None:
+                feats[:, 0] = self.unk_feature
             xywh = torch.full((b, n, 4), -1.0, device=dev)
             valid = torch.zeros((b, n), dtype=torch.bool, device=dev)
             valid[:, 0] = True
@@ -99,3 +113,293 @@ def build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: in
 
     model = build_flagship_model(dtype=dtype, seed=seed, device=device)
     return DepthPipeline(model, eval_dims=eval_dims)
+
+
+def stream_depth(pipeline, frames_iter, batch_size: int = 8):
+    """Streaming video inference: batches frames from an iterator, decoded
+    and stacked by a feeder thread, and keeps one batch on the card while
+    the next is decoded and launched. Yields (frames_u8, depth numpy) per
+    batch; a final partial batch is zero-padded on the host and trimmed on
+    yield. Works with ``DepthPipeline`` and ``FusedDepthPipeline``.
+
+    Each batch's depth is copied to the host right after its launch, behind
+    it on the stream, and an event marks the copy; the batch is yielded once
+    the next one is launched, after waiting on that event only.
+    """
+    import queue
+    import threading
+
+    q: queue.Queue = queue.Queue(maxsize=2)
+    stop = object()
+    cancelled = threading.Event()  # set when the consumer abandons the generator
+
+    def put(item) -> bool:
+        # a bounded put that gives up once the generator is closed, so an
+        # abandoned stream does not park this thread on a full queue
+        while not cancelled.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def feeder():
+        try:
+            buf = []
+            for frame in frames_iter:
+                buf.append(frame)
+                if len(buf) == batch_size:
+                    if not put((np.stack(buf), batch_size)):
+                        return
+                    buf = []
+            if buf:
+                n = len(buf)
+                pad = [np.zeros_like(buf[0])] * (batch_size - n)
+                if not put((np.stack(buf + pad), n)):
+                    return
+            put(stop)
+        except BaseException as e:  # handed to the consumer, which raises it
+            put(e)
+
+    def host_copy(depth: torch.Tensor):
+        if depth.device.type != "cuda":
+            return depth, None
+        out = depth.to("cpu", non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return out, done
+
+    threading.Thread(target=feeder, daemon=True).start()
+    pending = None  # (frames, n, host depth, copy event)
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, BaseException):
+                raise item
+            if item is stop:
+                break
+            frames, n = item
+            launched = (frames, n, *host_copy(pipeline(frames)))
+            if pending is not None:
+                yield _finish(pending)
+            pending = launched
+        if pending is not None:
+            yield _finish(pending)
+    finally:
+        cancelled.set()
+
+
+def _finish(pending):
+    frames, n, depth, done = pending
+    if done is not None:
+        done.synchronize()
+    return frames[:n], depth.numpy()[:n]
+
+
+class FusedDepthPipeline:
+    """uint8 frames -> YOLOv7-seg -> class-embedding gather -> depth.
+
+    Port of ``objcavit_tpu/serving.py::FusedDepthPipeline``. For a per-class
+    language strategy the phrase depends only on the detected class, so CLIP
+    collapses to ``class_table`` (num_classes + 1, 512); its last row is the
+    '<UNK>' embedding of the no-detection sentinel (xywh = -1, one valid
+    slot, ObjCAViT.py:310-315). Everything runs on the model's device; the
+    only host syncs are the NMS's convergence checks and the throttled
+    saturation check.
+
+    Knobs, as in the JAX package:
+
+    * ``det_topk``: the class and coefficient head only on the top-k
+      positions per level by objectness (a relaxation; None is exact);
+    * ``pre_topk``: the NMS candidate pool, None -> min(1024, anchors);
+    * ``class_max_head``: the dense head's conv and class max/argmax as one
+      kernel (kernel 6) so the (B, A, 5 + nc + nm) logits never reach device
+      memory; None switches it on above ``CLASS_MAX_MIN_ANCHORS`` anchors;
+    * ``det_stride=K``: video keyframe mode, detection on every K-th frame
+      of the batch, its objects reused by the K-1 frames after it;
+    * ``det_scale=s``: detection on an s-scaled copy snapped to the
+      stride-32 grid, boxes rescaled to eval pixels after NMS.
+    """
+
+    def __init__(self, model, detector, class_table, eval_dims: tuple[int, int] = (480, 640),
+                 n_obj_max: int | None = None, conf_thres: float = 0.25, iou_thres: float = 0.45,
+                 det_topk: int | None = None, pre_topk: int | None = None,
+                 class_max_head: bool | None = None, det_stride: int = 1, det_scale: float = 1.0):
+        self.model = model.eval()
+        self.detector = detector.eval()
+        self.device = next(model.parameters()).device
+        self.class_table = torch.as_tensor(class_table, dtype=torch.float32, device=self.device)
+        # the decode's class slice comes from the table's row count: a
+        # mismatch with the detector head would read mask coefficients as classes
+        if detector.num_classes != self.class_table.shape[0] - 1:
+            raise ValueError(
+                f"class_table has {self.class_table.shape[0]} rows (classes + <UNK>) but the "
+                f"detector head has {detector.num_classes} classes: expected "
+                f"{detector.num_classes + 1} rows"
+            )
+        self.eval_dims = tuple(eval_dims)
+        self.n_obj_max = (
+            min(MAX_DET, image_seq_len(*self.eval_dims)) if n_obj_max is None else n_obj_max
+        )
+        self.conf_thres = conf_thres
+        self.iou_thres = iou_thres
+        if class_max_head and det_topk is not None:
+            raise ValueError(
+                "class_max_head=True requires the dense head (det_topk=None): the fused "
+                "class-max kernel replaces the full 1x1 head conv, while det_topk evaluates "
+                "the head only on sparse top-k positions. Drop one of the two knobs."
+            )
+        self.det_topk = det_topk
+        self.pre_topk = pre_topk
+        self.class_max_head = class_max_head
+        if det_stride < 1:
+            raise ValueError(f"det_stride must be >= 1, got {det_stride}")
+        self.det_stride = det_stride
+        if not 0.0 < det_scale <= 1.0:
+            raise ValueError(f"det_scale must be in (0, 1], got {det_scale}")
+        self.det_scale = float(det_scale)
+        self.mean = torch.tensor(IMAGENET_MEAN, device=self.device)
+        self.std = torch.tensor(IMAGENET_STD, device=self.device)
+        # candidate-pool saturation: ``last_det_meta`` holds the newest
+        # per-frame counts (on the device); every ``saturation_check_interval``
+        # calls one earlier call's counts are read back and checked
+        self.last_det_meta = None
+        self._pending_sat = None
+        self.saturation_check_interval = 32
+        self._sat_calls = 0
+
+    def detector_dims(self) -> tuple[int, int]:
+        """The detector's input size: the eval size, or with ``det_scale``
+        its scaled copy snapped to YOLOv7's stride-32 grid."""
+        eh, ew = self.eval_dims
+        if self.det_scale == 1.0:
+            return eh, ew
+        return (max(32, int(round(eh * self.det_scale / 32)) * 32),
+                max(32, int(round(ew * self.det_scale / 32)) * 32))
+
+    def uses_class_max(self) -> bool:
+        """Whether the detector takes the class-max head (kernel 6)."""
+        from objcavit_torch.models.yolov7 import CLASS_MAX_MIN_ANCHORS, n_anchors
+
+        cm = self.class_max_head
+        if cm is None:
+            cm = n_anchors(*self.detector_dims()) > CLASS_MAX_MIN_ANCHORS
+        return self.det_topk is None and cm
+
+    def _detections(self, x_det: torch.Tensor) -> dict:
+        """Detector, decode and NMS: padded (B, n_obj_max) detections in
+        detector-input pixels, with ``n_candidates`` and ``pre_topk``."""
+        from objcavit_torch.models.yolov7 import (
+            decode_best,
+            decode_best_classmax,
+            decode_best_sparse,
+            pool_size,
+        )
+        from objcavit_torch.ops.nms import batched_nms, xywh_to_xyxy
+
+        use_cm = self.uses_class_max()
+        preds, _ = self.detector(x_det, topk_positions=self.det_topk, class_max=use_cm,
+                                 with_proto=False)
+        decode = (decode_best_sparse if self.det_topk is not None
+                  else decode_best_classmax if use_cm else decode_best)
+        boxes, best, best_cls, _ = decode(preds, self.detector.num_classes, self.detector.nm)
+        pre_topk = pool_size(boxes.shape[1], self.pre_topk)
+        det = batched_nms(xywh_to_xyxy(boxes), best, best_cls, self.conf_thres, self.iou_thres,
+                          pre_topk=pre_topk, max_det=self.n_obj_max)
+        det["pre_topk"] = pre_topk
+        return det
+
+    def _objects(self, det: dict, det_hw: tuple[int, int]):
+        """Detections -> GraphBins' object slots: boxes rescaled to eval
+        pixels, features gathered from the class table, the sentinel where
+        a frame found nothing, each keyframe's objects repeated."""
+        from objcavit_torch.ops.nms import xyxy_to_xywh
+
+        (eh, ew), (dh, dw) = self.eval_dims, det_hw
+        bx = det["boxes_xyxy"]
+        if (dh, dw) != (eh, ew):  # NMS ran in the detector's frame
+            bx = bx * torch.tensor([ew / dw, eh / dh, ew / dw, eh / dh], dtype=bx.dtype,
+                                   device=bx.device)
+        xywh = xyxy_to_xywh(bx)
+        valid = det["valid"]
+        feats = self.class_table[det["classes"]] * valid[..., None]
+        sentinel = torch.zeros_like(valid)
+        sentinel[:, 0] = ~valid.any(dim=1)
+        valid = valid | sentinel
+        feats = torch.where(sentinel[..., None], self.class_table[-1], feats)
+        xywh = torch.where(sentinel[..., None], torch.full_like(xywh, -1.0), xywh)
+        if self.det_stride > 1:
+            feats, xywh, valid = (t.repeat_interleave(self.det_stride, dim=0)
+                                  for t in (feats, xywh, valid))
+        return feats, xywh, valid
+
+    def _check_pending_saturation(self) -> None:
+        """Throttled pool-saturation warning about an earlier call (its work
+        long done): the readback is a device-to-host round trip."""
+        if self._pending_sat is None:
+            return
+        self._sat_calls += 1
+        if self._sat_calls < self.saturation_check_interval:
+            return
+        self._sat_calls = 0
+        n_cand, pre_topk = self._pending_sat
+        self._pending_sat = None
+        from objcavit_torch.models.yolov7 import warn_if_saturated
+
+        warn_if_saturated(logging.getLogger(__name__), n_cand.cpu().numpy(), pre_topk,
+                          "fused serving")
+
+    @torch.inference_mode()
+    def __call__(self, frames_u8) -> torch.Tensor:
+        """frames_u8: (B, H, W, 3) uint8 (numpy or tensor) -> (B, h/2, w/2, 1)
+        fp32 depth in metres on the model's device."""
+        frames = torch.as_tensor(frames_u8).to(self.device)
+        if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[3] != 3:
+            raise ValueError(
+                f"frames must be uint8 (B, H, W, 3), got {frames.dtype} {tuple(frames.shape)}"
+            )
+        stride = self.det_stride
+        if frames.shape[0] % stride:
+            raise ValueError(f"video det_stride={stride} needs the clip length divisible by it, "
+                             f"got batch {frames.shape[0]}")
+        self._check_pending_saturation()
+        x01 = resize_bilinear(frames.float() / 255.0, *self.eval_dims, align_corners=False)
+        normed = (x01 - self.mean) / self.std
+        x_det = x01[::stride] if stride > 1 else x01
+        det_hw = self.detector_dims()
+        if det_hw != self.eval_dims:
+            x_det = resize_bilinear(x_det, *det_hw, align_corners=False)
+        det = self._detections(x_det)
+        feats, xywh, valid = self._objects(det, det_hw)
+        depth = self.model(normed, feats, xywh, valid)["depth_pred"]
+        self.last_det_meta = {"n_candidates": det["n_candidates"], "pre_topk": det["pre_topk"]}
+        self._pending_sat = (det["n_candidates"], det["pre_topk"])
+        return depth
+
+
+def build_fused_flagship(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0, device=None,
+                         num_classes: int = 1203, class_names=None,
+                         language_strategy: str = "synset_def_wn", clip_model=None,
+                         bpe_path: str | None = None, **pipeline_kwargs) -> FusedDepthPipeline:
+    """The fused server at the flagship's width: GraphBins-B5 (BN folded),
+    YOLOv7-seg with ``num_classes`` classes (BN folded, RepConvs merged) and
+    the class table from the CLIP text tower (``clip_model``, or the
+    full-width tower with random weights), all with random weights from
+    ``seed`` through explicit generators; class names ``class_i`` by
+    default. ``pipeline_kwargs`` go to ``FusedDepthPipeline`` (conf_thres,
+    iou_thres, det_topk, pre_topk, class_max_head, det_stride, det_scale,
+    n_obj_max). Importing released YOLOv7-seg and CLIP weights into the port
+    is not done yet (ROADMAP A.4)."""
+    from objcavit_torch.language.embedding import build_class_table, make_embedder
+    from objcavit_torch.utils.benchkit import build_detector, build_flagship_model
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    model = build_flagship_model(dtype=dtype, seed=seed, device=device)
+    detector = build_detector(num_classes, dtype=dtype, seed=seed + 1, device=device)
+    if class_names is None:
+        class_names = [f"class_{i}" for i in range(num_classes)]
+    embedder = make_embedder("clip", clip_model, bpe_path, device=device, seed=seed + 2)
+    table = build_class_table(class_names, language_strategy, embedder)
+    return FusedDepthPipeline(model, detector, table, eval_dims=eval_dims, **pipeline_kwargs)

@@ -74,6 +74,72 @@ def build_flagship_model(dtype=torch.bfloat16, seed: int = 0, device=None,
     return model.to(device, memory_format=torch.channels_last)
 
 
+@torch.no_grad()
+def calibrate_batchnorm_(model: nn.Module, images: torch.Tensor, **forward_kwargs) -> nn.Module:
+    """Set every BN's running statistics from its own input in one
+    eval-mode forward of ``images``: the per-channel mean, and the variance
+    averaged over the layer's channels. A pre-hook sets them just before
+    the BN runs, so each BN normalises what the eval-mode layers before it
+    really give. Returns the model in eval mode. Random conv weights shrink
+    the activations layer by layer; calibrated, each layer's output has
+    unit variance on average, as a trained network's roughly has, so a
+    random detector's logits spread like real ones. A per-channel variance
+    would blow up channels that are near-constant on the calibration frames
+    (by up to 1/sqrt(eps) ~ 30x a layer), and through ~100 layers turn bf16
+    rounding into O(1) errors."""
+
+    def set_stats(bn, args):
+        x = args[0].float()
+        bn.running_mean.copy_(x.mean((0, 2, 3)))
+        bn.running_var.fill_(float(x.var((0, 2, 3), unbiased=False).mean()))
+
+    handles = [m.register_forward_pre_hook(set_stats) for m in model.modules()
+               if isinstance(m, nn.BatchNorm2d)]
+    try:
+        model.eval()(images, **forward_kwargs)
+    finally:
+        for h in handles:
+            h.remove()
+    return model
+
+
+# BN affines of the random detector: pre-activations ~N(1, 0.25) keep SiLU
+# near its linear range, so perturbations do not grow layer by layer. At
+# the default (1, 0) the random network is chaotic: on the CPU its bf16 and
+# fp32 heads differ by rel L2 0.35-0.50, at (0.5, 1.0) by 0.013-0.016.
+DETECTOR_BN_AFFINE = (0.5, 1.0)
+
+
+def build_detector(num_classes: int = 1203, dtype=torch.bfloat16, seed: int = 1, device=None,
+                   calibrate_shape: tuple[int, int, int] = (4, 256, 320)):
+    """Random-weight YOLOv7-seg for the fused server, eval mode, BN folded
+    and RepConvs merged, cast to ``dtype`` (detect convs fp32), channels_last
+    on ``device``. Weights come from ``seed``: the body's convs as
+    ``init_weights_``, the detect convs N(0, 1/Cin) with zero biases (the
+    JAX package's lecun-normal and zeros), every BN's affine
+    ``DETECTOR_BN_AFFINE``; the BN statistics are calibrated on uniform
+    random frames of ``calibrate_shape`` (B, H, W)."""
+    from objcavit_torch.models.yolov7 import Yolov7Seg
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    gen = torch.Generator().manual_seed(seed)
+    model = init_weights_(Yolov7Seg(num_classes=num_classes), gen)
+    with torch.no_grad():
+        for d in model.detects():
+            d.weight.normal_(0.0, d.weight.shape[1] ** -0.5, generator=gen)
+            d.bias.zero_()
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(DETECTOR_BN_AFFINE[0])
+                m.bias.fill_(DETECTOR_BN_AFFINE[1])
+    model.to(device, memory_format=torch.channels_last)
+    frames = torch.rand((*calibrate_shape, 3), generator=gen).to(device)
+    calibrate_batchnorm_(model, frames, with_proto=True)
+    fold_batchnorm(model)
+    return model.cast(dtype).to(memory_format=torch.channels_last)
+
+
 def build_flagship(batch: int, h: int = 480, w: int = 640, n_obj: int = 300,
                    seed: int = 0, dtype=torch.bfloat16, device=None):
     """Flagship model plus one batch of inputs made with numpy from ``seed``.

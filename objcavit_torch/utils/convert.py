@@ -15,6 +15,11 @@ port's layout, key by key beside ``param.grad``.
 Layouts: conv HWIO -> OIHW (depthwise (kh, kw, 1, C) -> (C, 1, kh, kw));
 linear (in, out) -> (out, in); attention in_proj (E, 3E) -> (3E, E);
 BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
+
+The YOLOv7-seg detector and the CLIP text tower name their modules after
+the JAX package's, so ``yolov7_state_dict_from_variables`` and
+``clip_text_state_dict_from_params`` are the same walk over the tree
+(``flax_state_dict``).
 """
 
 from __future__ import annotations
@@ -129,6 +134,46 @@ def _objcavit(r: _Reader, fpath: str, tkey: str) -> None:
     r.conv(f"{fpath}/conv3x3", f"{tkey}.conv3x3")
     for i, idx in enumerate((0, 2, 4)):
         r.linear(f"{fpath}/regressor/fc{i}", f"{tkey}.regressor.{idx}")
+
+
+def flax_state_dict(params, stats=None, prefix: str = "") -> dict[str, np.ndarray]:
+    """A flax tree whose module names are the port's attribute names ->
+    state dict: '/' becomes '.', a conv ``kernel`` HWIO becomes ``weight``
+    OIHW, a dense ``kernel`` (in, out) becomes ``weight`` (out, in),
+    ``scale`` and ``embedding`` become ``weight``, and a BatchNorm's stats
+    (``mean``, ``var``) become ``running_mean``, ``running_var`` (with
+    ``num_batches_tracked``); other leaves keep their names."""
+    sd: dict[str, np.ndarray] = {}
+    for k, v in params.items():
+        if hasattr(v, "keys"):
+            sub = stats.get(k) if stats is not None and k in stats else None
+            sd.update(flax_state_dict(v, sub, f"{prefix}{k}."))
+            continue
+        a = np.asarray(v)
+        if k == "kernel":
+            k, a = "weight", a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        elif k in ("scale", "embedding"):
+            k = "weight"
+        sd[f"{prefix}{k}"] = np.array(a, order="C")
+    if stats is not None and "mean" in stats:
+        sd[f"{prefix}running_mean"] = np.array(stats["mean"])
+        sd[f"{prefix}running_var"] = np.array(stats["var"])
+        sd[f"{prefix}num_batches_tracked"] = np.zeros((), np.int64)
+    return sd
+
+
+def yolov7_state_dict_from_variables(variables) -> dict[str, np.ndarray]:
+    """JAX ``Yolov7Seg`` variables, unfolded (``{'params', 'batch_stats'}``)
+    or folded (``{'params'}``), -> the port's ``Yolov7Seg`` state dict. The
+    detect kernels (1, 1, Cin, 3 no) become ``detect{i}.weight`` (3 no, Cin,
+    1, 1)."""
+    return flax_state_dict(variables["params"], variables.get("batch_stats"))
+
+
+def clip_text_state_dict_from_params(params) -> dict[str, np.ndarray]:
+    """JAX ``CLIPTextEncoder`` params -> the port's ``CLIPTextEncoder`` state
+    dict (``positional_embedding`` and ``text_projection`` as they are)."""
+    return flax_state_dict(params)
 
 
 def state_dict_from_variables(

@@ -12,7 +12,9 @@ the folded model matches the unfolded one to fp32 rounding; cast to bf16
 afterwards.
 
 A module lists its (conv, BN) attribute pairs in ``bn_folds``; dotted names
-reach into a Sequential (the decoder's ``_net.0`` / ``_net.1``).
+reach into a Sequential (the decoder's ``_net.0`` / ``_net.1``). A module
+with a ``merge_branches_`` method (YOLOv7's ``RepConv``) folds itself: its
+BN'd branches become one biased conv.
 """
 
 from __future__ import annotations
@@ -51,8 +53,12 @@ def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> None:
 
 
 def fold_batchnorm(model: nn.Module) -> nn.Module:
-    """Fold every BN listed in a module's ``bn_folds``; returns ``model``."""
+    """Fold every BN listed in a module's ``bn_folds`` and merge every
+    module's branches that ``merge_branches_`` merges; returns ``model``."""
     for module in list(model.modules()):
+        merge = getattr(module, "merge_branches_", None)
+        if merge is not None:
+            merge()
         for conv_name, bn_name in getattr(module, "bn_folds", ()):
             bn = module.get_submodule(bn_name)
             if isinstance(bn, nn.Identity):  # folded already

@@ -17,6 +17,11 @@ backward (the depth's gradient, dlogits, dcenters), and
 ``bins_expectation_plain_outputs`` runs kernel 4's plain forward and
 backward on a record's inputs.
 
+Detection: ``record_detect_head_io`` records each call of kernel 6 from the
+detector's class-max head (the level's features, its packed weights and the
+four outputs), and ``detect_head_errors`` holds a call's outputs against the
+plain version on the same tensors, with a tie-aware check of the argmax.
+
 The hooks only read tensors; the step runs as it would without them.
 """
 
@@ -26,6 +31,8 @@ import contextlib
 
 import torch
 
+import objcavit_torch.kernels.detect_head as kdetect
+import objcavit_torch.models.yolov7 as yolov7
 import objcavit_torch.ops.bins as ops_bins
 from objcavit_torch.kernels.bins import conv_bins_depth_batched_plain
 from objcavit_torch.kernels.bins_expectation import (
@@ -132,3 +139,68 @@ def bins_expectation_plain_outputs(record: dict) -> dict:
     dlogits, dcenters = bins_expectation_bwd_plain(record["logits"], record["centers"], record["g"])
     return {"depth": (record["depth"], depth), "dlogits": (record["dlogits"], dlogits),
             "dcenters": (record["dcenters"], dcenters)}
+
+
+@contextlib.contextmanager
+def record_detect_head_io():
+    """Yield a list that gets one dict per call of kernel 6 from the
+    detector (``models/yolov7.py`` calls it through its module attribute
+    ``fused_detect_head``, which this wraps for the duration): 'flat',
+    'packed' and 'out' (y5, coef, cls_max, cls_arg)."""
+    original = yolov7.fused_detect_head
+    records: list[dict] = []
+
+    def recording(flat, packed):
+        out = original(flat, packed)
+        records.append({"flat": flat, "packed": packed, "out": out})
+        return out
+
+    yolov7.fused_detect_head = recording
+    try:
+        yield records
+    finally:
+        yolov7.fused_detect_head = original
+
+
+@torch.inference_mode()
+def detect_head_errors(flat, packed, out, rtol: float, atol: float) -> dict:
+    """Kernel 6's outputs ``out`` against the plain version on ``flat`` and
+    ``packed``. Each value may differ by its rounding, ``atol + rtol
+    |plain|``, plus the fp32 accumulation bound of a Cin-term sum in another
+    order, Cin 2^-23 sum_i |x_i w_i| (two unit roundoffs per add, allowing
+    the tensor cores' adds): on a detector's features, whose products reach
+    tens, that bound exceeds ``atol`` for values near zero. y5, coef and
+    cls_max must lie within that band; cls_arg must equal the plain argmax
+    wherever the row's two largest rounded logits differ by more than the
+    band ('near_ties' counts the rows where they do not), and elsewhere the
+    plain logit at the kernel's index must lie within the band of the plain
+    max. Returns the max abs errors and the count of elements out of
+    tolerance ('bad')."""
+    y5, coef, cls_max, cls_arg = out
+    b, s, cin = flat.shape
+    nc, nm, na = packed.num_classes, packed.nm, kdetect.N_ANCHORS
+    unit = cin * 2.0 ** -23
+    x_abs = flat.reshape(b * s, cin).float().abs()
+    other_slack = unit * (x_abs @ packed.w5c.float().abs().T)  # (M, 128)
+    slack = {"y5": other_slack[:, :na * 5].reshape(y5.shape),
+             "coef": other_slack[:, na * 5:na * (5 + nm)].reshape(coef.shape),
+             "cls_max": unit * torch.stack([(x_abs @ packed.wcls[a, :nc].float().abs().T).amax(-1)
+                                            for a in range(na)], -1).reshape(cls_max.shape)}
+    want_y5, want_coef, _, _ = kdetect.fused_detect_head_plain(flat, packed)
+    logits = kdetect.class_logits_plain(flat, packed)
+    top2 = logits.topk(2, dim=-1).values
+    want_max = top2[..., 0]
+    band = atol + rtol * want_max.abs() + slack["cls_max"]
+    clear = (top2[..., 0] - top2[..., 1]) > band
+    at_arg = logits.gather(-1, cls_arg.long().clamp(0, nc - 1)[..., None])[..., 0]
+    errs, bad = {}, 0
+    for name, got, want in (("y5", y5, want_y5), ("coef", coef, want_coef),
+                            ("cls_max", cls_max, want_max)):
+        err = (got.float() - want.float()).abs()
+        bound = atol + rtol * want.float().abs() + slack[name]
+        bad += int((err > bound).sum()) + int((~torch.isfinite(got)).sum())
+        errs[name] = float(err.max())
+    bad += int((clear & (cls_arg.long() != logits.argmax(-1))).sum())
+    bad += int(((want_max - at_arg).abs() > band).sum())
+    bad += int(((cls_arg < 0) | (cls_arg >= nc)).sum())
+    return {**errs, "near_ties": int((~clear).sum()), "rows": clear.numel(), "bad": bad}

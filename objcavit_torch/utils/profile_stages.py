@@ -2,6 +2,7 @@
 
     python -m objcavit_torch.utils.profile_stages          # the server
     python -m objcavit_torch.utils.profile_stages --train  # the train step
+    python -m objcavit_torch.utils.profile_stages --fused  # the fused server
 
 Server: three measurements of ``build_flagship_pipeline()`` (GraphBins-B5, bf16, BN
 folded, 480x640, 300 slots, random weights, sentinel objects):
@@ -23,6 +24,16 @@ Train step (``--train``): ``build_flagship_train()`` (GraphBins-B5, bs 8,
 events (augmentation, forward, loss, backward, clip + AdamW + schedule),
 median of 5 steps after 3 warm-ups, and one trace of 3 steps read as the
 server's is, with its peak memory.
+
+Fused server (``--fused``): ``build_fused_flagship()`` (GraphBins-B5 and
+YOLOv7-seg bf16, BN folded, 1203 classes, random weights) at NYU 480x640
+(300 slots) and KITTI 352x1216 (418 slots), bs 8, on each head route, the
+class-max kernel (kernel 6) and the dense head: the stage split by CUDA
+events (preprocess, detector backbone and neck, detect head, decode and
+NMS, table gather and sentinel, GraphBins), median of 20 requests after 5
+warm-ups; one trace of 5 requests at NYU, read as the server's is; served
+img/s over 20 requests and latency p50/p90 of 21 synchronised requests,
+with peak memory, twice per route in turns.
 
 Each line names the card (``nvidia-smi``) at the start and at the end.
 """
@@ -48,6 +59,8 @@ SMI = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
        "--format=csv,noheader"]
 STAGES = ("preprocess", "encoder", "decoder", "objcavit", "bins_head")
 TRAIN_STAGES = ("augment", "forward", "loss", "backward", "optimizer")
+FUSED_STAGES = ("preprocess", "backbone_neck", "detect_head", "decode_nms", "gather_sentinel",
+                "graphbins")
 
 
 def smi() -> str:
@@ -128,9 +141,109 @@ def train_stage_split(step, batch, objects, iters: int = 8, warmup: int = 3) -> 
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+def fused_stage_split(pipe, frames, iters: int = 25, warmup: int = 5) -> dict:
+    """Median ms of each stage of one ``FusedDepthPipeline`` request, by CUDA
+    events from forward hooks on the detector's body, the detector and
+    GraphBins, and from a wrapper around the pipeline's ``_detections``."""
+    events: dict[str, torch.cuda.Event] = {}
+
+    def mark(name):
+        def hook(*_):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+        return hook
+
+    det, model = pipe.detector, pipe.model
+    handles = [det.body.register_forward_pre_hook(mark("body_in")),
+               det.body.register_forward_hook(mark("body_out")),
+               det.register_forward_hook(mark("head_out")),
+               model.register_forward_pre_hook(mark("model_in")),
+               model.register_forward_hook(mark("model_out"))]
+    detections = pipe._detections
+
+    def timed_detections(x):
+        out = detections(x)
+        mark("nms_out")()
+        return out
+
+    pipe._detections = timed_detections
+    bounds = ["start", "body_in", "body_out", "head_out", "nms_out", "model_in", "model_out"]
+    times = collections.defaultdict(list)
+    try:
+        for it in range(iters):
+            mark("start")()
+            pipe(frames)
+            mark("end")()
+            torch.cuda.synchronize()
+            if it < warmup:
+                continue
+            for stage, a, b in zip(FUSED_STAGES, bounds, bounds[1:]):
+                times[stage].append(events[a].elapsed_time(events[b]))
+            times["total"].append(events["start"].elapsed_time(events["end"]))
+    finally:
+        del pipe._detections
+        for h in handles:
+            h.remove()
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def served_rate(pipe, frames: list, n_req: int = 20, n_lat: int = 21) -> dict:
+    """img/s over ``n_req`` requests one after another, latency p50/p90 of
+    ``n_lat`` synchronised requests, and the peak memory of both."""
+    for f in frames:
+        pipe(f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(n_req):
+        pipe(frames[i % len(frames)])
+    torch.cuda.synchronize()
+    rate = n_req * frames[0].shape[0] / (time.perf_counter() - t0)
+    lat = []
+    for i in range(n_lat):
+        t1 = time.perf_counter()
+        pipe(frames[i % len(frames)])
+        torch.cuda.synchronize()
+        lat.append(1000 * (time.perf_counter() - t1))
+    return {"img_per_s": rate, "p50_ms": statistics.median(lat),
+            "p90_ms": sorted(lat)[int(0.9 * (n_lat - 1))],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def profile_fused() -> None:
+    """Both head routes at NYU 480x640 (18,900 anchors, 300 slots) and KITTI
+    352x1216 (26,334 anchors, 418 slots), bs 8: the stage split of each,
+    one trace on each route at NYU, and the served rate timed in turns
+    (kernel, dense, dense, kernel) so that the host's drift hits both."""
+    from objcavit_torch.serving import FusedDepthPipeline, build_fused_flagship
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nyu = build_fused_flagship()
+    rng = np.random.default_rng(0)
+    for dims in ((480, 640), (352, 1216)):
+        pipe = nyu if dims == nyu.eval_dims else FusedDepthPipeline(
+            nyu.model, nyu.detector, nyu.class_table, eval_dims=dims)
+        frames = [rng.integers(0, 256, (8, *dims, 3), dtype=np.uint8) for _ in range(2)]
+        rates = collections.defaultdict(list)
+        for head in (True, False, False, True):
+            pipe.class_max_head = head
+            route = "class-max kernel" if head else "dense head"
+            if len(rates[route]) == 0:
+                print(f"fused {dims} stage_ms_median ({route})",
+                      json.dumps(fused_stage_split(pipe, frames[0])), flush=True)
+                if dims == nyu.eval_dims:
+                    t = trace(lambda: pipe(frames[0]))
+                    print(t.pop("top"), flush=True)
+                    print(f"fused {dims} trace ({route})", json.dumps(t), flush=True)
+            rates[route].append(served_rate(pipe, frames))
+            print(f"fused {dims} served ({route})", json.dumps(rates[route][-1]), flush=True)
+
+
 def kernel_kind(name: str) -> str:
     n = name.lower()
-    for needle, kind in (("bins_expectation", "kernel 4 (bins expectation)"),
+    for needle, kind in (("detect_head", "kernel 6 (detect head)"),
+                         ("bins_expectation", "kernel 4 (bins expectation)"),
                          ("conv_bins_depth", "kernel 2 (bins)"),
                          ("resize_bilinear", "kernel 1 (resize)"), ("memcpy", "memcpy")):
         if needle in n:
@@ -233,12 +346,13 @@ def profile_train() -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--train", action="store_true", help="profile the train step")
+    parser.add_argument("--fused", action="store_true", help="profile the fused server")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_stages: needs a CUDA card")
     print(smi(), flush=True)
-    if args.train:
-        profile_train()
+    if args.train or args.fused:
+        profile_train() if args.train else profile_fused()
         print(smi(), flush=True)
         return
     pipe = build_flagship_pipeline()

@@ -6,24 +6,34 @@ Run on the card, from the repository root:
 
 (``--noconftest``: the suite's conftest sets up JAX, which the port does not
 need.) Each kernel is held against its plain PyTorch version on the same
-card, with the tolerances chip_smoke.py states.
+card, with the tolerances chip_smoke.py states. The last test is not a card
+test: it runs on the CPU, in a subprocess, in the Tier-1 command.
 """
 
+import os
+import subprocess
+import sys
+
+import numpy as np
 import pytest
 import torch
 
 from objcavit_torch.kernels import bins as kbins
 from objcavit_torch.kernels import bins_expectation as kexp
+from objcavit_torch.kernels import detect_head as kdetect
 from objcavit_torch.kernels import resize as kresize
-from objcavit_torch.utils.benchkit import build_flagship_model, build_flagship_train
+from objcavit_torch.serving import FusedDepthPipeline
+from objcavit_torch.utils.benchkit import build_detector, build_flagship_model, build_flagship_train
 from objcavit_torch.utils.kernel_io import (
     bins_expectation_plain_outputs,
+    detect_head_errors,
     plain_outputs,
     record_bins_expectation_io,
+    record_detect_head_io,
     record_kernel_io,
 )
 
-pytestmark = pytest.mark.gpu
+gpu = pytest.mark.gpu
 
 RESIZE_RTOL, RESIZE_ATOL = 2.0 ** -7, 1e-5  # one bf16 ulp; see chip_smoke.py
 BINS_RTOL, BINS_ATOL = 1e-5, 1e-5
@@ -31,6 +41,7 @@ BINS_RTOL, BINS_ATOL = 1e-5, 1e-5
 EXP_RTOL, EXP_ATOL = 1e-5, 1e-5
 DLOGITS_RTOL, DLOGITS_ATOL_PER_G = 2.0 ** -7, 1e-4
 DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX = 1e-4, 1e-5
+DETECT_RTOL, DETECT_ATOL = 2.0 ** -7, 1e-5  # kernel 6: one bf16 ulp; see chip_smoke.py
 
 
 @pytest.fixture
@@ -50,6 +61,7 @@ def _assert_close(got, want, rtol, atol):
     assert not bad.any(), float((got - want).abs().max())
 
 
+@gpu
 @pytest.mark.parametrize(
     "shape",
     [
@@ -70,6 +82,7 @@ def test_resize_kernel_matches_plain(cuda, shape):
                   RESIZE_RTOL, RESIZE_ATOL)
 
 
+@gpu
 @pytest.mark.parametrize("shared_weight", [False, True], ids=["per-image-W", "shared-W"])
 @pytest.mark.parametrize(
     "shape",
@@ -89,6 +102,7 @@ def test_bins_kernel_matches_plain(cuda, shape, shared_weight):
                   BINS_RTOL, BINS_ATOL)
 
 
+@gpu
 def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         kresize.resize_bilinear_align_corners(torch.zeros(1, 4, 4, 8, device="cuda"), 8, 8)
@@ -103,6 +117,7 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         )
 
 
+@gpu
 def test_launch_counters_count_each_launch(cuda):
     x = torch.zeros(1, 2, 2, 16, dtype=torch.bfloat16, device="cuda")
     r0, b0 = kresize.resize_bilinear_align_corners.launches, kbins.conv_bins_depth_batched.launches
@@ -116,6 +131,7 @@ def test_launch_counters_count_each_launch(cuda):
     assert kbins.conv_bins_depth_batched.launches == b0 + 1
 
 
+@gpu
 def test_tiny_graphbins_runs_through_both_kernels(cuda):
     """bf16 on the card: 4 resize launches and 1 bins launch per forward,
     each kernel's output matching its plain version on the tensors the
@@ -148,6 +164,7 @@ def test_tiny_graphbins_runs_through_both_kernels(cuda):
     assert float((feat - feat_ref).norm() / feat_ref.norm()) < 0.02
 
 
+@gpu
 def test_kernel3_matches_plain_and_counts_its_launches(cuda):
     """Kernel 3 (one shared W) at the unfactored head's shape."""
     x = torch.randn((8, 240, 320, 128), generator=cuda, device="cuda").to(torch.bfloat16)
@@ -165,6 +182,7 @@ def _assert_backward_close(dl, dc, want_dl, want_dc, g):
     _assert_close(dc, want_dc, DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX * float(want_dc.abs().max()))
 
 
+@gpu
 @pytest.mark.parametrize("shape", [(8, 208 * 272, 256), (2, 5, 256), (3, 1000, 256), (1, 1, 256)],
                          ids=["train", "tiny", "ragged", "one-row"])
 def test_kernel4_forward_and_backward_match_plain(cuda, shape):
@@ -181,6 +199,7 @@ def test_kernel4_forward_and_backward_match_plain(cuda, shape):
     _assert_backward_close(dl, dc, *kexp.bins_expectation_bwd_plain(logits, centers, g), g)
 
 
+@gpu
 def test_kernel4_autograd_function_matches_autograd_of_plain(cuda):
     logits = (2.0 * torch.randn((2, 6, 7, 256), generator=cuda, device="cuda")).to(torch.bfloat16)
     centers = torch.sort(10 * torch.rand((2, 256), generator=cuda, device="cuda"), dim=1).values
@@ -192,6 +211,7 @@ def test_kernel4_autograd_function_matches_autograd_of_plain(cuda):
     _assert_backward_close(lk.grad, ck.grad, lp.grad, cp.grad, g)
 
 
+@gpu
 def test_kernel4_wrappers_raise_instead_of_falling_back(cuda):
     centers = torch.zeros(1, 256, device="cuda")
     with pytest.raises(ValueError, match="bf16 logits"):
@@ -210,6 +230,7 @@ def test_kernel4_wrappers_raise_instead_of_falling_back(cuda):
             torch.zeros(256, device="cuda"), centers)
 
 
+@gpu
 def test_tiny_train_step_runs_through_kernel4_only(cuda):
     """Two bf16 train steps of the tiny model on the card: one kernel-4
     forward and one backward launch a step, no launch of kernels 1-3, finite
@@ -229,3 +250,90 @@ def test_tiny_train_step_runs_through_kernel4_only(cuda):
     _assert_close(*pairs["depth"], EXP_RTOL, EXP_ATOL)
     (dl, want_dl), (dc, want_dc) = pairs["dlogits"], pairs["dcenters"]
     _assert_backward_close(dl, dc, want_dl, want_dc, records[0]["g"])
+
+
+def _detect_case(gen, b, s, cin, nc, nm=32):
+    no = 5 + nc + nm
+    flat = torch.randn((b, s, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((3 * no, cin), generator=gen, device="cuda") / cin ** 0.5
+    bias = 0.1 * torch.randn(3 * no, generator=gen, device="cuda")
+    return flat, kdetect.pack_detect_head(w, bias, nc, nm, torch.bfloat16)
+
+
+@gpu
+@pytest.mark.parametrize("shape", [(8, 4800, 256, 1203), (2, 37, 64, 1203), (1, 1, 128, 130),
+                                   (3, 300, 1024, 80), (4, 1000, 512, 1203)],
+                         ids=["nyu-level0", "ragged", "one-row", "coco-classes", "block-rows-64"])
+def test_kernel6_matches_plain(cuda, shape):
+    """One bf16 ulp on y5, coef and the max; the argmax equal off near-ties
+    and within the band of the max on them (kernel_io.detect_head_errors)."""
+    b, s, cin, nc = shape
+    flat, packed = _detect_case(cuda, b, s, cin, nc)
+    before = kdetect.fused_detect_head.launches
+    out = kdetect.fused_detect_head(flat, packed)
+    torch.cuda.synchronize()
+    assert kdetect.fused_detect_head.launches == before + 1
+    assert [tuple(t.shape) for t in out] == [(b, s, 3, 5), (b, s, 3, 32), (b, s, 3), (b, s, 3)]
+    errs = detect_head_errors(flat, packed, out, DETECT_RTOL, DETECT_ATOL)
+    assert errs["bad"] == 0, errs
+
+
+@gpu
+def test_kernel6_wrapper_raises_instead_of_falling_back(cuda):
+    flat, packed = _detect_case(cuda, 1, 4, 64, 10)
+    with pytest.raises(ValueError, match="bf16"):
+        kdetect.fused_detect_head(flat.float(), packed)
+    with pytest.raises(ValueError, match="Cin % 64"):
+        kdetect.fused_detect_head(flat[..., :48].contiguous(), packed)
+    with pytest.raises(ValueError, match="contiguous"):
+        kdetect.fused_detect_head(flat.expand(2, 4, 64).transpose(0, 1), packed)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kdetect.fused_detect_head(flat.float().requires_grad_().to(torch.bfloat16), packed)
+
+
+@gpu
+def test_tiny_fused_server_runs_through_kernel6(cuda):
+    """The fused server on the card with the tiny GraphBins and a 4-class
+    bf16 detector, class-max head: 3 kernel-6 launches a request (plus the
+    GraphBins kernels), each matching the plain version on its own tensors;
+    the automatic gate takes the dense head at 384x352."""
+    model = build_flagship_model(device="cuda", encoder_name="efficientnet-tiny")
+    detector = build_detector(4, seed=1, device="cuda", calibrate_shape=(2, 128, 160))
+    table = np.random.default_rng(0).standard_normal((5, 512)).astype(np.float32)
+    frames = np.random.default_rng(1).integers(0, 256, (2, 384, 352, 3), dtype=np.uint8)
+    pipe = FusedDepthPipeline(model, detector, table, eval_dims=(384, 352), class_max_head=True)
+    before = kdetect.fused_detect_head.launches
+    with record_detect_head_io() as records:
+        depth = pipe(frames)
+    torch.cuda.synchronize()
+    assert kdetect.fused_detect_head.launches == before + 3 and len(records) == 3
+    assert depth.shape == (2, 192, 176, 1) and torch.isfinite(depth).all()
+    for rec in records:
+        assert detect_head_errors(rec["flat"], rec["packed"], rec["out"], DETECT_RTOL,
+                                  DETECT_ATOL)["bad"] == 0
+    pipe.class_max_head = None
+    pipe(frames)
+    torch.cuda.synchronize()
+    assert kdetect.fused_detect_head.launches == before + 3
+
+
+def test_class_table_through_the_port_imports_no_jax():
+    """Building the class table reuses the JAX package's numpy tokenizer and
+    strategy, imported inside the functions: neither pulls in jax or flax."""
+    code = (
+        "import sys, torch\n"
+        "from objcavit_torch.language.embedding import ClipEmbedder, build_class_table\n"
+        "from objcavit_torch.models.clip_text import CLIPTextEncoder\n"
+        "clip = CLIPTextEncoder(width=64, heads=4, layers=1).init_weights_(torch.Generator().manual_seed(0))\n"
+        "table = build_class_table(['class_0', 'class_1'], 'synset_def_wn',\n"
+        "                          ClipEmbedder(clip, batch=4, device='cpu'))\n"
+        "assert table.shape == (3, 512), table.shape\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')]\n"
+        "assert not bad, bad\n"
+        "assert 'objcavit_tpu.language.tokenizer' in sys.modules\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr
