@@ -14,7 +14,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    shapes, kernel 3 (the bins head with one shared weight) at
    (8, 240, 320, 128), kernel 4 (bins expectation) forward and backward at
    the train step's (8, 56576, 256), kernel 6 (the detect head) at the three
-   NYU 480x640 levels and KITTI 352x1216's level 0, batch 8;
+   NYU 480x640 levels and KITTI 352x1216's level 0, batch 8, kernel 5
+   (attention) forward and backward at (8, 300, 4, 32) with the served
+   masks, at S = 221 and 1200, at Sq != Sk and on fully masked rows. Each
+   kernel's bound (the larger of its bytes over 3.35 TB/s and its
+   operations over the card's peak for their type) is computed from its
+   shapes, and where one PyTorch call computes the same function it is
+   timed beside it (``library_ms``, used nowhere in the port). Kernel 5's
+   calls take tens of microseconds, so theirs are timed as CUDA-graph
+   replays, the card alone (and as eager calls, in the log):
+   ``F.interpolate`` for kernel 1, the dense head's GEMM for kernel 6,
+   ``F.scaled_dot_product_attention`` for kernel 5;
 4. slice: the flagship server (GraphBins-B5, bf16, BN folded, 480x640, 300
    object slots, random weights from seed 0) answers requests of 8 uint8
    frames, with detector-style object slots and with the no-detection
@@ -27,6 +37,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 5. unfactored head: ``ops.bins.bins_head_depth`` at inference, bf16, on
    (8, 240, 320, 128) range maps, the route of kernel 3 (no model of this
    slice takes it: GraphBins's head is the factored one);
+5a. attention-kernel server: the flagship server with ``attn_impl="kernel"``
+   answers 4 requests of 8 frames at 480x640: 10 kernel-5 launches, 4
+   resize and 1 bins launch per forward; each kernel's output in those
+   forwards must match its plain version on its own tensors; ObjCAViT's
+   outputs must stay close to an fp32 run of the same weights (the plain
+   route). Then the served rate and ObjCAViT's stage time on each route;
 6. fused: the fused server (``build_fused_flagship``: GraphBins-B5 and
    YOLOv7-seg, bf16, BN folded, 1203 classes, the class table from the
    full-width CLIP text tower, random weights, 480x640, 300 slots) answers
@@ -50,6 +66,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    gradients on the bf16 kernel route must stay close to an fp32 step of the
    same weights and batch (plain versions, no kernel) on a small input.
    Then ms/step, img/s, peak memory and the stage split.
+7a. attention-kernel train step: the same step with ``attn_impl="kernel"``,
+   a warm-up step and 3 counted steps: 10 kernel-5 forward and 9 backward
+   launches (nothing reads the cross-attention's object branch), and one
+   kernel-4 forward and backward, per step; kernel 5's
+   forward and backward and kernel 4's outputs in one recorded step must
+   match their plain versions on its tensors; the bf16 gradients must stay
+   close to an fp32 plain-route step's;
+8. AdaBins-B5 (``params/nyu_adabins_enet-b5.yaml``: 256 bins, 0.001-10 m)
+   on kernel 5's route: the server (bf16, BN folded, 480x640) answers 4
+   requests of 8 frames with 4 kernel-5, 4 resize and 1 bins launch per
+   forward, each output matching its plain version, depth finite and in
+   range; then one train step at bs 8, 416x544 with 4 + 4 kernel-5
+   launches and one kernel-4 forward and backward, each kernel-5 output
+   matching its plain version.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -57,6 +87,7 @@ The last two lines are a JSON summary of the kernels and
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -66,6 +97,9 @@ import time
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
+from objcavit_torch.kernels import attention as kattn
 from objcavit_torch.kernels import bins as kbins
 from objcavit_torch.kernels import bins_expectation as kexp
 from objcavit_torch.kernels import build
@@ -77,21 +111,34 @@ from objcavit_torch.ops.bins import bins_head_depth
 from objcavit_torch.serving import (
     DepthPipeline,
     FusedDepthPipeline,
+    build_adabins_pipeline,
     build_flagship_pipeline,
     build_fused_flagship,
     image_seq_len,
 )
 from objcavit_torch.training.steps import make_train_loss_fn
-from objcavit_torch.utils.benchkit import TRAIN_LOSSES, build_detector, build_flagship_train
+from objcavit_torch.utils.benchkit import (
+    TRAIN_LOSSES,
+    build_adabins_train,
+    build_detector,
+    build_flagship_train,
+)
 from objcavit_torch.utils.kernel_io import (
+    attention_plain_outputs,
     bins_expectation_plain_outputs,
     detect_head_errors,
     plain_outputs,
+    record_attention_io,
     record_bins_expectation_io,
     record_detect_head_io,
     record_kernel_io,
 )
-from objcavit_torch.utils.profile_stages import fused_stage_split, served_rate, train_stage_split
+from objcavit_torch.utils.profile_stages import (
+    attention_route_split,
+    fused_stage_split,
+    served_rate,
+    train_stage_split,
+)
 
 BATCH = 8
 EVAL_DIMS = (480, 640)
@@ -159,11 +206,45 @@ FEATURE_REL_BOUND = 0.02
 # bound of 0.9 still fails a missing gradient (1.0) or a flipped one (2.0).
 TRAIN_GRAD_GROUPS = {
     "conv_out": (("conv_out.",), 0.05),
+    # the first image self-attention's projections, what kernel 5's backward
+    # feeds. Measured on an H100: 0.015 on kernel 5's route, 0.167 on the
+    # plain route, which rounds the weights to bf16 before the product with
+    # V (JAX's own rounding point); a missing gradient gives 1.0, a flipped
+    # one 2.0
+    "image attention 0": (("objcavit.saca_1.image_transformer_encoder.layers.0.self_attn.",),
+                          0.3),
     "regressor": (("objcavit.regressor.",), 0.1),
     "decoder.conv2": (("dense_feature_extractor.decoder.conv2.",), 0.9),
     "encoder stem": (("dense_feature_extractor.encoder.original_model.conv_stem.",
                       "dense_feature_extractor.encoder.original_model.bn1."), 0.9),
 }
+# kernel 5 vs plain: both take the fp32 products of the same bf16 values, an
+# fp32 softmax and fp32 weights (the kernel's split in two bf16 terms keeps
+# ~16 bits of each), and round to bf16 once; sums run in another order and
+# the kernel's exp is __expf, so a value next to a bf16 rounding boundary
+# may land one bf16 ulp (<= 2^-7 relative) away, and a gradient entry that
+# cancels (ds sums to zero over the keys) misses by a few fp32 ulps of the
+# tensor's largest entry: atol 1e-4 max|plain|
+ATTN_RTOL, ATTN_ATOL_PER_MAX = 2.0 ** -7, 1e-4
+ATTN_HEADS, HEAD_DIM = 4, 32
+# a flagship train step runs 10 attention forwards and 9 backwards: the
+# output of the cross-attention's object branch (cross_attn_im_obj) is
+# discarded, as in the reference, so autograd never runs its backward
+ATTN_BWD_PER_STEP = 9
+# (label, B, Sq, Sk, mask): the served self-attention at 480x640 with the
+# served objects' masks, the train step's S, the longest S JAX states
+# (do_final_upscale), Sq != Sk, and image 0 fully masked
+ATTN_CASES = [("flagship 480x640", BATCH, 300, 300, "served"),
+              ("train 416x544", BATCH, 221, 221, "served"),
+              ("S 1200", 2, 1200, 1200, "none"),
+              ("Sq != Sk", BATCH, 300, 77, "served"),
+              ("fully masked rows", BATCH, 300, 300, "full")]
+GRAPH_CALLS = 20  # kernel 5's calls in one timed CUDA graph
+SERVED_VALID = [3, 17, 40, 1, 120, 300, 64, 8]  # make_provider's valid slots per image
+# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/ms, and dense
+# operations/ms on the tensor cores in bf16 and on the CUDA cores in fp32
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+PEAK_OPS_PER_MS = {"bf16": 989e12 / 1e3, "fp32": 67e12 / 1e3}
 COUNTERS = {
     "resize": kresize.resize_bilinear_align_corners,
     "bins": kbins.conv_bins_depth_batched,
@@ -171,6 +252,8 @@ COUNTERS = {
     "bins_expectation_fwd": kexp.bins_expectation_fwd,
     "bins_expectation_bwd": kexp.bins_expectation_bwd,
     "detect_head": kdetect.fused_detect_head,
+    "attention_fwd": kattn.fused_mha_fwd,
+    "attention_bwd": kattn.fused_mha_bwd,
 }
 
 
@@ -253,13 +336,54 @@ def phase_build() -> None:
             log(f"  {line.strip()}")
 
 
+def bound(nbytes: float, ops: float, peak: str) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` over its
+    memory rate and ``ops`` over its peak rate for ``peak`` ('bf16' tensor
+    cores or 'fp32' CUDA cores)."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, ops / PEAK_OPS_PER_MS[peak]
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def add_bounds(total: dict, part: dict) -> None:
+    """Sum a part's bound into a kernel's total over several shapes (the
+    parts of one kernel share what bounds them)."""
+    total["bound_ms"] = total.get("bound_ms", 0.0) + part["bound_ms"]
+    total["bound_by"] = part["bound_by"]
+
+
+def captured(fn, calls: int) -> torch.cuda.CUDAGraph:
+    """``calls`` calls of ``fn`` captured in one CUDA graph. A replay runs
+    them back to back with no host work between, so events around it time
+    the card alone; a call of tens of microseconds, as kernel 5's, is
+    otherwise timed at the host's launch rate."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # warm-up off the capturing stream, as capture asks
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph
+
+
+def library_time(fn, iters: int = 20, rounds: int = 3) -> float:
+    """Median ms per call of one PyTorch call, the kernel's yardstick."""
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median(time_ms(fn, iters) for _ in range(rounds))
+
+
 def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
 
-    resize = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    resize = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     for hi, wi, c, ho, wo in RESIZE_SHAPES:
         x = torch.randn((BATCH, hi, wi, c), generator=g, device=dev).to(torch.bfloat16)
         kernel = lambda: kresize.resize_bilinear_align_corners(x, ho, wo)  # noqa: E731
@@ -267,11 +391,19 @@ def phase_kernels() -> dict:
         err = check_close(f"resize {(hi, wi, c)}->{(ho, wo)}", kernel(), plain(),
                           RESIZE_RTOL, RESIZE_ATOL)
         ms, plain_ms = compare_times(kernel, plain)
+        lib_ms = library_time(lambda: F.interpolate(x.permute(0, 3, 1, 2), size=(ho, wo),
+                                                    mode="bilinear", align_corners=True))
+        # bytes: the input read once, the output written once; 3 lerps of
+        # 2 fp32 operations an output element
+        part = bound(2 * BATCH * c * (hi * wi + ho * wo), 6 * BATCH * c * ho * wo, "fp32")
         log(f"kernel resize ({BATCH},{hi},{wi},{c})->({ho},{wo}): max_abs_err {err} "
-            f"(rtol 2^-7, atol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"(rtol 2^-7, atol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.interpolate {lib_ms:.4f} ms, bound {part['bound_ms']:.4f} ms")
         resize["max_abs_err"] = max(resize["max_abs_err"], err)
         resize["ms"] += ms
         resize["plain_ms"] += plain_ms
+        resize["library_ms"] += lib_ms
+        add_bounds(resize, part)
 
     b, h, w, c = BINS_SHAPE
     x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
@@ -282,22 +414,162 @@ def phase_kernels() -> dict:
     plain = lambda: kbins.conv_bins_depth_batched_plain(x, wts, bias, centers)  # noqa: E731
     err = check_close("bins", kernel(), plain(), BINS_RTOL, BINS_ATOL)
     ms, plain_ms = compare_times(kernel, plain)
+    # x, the weights, bias and centres read once, fp32 depth written once;
+    # the (B, S, C) x (C, 256) products on the tensor cores. No one PyTorch
+    # call computes conv, softmax and expectation together: library_ms null
+    pixels = b * h * w
+    bins_bound = bound(2 * pixels * c + 2 * b * c * 256 + 4 * 256 + 4 * b * 256 + 4 * pixels,
+                       2 * pixels * c * 256, "bf16")
     log(f"kernel bins {BINS_SHAPE}: max_abs_err {err} (rtol 1e-5, atol 1e-5); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    out = {"resize": resize, "bins": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}}
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bins_bound['bound_ms']:.4f} ms")
+    out = {"resize": resize, "bins": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                      "library_ms": None, **bins_bound}}
 
     shared = wts[0].contiguous()  # one (C, 256) weight for the batch
     kernel = lambda: kbins.conv_bins_depth(x, shared, bias, centers)  # noqa: E731
     plain = lambda: kbins.conv_bins_depth_plain(x, shared, bias, centers)  # noqa: E731
     err = check_close("bins shared W", kernel(), plain(), BINS_RTOL, BINS_ATOL)
     ms, plain_ms = compare_times(kernel, plain)
+    shared_bound = bound(2 * pixels * c + 2 * c * 256 + 4 * 256 + 4 * b * 256 + 4 * pixels,
+                         2 * pixels * c * 256, "bf16")
     log(f"kernel bins, shared W (kernel 3) {BINS_SHAPE}: max_abs_err {err} (rtol 1e-5, "
-        f"atol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    out["bins_shared"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        f"atol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{shared_bound['bound_ms']:.4f} ms")
+    out["bins_shared"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": None, **shared_bound}
     del x, wts
     out.update(check_bins_expectation(g, dev))
     out["detect_head"] = check_detect_head(g, dev)
+    out.update(check_attention(g, dev))
     return out
+
+
+def attention_inputs(gen: torch.Generator, b: int, sq: int, sk: int, mask_kind: str):
+    """bf16 q, k, v, g and a mask of one ``ATTN_CASES`` case. A self-attention
+    (Sq = Sk) reads q, k, v in place from one chunked in_proj output, as the
+    model does. Masks: 'served', image i's first SERVED_VALID[i] keys valid;
+    'full', image 0 fully masked and the others served; 'none'."""
+    e = ATTN_HEADS * HEAD_DIM
+    if sq == sk:
+        qkv = torch.randn((b, sq, 3 * e), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (t.reshape(b, sq, ATTN_HEADS, HEAD_DIM) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.randn((b, s, ATTN_HEADS, HEAD_DIM), generator=gen,
+                               device="cuda").to(torch.bfloat16) for s in (sq, sk, sk))
+    g = torch.randn((b, sq, ATTN_HEADS, HEAD_DIM), generator=gen, device="cuda").to(torch.bfloat16)
+    mask = None
+    if mask_kind != "none":
+        counts = torch.tensor([SERVED_VALID[i % len(SERVED_VALID)] for i in range(b)],
+                              device="cuda").clamp(max=sk)
+        mask = torch.arange(sk, device="cuda")[None] >= counts[:, None]
+        if mask_kind == "full":
+            mask[0] = True
+    return q, k, v, g, mask
+
+
+def check_attention_pairs(name: str, pairs) -> float:
+    """Kernel 5's outputs against the plain version's, at the stated
+    tolerances (atol scales with the largest plain entry)."""
+    return max(check_close(f"{name} {n}", got, want, ATTN_RTOL,
+                           ATTN_ATOL_PER_MAX * float(want.float().abs().max()))
+               for n, got, want in pairs)
+
+
+def check_attention(gen: torch.Generator, dev) -> dict:
+    """Kernel 5 forward and backward against the plain versions at every
+    ``ATTN_CASES`` case; a fully masked row must be uniform over its keys.
+    Times at the flagship's case: the forward against the plain forward and
+    SDPA with the same additive mask, the backward against the plain
+    backward formula and SDPA's backward (autograd of one SDPA call); each
+    as eager calls and replayed from CUDA graphs, whose times go into the
+    summary."""
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for label, b, sq, sk, mask_kind in ATTN_CASES:
+        q, k, v, g, mask = attention_inputs(gen, b, sq, sk, mask_kind)
+        bias = kattn.mask_bias(mask)
+        out, stats = kattn.fused_mha_fwd(q, k, v, bias)
+        grads = kattn.fused_mha_bwd(q, k, v, bias, g, stats)
+        torch.cuda.synchronize()
+        err_f = check_attention_pairs(f"attention {label}", [
+            ("out", out, kattn.mha_fused_plain(q, k, v, bias))])
+        err_b = check_attention_pairs(f"attention {label}", zip(
+            ("dq", "dk", "dv"), grads, kattn.mha_fused_bwd_plain(q, k, v, bias, g)))
+        if mask_kind == "full":
+            uniform = v[0].float().mean(0).expand(sq, ATTN_HEADS, HEAD_DIM)
+            check_close(f"attention {label}: the masked image", out[0], uniform, 2.0 ** -7, 1e-3)
+        log(f"kernel attention {label} (B {b}, Sq {sq}, Sk {sk}, H {ATTN_HEADS}, D {HEAD_DIM}, "
+            f"mask {mask_kind}): max_abs_err forward {err_f}, backward {err_b} (rtol 2^-7, "
+            f"atol 1e-4 max|plain|)")
+        errs["fwd"], errs["bwd"] = max(errs["fwd"], err_f), max(errs["bwd"], err_b)
+        del q, k, v, g, out, stats, grads
+
+    _, b, sq, sk, mask_kind = ATTN_CASES[0]
+    q, k, v, g, mask = attention_inputs(gen, b, sq, sk, mask_kind)
+    bias = kattn.mask_bias(mask)
+    _, stats = kattn.fused_mha_fwd(q, k, v, bias)
+    # SDPA takes (B, H, S, D) and the additive mask in q's dtype; never
+    # called by the port
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    sdpa_mask = bias.to(torch.bfloat16)[:, None, None, :]
+    gs = g.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=sdpa_mask)
+
+    def sdpa_fwd_bwd():
+        # autograd runs a backward on its forward's stream, so a captured
+        # backward needs its forward in the same capture
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), gs)
+
+    calls = {"fwd": lambda: kattn.fused_mha_fwd(q, k, v, bias),
+             "fwd_plain": lambda: kattn.mha_fused_plain(q, k, v, bias),
+             "bwd": lambda: kattn.fused_mha_bwd(q, k, v, bias, g, stats),
+             "bwd_plain": lambda: kattn.mha_fused_bwd_plain(q, k, v, bias, g),
+             "sdpa": sdpa, "sdpa_fwd_bwd": sdpa_fwd_bwd}
+    # eager calls, the host's launch rate included
+    eager = dict(zip(("fwd", "fwd_plain"), compare_times(calls["fwd"], calls["fwd_plain"])))
+    eager.update(zip(("bwd", "bwd_plain"), compare_times(calls["bwd"], calls["bwd_plain"])))
+    eager["sdpa"] = library_time(sdpa)
+    sdpa_out = sdpa()
+    eager["sdpa_bwd"] = library_time(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), gs,
+                                                                 retain_graph=True))
+    del sdpa_out
+    # the card alone: each function's GRAPH_CALLS calls replayed from a CUDA
+    # graph; SDPA's backward is its forward plus backward less its forward
+    graphs = {name: captured(fn, GRAPH_CALLS) for name, fn in calls.items()}
+    per_call = {}
+    for kernel, plain in (("fwd", "fwd_plain"), ("bwd", "bwd_plain")):
+        tk, tp = compare_times(graphs[kernel].replay, graphs[plain].replay, iters=3)
+        per_call[kernel], per_call[plain] = tk / GRAPH_CALLS, tp / GRAPH_CALLS
+    for name in ("sdpa", "sdpa_fwd_bwd"):
+        per_call[name] = library_time(graphs[name].replay, iters=3) / GRAPH_CALLS
+    del graphs
+    fwd_ms, fwd_plain, lib_fwd = per_call["fwd"], per_call["fwd_plain"], per_call["sdpa"]
+    bwd_ms, bwd_plain = per_call["bwd"], per_call["bwd_plain"]
+    lib_bwd = per_call["sdpa_fwd_bwd"] - per_call["sdpa"]
+    # bytes, each input read once and each output written once: the forward
+    # reads q, k, v and the bias and writes o and the residual (each row's
+    # max and log-sum, fp32); the backward reads q, k, v, the bias, g and the
+    # residual and writes dq, dk, dv (bf16 rows of H * D: q, o, g, dq are Sq
+    # rows, k, v, dk, dv Sk rows). Operations: the forward's two products,
+    # the backward's five (scores, g v^T, dv, dq, dk)
+    row = 2 * b * ATTN_HEADS * HEAD_DIM
+    residual = 2 * 4 * b * ATTN_HEADS * sq
+    prod = 2 * b * ATTN_HEADS * sq * sk * HEAD_DIM
+    fwd_bound = bound(row * (2 * sq + 2 * sk) + 4 * b * sk + residual, 2 * prod, "bf16")
+    bwd_bound = bound(row * (3 * sq + 4 * sk) + 4 * b * sk + residual, 5 * prod, "bf16")
+    log(f"kernel attention {ATTN_CASES[0][0]} timed, CUDA-graph replays of {GRAPH_CALLS} calls: "
+        f"forward {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, SDPA {lib_fwd:.4f} ms, bound "
+        f"{fwd_bound['bound_ms']:.5f} ms ({fwd_bound['bound_by']}); backward {bwd_ms:.4f} ms, "
+        f"plain {bwd_plain:.4f} ms, SDPA's backward {lib_bwd:.4f} ms (forward plus backward "
+        f"{per_call['sdpa_fwd_bwd']:.4f} ms), bound {bwd_bound['bound_ms']:.5f} ms "
+        f"({bwd_bound['bound_by']}); eager calls: forward {eager['fwd']:.4f} ms, plain "
+        f"{eager['fwd_plain']:.4f} ms, SDPA {eager['sdpa']:.4f} ms; backward {eager['bwd']:.4f} "
+        f"ms, plain {eager['bwd_plain']:.4f} ms, SDPA's backward {eager['sdpa_bwd']:.4f} ms")
+    return {"attention_fwd": {"max_abs_err": errs["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
+                              "library_ms": lib_fwd, **fwd_bound},
+            "attention_bwd": {"max_abs_err": errs["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain,
+                              "library_ms": lib_bwd, **bwd_bound}}
 
 
 def check_detect_head_outputs(name: str, flat, packed, out) -> dict:
@@ -312,7 +584,7 @@ def check_detect_head(gen: torch.Generator, dev) -> dict:
     weights ~N(0, 1/Cin), so logits are of order 1 as the detector's are;
     ms and plain_ms are the sum over the three NYU levels (one request)."""
     no = 5 + NUM_CLASSES + NM
-    total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     for b, s, cin in DETECT_SHAPES:
         flat = torch.randn((b, s, cin), generator=gen, device=dev).to(torch.bfloat16)
         w = torch.randn((3 * no, cin), generator=gen, device=dev) / cin ** 0.5
@@ -323,15 +595,26 @@ def check_detect_head(gen: torch.Generator, dev) -> dict:
         kernel = lambda: kdetect.fused_detect_head(flat, packed)  # noqa: E731
         plain = lambda: kdetect.fused_detect_head_plain(flat, packed)  # noqa: E731
         ms, plain_ms = compare_times(kernel, plain, iters=10)
+        # the dense head's one GEMM (all 3 no logits of every position), the
+        # route the automatic gate takes at NYU
+        wd, bd = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+        lib_ms = library_time(lambda: F.linear(flat, wd, bd), iters=10)
         tflops = 2 * b * s * cin * 3 * no / ms / 1e9
+        # flat and the weights read once; y5 and coef (bf16), cls_max (fp32)
+        # and cls_arg (int32) written once
+        part = bound(2 * b * s * cin + 2 * 3 * no * cin + 4 * 3 * no
+                     + b * s * 3 * (2 * (5 + NM) + 8), 2 * b * s * cin * 3 * no, "bf16")
         log(f"kernel detect head ({b},{s},{cin}) nc {NUM_CLASSES}: max_abs_err y5 {errs['y5']} "
             f"coef {errs['coef']} cls_max {errs['cls_max']} (rtol 2^-7, atol 1e-5); cls_arg "
             f"equal off near-ties, {errs['near_ties']} near-ties of {errs['rows']} rows; kernel "
-            f"{ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
+            f"{ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, dense head GEMM "
+            f"{lib_ms:.4f} ms, bound {part['bound_ms']:.4f} ms ({part['bound_by']})")
         total["max_abs_err"] = max(total["max_abs_err"], errs["y5"], errs["coef"], errs["cls_max"])
         if (b, s, cin) != DETECT_SHAPES[-1]:
             total["ms"] += ms
             total["plain_ms"] += plain_ms
+            total["library_ms"] += lib_ms
+            add_bounds(total, part)
         del flat, packed
     return total
 
@@ -360,9 +643,14 @@ def check_bins_expectation(gen: torch.Generator, dev) -> dict:
     plain = lambda: kexp.bins_expectation_plain(logits, centers)  # noqa: E731
     err = check_close("bins expectation forward", kernel(), plain(), EXP_RTOL, EXP_ATOL)
     ms, plain_ms = compare_times(kernel, plain)
+    # bf16 logits read once, fp32 depth written once; per logit an exp and
+    # ~4 fp32 operations on the CUDA cores. No one PyTorch call computes a
+    # softmax and its expectation: library_ms null
+    fwd_bound = bound(2 * b * s * k + 4 * b * k + 4 * b * s, 5 * b * s * k, "fp32")
     log(f"kernel bins expectation forward {EXP_SHAPE}: max_abs_err {err} (rtol 1e-5, atol "
-        f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    fwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{fwd_bound['bound_ms']:.4f} ms")
+    fwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **fwd_bound}
 
     dl, dc = kexp.bins_expectation_bwd(logits, centers, g)
     err_dl, err_dc = close_backward("bins expectation backward", dl, dc,
@@ -373,17 +661,21 @@ def check_bins_expectation(gen: torch.Generator, dev) -> dict:
     kernel = lambda: kexp.bins_expectation_bwd(logits, centers, g)  # noqa: E731
     plain = lambda: torch.autograd.grad(out, (lg, cg), g, retain_graph=True)  # noqa: E731
     ms, plain_ms = compare_times(kernel, plain, iters=10)
+    # logits and g read once, dlogits and dcenters written once
+    bwd_bound = bound(4 * b * s * k + 4 * b * k + 4 * b * s + 4 * b * k, 8 * b * s * k, "fp32")
     log(f"kernel bins expectation backward {EXP_SHAPE}: max_abs_err dlogits {err_dl} (rtol "
         f"2^-7, atol 1e-4 max|g|), dcenters {err_dc} (rtol 1e-4, atol 1e-5 max|dcenters|); "
-        f"kernel {ms:.4f} ms, plain (autograd of the plain forward) {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms, plain (autograd of the plain forward) {plain_ms:.4f} ms, bound "
+        f"{bwd_bound['bound_ms']:.4f} ms")
     return {"bins_expectation_fwd": fwd,
-            "bins_expectation_bwd": {"max_abs_err": err_dl, "ms": ms, "plain_ms": plain_ms}}
+            "bins_expectation_bwd": {"max_abs_err": err_dl, "ms": ms, "plain_ms": plain_ms,
+                                     "library_ms": None, **bwd_bound}}
 
 
 def make_provider(rng: np.random.Generator, n_obj: int):
     """A stand-in detector: per image a different number of valid slots (one
     image fills all of them), boxes inside the frame, CLIP-scale features."""
-    counts = [3, 17, 40, 1, 120, n_obj, 64, 8]
+    counts = [min(c, n_obj) for c in SERVED_VALID]
 
     def provider(normed: np.ndarray) -> dict:
         b = normed.shape[0]
@@ -438,20 +730,33 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
+def check_attention_records(what: str, records: list[dict]) -> None:
+    """Each recorded kernel-5 launch against the plain version on its own
+    tensors."""
+    errs = collections.defaultdict(float)
+    for i, rec in enumerate(records):
+        errs[rec["kind"]] = max(errs[rec["kind"]], check_attention_pairs(
+            f"{what} kernel-5 {rec['kind']} {i}", attention_plain_outputs(rec)))
+    kinds = collections.Counter(rec["kind"] for rec in records)
+    log(f"  {what}: kernel 5 vs plain on its own tensors, {dict(kinds)} launches: max abs err "
+        + ", ".join(f"{k} {v}" for k, v in errs.items()))
+
+
 def check_against_fp32(model, rng: np.random.Generator) -> None:
     """The same weights in fp32 (the plain versions, which an fp32 model runs
     on the card, and cuDNN convs without TF32) against the bf16 kernel path,
     on a small input with objects: ObjCAViT's outputs, i.e. the encoder, the
     decoder with its four upsamples, and the transformer."""
     small = (384, 352)
-    ref_model = build_flagship_pipeline(dtype=torch.float32, seed=0).model
+    ref_model = build_flagship_pipeline(dtype=torch.float32, seed=0,
+                                        attn_impl=model.attn_impl).model
     small_frames = rng.integers(0, 256, (2, *small, 3), dtype=np.uint8)
     outs = []
     for m in (model, ref_model):
         provider = make_provider(np.random.default_rng(5), image_seq_len(*small))
         with record_kernel_io(m) as rec:
             DepthPipeline(m, eval_dims=small, provider=provider)(small_frames)
-        outs.append(rec[0]["objcavit"])
+        outs.append(rec[0]["bins_inputs"])
     (_, feat, queries), (_, feat_ref, queries_ref) = outs
     rels = {"feat": rel_l2(feat, feat_ref), "queries": rel_l2(queries, queries_ref)}
     log(f"  bf16 kernels vs fp32 plain, 2x{small}: ObjCAViT outputs rel L2 err "
@@ -460,12 +765,14 @@ def check_against_fp32(model, rng: np.random.Generator) -> None:
         raise AssertionError("the bf16 kernel path strays from the fp32 reference")
 
 
-def phase_slice() -> dict:
+def phase_slice(attn_impl: str = "plain") -> dict:
+    """The flagship server with its attention on the route ``attn_impl``."""
     t0 = time.perf_counter()
-    pipe = build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0)
+    pipe = build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0,
+                                   attn_impl=attn_impl)
     model = pipe.model
-    log(f"slice: GraphBins-B5 bf16 folded, {pipe.n_obj_max} slots, built in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"slice: GraphBins-B5 bf16 folded, {attn_impl} attention, {pipe.n_obj_max} slots, built "
+        f"in {time.perf_counter() - t0:.2f} s")
     if pipe.n_obj_max != 300:
         raise AssertionError(f"expected 300 object slots at 480x640, got {pipe.n_obj_max}")
     rng = np.random.default_rng(1234)
@@ -478,17 +785,21 @@ def phase_slice() -> dict:
     pipe(frames[0])  # warm-up: cuDNN set-up, library load
     torch.cuda.synchronize()
     zero_counters()
-    with record_kernel_io(model) as records:
+    with record_kernel_io(model) as records, record_attention_io() as attn_records:
         depths = [server(f) for (_, server), f in zip(routes, frames)]
     torch.cuda.synchronize()
     n = len(routes)
-    launches = expect_launches(f"{n} requests of {BATCH} frames", resize=4 * n, bins=n)
+    attn = 10 * n if attn_impl == "kernel" else 0
+    launches = expect_launches(f"{n} requests of {BATCH} frames", resize=4 * n, bins=n,
+                               attention_fwd=attn)
     for i, ((route, _), depth) in enumerate(zip(routes, depths)):
         check_depth(f"request {i} ({route})", depth, model.min_depth, model.max_depth)
     slots = with_objects.provider(np.zeros((BATCH, 1, 1, 3), np.float32))["valid"].sum(1)
     log(f"  valid object slots per image on the objects route: {slots.tolist()}")
     check_served_kernels(model, records)
-    del records
+    if attn_impl == "kernel":
+        check_attention_records("served requests", attn_records)
+    del records, attn_records
 
     check_against_fp32(model, rng)
 
@@ -510,7 +821,20 @@ def phase_slice() -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"  served {served:.2f} img/s over {n_req} requests of {BATCH} (sentinel route); "
         f"p50 {statistics.median(latencies):.2f} ms per request; peak memory {peak_gib:.3f} GiB")
+    if attn_impl == "kernel":
+        log_route_splits(pipe, build_flagship_pipeline, frames[1])
     return launches
+
+
+def log_route_splits(pipe, build, frames) -> None:
+    """The stage split of ``pipe`` (kernel 5's route) and of a server that
+    ``build`` makes with the same seed, so the same weights, on the plain
+    route, timed in turns."""
+    plain = build(dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0, attn_impl="plain")
+    splits = attention_route_split({"plain": plain, "kernel": pipe}, frames, iters=12, warmup=4)
+    for route, split in splits.items():
+        log(f"  stage split, {route} attention, ms (CUDA events, mean of two medians of 8): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
 
 
 def phase_unfactored_head() -> dict:
@@ -555,7 +879,10 @@ def check_train_kernels(record: dict) -> None:
 def check_train_against_fp32(model, rng: np.random.Generator) -> None:
     """One step's gradients on the bf16 kernel route against the same
     weights in fp32 (plain versions, cuDNN without TF32) on a small input,
-    with the same draws of augmentation and dropout (one generator seed)."""
+    with the same draws of augmentation and dropout (one generator seed).
+    On kernel 5's route the bf16 step launches it 10 + 9 times; the fp32
+    step takes its plain version."""
+    attn = 1 if model.attn_impl == "kernel" else 0
     small, b, n_obj = (384, 352), 2, 64
     batch = {
         "image": torch.as_tensor(rng.uniform(0, 1, (b, *small, 3)).astype(np.float32), device="cuda"),
@@ -580,7 +907,8 @@ def check_train_against_fp32(model, rng: np.random.Generator) -> None:
         g = torch.autograd.grad(loss, params, allow_unused=True)
         torch.cuda.synchronize()
         expect_launches(f"{dtype} step on 2x{small}", bins_expectation_fwd=want,
-                        bins_expectation_bwd=want)
+                        bins_expectation_bwd=want, attention_fwd=10 * attn * want,
+                        attention_bwd=ATTN_BWD_PER_STEP * attn * want)
         grads[dtype] = {n: t for n, t in zip(names, g) if t is not None}
         losses[dtype] = float(loss.detach())
     rels = {}
@@ -600,34 +928,36 @@ def check_train_against_fp32(model, rng: np.random.Generator) -> None:
         raise AssertionError("the bf16 train step's loss strays from the fp32 reference")
 
 
-def phase_train() -> dict:
+def phase_train(attn_impl: str = "plain", n_timed: int = 5) -> dict:
+    """The flagship train step with its attention on the route ``attn_impl``."""
     t0 = time.perf_counter()
     step, batch, objects = build_flagship_train(batch=BATCH, h=TRAIN_DIMS[0], w=TRAIN_DIMS[1],
-                                                n_obj=TRAIN_SLOTS, seed=0)
+                                                n_obj=TRAIN_SLOTS, seed=0, attn_impl=attn_impl)
     model = step.model
     if image_seq_len(*TRAIN_DIMS) != TRAIN_SLOTS:
         raise AssertionError(f"expected {TRAIN_SLOTS} image tokens at {TRAIN_DIMS}")
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"train: GraphBins-B5, {n_params} fp32 parameters, bf16 compute, bs {BATCH} at "
-        f"{TRAIN_DIMS[0]}x{TRAIN_DIMS[1]}, {TRAIN_SLOTS} slots; built in "
+    log(f"train: GraphBins-B5, {n_params} fp32 parameters, bf16 compute, {attn_impl} attention, "
+        f"bs {BATCH} at {TRAIN_DIMS[0]}x{TRAIN_DIMS[1]}, {TRAIN_SLOTS} slots; built in "
         f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     losses = [step(batch, objects)]  # warm-up: cuDNN set-up
     torch.cuda.synchronize()
     log(f"  warm-up step {1000 * (time.perf_counter() - t0):.1f} ms")
     zero_counters()
-    with record_bins_expectation_io() as records:
+    with record_bins_expectation_io() as records, record_attention_io() as attn_records:
         losses.append(step(batch, objects))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    n_timed = 5
     t0 = time.perf_counter()
     for _ in range(n_timed):
         losses.append(step(batch, objects))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n = n_timed + 1
-    launches = expect_launches(f"{n} train steps", bins_expectation_fwd=n, bins_expectation_bwd=n)
+    attn = n if attn_impl == "kernel" else 0
+    launches = expect_launches(f"{n} train steps", bins_expectation_fwd=n, bins_expectation_bwd=n,
+                               attention_fwd=10 * attn, attention_bwd=ATTN_BWD_PER_STEP * attn)
     values = torch.stack(losses).tolist()
     log(f"  losses {values}")
     if not all(np.isfinite(values)):
@@ -637,11 +967,62 @@ def phase_train() -> dict:
     if len(records) != 1 or "dcenters" not in records[0]:
         raise AssertionError(f"train: recorded {len(records)} kernel-4 calls, want 1 with its backward")
     check_train_kernels(records[0])
-    del records
+    if attn_impl == "kernel":
+        check_attention_records("recorded step", attn_records)
+    del records, attn_records
     split = train_stage_split(step, batch, objects, iters=6, warmup=1)
     log("  stage split, ms (CUDA events, median of 5 steps): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     check_train_against_fp32(model, np.random.default_rng(99))
+    return launches
+
+
+def phase_adabins() -> int:
+    """AdaBins-B5 on kernel 5's route: the server, then one train step;
+    returns kernel 5's forward launches in the 4 counted requests."""
+    t0 = time.perf_counter()
+    pipe = build_adabins_pipeline(dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0,
+                                  attn_impl="kernel")
+    model, lo, hi = pipe.model, pipe.model.min_depth, pipe.model.max_depth
+    log(f"adabins: AdaBins-B5 bf16 folded, kernel attention, {model.conv_out[0].out_channels} "
+        f"bins in [{lo}, {hi}] m; built in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(8642)
+    frames = [rng.integers(0, 256, (BATCH, *EVAL_DIMS, 3), dtype=np.uint8) for _ in range(4)]
+    pipe(frames[0])  # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    with record_kernel_io(model) as records, record_attention_io() as attn_records:
+        depths = [pipe(f) for f in frames]
+    torch.cuda.synchronize()
+    n = len(frames)
+    launches = expect_launches(f"adabins, {n} requests of {BATCH} frames", resize=4 * n, bins=n,
+                               attention_fwd=4 * n)["attention_fwd"]
+    for i, depth in enumerate(depths):
+        check_depth(f"adabins request {i}", depth, lo, hi)
+    check_served_kernels(model, records)
+    check_attention_records("adabins requests", attn_records)
+    del records, attn_records
+    r = served_rate(pipe, frames[:2])
+    log(f"  served {r['img_per_s']:.2f} img/s over 20 requests of {BATCH}; p50 "
+        f"{r['p50_ms']:.2f} ms, p90 {r['p90_ms']:.2f} ms per request; peak memory "
+        f"{r['peak_gib']:.3f} GiB")
+    log_route_splits(pipe, build_adabins_pipeline, frames[1])
+    del pipe, model
+
+    step, batch = build_adabins_train(batch=BATCH, h=TRAIN_DIMS[0], w=TRAIN_DIMS[1], seed=0,
+                                      attn_impl="kernel")
+    zero_counters()
+    t0 = time.perf_counter()
+    with record_attention_io() as attn_records:
+        loss = float(step(batch, None))
+    torch.cuda.synchronize()
+    log(f"  adabins train step, bs {BATCH} at {TRAIN_DIMS[0]}x{TRAIN_DIMS[1]}: loss {loss:.6f}, "
+        f"{1000 * (time.perf_counter() - t0):.1f} ms (the first step of this model)")
+    expect_launches("adabins train step", bins_expectation_fwd=1, bins_expectation_bwd=1,
+                    attention_fwd=4, attention_bwd=4)
+    if not np.isfinite(loss):
+        raise AssertionError("adabins train: the loss is not finite")
+    check_attention_records("adabins train step", attn_records)
     return launches
 
 
@@ -755,8 +1136,13 @@ def main() -> None:
     kernels = phase_kernels()
     serving = phase_slice()
     unfactored = phase_unfactored_head()
+    attn_serving = phase_slice("kernel")
     fused = phase_fused()
     train = phase_train()
+    attn_train = phase_train("kernel", n_timed=2)
+    adabins = phase_adabins()
+    log(f"  kernel-5 launches: flagship server {attn_serving['attention_fwd']}, flagship train "
+        f"{attn_train['attention_fwd']} + {attn_train['attention_bwd']}, adabins server {adabins}")
 
     def entry(name, source, replaces, launches, key):
         return {"name": name, "route": "cuda", "source": f"objcavit_torch/csrc/{source}",
@@ -775,6 +1161,10 @@ def main() -> None:
               train["bins_expectation_bwd"], "bins_expectation_bwd"),
         entry("fused_detect_head", "detect_head.cu", "detect_head_pallas.py:65", fused,
               "detect_head"),
+        entry("fused_mha_fwd", "attention.cu", "pallas_attention.py:91",
+              attn_serving["attention_fwd"], "attention_fwd"),
+        entry("fused_mha_bwd", "attention.cu", "pallas_attention.py:108",
+              attn_train["attention_bwd"], "attention_bwd"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,584 @@
+// Fused multi-head attention, forward and backward (kernel 5).
+//
+// Replaces the TPU kernels objcavit_tpu/ops/pallas_attention.py::
+// _attn_fwd_impl (_fwd_kernel) and ::_attn_bwd (_bwd_kernel), the custom VJP
+// behind mha_core(impl="pallas") that every transformer of the repository
+// runs on its attention-kernel route:
+//
+//   s      = q k^T * scale + bias[key]        (bias 0, or -1e30 where masked)
+//   w      = softmax_keys(s)                  (fp32)
+//   o      = w v                              (fp32 weights, one cast at the end)
+//   dv     = w^T g
+//   ds     = w * (g v^T - rowsum(g v^T * w))
+//   dq     = ds k * scale,   dk = ds^T q * scale
+//
+// q (B, Sq, H, 32), k and v (B, Sk, H, 32) bf16, read in place through their
+// batch, token and head strides (the chunked in_proj output needs no
+// transpose); o, g, dq, dk, dv contiguous (B, S, H, 32) bf16; bias (B, Sk)
+// fp32 or null.
+//
+// What bounds it on the H100: at the flagship's (B*H = 32, S = 300, D = 32)
+// one forward moves 2.46 MB of q, k, v and o and 0.08 MB of the bias and the
+// residual (0.76 us at 3.35 TB/s) and does 0.37 GFLOP (0.37 us at 989
+// TFLOP/s): bound by bytes, and at these sizes in practice by latency and
+// launch overhead. The backward reads q, k, v, g, the bias and the residual
+// and writes dq, dk, dv, 4.39 MB, and does five such products (1.31 us and
+// 0.93 us).
+//
+// Design. The TPU kernel keeps a whole (Sq, Sk) score tile of one (b, h) in
+// VMEM; here the scores never leave registers. Flash-style: a block of 4
+// warps takes 64 query rows of one (b, h), each warp 16 rows, and streams K
+// and V through shared memory in tiles of 64 keys, double-buffered with
+// cp.async. Both products run on the tensor cores, mma.sync m16n8k16 bf16
+// with fp32 accumulators; the softmax is online in fp32 (running row max and
+// sum). The weights enter the w v product split in two bf16 terms, hi =
+// bf16(w) and lo = bf16(w - hi), so they keep ~16 bits, not 8: the TPU
+// kernel multiplies fp32 weights. The same split carries ds and w into the
+// backward's products.
+//
+// Hazards. Keys past Sk in the last tile get -inf, so they weigh exactly 0;
+// a masked key gets -1e30, so a row whose keys are all masked is uniform
+// over its Sk real keys, as in the TPU kernel. The forward's residual for
+// the backward is each row's max m and log-sum L = log sum exp(s - m), kept
+// apart: their sum, the log-sum-exp, rounds to -1e30 on a fully masked row
+// and would lose the 1/Sk.
+//
+// Backward, no atomics, so the result does not depend on timing: one kernel
+// per (query tile, b*h) first sums the row term D = rowsum(dP * P) over all
+// key tiles (dP = g v^T; the TPU kernel's rowsum(dw * w), not rowsum(g * o)
+// of the rounded output), writes it, then takes a second pass over the key
+// tiles to accumulate dq. A second kernel per (key tile, b*h), launched
+// after it, loops over the query tiles to accumulate dk and dv, reading m,
+// L and D. Both recompute P from q, k and the residual.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kD = 32;       // head dimension
+constexpr int kTile = 64;    // rows of a block's tile: queries, or keys
+constexpr int kWarps = 4;    // 16 rows a warp
+constexpr int kThreads = kWarps * 32;
+constexpr int kLd = kD + 8;  // shared row stride (bf16): 80 bytes, conflict-free fragments
+
+struct Strides {
+  long long b, s, h;  // element strides of a (B, S, H, D) view; D is unit-stride
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// four 8x8 bf16 matrices, transposed: the B fragments of a row-major [k][n] tile
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), packed low half first
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// A fragments (hi and lo) of k-step kk from the accumulators of the n-tiles
+// 2kk and 2kk + 1 of a 16 x 64 product: the accumulator layout of two
+// neighbouring m16n8 tiles is the A layout of one m16k16 step
+__device__ __forceinline__ void acc_to_a(const float (&c)[8][4], int kk, uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split2(c[2 * kk][0], c[2 * kk][1], hi[0], lo[0]);
+  split2(c[2 * kk][2], c[2 * kk][3], hi[1], lo[1]);
+  split2(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[2], lo[2]);
+  split2(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// acc (16 x 32) += A (16 x 64, as hi + lo) @ Y (64 x 32 row-major in shared)
+__device__ __forceinline__ void mma_split_by_tile(float (&acc)[4][4], const float (&a)[8][4],
+                                                  const __nv_bfloat16* y, int lane) {
+  const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    uint32_t hi[4], lo[4];
+    acc_to_a(a, kk, hi, lo);
+#pragma unroll
+    for (int np = 0; np < kD / 16; ++np) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, y + (kk * 16 + (j & 1) * 8 + r) * kLd + np * 16 + (j >> 1) * 8);
+      mma16816(acc[2 * np], hi, b[0], b[1]);
+      mma16816(acc[2 * np], lo, b[0], b[1]);
+      mma16816(acc[2 * np + 1], hi, b[2], b[3]);
+      mma16816(acc[2 * np + 1], lo, b[2], b[3]);
+    }
+  }
+}
+
+// out (16 x 64) = A (16 x 32, fragments in registers) @ Y^T, Y (64 x 32) row-major in shared
+__device__ __forceinline__ void mma_by_tile_t(float (&out)[8][4], const uint32_t (&a)[2][4],
+                                              const __nv_bfloat16* y, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt) {
+    out[nt][0] = out[nt][1] = out[nt][2] = out[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kD / 16; ++ks) {
+      const __nv_bfloat16* p = y + (nt * 8 + g) * kLd + ks * 16 + 2 * t;
+      mma16816(out[nt], a[ks], lds32(p), lds32(p + 8));
+    }
+  }
+}
+
+// A fragments of a warp's 16 rows (row0 = its first) of a 64 x 32 shared tile
+__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const __nv_bfloat16* x, int row0,
+                                       int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks) {
+    const __nv_bfloat16* p = x + (row0 + g) * kLd + ks * 16 + 2 * t;
+    a[ks][0] = lds32(p);
+    a[ks][1] = lds32(p + 8 * kLd);
+    a[ks][2] = lds32(p + 8);
+    a[ks][3] = lds32(p + 8 * kLd + 8);
+  }
+}
+
+// rows [row0, row0 + 64) of one head (base points at its row 0) -> shared,
+// 16 bytes a copy; rows past n_rows are zero-filled
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                          long long row_stride, int row0, int n_rows) {
+  for (int c = threadIdx.x; c < kTile * (kD / 8); c += kThreads) {
+    const int r = c / (kD / 8), part = c % (kD / 8);
+    const bool valid = row0 + r < n_rows;
+    const __nv_bfloat16* src = base + (valid ? (long long)(row0 + r) * row_stride : 0) + part * 8;
+    cp_async16(dst + r * kLd + part * 8, src, valid);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// store a 16 x 32 fp32 fragment (times mul) as bf16 rows of a contiguous
+// (B, S, H, 32) tensor; out_head points at (b, row 0, h), rows past n_rows skipped
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out_head, long long row_stride,
+                                           const float (&acc)[4][4], int row, int n_rows,
+                                           float mul0, float mul1, int t) {
+#pragma unroll
+  for (int nd = 0; nd < kD / 8; ++nd) {
+    const int col = nd * 8 + 2 * t;
+    if (row < n_rows)
+      *reinterpret_cast<__nv_bfloat162*>(out_head + row * row_stride + col) =
+          __floats2bfloat162_rn(acc[nd][0] * mul0, acc[nd][1] * mul0);
+    if (row + 8 < n_rows)
+      *reinterpret_cast<__nv_bfloat162*>(out_head + (row + 8) * row_stride + col) =
+          __floats2bfloat162_rn(acc[nd][2] * mul1, acc[nd][3] * mul1);
+  }
+}
+
+struct Args {
+  const __nv_bfloat16 *q, *k, *v;
+  const float* bias;  // (B, Sk) or null
+  Strides sq, sk, sv;
+  int h, s_q, s_k;
+  float scale;
+};
+
+// grid (ceil(Sq / 64), B * H)
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_kernel(Args a, __nv_bfloat16* __restrict__ o, float* __restrict__ stats) {
+  __shared__ __align__(16) __nv_bfloat16 q_s[kTile * kLd];
+  __shared__ __align__(16) __nv_bfloat16 k_s[2][kTile * kLd];
+  __shared__ __align__(16) __nv_bfloat16 v_s[2][kTile * kLd];
+  __shared__ float bias_s[2][kTile];
+
+  const int bh = blockIdx.y, b = bh / a.h, hh = bh % a.h;
+  const int q0 = blockIdx.x * kTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* qb = a.q + b * a.sq.b + hh * a.sq.h;
+  const __nv_bfloat16* kb = a.k + b * a.sk.b + hh * a.sk.h;
+  const __nv_bfloat16* vb = a.v + b * a.sv.b + hh * a.sv.h;
+  const float* biasb = a.bias ? a.bias + (size_t)b * a.s_k : nullptr;
+
+  auto load_kv = [&](int stage, int kt) {
+    load_tile(k_s[stage], kb, a.sk.s, kt * kTile, a.s_k);
+    load_tile(v_s[stage], vb, a.sv.s, kt * kTile, a.s_k);
+    if (threadIdx.x < kTile) {
+      const int key = kt * kTile + threadIdx.x;
+      bias_s[stage][threadIdx.x] = key < a.s_k ? (biasb ? biasb[key] : 0.f) : -INFINITY;
+    }
+  };
+
+  load_tile(q_s, qb, a.sq.s, q0, a.s_q);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  uint32_t qa[2][4];
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float acc[4][4];
+#pragma unroll
+  for (int nd = 0; nd < 4; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+
+  const int n_kt = (a.s_k + kTile - 1) / kTile;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_kt) load_kv(st ^ 1, kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (kt == 0) load_a(qa, q_s, warp * 16, g, t);
+
+    float s[8][4];
+    mma_by_tile_t(s, qa, k_s[st], g, t);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x = s[nt][j] * a.scale + bias_s[st][nt * 8 + 2 * t + (j & 1)];
+        s[nt][j] = x;
+        mx[j >> 1] = fmaxf(mx[j >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // every tile holds a real key, so the new max is finite
+      const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+      alpha[r] = __expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd) {
+      acc[nd][0] *= alpha[0];
+      acc[nd][1] *= alpha[0];
+      acc[nd][2] *= alpha[1];
+      acc[nd][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = __expf(s[nt][j] - m_run[j >> 1]);
+        s[nt][j] = p;
+        l_run[j >> 1] += p;
+      }
+    mma_split_by_tile(acc, s, v_s[st], lane);
+    __syncthreads();  // stage st is refilled in the next iteration
+  }
+
+  const int row = q0 + warp * 16 + g;
+  const float l0 = quad_sum(l_run[0]), l1 = quad_sum(l_run[1]);
+  const long long ld_o = (long long)a.h * kD;
+  store_rows(o + ((size_t)b * a.s_q * a.h + hh) * kD, ld_o, acc, row, a.s_q, 1.f / l0, 1.f / l1,
+             t);
+  if (t == 0) {
+    const size_t n = (size_t)gridDim.y * a.s_q;
+    float* m_out = stats + (size_t)bh * a.s_q;
+    if (row < a.s_q) m_out[row] = m_run[0], m_out[n + row] = logf(l0);
+    if (row + 8 < a.s_q) m_out[row + 8] = m_run[1], m_out[n + row + 8] = logf(l1);
+  }
+}
+
+// P of a 16 x 64 score fragment in place, from the residual of its rows:
+// x = s * scale + bias, P = exp((x - m) - L)
+__device__ __forceinline__ void probs_rows(float (&s)[8][4], const float* bias_tile,
+                                           const float (&m)[2], const float (&lsum)[2],
+                                           float scale, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x = s[nt][j] * scale + bias_tile[nt * 8 + 2 * t + (j & 1)];
+      s[nt][j] = __expf((x - m[j >> 1]) - lsum[j >> 1]);
+    }
+}
+
+// grid (ceil(Sq / 64), B * H): D = rowsum(dP * P) into drow, then dq
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_kernel(Args a, const __nv_bfloat16* __restrict__ gout,
+                   const float* __restrict__ stats, __nv_bfloat16* __restrict__ dq,
+                   float* __restrict__ drow) {
+  __shared__ __align__(16) __nv_bfloat16 q_s[kTile * kLd];
+  __shared__ __align__(16) __nv_bfloat16 g_s[kTile * kLd];
+  __shared__ __align__(16) __nv_bfloat16 k_s[2][kTile * kLd];
+  __shared__ __align__(16) __nv_bfloat16 v_s[2][kTile * kLd];
+  __shared__ float bias_s[2][kTile];
+
+  const int bh = blockIdx.y, b = bh / a.h, hh = bh % a.h;
+  const int q0 = blockIdx.x * kTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const long long ld = (long long)a.h * kD;  // token stride of g and dq
+  const __nv_bfloat16* qb = a.q + b * a.sq.b + hh * a.sq.h;
+  const __nv_bfloat16* kb = a.k + b * a.sk.b + hh * a.sk.h;
+  const __nv_bfloat16* vb = a.v + b * a.sv.b + hh * a.sv.h;
+  const __nv_bfloat16* gb = gout + ((size_t)b * a.s_q * a.h + hh) * kD;
+  const float* biasb = a.bias ? a.bias + (size_t)b * a.s_k : nullptr;
+
+  auto load_kv = [&](int stage, int kt) {
+    load_tile(k_s[stage], kb, a.sk.s, kt * kTile, a.s_k);
+    load_tile(v_s[stage], vb, a.sv.s, kt * kTile, a.s_k);
+    if (threadIdx.x < kTile) {
+      const int key = kt * kTile + threadIdx.x;
+      bias_s[stage][threadIdx.x] = key < a.s_k ? (biasb ? biasb[key] : 0.f) : -INFINITY;
+    }
+  };
+
+  const int row = q0 + warp * 16 + g;
+  const size_t n_rows_all = (size_t)gridDim.y * a.s_q;
+  const float* m_in = stats + (size_t)bh * a.s_q;
+  float m[2], lsum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    m[r] = rr < a.s_q ? m_in[rr] : 0.f;
+    lsum[r] = rr < a.s_q ? m_in[n_rows_all + rr] : 0.f;
+  }
+
+  load_tile(q_s, qb, a.sq.s, q0, a.s_q);
+  load_tile(g_s, gb, ld, q0, a.s_q);
+  uint32_t qa[2][4], ga[2][4];
+  const int n_kt = (a.s_k + kTile - 1) / kTile;
+  float dsum[2] = {0.f, 0.f};
+  float d[2];
+  float acc[4][4];
+#pragma unroll
+  for (int nd = 0; nd < 4; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+
+  // pass 0 sums the row term, pass 1 accumulates dq
+  for (int pass = 0; pass < 2; ++pass) {
+    load_kv(0, 0);
+    cp_async_commit();
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt & 1;
+      if (kt + 1 < n_kt) load_kv(st ^ 1, kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      if (pass == 0 && kt == 0) {
+        load_a(qa, q_s, warp * 16, g, t);
+        load_a(ga, g_s, warp * 16, g, t);
+      }
+      float p[8][4], dp[8][4];
+      mma_by_tile_t(p, qa, k_s[st], g, t);
+      probs_rows(p, bias_s[st], m, lsum, a.scale, t);
+      mma_by_tile_t(dp, ga, v_s[st], g, t);
+      if (pass == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dsum[j >> 1] += p[nt][j] * dp[nt][j];
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) p[nt][j] *= dp[nt][j] - d[j >> 1];
+        mma_split_by_tile(acc, p, k_s[st], lane);
+      }
+      __syncthreads();
+    }
+    cp_async_wait<0>();
+    if (pass == 0) {
+      d[0] = quad_sum(dsum[0]);
+      d[1] = quad_sum(dsum[1]);
+      if (t == 0) {
+        if (row < a.s_q) drow[(size_t)bh * a.s_q + row] = d[0];
+        if (row + 8 < a.s_q) drow[(size_t)bh * a.s_q + row + 8] = d[1];
+      }
+    }
+  }
+  store_rows(dq + ((size_t)b * a.s_q * a.h + hh) * kD, ld, acc, row, a.s_q, a.scale, a.scale, t);
+}
+
+// grid (ceil(Sk / 64), B * H): dk and dv of a tile of 64 keys, over every query tile
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_kernel(Args a, const __nv_bfloat16* __restrict__ gout,
+                     const float* __restrict__ stats, const float* __restrict__ drow,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
+  __shared__ __align__(16) __nv_bfloat16 k_s[kTile * kLd];
+  __shared__ __align__(16) __nv_bfloat16 v_s[kTile * kLd];
+  __shared__ __align__(16) __nv_bfloat16 q_s[2][kTile * kLd];
+  __shared__ __align__(16) __nv_bfloat16 g_s[2][kTile * kLd];
+  __shared__ float m_s[2][kTile], l_s[2][kTile], d_s[2][kTile];
+
+  const int bh = blockIdx.y, b = bh / a.h, hh = bh % a.h;
+  const int k0 = blockIdx.x * kTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const long long ld = (long long)a.h * kD;  // token stride of g, dk and dv
+  const __nv_bfloat16* qb = a.q + b * a.sq.b + hh * a.sq.h;
+  const __nv_bfloat16* kb = a.k + b * a.sk.b + hh * a.sk.h;
+  const __nv_bfloat16* vb = a.v + b * a.sv.b + hh * a.sv.h;
+  const __nv_bfloat16* gb = gout + ((size_t)b * a.s_q * a.h + hh) * kD;
+  const size_t n_rows_all = (size_t)gridDim.y * a.s_q;
+  const float* m_in = stats + (size_t)bh * a.s_q;
+  const float* d_in = drow + (size_t)bh * a.s_q;
+
+  auto load_q = [&](int stage, int qt) {
+    load_tile(q_s[stage], qb, a.sq.s, qt * kTile, a.s_q);
+    load_tile(g_s[stage], gb, ld, qt * kTile, a.s_q);
+    if (threadIdx.x < kTile) {
+      const int qi = qt * kTile + threadIdx.x;
+      const bool valid = qi < a.s_q;
+      // an m of +inf makes P = 0 for the rows past Sq
+      m_s[stage][threadIdx.x] = valid ? m_in[qi] : INFINITY;
+      l_s[stage][threadIdx.x] = valid ? m_in[n_rows_all + qi] : 0.f;
+      d_s[stage][threadIdx.x] = valid ? d_in[qi] : 0.f;
+    }
+  };
+
+  // this thread's two keys (rows of P^T) and their bias
+  const int key = k0 + warp * 16 + g;
+  float bias_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = key + 8 * r;
+    bias_r[r] = (a.bias && kr < a.s_k) ? a.bias[(size_t)b * a.s_k + kr] : 0.f;
+  }
+
+  load_tile(k_s, kb, a.sk.s, k0, a.s_k);
+  load_tile(v_s, vb, a.sv.s, k0, a.s_k);
+  load_q(0, 0);
+  cp_async_commit();
+
+  uint32_t ka[2][4], va[2][4];
+  float dk_acc[4][4], dv_acc[4][4];
+#pragma unroll
+  for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk_acc[nd][j] = dv_acc[nd][j] = 0.f;
+
+  const int n_qt = (a.s_q + kTile - 1) / kTile;
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int st = qt & 1;
+    if (qt + 1 < n_qt) load_q(st ^ 1, qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (qt == 0) {
+      load_a(ka, k_s, warp * 16, g, t);
+      load_a(va, v_s, warp * 16, g, t);
+    }
+    // P^T (16 keys x 64 queries) and dP^T = v g^T
+    float p[8][4], dp[8][4];
+    mma_by_tile_t(p, ka, q_s[st], g, t);
+    mma_by_tile_t(dp, va, g_s[st], g, t);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = nt * 8 + 2 * t + (j & 1);
+        const float x = p[nt][j] * a.scale + bias_r[j >> 1];
+        p[nt][j] = __expf((x - m_s[st][qc]) - l_s[st][qc]);
+      }
+    mma_split_by_tile(dv_acc, p, g_s[st], lane);  // dv += P^T g
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[nt][j] *= dp[nt][j] - d_s[st][nt * 8 + 2 * t + (j & 1)];
+    mma_split_by_tile(dk_acc, p, q_s[st], lane);  // dk += dS^T q
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  const size_t head = ((size_t)b * a.s_k * a.h + hh) * kD;
+  store_rows(dk + head, ld, dk_acc, key, a.s_k, a.scale, a.scale, t);
+  store_rows(dv + head, ld, dv_acc, key, a.s_k, 1.f, 1.f, t);
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* bias,
+               const long long* strides, int h, int s_q, int s_k, float scale) {
+  Args a;
+  a.q = (const __nv_bfloat16*)q;
+  a.k = (const __nv_bfloat16*)k;
+  a.v = (const __nv_bfloat16*)v;
+  a.bias = (const float*)bias;
+  a.sq = {strides[0], strides[1], strides[2]};
+  a.sk = {strides[3], strides[4], strides[5]};
+  a.sv = {strides[6], strides[7], strides[8]};
+  a.h = h;
+  a.s_q = s_q;
+  a.s_k = s_k;
+  a.scale = scale;
+  return a;
+}
+
+}  // namespace
+
+// q (B, Sq, H, 32), k and v (B, Sk, H, 32) bf16, unit-stride in the head
+// dimension, 16-byte aligned, every stride a multiple of 8 elements; strides
+// = the (batch, token, head) element strides of q, then k, then v. bias
+// (B, Sk) fp32 contiguous or null. o (B, Sq, H, 32) bf16 contiguous; stats
+// (2, B * H, Sq) fp32: each row's max, then its log-sum. Returns
+// cudaGetLastError() after the launch.
+extern "C" int objcavit_attention_fwd(const void* q, const void* k, const void* v,
+                                      const void* bias, void* o, void* stats,
+                                      const long long* strides, int b, int h, int s_q, int s_k,
+                                      float scale, void* stream) {
+  if (b == 0 || h == 0 || s_q == 0) return (int)cudaSuccess;
+  if (s_k == 0) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(q, k, v, bias, strides, h, s_q, s_k, scale);
+  const dim3 grid((s_q + kTile - 1) / kTile, b * h);
+  attn_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a, (__nv_bfloat16*)o,
+                                                               (float*)stats);
+  return (int)cudaGetLastError();
+}
+
+// As the forward, plus g (B, Sq, H, 32) bf16 contiguous (the gradient of o),
+// stats from the forward, dq (B, Sq, H, 32), dk and dv (B, Sk, H, 32) bf16
+// contiguous, and drow (B * H, Sq) fp32 scratch for the row term. Launches
+// the dq kernel, then the dk/dv kernel, on the stream.
+extern "C" int objcavit_attention_bwd(const void* q, const void* k, const void* v,
+                                      const void* bias, const void* g, const void* stats,
+                                      void* dq, void* dk, void* dv, void* drow,
+                                      const long long* strides, int b, int h, int s_q, int s_k,
+                                      float scale, void* stream) {
+  if (b == 0 || h == 0 || s_q == 0 || s_k == 0) return (int)cudaSuccess;
+  const Args a = make_args(q, k, v, bias, strides, h, s_q, s_k, scale);
+  attn_bwd_dq_kernel<<<dim3((s_q + kTile - 1) / kTile, b * h), kThreads, 0,
+                       (cudaStream_t)stream>>>(a, (const __nv_bfloat16*)g, (const float*)stats,
+                                               (__nv_bfloat16*)dq, (float*)drow);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dkdv_kernel<<<dim3((s_k + kTile - 1) / kTile, b * h), kThreads, 0,
+                         (cudaStream_t)stream>>>(a, (const __nv_bfloat16*)g, (const float*)stats,
+                                                 (const float*)drow, (__nv_bfloat16*)dk,
+                                                 (__nv_bfloat16*)dv);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,196 @@
+"""Kernel 5: fused multi-head attention, forward and backward.
+
+CUDA source: ``objcavit_torch/csrc/attention.cu``, whose forward replaces
+``objcavit_tpu/ops/pallas_attention.py::_attn_fwd_impl`` and whose backward
+replaces ``::_attn_bwd``. It is bound by bytes on the H100, and at the
+model's sizes by latency; the source note says how its design answers that.
+
+What it computes, as the TPU kernel does: q, k and v in fp32, scores
+``q k^T / sqrt(D)`` plus an fp32 additive bias of -1e30 on masked keys (not
+-inf: a row whose keys are all masked is uniform over them), an fp32
+softmax, the fp32 weights times v, one cast to q's dtype. Its backward
+recomputes the weights and returns ``dv = w^T g``, ``ds = w (g v^T -
+rowsum(g v^T w))``, ``dq = ds k / sqrt(D)``, ``dk = ds^T q / sqrt(D)``, each
+in its input's dtype, and no gradient for the mask.
+
+``FusedMHA`` is the counterpart of the JAX package's custom-VJP function: a
+``torch.autograd.Function`` whose forward calls ``fused_mha_fwd`` and whose
+backward calls ``fused_mha_bwd``. Each of those launches its kernel for CUDA
+tensors, counts the launch, and raises on anything the kernel does not take;
+for CPU tensors it runs its plain PyTorch version (``mha_fused_plain``,
+``mha_fused_bwd_plain``). The backward's plain version is the formula above,
+not autograd of the plain forward, so the CPU tests run the arithmetic the
+CUDA backward implements. ``ops.attention.mha_core(impl="kernel")`` calls
+``fused_mha`` for bf16; an fp32 model on the card takes the plain forward
+under autograd there (the reference route) and launches no kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from objcavit_torch.kernels.build import check_launch, load_library
+
+_FWD = "objcavit_attention_fwd"
+_BWD = "objcavit_attention_bwd"
+HEAD_DIM = 32  # the kernel's head dimension
+MASK_VALUE = -1e30  # the additive bias of a masked key (pallas_attention.py:27)
+
+
+def mask_bias(key_padding_mask: torch.Tensor | None) -> torch.Tensor | None:
+    """(B, Sk) bool, True = masked -> (B, Sk) fp32 bias of 0 and -1e30."""
+    if key_padding_mask is None:
+        return None
+    bias = torch.zeros(key_padding_mask.shape, dtype=torch.float32,
+                       device=key_padding_mask.device)
+    return bias.masked_fill_(key_padding_mask, MASK_VALUE)
+
+
+def _weights(q, k, bias):
+    """fp32 (at least) softmax weights (B, H, Sq, Sk) and the scale."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
+    if bias is not None:
+        scores = scores + bias.to(acc)[:, None, None, :]
+    return torch.softmax(scores, dim=-1), scale
+
+
+def mha_fused_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch forward of kernel 5: q (B, Sq, H, D), k and v (B, Sk, H,
+    D), bias (B, Sk) fp32 or None -> (B, Sq, H, D) in q's dtype."""
+    w, _ = _weights(q, k, bias)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.to(w.dtype)).to(q.dtype)
+
+
+def mha_fused_bwd_plain(q, k, v, bias, g) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of kernel 5, the formula of
+    ``pallas_attention.py::_bwd_kernel``, with the weights recomputed:
+    -> (dq, dk, dv), each in its input's dtype."""
+    w, scale = _weights(q, k, bias)
+    gf, vf = g.to(w.dtype), v.to(w.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", w, gf)
+    dw = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = w * (dw - (dw * w).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(w.dtype)) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(w.dtype)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _device_checked(q: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raise on any other device."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"attention kernel runs on CUDA tensors, got {q.device}")
+    return True
+
+
+def check_attention_inputs(q, k, v, bias) -> None:
+    """Raise ValueError unless the CUDA kernels take these arguments."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("attention kernel takes q, k, v as (B, S, H, D)")
+    b, _, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
+        raise ValueError(f"attention kernel: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not agree")
+    if d != HEAD_DIM:
+        raise ValueError(f"attention kernel takes head dimension {HEAD_DIM}, got {d}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise ValueError(f"attention kernel takes bf16 q, k, v, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"attention kernel needs {name} unit-stride in D, its other "
+                             f"strides multiples of 8 and 16-byte alignment; got strides "
+                             f"{t.stride()}")
+    devices = {t.device for t in (q, k, v) + (() if bias is None else (bias,))}
+    if len(devices) != 1:
+        raise ValueError(f"attention kernel inputs lie on several devices: {devices}")
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (b, k.shape[1])
+                             or not bias.is_contiguous()):
+        raise ValueError(f"attention kernel takes the bias as contiguous fp32 (B, Sk), got "
+                         f"{bias.dtype} {tuple(bias.shape)}")
+
+
+def _strides(q, k, v):
+    return (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in t.stride()[:3]))
+
+
+def fused_mha_fwd(q, k, v, bias=None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """-> (o (B, Sq, H, D) in q's dtype, the residual for the backward: each
+    row's max and log-sum, (2, B * H, Sq) fp32; None on the CPU)."""
+    if not _device_checked(q):
+        return mha_fused_plain(q, k, v, bias), None
+    check_attention_inputs(q, k, v, bias)
+    b, sq, h, d = q.shape
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    stats = torch.empty((2, b * h, sq), dtype=torch.float32, device=q.device)
+    rc = getattr(load_library(), _FWD)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+        o.data_ptr(), stats.data_ptr(), _strides(q, k, v), b, h, sq, k.shape[1],
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check_launch(_FWD, rc)
+    fused_mha_fwd.launches += 1
+    return o, stats
+
+
+def fused_mha_bwd(q, k, v, bias, g, stats) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (dq, dk, dv) for the gradient ``g`` (B, Sq, H, D) of the output;
+    ``stats`` is the forward's residual."""
+    if not _device_checked(q):
+        return mha_fused_bwd_plain(q, k, v, bias, g)
+    check_attention_inputs(q, k, v, bias)
+    b, sq, h, d = q.shape
+    if g.dtype != q.dtype or g.shape != q.shape or not g.is_contiguous() or g.device != q.device:
+        raise ValueError(f"attention kernel takes g as contiguous {q.dtype} {tuple(q.shape)}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if stats is None or stats.shape != (2, b * h, sq) or stats.device != q.device:
+        raise ValueError("attention kernel's backward needs the forward's residual")
+    sk = k.shape[1]
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    drow = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    rc = getattr(load_library(), _BWD)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+        g.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        drow.data_ptr(), _strides(q, k, v), b, h, sq, sk, 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check_launch(_BWD, rc)
+    fused_mha_bwd.launches += 1
+    return dq, dk, dv
+
+
+fused_mha_fwd.launches = 0
+fused_mha_bwd.launches = 0
+
+
+class FusedMHA(torch.autograd.Function):
+    """Attention with the recomputing backward (the JAX package's ``_attn``
+    custom VJP); no gradient reaches the bias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        o, stats = fused_mha_fwd(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, stats)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, stats = ctx.saved_tensors
+        dq, dk, dv = fused_mha_bwd(q, k, v, bias, g.contiguous(), stats)
+        return dq, dk, dv, None
+
+
+def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """q (B, Sq, H, D), k and v (B, Sk, H, D), mask (B, Sk) bool True =
+    masked -> (B, Sq, H, D): ``pallas_mha``'s signature."""
+    return FusedMHA.apply(q, k, v, mask_bias(key_padding_mask))

@@ -32,7 +32,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 # C entry point -> argument types (pointers and the stream as c_void_p, so
 # ctypes never cuts a 64-bit address to a 32-bit int)
 SIGNATURES = {
@@ -45,6 +46,9 @@ SIGNATURES = {
     "objcavit_bins_expectation_fwd": (_P, _P, _P, _I, _I, _I, _P),
     "objcavit_bins_expectation_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "objcavit_detect_head": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "objcavit_attention_fwd": (_P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P),
+    "objcavit_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F,
+                               _P),
 }
 
 

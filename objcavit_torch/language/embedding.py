@@ -9,13 +9,13 @@ Port of ``objcavit_tpu/language/embedding.py``:
 * ``make_embedder`` and ``build_class_table``, the (num_classes + 1, 512)
   table of the fused server (per-class strategies only).
 
-The tokenizer and ``ObjectLanguageStrategy`` are the JAX package's own
-numpy code (``objcavit_tpu/language/tokenizer.py``, ``strategy.py``),
-imported inside the functions that use them so that importing this module
-imports nothing of that package. Without a BPE merges file the tokenizer is
-the hash tokenizer, as in JAX (no CLIP parity). Importing released CLIP
-weights into the port is not done yet (ROADMAP): a ``ClipEmbedder`` without
-a model gets random weights from ``seed``.
+The tokenizer and ``ObjectLanguageStrategy`` are the port's copies of the
+JAX package's numpy code (``language/tokenizer.py``, ``strategy.py``).
+Without a BPE merges file the tokenizer is the hash tokenizer, as in JAX
+(no CLIP parity). The embedder runs on the card unless given another
+device. Importing released CLIP weights into the port is not done yet
+(ROADMAP): a ``ClipEmbedder`` without a model gets random weights from
+``seed``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from objcavit_torch.language.strategy import ObjectLanguageStrategy
+from objcavit_torch.language.tokenizer import make_tokenizer
 from objcavit_torch.models.clip_text import CLIP_CONTEXT, CLIPTextEncoder
+from objcavit_torch.utils.device import card_device
 
 OBJ_FEATURE_DIM = 512
 
@@ -47,14 +50,10 @@ class ClipEmbedder:
     """
 
     def __init__(self, model: CLIPTextEncoder | None = None, bpe_path: str | None = None,
-                 batch: int = 64, device=None, seed: int = 0):
-        from objcavit_tpu.language.tokenizer import make_tokenizer
-
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+                 batch: int = 64, device="cuda", seed: int = 0):
+        self.device = card_device(device)
         if model is None:
             model = CLIPTextEncoder().init_weights_(torch.Generator().manual_seed(seed))
-        self.device = torch.device(device)
         self.model = model.float().eval().to(self.device)
         self.tokenizer = make_tokenizer(bpe_path)
         self.batch = batch
@@ -80,7 +79,7 @@ class ClipEmbedder:
 
 
 def make_embedder(strategy: str, clip_model: CLIPTextEncoder | None = None,
-                  bpe_path: str | None = None, device=None, seed: int = 0):
+                  bpe_path: str | None = None, device="cuda", seed: int = 0):
     """'control_obj_zeros_512' -> ``ZerosEmbedder``; 'clip' -> ``ClipEmbedder``
     (random weights from ``seed`` when no model is given, with a warning)."""
     if strategy == "control_obj_zeros_512":
@@ -109,8 +108,6 @@ def build_class_table(class_names: Sequence[str], strategy_name: str, embedder) 
             f"strategy {strategy_name!r} is not per-class; the fused serving table supports "
             "'none' and 'synset_def_wn'"
         )
-    from objcavit_tpu.language.strategy import ObjectLanguageStrategy
-
     strat = ObjectLanguageStrategy(strategy_name)
     phrases = [strat.phrases_for_image([n], None)[0] for n in class_names]
     return np.asarray(embedder.embed(list(phrases) + ["<UNK>"]), np.float32)

@@ -4,8 +4,8 @@ Port of ``objcavit_tpu/language/provider.py::YoloClipObjectProvider``. It
 produces the padded ``{'features', 'xywh', 'valid'}`` slots GraphBins
 consumes, so ``serving.DepthPipeline(provider=...)`` serves real
 detections: the detector (``models/yolov7.py::Yolov7SegDetector``) gives
-padded detections, phrases are built on the host by the JAX package's
-``ObjectLanguageStrategy`` (numpy only, imported here at construction), and
+padded detections, phrases are built on the host by
+``ObjectLanguageStrategy`` (the port's copy of the JAX package's), and
 the embedder's phrase cache embeds them. As in the reference, detections
 are consumed lowest confidence first (Yolov7Wrapper.py:120-123 iterates
 reversed()); an image without detections gets the sentinel: slot 0 valid,
@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from objcavit_torch.language.embedding import OBJ_FEATURE_DIM
+from objcavit_torch.language.strategy import ObjectLanguageStrategy
 from objcavit_torch.serving import MAX_DET
 from objcavit_torch.training.providers import _SlotSizing
 
@@ -24,8 +25,6 @@ from objcavit_torch.training.providers import _SlotSizing
 class YoloClipObjectProvider(_SlotSizing):
     def __init__(self, detector, embedder, strategy: str = "synset_def_wn",
                  n_max: int | None = None, max_det: int = MAX_DET):
-        from objcavit_tpu.language.strategy import ObjectLanguageStrategy
-
         super().__init__(n_max, OBJ_FEATURE_DIM, max_det)
         self.detector = detector
         self.embedder = embedder

@@ -17,7 +17,9 @@ lazily shaped ``conv_out`` does (tests at 64x96 have 5 queries).
 The bins head reads ``conv_out`` in fp32, as the JAX bins head reads its
 fp32 parameters; ``cast`` keeps it so. Training keeps every parameter in
 fp32 and computes in bf16 through ``params_in``, the JAX package's
-``param.astype(dtype)`` at each op.
+``param.astype(dtype)`` at each op. ``attn_impl`` is ObjCAViT's attention
+route, ``"plain"`` or ``"kernel"`` (kernel 5). ``BinsDepthModel`` holds
+what GraphBins and AdaBins share.
 """
 
 from __future__ import annotations
@@ -32,30 +34,26 @@ from objcavit_torch.ops.bins import bins_head_depth_factored
 N_QUERIES = 128
 
 
-class GraphBins(nn.Module):
-    def __init__(self, encoder_name: str = "efficientnet-b5", n_bins: int = 256,
-                 min_depth: float = 0.001, max_depth: float = 10.0,
-                 embedding_dim: int = 128, obj_feature_dim: int = 512,
-                 pos_strategy: str = "learned_bbox_wh", dropout_rate: float = 0.1,
-                 n_queries: int = N_QUERIES):
-        super().__init__()
-        self.min_depth = min_depth
-        self.max_depth = max_depth
-        self.obj_feature_dim = obj_feature_dim
-        self.dense_feature_extractor = DenseFeatureExtractor(encoder_name)
-        self.objcavit = ObjCAViT(
-            im_feature_dim=128, obj_feature_dim=obj_feature_dim,
-            n_query_channels=n_queries, patch_size=16, dim_out=n_bins,
-            embed_dim=embedding_dim, pos_strategy=pos_strategy, dropout_rate=dropout_rate,
-        )
-        # the reference's Sequential(conv, Softmax); the bins head fuses both
-        self.conv_out = nn.Sequential(nn.Conv2d(n_queries, n_bins, 1))
+class BinsDepthModel(nn.Module):
+    """What GraphBins and AdaBins share: a fp32 ``conv_out`` beside a model
+    in ``dtype``, and the parameters as a forward in a compute dtype reads
+    them. Subclasses hold ``conv_out``, ``min_depth``, ``max_depth`` and
+    ``attn_impl`` (the route of every attention they hold), and name their
+    ``transformer_head``, the module between the decoder and the bins head.
+    ``takes_objects`` says whether the forward takes the object slots after
+    the image (GraphBins) or the image alone (AdaBins)."""
+
+    takes_objects = False
+
+    @property
+    def transformer_head(self) -> nn.Module:
+        raise NotImplementedError
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.objcavit.obj_embedding_layer.weight.dtype
+        return next(p for n, p in self.named_parameters() if not n.startswith("conv_out")).dtype
 
-    def cast(self, dtype: torch.dtype) -> "GraphBins":
+    def cast(self, dtype: torch.dtype):
         """Cast to ``dtype``, keeping ``conv_out`` in fp32."""
         self.to(dtype)
         self.conv_out.float()
@@ -74,6 +72,42 @@ class GraphBins(nn.Module):
                 out[f"{mname}.{pname}" if mname else pname] = p if keep else p.to(dtype)
         return out
 
+    def bins_head(self, widths, feat, queries) -> dict[str, torch.Tensor]:
+        conv = self.conv_out[0]
+        depth, edges = bins_head_depth_factored(
+            widths, feat, queries, conv.weight, conv.bias, self.min_depth, self.max_depth,
+            train=self.training,
+        )
+        return {"depth_pred": depth, "bin_edges": edges}
+
+
+class GraphBins(BinsDepthModel):
+    takes_objects = True
+
+    def __init__(self, encoder_name: str = "efficientnet-b5", n_bins: int = 256,
+                 min_depth: float = 0.001, max_depth: float = 10.0,
+                 embedding_dim: int = 128, obj_feature_dim: int = 512,
+                 pos_strategy: str = "learned_bbox_wh", dropout_rate: float = 0.1,
+                 n_queries: int = N_QUERIES, attn_impl: str = "plain"):
+        super().__init__()
+        self.min_depth = min_depth
+        self.max_depth = max_depth
+        self.attn_impl = attn_impl
+        self.obj_feature_dim = obj_feature_dim
+        self.dense_feature_extractor = DenseFeatureExtractor(encoder_name)
+        self.objcavit = ObjCAViT(
+            im_feature_dim=128, obj_feature_dim=obj_feature_dim,
+            n_query_channels=n_queries, patch_size=16, dim_out=n_bins,
+            embed_dim=embedding_dim, pos_strategy=pos_strategy, dropout_rate=dropout_rate,
+            attn_impl=attn_impl,
+        )
+        # the reference's Sequential(conv, Softmax); the bins head fuses both
+        self.conv_out = nn.Sequential(nn.Conv2d(n_queries, n_bins, 1))
+
+    @property
+    def transformer_head(self) -> ObjCAViT:
+        return self.objcavit
+
     def forward(self, image, object_features, object_xywh, object_valid, generator=None):
         """image (B, H, W, 3) ImageNet-normalised NHWC; objects as padded
         slots (B, N, F), (B, N, 4), (B, N) bool; ``generator`` feeds the
@@ -82,9 +116,4 @@ class GraphBins(nn.Module):
         widths, feat, queries = self.objcavit(
             dense, object_features, object_xywh, object_valid, generator
         )
-        conv = self.conv_out[0]
-        depth, edges = bins_head_depth_factored(
-            widths, feat, queries, conv.weight, conv.bias, self.min_depth, self.max_depth,
-            train=self.training,
-        )
-        return {"depth_pred": depth, "bin_edges": edges}
+        return self.bins_head(widths, feat, queries)

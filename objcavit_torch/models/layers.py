@@ -4,13 +4,19 @@ Port of ``objcavit_tpu/models/layers.py``:
 
 * ``MultiHeadAttention``: ``nn.MultiheadAttention``'s parameters
   (``in_proj_weight`` (3E, E), ``in_proj_bias``, ``out_proj``) over
-  ``ops.attention.mha_core``; batch-first (B, S, E).
+  ``ops.attention.mha_core``; batch-first (B, S, E). Its ``attn_impl``
+  picks the attention route, ``"plain"`` or ``"kernel"`` (kernel 5); the
+  blocks below pass theirs down.
 * ``TransformerEncoderLayer``: post-LN (eps 1e-5), ReLU FFN of width 1024,
   and dropout (rate 0.1 by default) in training mode at the JAX package's
   three places (``objcavit_tpu/models/layers.py:85, 90, 92``): after
   self-attention, after the ReLU, after ``linear2``. It draws from the
   ``torch.Generator`` passed to ``forward``.
 * ``TransformerEncoder``: ``layers.{i}``.
+* ``PatchTransformerEncoder``: miniViT's patch embedding conv
+  (``embedding_convPxP``, kernel = stride), the learned
+  ``positional_encodings`` (max_seq_len, E) table sliced to the token
+  count, and the 4-layer ``transformer_encoder``.
 * ``pixelwise_dot_product``: the range-attention maps of the bins head's
   training route.
 * ``BinRegressor``: E -> 256 -> 256 -> dim_out with LeakyReLU, as the
@@ -23,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from objcavit_torch.models.common import PatchEmbedConv
 from objcavit_torch.ops.attention import mha_core
 
 
@@ -40,10 +47,11 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, attn_impl: str = "plain"):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
@@ -59,16 +67,16 @@ class MultiHeadAttention(nn.Module):
             bq, bk, bv = self.in_proj_bias.chunk(3)
             q, k, v = F.linear(query, wq, bq), F.linear(key, wk, bk), F.linear(value, wv, bv)
         q, k, v = (t.reshape(*t.shape[:-1], h, e // h) for t in (q, k, v))
-        out = mha_core(q, k, v, key_padding_mask)
+        out = mha_core(q, k, v, key_padding_mask, impl=self.attn_impl)
         return self.out_proj(out.reshape(*out.shape[:-2], e))
 
 
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int = 1024,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, attn_impl: str = "plain"):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads, attn_impl)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, embed_dim)
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5)
@@ -85,10 +93,11 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
-                 dim_feedforward: int = 1024, dropout_rate: float = 0.1):
+                 dim_feedforward: int = 1024, dropout_rate: float = 0.1,
+                 attn_impl: str = "plain"):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(embed_dim, num_heads, dim_feedforward, dropout_rate)
+            TransformerEncoderLayer(embed_dim, num_heads, dim_feedforward, dropout_rate, attn_impl)
             for _ in range(num_layers)
         )
 
@@ -96,6 +105,29 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, key_padding_mask, generator)
         return x
+
+
+class PatchTransformerEncoder(nn.Module):
+    """Patch embedding + learned positional table + 4-layer encoder; (B, S, E) out."""
+
+    def __init__(self, in_channels: int, patch_size: int = 10, embed_dim: int = 128,
+                 num_heads: int = 4, max_seq_len: int = 500, dropout_rate: float = 0.1,
+                 attn_impl: str = "plain"):
+        super().__init__()
+        self.embedding_convPxP = PatchEmbedConv(in_channels, embed_dim, patch_size)
+        self.positional_encodings = nn.Parameter(torch.rand(max_seq_len, embed_dim))
+        self.transformer_encoder = TransformerEncoder(4, embed_dim, num_heads, 1024,
+                                                      dropout_rate, attn_impl)
+
+    def forward(self, x, generator=None):
+        """x (B, H, W, C) NHWC -> (B, (H // p) (W // p), E)."""
+        emb = self.embedding_convPxP(x.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+        s = emb.shape[1]
+        if s > self.positional_encodings.shape[0]:
+            raise ValueError(f"{s} patch tokens exceed max_seq_len "
+                             f"{self.positional_encodings.shape[0]}")
+        emb = emb + self.positional_encodings[:s].to(emb.dtype)[None]
+        return self.transformer_encoder(emb, generator=generator)
 
 
 def pixelwise_dot_product(x: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,11 @@
 
 Port of ``objcavit_tpu/models/objcavit.py`` for the ``learned_bbox_wh``
 positional strategy (the other strategies wait for ROADMAP A.5), with the
-reference's module names. Ragged per-image detections arrive as padded
-(B, N) slots with a validity mask (True = real object); the no-detection
-sentinel is slot 0 with xywh = -1 and valid = True (``serving.py``).
+reference's module names. ``attn_impl`` ("plain" or "kernel") is the
+route of all ten attentions (JAX's ``attn_impl``). Ragged per-image
+detections arrive as padded (B, N) slots with a validity mask (True = real
+object); the no-detection sentinel is slot 0 with xywh = -1 and valid =
+True (``serving.py``).
 
 Reference quirks kept exactly (they change the numbers):
 
@@ -48,14 +50,14 @@ class SelfAttnCrossAttn(nn.Module):
     """Image SA x4 + object SA x4 + bidirectional cross-attention."""
 
     def __init__(self, embed_dim: int = 128, num_heads: int = 4, dim_feedforward: int = 1024,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, attn_impl: str = "plain"):
         super().__init__()
         self.image_transformer_encoder = TransformerEncoder(
-            4, embed_dim, num_heads, dim_feedforward, dropout_rate)
+            4, embed_dim, num_heads, dim_feedforward, dropout_rate, attn_impl)
         self.obj_transformer_encoder = TransformerEncoder(
-            4, embed_dim, num_heads, dim_feedforward, dropout_rate)
-        self.cross_attn_obj_im = MultiHeadAttention(embed_dim, num_heads)
-        self.cross_attn_im_obj = MultiHeadAttention(embed_dim, num_heads)
+            4, embed_dim, num_heads, dim_feedforward, dropout_rate, attn_impl)
+        self.cross_attn_obj_im = MultiHeadAttention(embed_dim, num_heads, attn_impl)
+        self.cross_attn_im_obj = MultiHeadAttention(embed_dim, num_heads, attn_impl)
 
     def forward(self, image_emb, obj_emb, obj_pad_mask, generator=None):
         """image_emb (B,S,E); obj_emb (B,N,E); obj_pad_mask (B,N) True = padding.
@@ -91,7 +93,8 @@ class ObjCAViT(nn.Module):
     def __init__(self, im_feature_dim: int = 128, obj_feature_dim: int = 512,
                  n_query_channels: int = 128, patch_size: int = 16,
                  dim_out: int = 256, embed_dim: int = 128, num_heads: int = 4,
-                 pos_strategy: str = "learned_bbox_wh", dropout_rate: float = 0.1):
+                 pos_strategy: str = "learned_bbox_wh", dropout_rate: float = 0.1,
+                 attn_impl: str = "plain"):
         super().__init__()
         if pos_strategy != "learned_bbox_wh":
             raise NotImplementedError(
@@ -103,7 +106,7 @@ class ObjCAViT(nn.Module):
         self.positional_encoder = LearnedPositionalMLP(embed_dim)
         self.image_embedding_convPxP = PatchEmbedConv(im_feature_dim, embed_dim, patch_size)
         self.obj_embedding_layer = nn.Linear(obj_feature_dim, embed_dim)
-        self.saca_1 = SelfAttnCrossAttn(embed_dim, num_heads, 1024, dropout_rate)
+        self.saca_1 = SelfAttnCrossAttn(embed_dim, num_heads, 1024, dropout_rate, attn_impl)
         self.conv3x3 = nn.Conv2d(im_feature_dim, embed_dim, 3, 1, 1)
         self.regressor = BinRegressor(embed_dim, dim_out)
 

@@ -1,14 +1,15 @@
-"""Serving: uint8 frames in, depth maps out, through GraphBins.
+"""Serving: uint8 frames in, depth maps out, through GraphBins or AdaBins.
 
 Port of ``objcavit_tpu/serving.py``. ``DepthPipeline`` runs one request on
 the model's device:
 
     uint8 (B, H, W, 3) -> /255 -> resize to the eval size if it differs
-    (bilinear, half-pixel) -> ImageNet normalise -> GraphBins -> depth
-    (B, h/2, w/2, 1) in metres -> optionally resized back to (H, W)
+    (bilinear, half-pixel) -> ImageNet normalise -> GraphBins or AdaBins ->
+    depth (B, h/2, w/2, 1) in metres -> optionally resized back to (H, W)
 
-Objects come from ``provider`` (called with the normalised eval-size images
-as numpy, returning numpy ``features``/``xywh``/``valid`` slots, e.g.
+AdaBins takes the image alone. For GraphBins, objects come from
+``provider`` (called with the normalised eval-size images as numpy,
+returning numpy ``features``/``xywh``/``valid`` slots, e.g.
 ``language/provider.py::YoloClipObjectProvider``) or, without one, the
 no-detection sentinel: slot 0 valid with xywh = -1 and the ``unk_feature``
 (the '<UNK>' embedding of the language strategy; zeros by default, which is
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from objcavit_torch.ops.resize import resize_bilinear
+from objcavit_torch.utils.device import card_device
 
 # ImageNet statistics (objcavit_tpu/data/preprocess.py)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -44,7 +46,7 @@ def image_seq_len(h: int, w: int, patch: int = 16) -> int:
 
 
 class DepthPipeline:
-    """Batched depth-map server around a GraphBins model."""
+    """Batched depth-map server around a GraphBins or AdaBins model."""
 
     def __init__(self, model, eval_dims: tuple[int, int] = (480, 640),
                  n_obj_max: int | None = None, output_at_input_res: bool = False,
@@ -91,27 +93,41 @@ class DepthPipeline:
         x = frames.float() / 255.0
         x = resize_bilinear(x, *self.eval_dims, align_corners=False)
         x = (x - self.mean) / self.std
-        if self.provider is not None:
-            objs = self.provider(x.cpu().numpy())
-            feats, xywh, valid = (
-                torch.as_tensor(np.asarray(objs[k]), device=self.device)
-                for k in ("features", "xywh", "valid")
-            )
+        if not self.model.takes_objects:
+            depth = self.model(x)["depth_pred"]
         else:
-            feats, xywh, valid = self._sentinel_objects(b)
-        depth = self.model(x, feats, xywh, valid)["depth_pred"]
+            if self.provider is not None:
+                objs = self.provider(x.cpu().numpy())
+                feats, xywh, valid = (
+                    torch.as_tensor(np.asarray(objs[k]), device=self.device)
+                    for k in ("features", "xywh", "valid")
+                )
+            else:
+                feats, xywh, valid = self._sentinel_objects(b)
+            depth = self.model(x, feats, xywh, valid)["depth_pred"]
         if self.output_at_input_res:
             depth = resize_bilinear(depth, in_h, in_w, align_corners=True)
         return depth
 
 
 def build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,
-                            device=None) -> DepthPipeline:
+                            device="cuda", attn_impl: str = "plain") -> DepthPipeline:
     """Flagship GraphBins-B5 pipeline, BN folded, with random weights from
-    ``seed``."""
+    ``seed``, its attention on the route ``attn_impl``."""
     from objcavit_torch.utils.benchkit import build_flagship_model
 
-    model = build_flagship_model(dtype=dtype, seed=seed, device=device)
+    model = build_flagship_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl)
+    return DepthPipeline(model, eval_dims=eval_dims)
+
+
+def build_adabins_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,
+                           device="cuda", attn_impl: str = "plain") -> DepthPipeline:
+    """AdaBins-B5 pipeline (``params/nyu_adabins_enet-b5.yaml``), BN folded,
+    with random weights from ``seed``, its attention on the route
+    ``attn_impl``."""
+    from objcavit_torch.utils.benchkit import build_adabins_model
+
+    model = build_adabins_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl)
     return DepthPipeline(model, eval_dims=eval_dims)
 
 
@@ -378,25 +394,25 @@ class FusedDepthPipeline:
         return depth
 
 
-def build_fused_flagship(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0, device=None,
-                         num_classes: int = 1203, class_names=None,
-                         language_strategy: str = "synset_def_wn", clip_model=None,
-                         bpe_path: str | None = None, **pipeline_kwargs) -> FusedDepthPipeline:
+def build_fused_flagship(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,
+                         device="cuda", attn_impl: str = "plain", num_classes: int = 1203,
+                         class_names=None, language_strategy: str = "synset_def_wn",
+                         clip_model=None, bpe_path: str | None = None, **pipeline_kwargs) -> FusedDepthPipeline:
     """The fused server at the flagship's width: GraphBins-B5 (BN folded),
     YOLOv7-seg with ``num_classes`` classes (BN folded, RepConvs merged) and
     the class table from the CLIP text tower (``clip_model``, or the
     full-width tower with random weights), all with random weights from
     ``seed`` through explicit generators; class names ``class_i`` by
-    default. ``pipeline_kwargs`` go to ``FusedDepthPipeline`` (conf_thres,
-    iou_thres, det_topk, pre_topk, class_max_head, det_stride, det_scale,
-    n_obj_max). Importing released YOLOv7-seg and CLIP weights into the port
-    is not done yet (ROADMAP A.4)."""
+    default; GraphBins' attention on the route ``attn_impl``.
+    ``pipeline_kwargs`` go to ``FusedDepthPipeline`` (conf_thres, iou_thres,
+    det_topk, pre_topk, class_max_head, det_stride, det_scale, n_obj_max).
+    Importing released YOLOv7-seg and CLIP weights into the port is not
+    done yet (ROADMAP A.4)."""
     from objcavit_torch.language.embedding import build_class_table, make_embedder
     from objcavit_torch.utils.benchkit import build_detector, build_flagship_model
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    model = build_flagship_model(dtype=dtype, seed=seed, device=device)
+    device = card_device(device)
+    model = build_flagship_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl)
     detector = build_detector(num_classes, dtype=dtype, seed=seed + 1, device=device)
     if class_names is None:
         class_names = [f"class_{i}" for i in range(num_classes)]

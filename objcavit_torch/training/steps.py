@@ -1,7 +1,9 @@
 """The model factory, the train loss and the train step.
 
-Port of ``objcavit_tpu/training/steps.py``: ``build_model`` (GraphBins),
-``make_train_loss_fn`` and ``make_train_step``. One step is device-side
+Port of ``objcavit_tpu/training/steps.py``: ``build_model`` (GraphBins or
+AdaBins), ``make_train_loss_fn`` and ``make_train_step``. AdaBins is called
+on the image alone, as JAX's ``is_graphbins=False`` route calls it; its
+steps take ``objects=None``. One step is device-side
 augmentation -> forward in training mode -> loss -> backward -> gradient
 clipping -> AdamW -> scheduler, with BatchNorm's running statistics updated
 in place by the forward. The JAX package compiles that into one XLA program;
@@ -26,44 +28,51 @@ import torch
 
 from objcavit_torch.data.augment import augment_batch
 from objcavit_torch.losses import LossWrapper
-from objcavit_torch.models.graphbins import GraphBins
+from objcavit_torch.models.adabins import AdaBins
+from objcavit_torch.models.graphbins import BinsDepthModel, GraphBins
 
 
-def build_model(args: Any) -> GraphBins:
-    """GraphBins from a reference-format config tree (attribute and item
-    access, as ``objcavit_tpu.config.Config`` gives); fp32 parameters."""
+def build_model(args: Any, attn_impl: str = "plain") -> BinsDepthModel:
+    """GraphBins or AdaBins from a reference-format config tree (attribute
+    and item access, as ``objcavit_tpu.config.Config`` gives); fp32
+    parameters, attention on the route ``attn_impl``."""
     name = args.model.name
-    if name != "graphbins":
-        raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP A.5); ported: graphbins")
+    if name not in ("graphbins", "adabins"):
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP A.5); ported: graphbins, adabins")
     mcfg = args[name]
     dcfg = args[args.basic.dataset]
     if mcfg.get("do_final_upscale"):
         raise NotImplementedError("do_final_upscale is not ported yet (ROADMAP A.5)")
+    common = dict(encoder_name=mcfg.encoder_name, n_bins=mcfg.n_bins,
+                  min_depth=dcfg.min_depth, max_depth=dcfg.max_depth, attn_impl=attn_impl)
+    if name == "adabins":
+        return AdaBins(**common)
     ocfg = mcfg.objcavit
     if ocfg.get("no_obj_sa") or ocfg.get("use_2_saca"):
         raise NotImplementedError("no_obj_sa and use_2_saca are not ported yet (ROADMAP A.5)")
-    return GraphBins(
-        encoder_name=mcfg.encoder_name, n_bins=mcfg.n_bins, min_depth=dcfg.min_depth,
-        max_depth=dcfg.max_depth, embedding_dim=ocfg.embedding_dim, obj_feature_dim=512,
-        pos_strategy=ocfg.positional_embedding_strategy,
-    )
+    return GraphBins(embedding_dim=ocfg.embedding_dim, obj_feature_dim=512,
+                     pos_strategy=ocfg.positional_embedding_strategy, **common)
 
 
-def make_train_loss_fn(model: GraphBins, loss_wrapper: LossWrapper, min_depth: float,
+def make_train_loss_fn(model: BinsDepthModel, loss_wrapper: LossWrapper, min_depth: float,
                        augment_on_device: bool,
                        compute_dtype: torch.dtype = torch.float32) -> Callable:
     """fn(batch, objects, generator) -> scalar loss, the model in training
     mode. ``batch`` holds 'image' (B, H, W, 3) in [0, 1] (normalised already
     when ``augment_on_device`` is False) and 'depth' (B, H, W, 1);
-    ``objects`` 'features', 'xywh' and 'valid'. The augmentation's draws come
-    from ``generator`` first, then the dropout's."""
+    ``objects`` 'features', 'xywh' and 'valid' for GraphBins, None for
+    AdaBins. The augmentation's draws come from ``generator`` first, then
+    the dropout's."""
 
     def loss_fn(batch, objects, generator=None):
         model.train()
         image, depth_gt = batch["image"], batch["depth"]
         if augment_on_device:
             image, depth_gt = augment_batch(generator, image, depth_gt)
-        inputs = (image, objects["features"], objects["xywh"], objects["valid"])
+        inputs = (image,)
+        if model.takes_objects:
+            inputs += (objects["features"], objects["xywh"], objects["valid"])
         out = torch.func.functional_call(
             model, model.params_in(compute_dtype), inputs, {"generator": generator}
         )
@@ -80,7 +89,7 @@ class TrainStep:
     order.
     """
 
-    def __init__(self, model: GraphBins, optimizer: torch.optim.Optimizer, scheduler,
+    def __init__(self, model: BinsDepthModel, optimizer: torch.optim.Optimizer, scheduler,
                  loss_fn: Callable, gradient_clip_val: float = 0.0,
                  generator: torch.Generator | None = None):
         self.model = model
@@ -107,7 +116,7 @@ class TrainStep:
         return loss.detach()
 
 
-def make_train_step(model: GraphBins, optimizer: torch.optim.Optimizer, scheduler,
+def make_train_step(model: BinsDepthModel, optimizer: torch.optim.Optimizer, scheduler,
                     loss_wrapper: LossWrapper, min_depth: float, augment_on_device: bool,
                     gradient_clip_val: float = 0.0,
                     compute_dtype: torch.dtype = torch.float32,

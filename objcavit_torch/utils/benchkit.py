@@ -1,10 +1,16 @@
-"""The flagship model: GraphBins-B5, learned_bbox_wh, 256 bins.
+"""The flagship model, GraphBins-B5 (learned_bbox_wh, 256 bins), and
+AdaBins-B5, the paper's baseline.
 
 Port of ``objcavit_tpu/utils/benchkit.py::flagship_kwargs`` and
 ``build_flagship`` (the eval forward: bf16, BN folded), and of the train
-step that ``bench.py`` times (``build_flagship_train``). Weights are random,
-drawn from a seeded CPU ``torch.Generator``, so every device gets the same
-model; for serving, BN is then folded in fp32 and the model cast and moved.
+step that ``bench.py`` times (``build_flagship_train``); ``adabins_kwargs``,
+``build_adabins_model`` and ``build_adabins_train`` do the same for AdaBins-B5
+with the values of ``params/nyu_adabins_enet-b5.yaml`` (256 bins, NYU's
+0.001-10 m). Weights are random, drawn from a seeded CPU
+``torch.Generator``, so every device gets the same model; for serving, BN is
+then folded in fp32 and the model cast and moved. Every builder takes
+``attn_impl`` ("plain" or "kernel", kernel 5) where the model has
+attention, and builds on the card unless given another ``device``.
 """
 
 from __future__ import annotations
@@ -16,10 +22,12 @@ import torch
 import torch.nn as nn
 
 from objcavit_torch.losses import LossWrapper
-from objcavit_torch.models.graphbins import GraphBins
-from objcavit_torch.models.layers import MultiHeadAttention
+from objcavit_torch.models.adabins import AdaBins
+from objcavit_torch.models.graphbins import BinsDepthModel, GraphBins
+from objcavit_torch.models.layers import MultiHeadAttention, PatchTransformerEncoder
 from objcavit_torch.training.optim import build_optimizer
 from objcavit_torch.training.steps import TrainStep, make_train_step
+from objcavit_torch.utils.device import card_device
 from objcavit_torch.utils.fold_bn import fold_batchnorm
 
 # the train step of bench.py (``train_ms_per_step_bs8_416x544``)
@@ -27,11 +35,17 @@ TRAIN_LR, TRAIN_WD, TRAIN_CLIP, TRAIN_TOTAL_STEPS = 3.57e-4, 0.1, 0.1, 100
 TRAIN_LOSSES = (("silog", "bins_chamfer"), (1.0, 0.1))
 
 
-def flagship_kwargs() -> dict:
+def flagship_kwargs(attn_impl: str = "plain") -> dict:
     return dict(
         encoder_name="efficientnet-b5", n_bins=256, min_depth=0.001,
-        max_depth=10.0, pos_strategy="learned_bbox_wh",
+        max_depth=10.0, pos_strategy="learned_bbox_wh", attn_impl=attn_impl,
     )
+
+
+def adabins_kwargs(attn_impl: str = "plain") -> dict:
+    """AdaBins-B5 on NYU, as ``params/nyu_adabins_enet-b5.yaml`` sets it."""
+    return dict(encoder_name="efficientnet-b5", n_bins=256, min_depth=0.001, max_depth=10.0,
+                attn_impl=attn_impl)
 
 
 @torch.no_grad()
@@ -39,7 +53,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every parameter and BN statistic from ``generator``, with
     PyTorch's default distributions (the JAX package's initialisers mirror
     them): conv/linear weights and biases U(+-1/sqrt(fan_in)); attention
-    in_proj xavier-uniform with zero biases; norms at identity.
+    in_proj xavier-uniform with zero biases; norms at identity; miniViT's
+    positional table U[0, 1), as ``torch.rand``.
     """
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -57,21 +72,34 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.in_proj_weight.uniform_(-bound, bound, generator=generator)
             m.in_proj_bias.zero_()
             m.out_proj.bias.zero_()
+        elif isinstance(m, PatchTransformerEncoder):
+            m.positional_encodings.uniform_(0.0, 1.0, generator=generator)
     return model
 
 
-def build_flagship_model(dtype=torch.bfloat16, seed: int = 0, device=None,
-                         **overrides) -> GraphBins:
-    """Random-weight GraphBins (flagship kwargs, updated by ``overrides``) in
-    eval mode with BN folded, on ``device`` (default: the card if there is
-    one)."""
-    model = GraphBins(**{**flagship_kwargs(), **overrides})
+def _eval_model(model: BinsDepthModel, dtype, seed: int, device) -> BinsDepthModel:
+    """Random weights from ``seed``, eval mode, BN folded, cast, on ``device``."""
     init_weights_(model, torch.Generator().manual_seed(seed))
     fold_batchnorm(model.eval())
     model.cast(dtype)
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     return model.to(device, memory_format=torch.channels_last)
+
+
+def build_flagship_model(dtype=torch.bfloat16, seed: int = 0, device="cuda",
+                         attn_impl: str = "plain", **overrides) -> GraphBins:
+    """Random-weight GraphBins (flagship kwargs, updated by ``overrides``) in
+    eval mode with BN folded, on ``device``."""
+    device = card_device(device)
+    return _eval_model(GraphBins(**{**flagship_kwargs(attn_impl), **overrides}), dtype, seed,
+                       device)
+
+
+def build_adabins_model(dtype=torch.bfloat16, seed: int = 0, device="cuda",
+                        attn_impl: str = "plain", **overrides) -> AdaBins:
+    """Random-weight AdaBins-B5 (``adabins_kwargs``, updated by
+    ``overrides``) in eval mode with BN folded, on ``device``."""
+    device = card_device(device)
+    return _eval_model(AdaBins(**{**adabins_kwargs(attn_impl), **overrides}), dtype, seed, device)
 
 
 @torch.no_grad()
@@ -110,7 +138,7 @@ def calibrate_batchnorm_(model: nn.Module, images: torch.Tensor, **forward_kwarg
 DETECTOR_BN_AFFINE = (0.5, 1.0)
 
 
-def build_detector(num_classes: int = 1203, dtype=torch.bfloat16, seed: int = 1, device=None,
+def build_detector(num_classes: int = 1203, dtype=torch.bfloat16, seed: int = 1, device="cuda",
                    calibrate_shape: tuple[int, int, int] = (4, 256, 320)):
     """Random-weight YOLOv7-seg for the fused server, eval mode, BN folded
     and RepConvs merged, cast to ``dtype`` (detect convs fp32), channels_last
@@ -121,8 +149,7 @@ def build_detector(num_classes: int = 1203, dtype=torch.bfloat16, seed: int = 1,
     random frames of ``calibrate_shape`` (B, H, W)."""
     from objcavit_torch.models.yolov7 import Yolov7Seg
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = card_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = init_weights_(Yolov7Seg(num_classes=num_classes), gen)
     with torch.no_grad():
@@ -141,13 +168,13 @@ def build_detector(num_classes: int = 1203, dtype=torch.bfloat16, seed: int = 1,
 
 
 def build_flagship(batch: int, h: int = 480, w: int = 640, n_obj: int = 300,
-                   seed: int = 0, dtype=torch.bfloat16, device=None):
+                   seed: int = 0, dtype=torch.bfloat16, device="cuda", attn_impl: str = "plain"):
     """Flagship model plus one batch of inputs made with numpy from ``seed``.
 
     Returns (model, (img, feats, xywh, valid)); ``model(*inputs)`` is the
     eval forward, ``{'depth_pred', 'bin_edges'}``.
     """
-    model = build_flagship_model(dtype=dtype, seed=seed, device=device)
+    model = build_flagship_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl)
     dev = next(model.parameters()).device
     rng = np.random.default_rng(seed)
     inputs = (
@@ -160,7 +187,7 @@ def build_flagship(batch: int, h: int = 480, w: int = 640, n_obj: int = 300,
 
 
 def build_flagship_train(batch: int = 8, h: int = 416, w: int = 544, n_obj: int = 221,
-                         seed: int = 0, device=None, **overrides):
+                         seed: int = 0, device="cuda", attn_impl: str = "plain", **overrides):
     """The flagship train step of ``bench.py``, with a batch and objects made
     with numpy from ``seed``.
 
@@ -174,9 +201,34 @@ def build_flagship_train(batch: int = 8, h: int = 416, w: int = 544, n_obj: int 
     Returns (step, batch, objects): ``step(batch, objects)`` runs one step
     and returns its loss.
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    model = GraphBins(**{**flagship_kwargs(), **overrides})
+    device = card_device(device)
+    model = GraphBins(**{**flagship_kwargs(attn_impl), **overrides})
+    step, batch_t, rng = _train_step(model, batch, h, w, seed, device)
+    objects_np = {
+        "features": (0.02 * rng.standard_normal((batch, n_obj, 512))).astype(np.float32),
+        "xywh": rng.uniform(0, 400, (batch, n_obj, 4)).astype(np.float32),
+        "valid": np.ones((batch, n_obj), bool),
+    }
+    return step, batch_t, {k: torch.as_tensor(v, device=device) for k, v in objects_np.items()}
+
+
+def build_adabins_train(batch: int = 8, h: int = 416, w: int = 544, seed: int = 0,
+                        device="cuda", attn_impl: str = "plain", **overrides):
+    """AdaBins-B5's train step (``adabins_kwargs``, updated by
+    ``overrides``), with the flagship step's recipe and a batch made with
+    numpy from ``seed``. Returns (step, batch); ``step(batch, None)`` runs
+    one step (AdaBins takes no objects) and returns its loss."""
+    device = card_device(device)
+    step, batch_t, _ = _train_step(AdaBins(**{**adabins_kwargs(attn_impl), **overrides}), batch,
+                                   h, w, seed, device)
+    return step, batch_t
+
+
+def _train_step(model: BinsDepthModel, batch: int, h: int, w: int, seed: int,
+                device: torch.device):
+    """``bench.py``'s step over ``model`` (random weights from ``seed``, fp32
+    parameters, training mode, on ``device``) and one batch of images and
+    depths made with numpy from ``seed``, and that numpy generator."""
     init_weights_(model, torch.Generator().manual_seed(seed))
     model.to(device, memory_format=torch.channels_last).train()
     optimizer, scheduler = build_optimizer(model.parameters(), TRAIN_LR, TRAIN_WD,
@@ -191,13 +243,4 @@ def build_flagship_train(batch: int = 8, h: int = 416, w: int = 544, n_obj: int 
         "image": rng.uniform(0, 1, (batch, h, w, 3)).astype(np.float32),
         "depth": rng.uniform(0.01, 9.0, (batch, h, w, 1)).astype(np.float32),
     }
-    objects_np = {
-        "features": (0.02 * rng.standard_normal((batch, n_obj, 512))).astype(np.float32),
-        "xywh": rng.uniform(0, 400, (batch, n_obj, 4)).astype(np.float32),
-        "valid": np.ones((batch, n_obj), bool),
-    }
-
-    def put(tree):
-        return {k: torch.as_tensor(v, device=device) for k, v in tree.items()}
-
-    return step, put(batch_np), put(objects_np)
+    return step, {k: torch.as_tensor(v, device=device) for k, v in batch_np.items()}, rng

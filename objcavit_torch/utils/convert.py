@@ -8,6 +8,12 @@ prefix, which are the port's parameter names. So JAX weights load into the
 port with ``load_state_dict``, and so does a released reference ``.ckpt``
 once its ``model.`` prefix is stripped.
 
+``adabins_state_dict_from_variables`` does the same for an AdaBins model
+(the inverse of ``torch_import.py::_convert_minivit`` for its miniViT):
+``adaptive_bins_layer.patch_transformer.{embedding_convPxP,
+positional_encodings, transformer_encoder.layers.i}``,
+``adaptive_bins_layer.{conv3x3, regressor.0/2/4}`` and ``conv_out.0``.
+
 Given ``{'params': tree}`` alone, it writes the parameter keys only, so a
 JAX gradient tree (``jax.grad`` of a loss over the params) lands in the
 port's layout, key by key beside ``param.grad``.
@@ -136,6 +142,16 @@ def _objcavit(r: _Reader, fpath: str, tkey: str) -> None:
         r.linear(f"{fpath}/regressor/fc{i}", f"{tkey}.regressor.{idx}")
 
 
+def _minivit(r: _Reader, fpath: str, tkey: str) -> None:
+    pf, pt = f"{fpath}/patch_transformer", f"{tkey}.patch_transformer"
+    r.conv(f"{pf}/embedding_conv", f"{pt}.embedding_convPxP")
+    r.put(f"{pt}.positional_encodings", r.param(f"{pf}/positional_encodings"))
+    r.transformer(f"{pf}/transformer", f"{pt}.transformer_encoder")
+    r.conv(f"{fpath}/conv3x3", f"{tkey}.conv3x3")
+    for i, idx in enumerate((0, 2, 4)):
+        r.linear(f"{fpath}/regressor/fc{i}", f"{tkey}.regressor.{idx}")
+
+
 def flax_state_dict(params, stats=None, prefix: str = "") -> dict[str, np.ndarray]:
     """A flax tree whose module names are the port's attribute names ->
     state dict: '/' becomes '.', a conv ``kernel`` HWIO becomes ``weight``
@@ -190,5 +206,17 @@ def state_dict_from_variables(
              "dense_feature_extractor.encoder.original_model", encoder_name)
     _decoder(r, "dense_feature_extractor/decoder", "dense_feature_extractor.decoder")
     _objcavit(r, "objcavit", "objcavit")
+    r.conv("conv_out", "conv_out.0")
+    return r.sd
+
+
+def adabins_state_dict_from_variables(variables, encoder_name: str) -> dict[str, np.ndarray]:
+    """Unfolded JAX AdaBins variables -> the port's AdaBins state dict
+    (parameters only when ``variables`` has no 'batch_stats')."""
+    r = _Reader(variables)
+    _encoder(r, "dense_feature_extractor/encoder",
+             "dense_feature_extractor.encoder.original_model", encoder_name)
+    _decoder(r, "dense_feature_extractor/decoder", "dense_feature_extractor.decoder")
+    _minivit(r, "adaptive_bins_layer", "adaptive_bins_layer")
     r.conv("conv_out", "conv_out.0")
     return r.sd

@@ -1,11 +1,11 @@
 """What GraphBins hands its kernels, and what they give back.
 
-Serving: ``record_kernel_io`` hooks a model so that each forward leaves a
-record of the four decoder upsamples (input and output, NHWC) and of the
-bins head (ObjCAViT's outputs, which are its inputs, and the depth it
-returned). ``plain_outputs`` runs the plain versions on a record's inputs,
-so a kernel's served output can be held against its plain version on the
-very tensors the main path gave it:
+Serving: ``record_kernel_io`` hooks a model (GraphBins or AdaBins) so that
+each forward leaves a record of the four decoder upsamples (input and
+output, NHWC) and of the bins head (ObjCAViT's or miniViT's outputs, which
+are its inputs, and the depth it returned). ``plain_outputs`` runs the
+plain versions on a record's inputs, so a kernel's served output can be
+held against its plain version on the very tensors the main path gave it:
 
     with record_kernel_io(model) as records:
         pipeline(frames)
@@ -16,6 +16,11 @@ the bins head's training route, forward (logits, centres, depth) and
 backward (the depth's gradient, dlogits, dcenters), and
 ``bins_expectation_plain_outputs`` runs kernel 4's plain forward and
 backward on a record's inputs.
+
+Attention: ``record_attention_io`` records each call of kernel 5, forward
+(q, k, v, bias, out) and backward (the same inputs, g, dq, dk, dv), from a
+served forward or a train step, and ``attention_plain_outputs`` runs kernel
+5's plain forward or backward on a record's inputs.
 
 Detection: ``record_detect_head_io`` records each call of kernel 6 from the
 detector's class-max head (the level's features, its packed weights and the
@@ -31,6 +36,7 @@ import contextlib
 
 import torch
 
+import objcavit_torch.kernels.attention as kattn
 import objcavit_torch.kernels.detect_head as kdetect
 import objcavit_torch.models.yolov7 as yolov7
 import objcavit_torch.ops.bins as ops_bins
@@ -45,9 +51,9 @@ from objcavit_torch.ops.bins import bins_head_operands
 
 @contextlib.contextmanager
 def record_kernel_io(model):
-    """Yield a list that gets one dict per forward of ``model`` (a GraphBins):
-    ``resize`` [(x, y)] for up1..up4, ``objcavit`` (widths, feat, queries)
-    and ``depth``."""
+    """Yield a list that gets one dict per forward of ``model`` (a GraphBins
+    or an AdaBins): ``resize`` [(x, y)] for up1..up4, ``bins_inputs``
+    (widths, feat, queries: ObjCAViT's or miniViT's outputs) and ``depth``."""
     records: list[dict] = []
     current: dict = {"resize": []}
 
@@ -59,8 +65,8 @@ def record_kernel_io(model):
         pair = current["resize"][-1]
         pair.append(args[0][:, : pair[0].shape[3]].permute(0, 2, 3, 1))
 
-    def on_objcavit(module, args, out):
-        current["objcavit"] = out
+    def on_head(module, args, out):
+        current["bins_inputs"] = out
 
     def on_model(module, args, out):
         records.append({**current, "resize": [tuple(p) for p in current["resize"]],
@@ -71,7 +77,7 @@ def record_kernel_io(model):
     stages = [getattr(decoder, f"up{i}") for i in range(1, 5)]
     handles = [s.register_forward_pre_hook(on_upsample) for s in stages]
     handles += [s._net.register_forward_pre_hook(on_concat) for s in stages]
-    handles.append(model.objcavit.register_forward_hook(on_objcavit))
+    handles.append(model.transformer_head.register_forward_hook(on_head))
     handles.append(model.register_forward_hook(on_model))
     try:
         yield records
@@ -87,7 +93,7 @@ def plain_outputs(model, record: dict):
         (y, resize_bilinear_align_corners_plain(x.contiguous(), y.shape[1], y.shape[2]))
         for x, y in record["resize"]
     ]
-    widths, feat, queries = record["objcavit"]
+    widths, feat, queries = record["bins_inputs"]
     conv = model.conv_out[0]
     m, bias, centers, _ = bins_head_operands(
         widths, queries, conv.weight, conv.bias, model.min_depth, model.max_depth, feat.dtype
@@ -139,6 +145,46 @@ def bins_expectation_plain_outputs(record: dict) -> dict:
     dlogits, dcenters = bins_expectation_bwd_plain(record["logits"], record["centers"], record["g"])
     return {"depth": (record["depth"], depth), "dlogits": (record["dlogits"], dlogits),
             "dcenters": (record["dcenters"], dcenters)}
+
+
+@contextlib.contextmanager
+def record_attention_io():
+    """Yield a list that gets one dict per forward or backward of kernel 5's
+    ``FusedMHA`` (its ``forward`` and ``backward``, which this wraps for the
+    duration): 'kind' ('fwd' or 'bwd'), 'q', 'k', 'v', 'bias', and 'out'
+    for a forward, or 'g', 'dq', 'dk', 'dv' for a backward."""
+    fwd0, bwd0 = kattn.FusedMHA.forward, kattn.FusedMHA.backward
+    records: list[dict] = []
+
+    def forward(ctx, q, k, v, bias):
+        out = fwd0(ctx, q, k, v, bias)
+        records.append({"kind": "fwd", "q": q.detach(), "k": k.detach(), "v": v.detach(),
+                        "bias": bias, "out": out.detach()})
+        return out
+
+    def backward(ctx, g):
+        q, k, v, bias, _ = ctx.saved_tensors
+        dq, dk, dv, none = bwd0(ctx, g)
+        records.append({"kind": "bwd", "q": q.detach(), "k": k.detach(), "v": v.detach(),
+                        "bias": bias, "g": g.contiguous(), "dq": dq, "dk": dk, "dv": dv})
+        return dq, dk, dv, none
+
+    kattn.FusedMHA.forward, kattn.FusedMHA.backward = staticmethod(forward), staticmethod(backward)
+    try:
+        yield records
+    finally:
+        kattn.FusedMHA.forward, kattn.FusedMHA.backward = staticmethod(fwd0), staticmethod(bwd0)
+
+
+@torch.no_grad()
+def attention_plain_outputs(record: dict) -> list[tuple[str, torch.Tensor, torch.Tensor]]:
+    """[(name, kernel output, plain output)] of one kernel-5 record: 'out'
+    for a forward; 'dq', 'dk', 'dv' for a backward."""
+    q, k, v, bias = record["q"], record["k"], record["v"], record["bias"]
+    if record["kind"] == "fwd":
+        return [("out", record["out"], kattn.mha_fused_plain(q, k, v, bias))]
+    want = kattn.mha_fused_bwd_plain(q, k, v, bias, record["g"])
+    return [(n, record[n], w) for n, w in zip(("dq", "dk", "dv"), want)]
 
 
 @contextlib.contextmanager

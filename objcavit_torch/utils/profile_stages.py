@@ -3,6 +3,7 @@
     python -m objcavit_torch.utils.profile_stages          # the server
     python -m objcavit_torch.utils.profile_stages --train  # the train step
     python -m objcavit_torch.utils.profile_stages --fused  # the fused server
+    python -m objcavit_torch.utils.profile_stages --attn   # both attention routes
 
 Server: three measurements of ``build_flagship_pipeline()`` (GraphBins-B5, bf16, BN
 folded, 480x640, 300 slots, random weights, sentinel objects):
@@ -35,6 +36,13 @@ warm-ups; one trace of 5 requests at NYU, read as the server's is; served
 img/s over 20 requests and latency p50/p90 of 21 synchronised requests,
 with peak memory, twice per route in turns.
 
+Attention routes (``--attn``): the stage split of the flagship server and
+of the AdaBins-B5 server (``build_adabins_pipeline``, 480x640, bs 8) on the
+plain attention route and on kernel 5's, two servers built from one seed
+(the same weights), timed in turns (plain, kernel, kernel, plain;
+``attention_route_split``): the ObjCAViT and miniViT stages are what the
+route changes.
+
 Each line names the card (``nvidia-smi``) at the start and at the end.
 """
 
@@ -52,7 +60,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from objcavit_torch.serving import build_flagship_pipeline
+from objcavit_torch.serving import build_adabins_pipeline, build_flagship_pipeline
 from objcavit_torch.utils.benchkit import build_flagship_train
 
 SMI = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
@@ -68,8 +76,14 @@ def smi() -> str:
 
 
 def stage_split(pipe, frames, iters: int = 30, warmup: int = 10) -> dict:
+    """Median ms of each stage of one served request, by CUDA events from
+    forward hooks: preprocess, encoder, decoder, the transformer head
+    (named by its class: 'objcavit' for GraphBins, 'minivit' for AdaBins),
+    bins head, total."""
     model = pipe.model
     dfe = model.dense_feature_extractor
+    head = model.transformer_head
+    head_name = type(head).__name__.lower()
     events: dict[str, torch.cuda.Event] = {}
 
     def mark(name):
@@ -79,12 +93,13 @@ def stage_split(pipe, frames, iters: int = 30, warmup: int = 10) -> dict:
         return hook
 
     stages = [(dfe.encoder["original_model"], "encoder"), (dfe.decoder, "decoder"),
-              (model.objcavit, "objcavit")]
+              (head, "objcavit")]
     handles = [m.register_forward_pre_hook(mark(f"{n}_in")) for m, n in stages]
     handles += [m.register_forward_hook(mark(f"{n}_out")) for m, n in stages + [(model, "model")]]
     bounds = ["start", "encoder_in", "encoder_out", "decoder_in", "decoder_out",
               "objcavit_in", "objcavit_out", "model_out"]
-    pairs = dict(zip(STAGES, [(0, 1), (1, 2), (3, 4), (5, 6), (6, 7)]))
+    labels = [head_name if st == "objcavit" else st for st in STAGES]
+    pairs = dict(zip(labels, [(0, 1), (1, 2), (3, 4), (5, 6), (6, 7)]))
     times = collections.defaultdict(list)
     try:
         for it in range(iters):
@@ -101,6 +116,31 @@ def stage_split(pipe, frames, iters: int = 30, warmup: int = 10) -> dict:
         for h in handles:
             h.remove()
     return {k: statistics.median(v) for k, v in times.items()}
+
+
+def attention_route_split(pipes: dict, frames, iters: int = 20, warmup: int = 5) -> dict:
+    """{route: stage_split} of ``pipes`` ({'plain': server, 'kernel':
+    server}, one model's weights on each attention route), timed in turns
+    (plain, kernel, kernel, plain; each route's two splits averaged)."""
+    for route, pipe in pipes.items():
+        if pipe.model.attn_impl != route:
+            raise ValueError(f"the {route!r} server's model is on {pipe.model.attn_impl!r}")
+    runs = collections.defaultdict(list)
+    for route in ("plain", "kernel", "kernel", "plain"):
+        runs[route].append(stage_split(pipes[route], frames, iters, warmup))
+    return {route: {k: statistics.mean(r[k] for r in splits) for k in splits[0]}
+            for route, splits in runs.items()}
+
+
+def profile_attention_routes() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    for name, build in (("flagship", build_flagship_pipeline), ("adabins", build_adabins_pipeline)):
+        pipes = {route: build(attn_impl=route) for route in ("plain", "kernel")}
+        frames = rng.integers(0, 256, (8, *pipes["plain"].eval_dims, 3), dtype=np.uint8)
+        for route, split in attention_route_split(pipes, frames).items():
+            print(f"{name} stage_ms_median ({route} attention)", json.dumps(split), flush=True)
 
 
 def train_stage_split(step, batch, objects, iters: int = 8, warmup: int = 3) -> dict:
@@ -242,7 +282,8 @@ def profile_fused() -> None:
 
 def kernel_kind(name: str) -> str:
     n = name.lower()
-    for needle, kind in (("detect_head", "kernel 6 (detect head)"),
+    for needle, kind in (("attn_", "kernel 5 (attention)"),
+                         ("detect_head", "kernel 6 (detect head)"),
                          ("bins_expectation", "kernel 4 (bins expectation)"),
                          ("conv_bins_depth", "kernel 2 (bins)"),
                          ("resize_bilinear", "kernel 1 (resize)"), ("memcpy", "memcpy")):
@@ -347,12 +388,16 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--train", action="store_true", help="profile the train step")
     parser.add_argument("--fused", action="store_true", help="profile the fused server")
+    parser.add_argument("--attn", action="store_true",
+                        help="stage splits of the flagship and AdaBins on each attention route")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_stages: needs a CUDA card")
     print(smi(), flush=True)
-    if args.train or args.fused:
-        profile_train() if args.train else profile_fused()
+    other = (profile_train if args.train else profile_fused if args.fused
+             else profile_attention_routes if args.attn else None)
+    if other is not None:
+        other()
         print(smi(), flush=True)
         return
     pipe = build_flagship_pipeline()

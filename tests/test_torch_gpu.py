@@ -18,16 +18,25 @@ import numpy as np
 import pytest
 import torch
 
+from objcavit_torch.kernels import attention as kattn
 from objcavit_torch.kernels import bins as kbins
 from objcavit_torch.kernels import bins_expectation as kexp
 from objcavit_torch.kernels import detect_head as kdetect
 from objcavit_torch.kernels import resize as kresize
 from objcavit_torch.serving import FusedDepthPipeline
-from objcavit_torch.utils.benchkit import build_detector, build_flagship_model, build_flagship_train
+from objcavit_torch.utils.benchkit import (
+    build_adabins_model,
+    build_adabins_train,
+    build_detector,
+    build_flagship_model,
+    build_flagship_train,
+)
 from objcavit_torch.utils.kernel_io import (
+    attention_plain_outputs,
     bins_expectation_plain_outputs,
     detect_head_errors,
     plain_outputs,
+    record_attention_io,
     record_bins_expectation_io,
     record_detect_head_io,
     record_kernel_io,
@@ -42,6 +51,7 @@ EXP_RTOL, EXP_ATOL = 1e-5, 1e-5
 DLOGITS_RTOL, DLOGITS_ATOL_PER_G = 2.0 ** -7, 1e-4
 DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX = 1e-4, 1e-5
 DETECT_RTOL, DETECT_ATOL = 2.0 ** -7, 1e-5  # kernel 6: one bf16 ulp; see chip_smoke.py
+ATTN_RTOL, ATTN_ATOL_PER_MAX = 2.0 ** -7, 1e-4  # kernel 5: see chip_smoke.py
 
 
 @pytest.fixture
@@ -160,7 +170,7 @@ def test_tiny_graphbins_runs_through_both_kernels(cuda):
     for y, want in resize:
         _assert_close(y, want, RESIZE_RTOL, RESIZE_ATOL)
     _assert_close(depth, plain_depth, BINS_RTOL, BINS_ATOL)
-    feat, feat_ref = records[0]["objcavit"][1].float().cpu(), cpu_records[0]["objcavit"][1]
+    feat, feat_ref = records[0]["bins_inputs"][1].float().cpu(), cpu_records[0]["bins_inputs"][1]
     assert float((feat - feat_ref).norm() / feat_ref.norm()) < 0.02
 
 
@@ -318,8 +328,9 @@ def test_tiny_fused_server_runs_through_kernel6(cuda):
 
 
 def test_class_table_through_the_port_imports_no_jax():
-    """Building the class table reuses the JAX package's numpy tokenizer and
-    strategy, imported inside the functions: neither pulls in jax or flax."""
+    """Building the class table uses the port's own copies of the JAX
+    package's numpy tokenizer and strategy: no module of jax, flax or
+    objcavit_tpu is left behind."""
     code = (
         "import sys, torch\n"
         "from objcavit_torch.language.embedding import ClipEmbedder, build_class_table\n"
@@ -328,12 +339,136 @@ def test_class_table_through_the_port_imports_no_jax():
         "table = build_class_table(['class_0', 'class_1'], 'synset_def_wn',\n"
         "                          ClipEmbedder(clip, batch=4, device='cpu'))\n"
         "assert table.shape == (3, 512), table.shape\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'objcavit_tpu')]\n"
         "assert not bad, bad\n"
-        "assert 'objcavit_tpu.language.tokenizer' in sys.modules\n"
+        "assert 'objcavit_torch.language.tokenizer' in sys.modules\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                           timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr
+
+
+def _attn_inputs(gen, b, sq, sk, mask_kind, h=4, d=32, in_proj=False):
+    """bf16 q, k, v (from one chunked (B, S, 3E) projection when
+    ``in_proj``, as a self-attention reads them), g, and a mask: 'none',
+    'partial' (a different count of valid keys per image), or 'full' (image
+    0 entirely masked, the others partial)."""
+    if in_proj:
+        qkv = torch.randn((b, sq, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (t.reshape(b, sq, h, d) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for s in (sq, sk, sk))
+    g = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    mask = None
+    if mask_kind != "none":
+        counts = torch.randint(1, sk + 1, (b,), generator=gen, device="cuda")
+        mask = torch.arange(sk, device="cuda")[None] >= counts[:, None]
+        if mask_kind == "full":
+            mask[0] = True
+    return q, k, v, g, mask
+
+
+def _assert_attn_close(pairs):
+    for name, got, want in pairs:
+        _assert_close(got, want, ATTN_RTOL, ATTN_ATOL_PER_MAX * float(want.abs().max()))
+
+
+@gpu
+@pytest.mark.parametrize(
+    "case",
+    [(8, 300, 300, "partial", True), (8, 221, 221, "full", True), (2, 1200, 1200, "none", True),
+     (3, 77, 200, "partial", False), (2, 130, 65, "full", False), (1, 1, 5, "none", False),
+     (2, 64, 64, "full", False)],
+    ids=["flagship-480x640", "train-416x544", "S1200", "Sq<Sk", "Sq>Sk", "one-query",
+         "one-tile"],
+)
+def test_kernel5_forward_and_backward_match_plain(cuda, case):
+    """Forward and backward wrappers against the plain versions, each
+    launch counted once; a fully masked row is uniform over its keys."""
+    b, sq, sk, mask_kind, in_proj = case
+    q, k, v, g, mask = _attn_inputs(cuda, b, sq, sk, mask_kind, in_proj=in_proj)
+    bias = kattn.mask_bias(mask)
+    f0, b0 = kattn.fused_mha_fwd.launches, kattn.fused_mha_bwd.launches
+    out, stats = kattn.fused_mha_fwd(q, k, v, bias)
+    dq, dk, dv = kattn.fused_mha_bwd(q, k, v, bias, g, stats)
+    torch.cuda.synchronize()
+    assert (kattn.fused_mha_fwd.launches, kattn.fused_mha_bwd.launches) == (f0 + 1, b0 + 1)
+    want = kattn.mha_fused_bwd_plain(q, k, v, bias, g)
+    _assert_attn_close([("out", out, kattn.mha_fused_plain(q, k, v, bias)),
+                        *zip(("dq", "dk", "dv"), (dq, dk, dv), want)])
+    if mask_kind == "full":
+        uniform = v[0].float().mean(0)  # (H, D)
+        _assert_close(out[0].float(), uniform.expand(sq, *uniform.shape), 2.0 ** -7, 1e-3)
+
+
+@gpu
+def test_kernel5_autograd_function_matches_autograd_of_plain(cuda):
+    q, k, v, g, mask = _attn_inputs(cuda, 2, 150, 150, "partial", in_proj=True)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    (kattn.fused_mha(*leaves, mask).float() * g.float()).sum().backward()
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    (kattn.mha_fused_plain(*plain, kattn.mask_bias(mask)).float() * g.float()).sum().backward()
+    _assert_attn_close([(n, a.grad, b.grad) for n, a, b in zip("qkv", leaves, plain)])
+
+
+@gpu
+def test_kernel5_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros(1, 4, 4, 32, device="cuda")
+    with pytest.raises(ValueError, match="bf16"):
+        kattn.fused_mha_fwd(x, x, x)
+    y = torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head dimension"):
+        kattn.fused_mha_fwd(y, y, y)
+    z = y[..., ::2]
+    with pytest.raises(ValueError, match="unit-stride"):
+        kattn.fused_mha_fwd(z, z, z)
+    b = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="several devices"):
+        kattn.fused_mha_fwd(b, b, b, torch.zeros(1, 4))
+
+
+@gpu
+def test_tiny_graphbins_on_the_kernel_route(cuda):
+    """All ten attentions of the tiny GraphBins launch kernel 5 in a bf16
+    forward, each output matching the plain version on its own inputs."""
+    model = build_flagship_model(device="cuda", encoder_name="efficientnet-tiny",
+                                 attn_impl="kernel")
+    gen = torch.Generator().manual_seed(1)
+    inputs = (torch.randn((2, 384, 352, 3), generator=gen), 0.05 * torch.randn((2, 6, 512)),
+              300 * torch.rand((2, 6, 4)), torch.tensor([[True] * 3 + [False] * 3,
+                                                          [True] + [False] * 5]))
+    before = kattn.fused_mha_fwd.launches
+    with torch.no_grad(), record_attention_io() as records:
+        depth = model(*(t.cuda() for t in inputs))["depth_pred"]
+    torch.cuda.synchronize()
+    assert kattn.fused_mha_fwd.launches == before + 10 and len(records) == 10
+    assert torch.isfinite(depth).all()
+    for rec in records:
+        _assert_attn_close(attention_plain_outputs(rec))
+
+
+@gpu
+def test_tiny_adabins_on_the_kernel_route(cuda):
+    """The tiny AdaBins: 4 kernel-5 launches a bf16 forward, and 4 forward
+    and 4 backward launches a train step (with one kernel-4 forward and
+    backward), each matching the plain versions on its own tensors."""
+    model = build_adabins_model(device="cuda", encoder_name="efficientnet-tiny",
+                                attn_impl="kernel")
+    f0, b0 = kattn.fused_mha_fwd.launches, kattn.fused_mha_bwd.launches
+    with torch.no_grad(), record_attention_io() as records:
+        model(torch.randn((2, 384, 352, 3), device="cuda"))
+    step, batch = build_adabins_train(batch=2, h=384, w=352, device="cuda",
+                                      encoder_name="efficientnet-tiny", attn_impl="kernel")
+    e0 = kexp.bins_expectation_fwd.launches
+    with record_attention_io() as train_records:
+        loss = step(batch, None)
+    torch.cuda.synchronize()
+    assert kattn.fused_mha_fwd.launches == f0 + 8 and kattn.fused_mha_bwd.launches == b0 + 4
+    assert kexp.bins_expectation_fwd.launches == e0 + 1 and torch.isfinite(loss)
+    assert [r["kind"] for r in train_records].count("bwd") == 4
+    for rec in records + train_records:
+        _assert_attn_close(attention_plain_outputs(rec))

@@ -282,7 +282,8 @@ def test_unported_options_raise(kwargs):
 
 
 def test_port_imports_no_jax():
-    """Every objcavit_torch module imports without jax, flax or objcavit_tpu."""
+    """Every objcavit_torch module (walked with pkgutil, the language modules
+    and kernel 5's among them) imports without jax, flax or objcavit_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import objcavit_torch\n"
@@ -291,6 +292,9 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'objcavit_tpu')]\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
+        "want = {'objcavit_torch.language.embedding', 'objcavit_torch.language.provider',\n"
+        "        'objcavit_torch.kernels.attention', 'objcavit_torch.models.adabins'}\n"
+        "assert want <= set(names), want - set(names)\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
