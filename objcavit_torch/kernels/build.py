@@ -49,6 +49,9 @@ SIGNATURES = {
     "objcavit_attention_fwd": (_P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P),
     "objcavit_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F,
                                _P),
+    "objcavit_mbconv_head": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _P),
+    "objcavit_se_project": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

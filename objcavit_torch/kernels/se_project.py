@@ -1,0 +1,121 @@
+"""Kernel 7: the MBConv epilogue, SE gate multiply + 1x1 project + bias
+(+ skip), in one pass.
+
+CUDA source: ``objcavit_torch/csrc/se_project.cu``, which replaces
+``objcavit_tpu/ops/se_project_pallas.py::se_gate_project``. It is bound by
+bytes on the H100 at the encoder's blocks; the source note says how its
+design answers that.
+
+``se_gate_project`` has the JAX function's name and arguments: dw_out (B,
+H, W, M), gate (B, M), kernel (M, O), bias (O,), skip (B, H, W, O) or None.
+Its plain version rounds where the TPU kernel does: the gate product to the
+model dtype, the fp32 sum plus the fp32 bias to the model dtype, then the
+skip added in that dtype. It launches the kernel for CUDA tensors and raises
+on anything the kernel does not take (bf16 dw_out, kernel and skip, an fp32
+bias, contiguous tensors, M and O multiples of 8); for CPU tensors it runs
+the plain version. A skip whose dtype differs from dw_out's raises on any
+device, as in JAX. The kernel has no backward, so the wrapper raises when
+autograd would need its gradient. ``pack_project`` lays a block's project
+conv out as the kernel reads it; the encoder makes it once per set of
+weights.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from objcavit_torch.kernels.bins import check_no_grad
+from objcavit_torch.kernels.build import check_launch, load_library
+
+_ENTRY = "objcavit_se_project"
+CHANNEL_ALIGN = 8  # M and O: 16-byte rows of bf16
+
+
+def se_project_eligible(m: int, o: int) -> bool:
+    """Whether the kernel takes a project of these widths."""
+    return m % CHANNEL_ALIGN == 0 and o % CHANNEL_ALIGN == 0
+
+
+@torch.no_grad()
+def pack_project(weight: torch.Tensor, bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A project conv's (O, M, 1, 1) weight and (O,) bias -> (kernel (M, O)
+    in the weight's dtype, bias fp32)."""
+    return weight.reshape(weight.shape[0], -1).t().contiguous(), bias.float().contiguous()
+
+
+def _check_skip(dw_out: torch.Tensor, skip) -> None:
+    if skip is not None and skip.dtype != dw_out.dtype:
+        # the unfused route's promotion (project(h) + x) would differ
+        raise ValueError(f"skip dtype {skip.dtype} != dw_out dtype {dw_out.dtype}")
+
+
+def project_plain(dw_out, gate, kernel, bias) -> torch.Tensor:
+    """fp32 ``(dw_out * gate) @ kernel + bias`` before its rounding: the gate
+    product rounded to dw_out's dtype, the weight in it, the sum in fp32."""
+    gated = dw_out * gate.to(dw_out.dtype)[:, None, None, :]
+    return torch.matmul(gated.float(), kernel.to(dw_out.dtype).float()) + bias.float()
+
+
+def se_gate_project_plain(dw_out, gate, kernel, bias, skip=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel 7: (B, H, W, O) in dw_out's dtype."""
+    _check_skip(dw_out, skip)
+    y = project_plain(dw_out, gate, kernel, bias).to(dw_out.dtype)
+    return y + skip if skip is not None else y
+
+
+def check_se_project_inputs(dw_out, gate, kernel, bias, skip) -> None:
+    """Raise ValueError unless the CUDA kernel takes these arguments."""
+    if dw_out.dim() != 4:
+        raise ValueError(f"se_project kernel takes dw_out as (B, H, W, M), got {tuple(dw_out.shape)}")
+    b, h, w, m = dw_out.shape
+    o = kernel.shape[-1]
+    tensors = [dw_out, gate, kernel, bias] + ([skip] if skip is not None else [])
+    if any(t.dtype != torch.bfloat16 for t in tensors if t is not bias):
+        raise ValueError("se_project kernel takes bf16 dw_out, gate, kernel and skip, got "
+                         f"{[t.dtype for t in tensors if t is not bias]}")
+    if bias.dtype != torch.float32:
+        raise ValueError(f"se_project kernel takes an fp32 bias, got {bias.dtype}")
+    if not se_project_eligible(m, o):
+        raise ValueError(f"se_project kernel needs M and O multiples of {CHANNEL_ALIGN}, "
+                         f"got M={m}, O={o}")
+    if gate.shape != (b, m) or kernel.shape != (m, o) or bias.shape != (o,):
+        raise ValueError(f"se_project kernel takes gate (B, M), kernel (M, O), bias (O,) for "
+                         f"B={b}, M={m}, O={o}, got {tuple(gate.shape)}, {tuple(kernel.shape)}, "
+                         f"{tuple(bias.shape)}")
+    if skip is not None and skip.shape != (b, h, w, o):
+        raise ValueError(f"se_project kernel takes skip as {(b, h, w, o)}, got {tuple(skip.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("se_project kernel needs contiguous dw_out, gate, kernel, bias and skip")
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"se_project kernel inputs lie on several devices: {devices}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("se_project kernel needs 16-byte aligned inputs")
+
+
+def se_gate_project(dw_out, gate, kernel, bias, skip=None) -> torch.Tensor:
+    """Kernel 7. dw_out (B, H, W, M) bf16, gate (B, M) bf16, kernel (M, O)
+    bf16, bias (O,) fp32, skip (B, H, W, O) bf16 or None -> (B, H, W, O)
+    bf16: ``(dw_out * gate) @ kernel + bias``, cast, ``+ skip``."""
+    _check_skip(dw_out, skip)
+    check_no_grad("se_gate_project", dw_out, gate, kernel, bias,
+                  *([skip] if skip is not None else []))
+    if dw_out.device.type == "cpu":
+        return se_gate_project_plain(dw_out, gate, kernel, bias, skip)
+    if dw_out.device.type != "cuda":
+        raise ValueError(f"se_project kernel runs on CUDA tensors, got {dw_out.device}")
+    check_se_project_inputs(dw_out, gate, kernel, bias, skip)
+    b, h, w, m = dw_out.shape
+    o = kernel.shape[1]
+    out = torch.empty((b, h, w, o), dtype=dw_out.dtype, device=dw_out.device)
+    rc = getattr(load_library(), _ENTRY)(
+        dw_out.data_ptr(), gate.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+        None if skip is None else skip.data_ptr(), out.data_ptr(), b * h * w, h * w, m, o,
+        torch.cuda.current_stream(dw_out.device).cuda_stream,
+    )
+    check_launch(_ENTRY, rc)
+    se_gate_project.launches += 1
+    return out
+
+
+se_gate_project.launches = 0

@@ -11,6 +11,27 @@ normalises with the batch statistics and updates its running mean and its
 unbiased running variance with momentum 0.1, which is what the JAX
 package's ``_TorchBN`` copies (``objcavit_tpu/models/common.py:165-213``).
 
+Two fused routes, off by default, take the JAX package's switches as
+block constructor arguments that the encoder passes (``fused_mbconv_head``,
+``se_project``) and mirror its branches (``objcavit_tpu/models/common.py:
+387-428, 474-525, 565-570``). A block takes one only when its BNs are
+folded and it is not training (``route``):
+
+* ``"mbconv_head"``: an MBConv with ``fused_mbconv_head``, an expansion and
+  SE, stride 1 and widths the kernel takes runs expand, SiLU, depthwise,
+  SiLU and the SE pool as kernel 8 (``kernels/mbconv.py``); the SE block
+  takes the pool (``pooled``), and the project stays a cuDNN conv;
+* ``"se_project"``: any other MBConv, or a DepthwiseSeparable, with
+  ``se_project`` runs the SE gate multiply, the project conv, its bias and
+  the skip as kernel 7 (``kernels/se_project.py``) on the SE block's gate.
+
+An fp32 block takes the kernels' plain versions, the reference route; any
+other dtype calls the kernels' wrappers, which launch on bf16 CUDA tensors,
+raise on other CUDA tensors and run the plain versions on CPU tensors. The
+routes have no backward: under autograd
+a block on one raises. The kernels' weight layouts are made once per set of
+weights (``FusedRoutes``).
+
 Not ported: ``SpaceToDepthConv`` (an exact rewrite of the stride-2 stem for
 the TPU's layout; the plain strided conv with the same weights stands here),
 and ``FusedMBConv`` (EfficientNet-V2, ROADMAP A.5).
@@ -23,6 +44,21 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from objcavit_torch.kernels.bins import check_no_grad
+from objcavit_torch.kernels.mbconv import (
+    mbconv_eligible,
+    mbconv_expand_dw_pool,
+    mbconv_expand_dw_pool_plain,
+    pack_mbconv,
+)
+from objcavit_torch.kernels.se_project import (
+    pack_project,
+    se_gate_project,
+    se_gate_project_plain,
+    se_project_eligible,
+)
+from objcavit_torch.utils.fold_bn import FoldedBatchNorm
 
 BN_EPS = 1e-3
 
@@ -63,26 +99,75 @@ class PatchEmbedConv(nn.Conv2d):
 
 
 class SqueezeExcite(nn.Module):
-    """EfficientNet SE: spatial mean, 1x1 reduce, SiLU, 1x1 expand, sigmoid gate."""
+    """EfficientNet SE: spatial mean, 1x1 reduce, SiLU, 1x1 expand, sigmoid gate.
+
+    ``pooled`` (B, C, 1, 1) stands for the spatial mean (kernel 8 gives it);
+    ``gate_only`` returns the (B, C, 1, 1) gate instead of ``x * gate``."""
 
     def __init__(self, channels: int, se_channels: int):
         super().__init__()
         self.conv_reduce = nn.Conv2d(channels, se_channels, 1)
         self.conv_expand = nn.Conv2d(se_channels, channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean((2, 3), keepdim=True)
-        s = self.conv_expand(F.silu(self.conv_reduce(s)))
-        return x * torch.sigmoid(s)
+    def forward(self, x: torch.Tensor, pooled: torch.Tensor | None = None,
+                gate_only: bool = False) -> torch.Tensor:
+        s = x.mean((2, 3), keepdim=True) if pooled is None else pooled
+        gate = torch.sigmoid(self.conv_expand(F.silu(self.conv_reduce(s))))
+        return gate if gate_only else x * gate
 
 
-class DepthwiseSeparable(nn.Module):
-    """EfficientNet stage-0 block: dw conv -> BN -> SiLU -> SE -> pw -> BN (+x)."""
+class FusedRoutes:
+    """What MBConv and DepthwiseSeparable share for the fused routes: the
+    route of the moment, and the weights in a kernel's layout (``packed``),
+    made once per set of weights: rebuilt when a tensor is replaced, moved,
+    cast or changed in place."""
+
+    def packed(self, name: str, pack, *tensors: torch.Tensor):
+        # a cast or a move makes a new tensor, an in-place edit a new version
+        key = [(t.data_ptr(), t._version) for t in tensors]
+        packs = self.__dict__.setdefault("_packs", {})
+        hit = packs.get(name)
+        if hit is None or hit[0] != key:
+            hit = packs[name] = (key, pack(*tensors))
+        return hit[1]
+
+    def route(self) -> str:
+        """The route this block takes now: ``fused_route`` (chosen from the
+        switches and the widths when the block was built) when its BNs are
+        folded and it is not training, else 'plain'."""
+        if self.training or not all(type(self._modules[bn]) is FoldedBatchNorm
+                                    for _, bn in self.bn_folds):
+            return "plain"
+        return self.fused_route
+
+    def check_fused_route(self, x: torch.Tensor) -> None:
+        """Raise if autograd would need a gradient through a fused route
+        (its kernels and packed weights have none)."""
+        if torch.is_grad_enabled():
+            check_no_grad(f"{type(self).__name__}'s fused route", x, *self.parameters())
+
+
+def se_project_epilogue(block, h: torch.Tensor, skip: torch.Tensor | None,
+                        conv: nn.Conv2d) -> torch.Tensor:
+    """Kernel 7's route: the SE block's gate, then (h * gate) @ W + b (+ skip)
+    in one pass; NCHW channels_last in and out."""
+    block.check_fused_route(h)
+    gate = block.se(h, gate_only=True).reshape(h.shape[0], h.shape[1])
+    kernel, bias = block.packed("project", pack_project, conv.weight, conv.bias)
+    fn = se_gate_project_plain if h.dtype == torch.float32 else se_gate_project
+    nhwc = (lambda t: None if t is None else t.permute(0, 2, 3, 1))  # noqa: E731
+    return fn(nhwc(h), gate, kernel, bias, nhwc(skip)).permute(0, 3, 1, 2)
+
+
+class DepthwiseSeparable(FusedRoutes, nn.Module):
+    """EfficientNet stage-0 block: dw conv -> BN -> SiLU -> SE -> pw -> BN (+x).
+
+    ``se_project``: kernel 7's route (see the module note)."""
 
     bn_folds = (("conv_dw", "bn1"), ("conv_pw", "bn2"))
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int,
-                 se_ratio: float = 0.25):
+                 se_ratio: float = 0.25, se_project: bool = False):
         super().__init__()
         self.conv_dw = Conv2dSame(in_ch, in_ch, kernel_size, stride, groups=in_ch, bias=False)
         self.bn1 = nn.BatchNorm2d(in_ch, eps=BN_EPS)
@@ -90,21 +175,29 @@ class DepthwiseSeparable(nn.Module):
         self.conv_pw = nn.Conv2d(in_ch, out_ch, 1, bias=False)
         self.bn2 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
         self.has_residual = stride == 1 and in_ch == out_ch
+        self.fused_route = ("se_project" if se_project and se_project_eligible(in_ch, out_ch)
+                            else "plain")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = conv_bn_act(self.conv_dw, self.bn1, x)
+        if self.route() == "se_project":
+            return se_project_epilogue(self, h, x if self.has_residual else None, self.conv_pw)
         h = self.se(h)
         h = conv_bn_act(self.conv_pw, self.bn2, h, act=False)
         return h + x if self.has_residual else h
 
 
-class MBConv(nn.Module):
-    """EfficientNet inverted residual: 1x1 expand -> dw -> SE -> 1x1 project (+x)."""
+class MBConv(FusedRoutes, nn.Module):
+    """EfficientNet inverted residual: 1x1 expand -> dw -> SE -> 1x1 project (+x).
+
+    ``fused_mbconv_head``: kernel 8's route; ``se_project``: kernel 7's (see
+    the module note)."""
 
     bn_folds = (("conv_pw", "bn1"), ("conv_dw", "bn2"), ("conv_pwl", "bn3"))
 
     def __init__(self, in_ch: int, out_ch: int, expand_ratio: float,
-                 kernel_size: int, stride: int, se_ratio: float = 0.25):
+                 kernel_size: int, stride: int, se_ratio: float = 0.25,
+                 fused_mbconv_head: bool = False, se_project: bool = False):
         super().__init__()
         mid = int(in_ch * expand_ratio)
         self.conv_pw = nn.Conv2d(in_ch, mid, 1, bias=False)
@@ -115,10 +208,35 @@ class MBConv(nn.Module):
         self.conv_pwl = nn.Conv2d(mid, out_ch, 1, bias=False)
         self.bn3 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
         self.has_residual = stride == 1 and in_ch == out_ch
+        if (fused_mbconv_head and expand_ratio != 1 and se_ratio > 0
+                and mbconv_eligible(in_ch, mid, kernel_size, stride)):
+            self.fused_route = "mbconv_head"
+        elif se_project and se_project_eligible(mid, out_ch):
+            self.fused_route = "se_project"
+        else:
+            self.fused_route = "plain"
+
+    def expand_dw_pool(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Kernel 8's route: (y NCHW channels_last, pool (B, M) fp32)."""
+        self.check_fused_route(x)
+        p = self.packed("head", pack_mbconv, self.conv_pw.weight, self.conv_pw.bias,
+                        self.conv_dw.weight, self.conv_dw.bias)
+        fn = mbconv_expand_dw_pool_plain if x.dtype == torch.float32 else mbconv_expand_dw_pool
+        y, pool = fn(x.permute(0, 2, 3, 1), p.we, p.be, p.wd, p.bd, p.ksize)
+        return y.permute(0, 3, 1, 2), pool
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = conv_bn_act(self.conv_pw, self.bn1, x)
-        h = conv_bn_act(self.conv_dw, self.bn2, h)
-        h = self.se(h)
+        route = self.route()
+        if route == "mbconv_head":
+            h, pool = self.expand_dw_pool(x)
+            pooled = (pool / (x.shape[2] * x.shape[3])).to(x.dtype)[:, :, None, None]
+            h = self.se(h, pooled=pooled)
+        else:
+            h = conv_bn_act(self.conv_pw, self.bn1, x)
+            h = conv_bn_act(self.conv_dw, self.bn2, h)
+            if route == "se_project":
+                return se_project_epilogue(self, h, x if self.has_residual else None,
+                                           self.conv_pwl)
+            h = self.se(h)
         h = conv_bn_act(self.conv_pwl, self.bn3, h, act=False)
         return h + x if self.has_residual else h

@@ -32,6 +32,7 @@ from objcavit_torch.models.efficientnet import EfficientNetEncoder, encoder_spec
 from objcavit_torch.ops.resize import resize_bilinear
 
 DECODER_BN_EPS = 1e-5
+ENCODER_IMPLS = ("plain", "kernel")
 
 
 def upsample_align_corners(x: torch.Tensor, out_h: int, out_w: int, train: bool) -> torch.Tensor:
@@ -93,12 +94,17 @@ class DenseFeatureExtractor(nn.Module):
     """Encoder + U-Net decoder: (B, H, W, 3) -> (B, H/2, W/2, 128), NHWC.
 
     The encoder sits at ``encoder.original_model`` as in the reference, which
-    wraps a timm model there.
+    wraps a timm model there. ``encoder_impl`` is its route: ``"plain"`` or
+    ``"kernel"`` (both of the encoder's fused routes, kernels 7 and 8).
     """
 
-    def __init__(self, encoder_name: str):
+    def __init__(self, encoder_name: str, encoder_impl: str = "plain"):
         super().__init__()
-        self.encoder = nn.ModuleDict({"original_model": EfficientNetEncoder(encoder_name)})
+        if encoder_impl not in ENCODER_IMPLS:
+            raise ValueError(f"encoder_impl must be one of {ENCODER_IMPLS}, got {encoder_impl!r}")
+        fused = encoder_impl == "kernel"
+        self.encoder = nn.ModuleDict({"original_model": EfficientNetEncoder(
+            encoder_name, fused_mbconv_head=fused, se_project=fused)})
         self.decoder = Decoder(encoder_name)
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:

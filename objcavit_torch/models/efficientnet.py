@@ -9,6 +9,14 @@ layout) wait for ROADMAP A.5.
 
 b5 returns block0 (24ch, /2), block1 (40, /4), block2 (64, /8),
 block4 (176, /16) and conv_head (2048, /32).
+
+``fused_mbconv_head`` and ``se_project`` are the JAX package's two switches
+(its constructor flag and ``se_project_pallas.ENABLE``), passed to every
+block: kernel 8's and kernel 7's routes of a folded encoder at inference
+(``models/common.py``). ``block_routes()`` lists the route each block takes
+now. At B5 with both on, 32 stride-1 MBConv blocks take kernel 8 and the
+three DepthwiseSeparable blocks and four stride-2 first blocks take kernel
+7; with ``se_project`` alone all 39 blocks take kernel 7.
 """
 
 from __future__ import annotations
@@ -111,7 +119,8 @@ class EfficientNetEncoder(nn.Module):
 
     bn_folds = (("conv_stem", "bn1"),)
 
-    def __init__(self, encoder_name: str):
+    def __init__(self, encoder_name: str, fused_mbconv_head: bool = False,
+                 se_project: bool = False):
         super().__init__()
         spec = encoder_spec(encoder_name)
         self.skip_stages = spec.skip_stages
@@ -124,13 +133,21 @@ class EfficientNetEncoder(nn.Module):
             for bi in range(depth):
                 s = stride if bi == 0 else 1
                 if btype == "ds":
-                    blocks.append(DepthwiseSeparable(in_ch, out_ch, kernel, s))
+                    blocks.append(DepthwiseSeparable(in_ch, out_ch, kernel, s,
+                                                     se_project=se_project))
                 else:
-                    blocks.append(MBConv(in_ch, out_ch, expand, kernel, s))
+                    blocks.append(MBConv(in_ch, out_ch, expand, kernel, s,
+                                         fused_mbconv_head=fused_mbconv_head,
+                                         se_project=se_project))
                 in_ch = out_ch
             stages.append(nn.Sequential(*blocks))
         self.blocks = nn.Sequential(*stages)
         self.conv_head = nn.Conv2d(in_ch, spec.head_channels, 1, bias=False)
+
+    def block_routes(self) -> list[str]:
+        """Each block's route, in order: 'plain', 'mbconv_head' (kernel 8) or
+        'se_project' (kernel 7)."""
+        return [block.route() for stage in self.blocks for block in stage]
 
     def forward(self, image: torch.Tensor) -> list[torch.Tensor]:
         x = conv_bn_act(self.conv_stem, self.bn1, image.permute(0, 3, 1, 2))

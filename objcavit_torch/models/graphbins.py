@@ -18,8 +18,9 @@ The bins head reads ``conv_out`` in fp32, as the JAX bins head reads its
 fp32 parameters; ``cast`` keeps it so. Training keeps every parameter in
 fp32 and computes in bf16 through ``params_in``, the JAX package's
 ``param.astype(dtype)`` at each op. ``attn_impl`` is ObjCAViT's attention
-route, ``"plain"`` or ``"kernel"`` (kernel 5). ``BinsDepthModel`` holds
-what GraphBins and AdaBins share.
+route, ``"plain"`` or ``"kernel"`` (kernel 5); ``encoder_impl`` the
+encoder's, ``"plain"`` or ``"kernel"`` (kernels 7 and 8, folded inference
+only). ``BinsDepthModel`` holds what GraphBins and AdaBins share.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ N_QUERIES = 128
 class BinsDepthModel(nn.Module):
     """What GraphBins and AdaBins share: a fp32 ``conv_out`` beside a model
     in ``dtype``, and the parameters as a forward in a compute dtype reads
-    them. Subclasses hold ``conv_out``, ``min_depth``, ``max_depth`` and
-    ``attn_impl`` (the route of every attention they hold), and name their
+    them. Subclasses hold ``conv_out``, ``min_depth``, ``max_depth``,
+    ``attn_impl`` (the route of every attention they hold) and
+    ``encoder_impl`` (the encoder's route), and name their
     ``transformer_head``, the module between the decoder and the bins head.
     ``takes_objects`` says whether the forward takes the object slots after
     the image (GraphBins) or the image alone (AdaBins)."""
@@ -88,13 +90,15 @@ class GraphBins(BinsDepthModel):
                  min_depth: float = 0.001, max_depth: float = 10.0,
                  embedding_dim: int = 128, obj_feature_dim: int = 512,
                  pos_strategy: str = "learned_bbox_wh", dropout_rate: float = 0.1,
-                 n_queries: int = N_QUERIES, attn_impl: str = "plain"):
+                 n_queries: int = N_QUERIES, attn_impl: str = "plain",
+                 encoder_impl: str = "plain"):
         super().__init__()
         self.min_depth = min_depth
         self.max_depth = max_depth
         self.attn_impl = attn_impl
+        self.encoder_impl = encoder_impl
         self.obj_feature_dim = obj_feature_dim
-        self.dense_feature_extractor = DenseFeatureExtractor(encoder_name)
+        self.dense_feature_extractor = DenseFeatureExtractor(encoder_name, encoder_impl)
         self.objcavit = ObjCAViT(
             im_feature_dim=128, obj_feature_dim=obj_feature_dim,
             n_query_channels=n_queries, patch_size=16, dim_out=n_bins,

@@ -111,12 +111,15 @@ class DepthPipeline:
 
 
 def build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,
-                            device="cuda", attn_impl: str = "plain") -> DepthPipeline:
+                            device="cuda", attn_impl: str = "plain",
+                            encoder_impl: str = "plain") -> DepthPipeline:
     """Flagship GraphBins-B5 pipeline, BN folded, with random weights from
-    ``seed``, its attention on the route ``attn_impl``."""
+    ``seed``, its attention on the route ``attn_impl`` and its encoder on
+    the route ``encoder_impl``."""
     from objcavit_torch.utils.benchkit import build_flagship_model
 
-    model = build_flagship_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl)
+    model = build_flagship_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl,
+                                 encoder_impl=encoder_impl)
     return DepthPipeline(model, eval_dims=eval_dims)
 
 

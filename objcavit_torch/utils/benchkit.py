@@ -10,7 +10,9 @@ with the values of ``params/nyu_adabins_enet-b5.yaml`` (256 bins, NYU's
 ``torch.Generator``, so every device gets the same model; for serving, BN is
 then folded in fp32 and the model cast and moved. Every builder takes
 ``attn_impl`` ("plain" or "kernel", kernel 5) where the model has
-attention, and builds on the card unless given another ``device``.
+attention, and builds on the card unless given another ``device``; the
+flagship's eval builder takes ``encoder_impl`` ("plain" or "kernel",
+kernels 7 and 8 in the encoder).
 """
 
 from __future__ import annotations
@@ -35,10 +37,11 @@ TRAIN_LR, TRAIN_WD, TRAIN_CLIP, TRAIN_TOTAL_STEPS = 3.57e-4, 0.1, 0.1, 100
 TRAIN_LOSSES = (("silog", "bins_chamfer"), (1.0, 0.1))
 
 
-def flagship_kwargs(attn_impl: str = "plain") -> dict:
+def flagship_kwargs(attn_impl: str = "plain", encoder_impl: str = "plain") -> dict:
     return dict(
         encoder_name="efficientnet-b5", n_bins=256, min_depth=0.001,
         max_depth=10.0, pos_strategy="learned_bbox_wh", attn_impl=attn_impl,
+        encoder_impl=encoder_impl,
     )
 
 
@@ -86,12 +89,13 @@ def _eval_model(model: BinsDepthModel, dtype, seed: int, device) -> BinsDepthMod
 
 
 def build_flagship_model(dtype=torch.bfloat16, seed: int = 0, device="cuda",
-                         attn_impl: str = "plain", **overrides) -> GraphBins:
+                         attn_impl: str = "plain", encoder_impl: str = "plain",
+                         **overrides) -> GraphBins:
     """Random-weight GraphBins (flagship kwargs, updated by ``overrides``) in
     eval mode with BN folded, on ``device``."""
     device = card_device(device)
-    return _eval_model(GraphBins(**{**flagship_kwargs(attn_impl), **overrides}), dtype, seed,
-                       device)
+    return _eval_model(GraphBins(**{**flagship_kwargs(attn_impl, encoder_impl), **overrides}),
+                       dtype, seed, device)
 
 
 def build_adabins_model(dtype=torch.bfloat16, seed: int = 0, device="cuda",

@@ -27,6 +27,12 @@ detector's class-max head (the level's features, its packed weights and the
 four outputs), and ``detect_head_errors`` holds a call's outputs against the
 plain version on the same tensors, with a tie-aware check of the argmax.
 
+Encoder: ``record_encoder_kernel_io`` records each call of kernel 8 (the
+fused MBConv head) and kernel 7 (the SE-gate project) from the encoder's
+blocks, their arguments and outputs; ``mbconv_head_errors`` and
+``se_project_errors`` hold a call's outputs against the plain versions on
+the same tensors.
+
 The hooks only read tensors; the step runs as it would without them.
 """
 
@@ -38,6 +44,7 @@ import torch
 
 import objcavit_torch.kernels.attention as kattn
 import objcavit_torch.kernels.detect_head as kdetect
+import objcavit_torch.models.common as common
 import objcavit_torch.models.yolov7 as yolov7
 import objcavit_torch.ops.bins as ops_bins
 from objcavit_torch.kernels.bins import conv_bins_depth_batched_plain
@@ -45,7 +52,9 @@ from objcavit_torch.kernels.bins_expectation import (
     bins_expectation_bwd_plain,
     bins_expectation_plain,
 )
+from objcavit_torch.kernels.mbconv import depthwise_silu_plain, expand_plain
 from objcavit_torch.kernels.resize import resize_bilinear_align_corners_plain
+from objcavit_torch.kernels.se_project import project_plain
 from objcavit_torch.ops.bins import bins_head_operands
 
 
@@ -250,3 +259,107 @@ def detect_head_errors(flat, packed, out, rtol: float, atol: float) -> dict:
     bad += int(((want_max - at_arg).abs() > band).sum())
     bad += int(((cls_arg < 0) | (cls_arg >= nc)).sum())
     return {**errs, "near_ties": int((~clear).sum()), "rows": clear.numel(), "bad": bad}
+
+
+@contextlib.contextmanager
+def record_encoder_kernel_io():
+    """Yield a list that gets one dict per call of kernel 8 or kernel 7 from
+    the encoder's blocks (``models/common.py`` calls them through its module
+    attributes ``mbconv_expand_dw_pool`` and ``se_gate_project``, which this
+    wraps for the duration): 'kind' ('mbconv_head' or 'se_project'), 'args'
+    (the call's arguments) and 'out' (its outputs)."""
+    originals = {"mbconv_head": common.mbconv_expand_dw_pool,
+                 "se_project": common.se_gate_project}
+    names = {"mbconv_head": "mbconv_expand_dw_pool", "se_project": "se_gate_project"}
+    records: list[dict] = []
+
+    def recording(kind):
+        def call(*args):
+            out = originals[kind](*args)
+            records.append({"kind": kind, "args": args, "out": out})
+            return out
+        return call
+
+    for kind, name in names.items():
+        setattr(common, name, recording(kind))
+    try:
+        yield records
+    finally:
+        for kind, name in names.items():
+            setattr(common, name, originals[kind])
+
+
+UNIT = 2.0 ** -23  # fp32 unit roundoff, allowing two for an add on either side
+
+
+def _dw_abs(t: torch.Tensor, wd: torch.Tensor, ksize: int) -> torch.Tensor:
+    """sum_ij |wd_ij| t[. + i, . + j] of NHWC t, with wd rounded to t's dtype."""
+    m = t.shape[-1]
+    weight = wd.reshape(ksize * ksize, m).to(t.dtype).float().abs().t().reshape(m, 1, ksize, ksize)
+    out = torch.nn.functional.conv2d(t.float().permute(0, 3, 1, 2), weight, padding=ksize // 2,
+                                     groups=m)
+    return out.permute(0, 2, 3, 1)
+
+
+@torch.inference_mode()
+def mbconv_head_errors(x, we, be, wd, bd, ksize: int, y, pool, rtol: float, atol: float,
+                       pool_rtol: float) -> dict:
+    """Kernel 8's (or, with ``we`` None, kernel 10's) outputs ``y`` (NHWC, in
+    x's dtype) and ``pool`` (or None) against the plain version on the same
+    inputs, x NHWC. Each y may differ by its rounding, ``atol + rtol
+    |plain|``, plus the bound of its fp32 value: the depthwise sum in
+    another order ((k^2 + 2) 2^-23 sum |e w| + |bd|), the expanded band's
+    elements that may round to bf16 apart ('flips': those whose fp32 value
+    lies within the bound of the expand's sum, Cin 2^-23 sum |x we| + |be|,
+    and __expf's error of a rounding boundary, each adding one bf16 ulp
+    times its |tap weight|), SiLU's slope (<= 1.1) and __expf's error. The
+    pool, the sum of the fp32 y, may differ by the sum of those bounds plus
+    ``pool_rtol`` sum |y| (fp32 sums in another order). Returns the max abs
+    errors, 'flips' and the count of values out of tolerance ('bad')."""
+    flip_spread = None
+    if we is not None:
+        e32 = expand_plain(x, we, be)
+        cin = x.shape[-1]
+        pre = torch.matmul(x.float().abs(), we.to(x.dtype).float().abs()) + be.float().abs()
+        dev = 1.1 * UNIT * (cin + 4) * pre + 4 * UNIT * e32.abs()
+        e = e32.to(x.dtype)
+        flip_spread = (e32 + dev).to(x.dtype).float() - (e32 - dev).to(x.dtype).float()
+    else:
+        e = x
+    y32 = depthwise_silu_plain(e, wd, bd, ksize)
+    slack_z = (ksize * ksize + 2) * UNIT * (_dw_abs(e.abs(), wd, ksize) + bd.float().abs())
+    if flip_spread is not None:
+        slack_z = slack_z + _dw_abs(flip_spread, wd, ksize)
+    slack = 1.1 * slack_z + 4 * UNIT * y32.abs()
+    want = y32.to(x.dtype).float()
+    err = (y.float() - want).abs()
+    bad = int((err > atol + rtol * want.abs() + slack).sum()) + int((~torch.isfinite(y)).sum())
+    out = {"y": float(err.max()), "flips": 0 if flip_spread is None else int((flip_spread > 0).sum())}
+    if pool is not None:
+        pool_err = (pool - y32.sum((1, 2))).abs()
+        bound = atol + pool_rtol * y32.abs().sum((1, 2)) + slack.sum((1, 2))
+        bad += int((pool_err > bound).sum()) + int((~torch.isfinite(pool)).sum())
+        out["pool"] = float(pool_err.max())
+    return {**out, "bad": bad}
+
+
+@torch.inference_mode()
+def se_project_errors(dw_out, gate, kernel, bias, skip, out, rtol: float, atol: float) -> dict:
+    """Kernel 7's output ``out`` against the plain version on the same
+    inputs. The fp32 project may differ by M 2^-23 sum |gated w| + |bias|
+    (its sum in another order); rounded once (one bf16 ulp, ``rtol`` of the
+    project) and, with a skip, again after the add (``rtol`` of the
+    output), plus ``atol``. Returns the max abs error and the count of
+    values out of tolerance ('bad')."""
+    h32 = project_plain(dw_out, gate, kernel, bias)
+    gated = (dw_out * gate.to(dw_out.dtype)[:, None, None, :]).float().abs()
+    slack = (dw_out.shape[-1] + 2) * UNIT * (torch.matmul(gated, kernel.to(dw_out.dtype).float().abs())
+                                             + bias.float().abs())
+    h = h32.to(dw_out.dtype)
+    want = (h + skip if skip is not None else h).float()
+    bound = atol + rtol * want.abs() + slack
+    if skip is not None:
+        bound = bound + rtol * h.float().abs()
+    err = (out.float() - want).abs()
+    return {"out": float(err.max()),
+            "bad": int((err > bound).sum()) + int((~torch.isfinite(out)).sum())}

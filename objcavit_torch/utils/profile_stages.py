@@ -4,6 +4,7 @@
     python -m objcavit_torch.utils.profile_stages --train  # the train step
     python -m objcavit_torch.utils.profile_stages --fused  # the fused server
     python -m objcavit_torch.utils.profile_stages --attn   # both attention routes
+    python -m objcavit_torch.utils.profile_stages --encoder  # both encoder routes
 
 Server: three measurements of ``build_flagship_pipeline()`` (GraphBins-B5, bf16, BN
 folded, 480x640, 300 slots, random weights, sentinel objects):
@@ -40,8 +41,13 @@ Attention routes (``--attn``): the stage split of the flagship server and
 of the AdaBins-B5 server (``build_adabins_pipeline``, 480x640, bs 8) on the
 plain attention route and on kernel 5's, two servers built from one seed
 (the same weights), timed in turns (plain, kernel, kernel, plain;
-``attention_route_split``): the ObjCAViT and miniViT stages are what the
-route changes.
+``route_split``): the ObjCAViT and miniViT stages are what the route
+changes.
+
+Encoder routes (``--encoder``): the flagship server on the plain encoder
+route and on kernels 7 and 8's (``encoder_impl``), two servers of one seed:
+the stage split in turns, as ``--attn``, and one trace of 5 requests per
+route, read as the server's is.
 
 Each line names the card (``nvidia-smi``) at the start and at the end.
 """
@@ -118,13 +124,15 @@ def stage_split(pipe, frames, iters: int = 30, warmup: int = 10) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def attention_route_split(pipes: dict, frames, iters: int = 20, warmup: int = 5) -> dict:
+def route_split(pipes: dict, frames, attr: str, iters: int = 20, warmup: int = 5) -> dict:
     """{route: stage_split} of ``pipes`` ({'plain': server, 'kernel':
-    server}, one model's weights on each attention route), timed in turns
-    (plain, kernel, kernel, plain; each route's two splits averaged)."""
+    server}, one model's weights on each route of the model's ``attr``,
+    'attn_impl' or 'encoder_impl'), timed in turns (plain, kernel, kernel,
+    plain; each route's two splits averaged)."""
     for route, pipe in pipes.items():
-        if pipe.model.attn_impl != route:
-            raise ValueError(f"the {route!r} server's model is on {pipe.model.attn_impl!r}")
+        if getattr(pipe.model, attr) != route:
+            raise ValueError(f"the {route!r} server's model has {attr} "
+                             f"{getattr(pipe.model, attr)!r}")
     runs = collections.defaultdict(list)
     for route in ("plain", "kernel", "kernel", "plain"):
         runs[route].append(stage_split(pipes[route], frames, iters, warmup))
@@ -139,8 +147,22 @@ def profile_attention_routes() -> None:
     for name, build in (("flagship", build_flagship_pipeline), ("adabins", build_adabins_pipeline)):
         pipes = {route: build(attn_impl=route) for route in ("plain", "kernel")}
         frames = rng.integers(0, 256, (8, *pipes["plain"].eval_dims, 3), dtype=np.uint8)
-        for route, split in attention_route_split(pipes, frames).items():
+        for route, split in route_split(pipes, frames, "attn_impl").items():
             print(f"{name} stage_ms_median ({route} attention)", json.dumps(split), flush=True)
+
+
+def profile_encoder_routes() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipes = {route: build_flagship_pipeline(encoder_impl=route) for route in ("plain", "kernel")}
+    frames = np.random.default_rng(0).integers(0, 256, (8, *pipes["plain"].eval_dims, 3),
+                                               dtype=np.uint8)
+    for route, split in route_split(pipes, frames, "encoder_impl").items():
+        print(f"stage_ms_median ({route} encoder)", json.dumps(split), flush=True)
+    for route, pipe in pipes.items():
+        t = trace(lambda: pipe(frames))
+        print(t.pop("top"), flush=True)
+        print(f"trace ({route} encoder)", json.dumps(t), flush=True)
 
 
 def train_stage_split(step, batch, objects, iters: int = 8, warmup: int = 3) -> dict:
@@ -284,6 +306,9 @@ def kernel_kind(name: str) -> str:
     n = name.lower()
     for needle, kind in (("attn_", "kernel 5 (attention)"),
                          ("detect_head", "kernel 6 (detect head)"),
+                         ("se_project", "kernel 7 (SE-gate project)"),
+                         ("mbconv_head", "kernel 8 (MBConv head)"),
+                         ("pool_reduce", "kernel 8 (MBConv head)"),
                          ("bins_expectation", "kernel 4 (bins expectation)"),
                          ("conv_bins_depth", "kernel 2 (bins)"),
                          ("resize_bilinear", "kernel 1 (resize)"), ("memcpy", "memcpy")):
@@ -390,12 +415,15 @@ def main() -> None:
     parser.add_argument("--fused", action="store_true", help="profile the fused server")
     parser.add_argument("--attn", action="store_true",
                         help="stage splits of the flagship and AdaBins on each attention route")
+    parser.add_argument("--encoder", action="store_true",
+                        help="stage splits and traces of the flagship on each encoder route")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_stages: needs a CUDA card")
     print(smi(), flush=True)
     other = (profile_train if args.train else profile_fused if args.fused
-             else profile_attention_routes if args.attn else None)
+             else profile_attention_routes if args.attn
+             else profile_encoder_routes if args.encoder else None)
     if other is not None:
         other()
         print(smi(), flush=True)

@@ -6,8 +6,9 @@ Run on the card, from the repository root:
 
 (``--noconftest``: the suite's conftest sets up JAX, which the port does not
 need.) Each kernel is held against its plain PyTorch version on the same
-card, with the tolerances chip_smoke.py states. The last test is not a card
-test: it runs on the CPU, in a subprocess, in the Tier-1 command.
+card, with the tolerances chip_smoke.py states.
+``test_class_table_through_the_port_imports_no_jax`` is not a card test: it
+runs on the CPU, in a subprocess, in the Tier-1 command.
 """
 
 import os
@@ -18,11 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+import objcavit_torch.models.common as common
 from objcavit_torch.kernels import attention as kattn
 from objcavit_torch.kernels import bins as kbins
 from objcavit_torch.kernels import bins_expectation as kexp
 from objcavit_torch.kernels import detect_head as kdetect
+from objcavit_torch.kernels import mbconv as kmb
 from objcavit_torch.kernels import resize as kresize
+from objcavit_torch.kernels import se_project as kse
 from objcavit_torch.serving import FusedDepthPipeline
 from objcavit_torch.utils.benchkit import (
     build_adabins_model,
@@ -31,15 +35,19 @@ from objcavit_torch.utils.benchkit import (
     build_flagship_model,
     build_flagship_train,
 )
+from objcavit_torch.utils.fold_bn import fold_batchnorm
 from objcavit_torch.utils.kernel_io import (
     attention_plain_outputs,
     bins_expectation_plain_outputs,
     detect_head_errors,
+    mbconv_head_errors,
     plain_outputs,
     record_attention_io,
     record_bins_expectation_io,
     record_detect_head_io,
+    record_encoder_kernel_io,
     record_kernel_io,
+    se_project_errors,
 )
 
 gpu = pytest.mark.gpu
@@ -52,6 +60,9 @@ DLOGITS_RTOL, DLOGITS_ATOL_PER_G = 2.0 ** -7, 1e-4
 DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX = 1e-4, 1e-5
 DETECT_RTOL, DETECT_ATOL = 2.0 ** -7, 1e-5  # kernel 6: one bf16 ulp; see chip_smoke.py
 ATTN_RTOL, ATTN_ATOL_PER_MAX = 2.0 ** -7, 1e-4  # kernel 5: see chip_smoke.py
+# kernels 7-10: one bf16 ulp plus the fp32 bounds kernel_io's checks add;
+# the pool's fp32 sums in another order (see chip_smoke.py)
+MB_RTOL, MB_ATOL, POOL_RTOL = 2.0 ** -7, 1e-5, 1e-4
 
 
 @pytest.fixture
@@ -472,3 +483,161 @@ def test_tiny_adabins_on_the_kernel_route(cuda):
     assert [r["kind"] for r in train_records].count("bwd") == 4
     for rec in records + train_records:
         _assert_attn_close(attention_plain_outputs(rec))
+
+
+def _mbconv_inputs(gen, b, h, w, cin, m, k, be_scale=3.0, batch_minor=False):
+    """bf16 x (NHWC, or (H, W, B, C)) and weights, fp32 biases; a large be
+    makes silu(be) far from zero, so a halo left unzeroed shows."""
+    shape = (h, w, b, cin) if batch_minor else (b, h, w, cin)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    we = (torch.randn((cin, m), generator=gen, device="cuda") / cin ** 0.5).to(torch.bfloat16)
+    be = be_scale * torch.randn(m, generator=gen, device="cuda")
+    wd = (0.3 * torch.randn((k, k, 1, m), generator=gen, device="cuda")).to(torch.bfloat16)
+    bd = 0.3 * torch.randn(m, generator=gen, device="cuda")
+    return x, we, be, wd, bd
+
+
+def _assert_mbconv_ok(x, we, be, wd, bd, k, y, pool):
+    errs = mbconv_head_errors(x, we, be, wd, bd, k, y, pool, MB_RTOL, MB_ATOL, POOL_RTOL)
+    assert errs["bad"] == 0, errs
+
+
+@gpu
+@pytest.mark.parametrize("shape", [
+    (8, 120, 160, 40, 240, 3),  # B5 stage 1
+    (2, 15, 20, 304, 1824, 5),  # B5 stage 5: ragged 8x16 tiles
+    (2, 17, 23, 24, 48, 5),  # Cin 24: one zero-filled chunk
+    (3, 9, 33, 512, 96, 3),  # Cin 512 streamed in 16 chunks
+    (1, 10, 10, 16, 56, 5),  # M 56: a ragged channel tile
+    (1, 1, 1, 8, 8, 3),  # one pixel: every tap but the centre is halo
+])
+def test_kernel8_matches_plain(cuda, shape):
+    b, h, w, cin, m, k = shape
+    args = _mbconv_inputs(cuda, b, h, w, cin, m, k)
+    y, pool = kmb.mbconv_expand_dw_pool(*args, k)
+    torch.cuda.synchronize()
+    assert y.shape == (b, h, w, m) and y.dtype == torch.bfloat16 and pool.shape == (b, m)
+    _assert_mbconv_ok(*args, k, y, pool)
+
+
+@gpu
+@pytest.mark.parametrize("shape", [(12, 17, 4, 40, 240, 3), (7, 9, 3, 24, 48, 5)])
+def test_kernel9_matches_plain(cuda, shape):
+    h, w, b, cin, m, k = shape
+    x_t, we, be, wd, bd = _mbconv_inputs(cuda, b, h, w, cin, m, k, batch_minor=True)
+    y_t, pool = kmb.mbconv_bs_expand_dw_pool(x_t, we, be, wd, bd, k)
+    torch.cuda.synchronize()
+    assert y_t.shape == (h, w, b, m)
+    _assert_mbconv_ok(x_t.permute(2, 0, 1, 3), we, be, wd, bd, k, y_t.permute(2, 0, 1, 3), pool)
+
+
+@gpu
+@pytest.mark.parametrize("shape,k,with_pool", [((8, 30, 40, 768), 3, True),
+                                               ((2, 15, 20, 160), 5, True),
+                                               ((2, 15, 20, 160), 5, False),
+                                               ((1, 3, 2, 56), 3, True)])
+def test_kernel10_matches_plain(cuda, shape, k, with_pool):
+    b, h, w, c = shape
+    x, _, _, wd, bd = _mbconv_inputs(cuda, b, h, w, c, c, k)
+    y, pool = kmb.dw_conv_silu_pool(x, wd, bd, k, with_pool)
+    torch.cuda.synchronize()
+    assert (pool is None) == (not with_pool)
+    _assert_mbconv_ok(x, None, None, wd, bd, k, y, pool)
+
+
+@gpu
+@pytest.mark.parametrize("shape,with_skip", [
+    ((2, 15, 20, 48, 24), True),  # H*W = 300: 128-row tiles cross images
+    ((3, 7, 11, 24, 24), True),  # M 24: a zero-filled chunk
+    ((2, 15, 20, 3072, 512), False),  # B5 stage 6's last block
+    ((1, 5, 5, 144, 40), False),  # O 40: a ragged column tile
+    ((8, 120, 160, 144, 40), False),  # B5 stage 2's first block
+])
+def test_kernel7_matches_plain(cuda, shape, with_skip):
+    b, h, w, m, o = shape
+    dw = torch.randn((b, h, w, m), generator=cuda, device="cuda").to(torch.bfloat16)
+    gate = torch.rand((b, m), generator=cuda, device="cuda").to(torch.bfloat16)
+    kern = (torch.randn((m, o), generator=cuda, device="cuda") / m ** 0.5).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(o, generator=cuda, device="cuda")
+    skip = (torch.randn((b, h, w, o), generator=cuda, device="cuda").to(torch.bfloat16)
+            if with_skip else None)
+    out = kse.se_gate_project(dw, gate, kern, bias, skip)
+    torch.cuda.synchronize()
+    errs = se_project_errors(dw, gate, kern, bias, skip, out, MB_RTOL, MB_ATOL)
+    assert errs["bad"] == 0, errs
+
+
+@gpu
+def test_kernels7to10_raise_instead_of_falling_back_and_count_launches(cuda):
+    x, we, be, wd, bd = _mbconv_inputs(cuda, 1, 4, 4, 8, 16, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kmb.mbconv_expand_dw_pool(x.transpose(1, 2), we, be, wd, bd, 3)
+    with pytest.raises(ValueError, match="bf16"):
+        kmb.mbconv_expand_dw_pool(x.float(), we, be, wd, bd, 3)
+    with pytest.raises(ValueError, match="fp32 biases"):
+        kmb.mbconv_expand_dw_pool(x, we, be.bfloat16(), wd, bd, 3)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kmb.dw_conv_silu_pool(x[..., :6].contiguous(), wd[..., :6].contiguous(), bd[:6], 3)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kmb.mbconv_bs_expand_dw_pool(x, we.requires_grad_(), be, wd, bd, 3)
+    we.requires_grad_(False)
+    dw = torch.zeros((1, 4, 4, 16), dtype=torch.bfloat16, device="cuda")
+    gate = torch.zeros((1, 16), dtype=torch.bfloat16, device="cuda")
+    kern = torch.zeros((16, 8), dtype=torch.bfloat16, device="cuda")
+    bias = torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        kse.se_gate_project(dw.transpose(1, 2), gate, kern, bias)
+    with pytest.raises(ValueError, match="bf16"):
+        kse.se_gate_project(dw, gate.float(), kern, bias)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kse.se_gate_project(dw, gate, kern.requires_grad_(), bias)
+    kern.requires_grad_(False)
+    counters = (kmb.mbconv_expand_dw_pool, kmb.mbconv_bs_expand_dw_pool, kmb.dw_conv_silu_pool,
+                kse.se_gate_project)
+    before = [f.launches for f in counters]
+    kmb.mbconv_expand_dw_pool(x, we, be, wd, bd, 3)
+    kmb.mbconv_expand_dw_pool_plain(x, we, be, wd, bd, 3)
+    kmb.mbconv_bs_expand_dw_pool(x, we, be, wd, bd, 3)
+    kmb.dw_conv_silu_pool(x, wd[..., :8].contiguous(), bd[:8], 3, with_pool=False)
+    kse.se_gate_project(dw, gate, kern, bias)
+    kse.se_gate_project_plain(dw, gate, kern, bias)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+
+
+@gpu
+@pytest.mark.parametrize("switch", ["fused_mbconv_head", "se_project"])
+def test_fused_blocks_in_fp16_raise_on_the_card(cuda, switch):
+    """Only fp32 takes the plain versions on the card: a fused block of
+    another dtype than bf16 reaches the kernel's wrapper, which raises."""
+    block = fold_batchnorm(common.MBConv(16, 16, 6, 3, 1, **{switch: True}).eval())
+    block = block.to(device="cuda", dtype=torch.float16, memory_format=torch.channels_last)
+    x = torch.randn((1, 16, 8, 8), generator=cuda, device="cuda").half()
+    with torch.no_grad(), pytest.raises(ValueError, match="bf16"):
+        block(x.contiguous(memory_format=torch.channels_last))
+
+
+@gpu
+def test_tiny_graphbins_on_the_encoder_kernel_route(cuda):
+    """The tiny GraphBins in bf16 on ``encoder_impl="kernel"``: 2 kernel-8
+    and 5 kernel-7 launches a forward, each output within the error check on
+    its own tensors; the plain route launches neither."""
+    gen = torch.Generator().manual_seed(3)
+    inputs = (torch.randn((2, 384, 352, 3), generator=gen), 0.05 * torch.randn((2, 6, 512)),
+              300 * torch.rand((2, 6, 4)), torch.tensor([[True] * 3 + [False] * 3,
+                                                          [True] + [False] * 5]))
+    for impl, want in (("plain", (0, 0)), ("kernel", (2, 5))):
+        model = build_flagship_model(device="cuda", encoder_name="efficientnet-tiny",
+                                     encoder_impl=impl)
+        before = (kmb.mbconv_expand_dw_pool.launches, kse.se_gate_project.launches)
+        with torch.no_grad(), record_encoder_kernel_io() as records:
+            depth = model(*(t.cuda() for t in inputs))["depth_pred"]
+        torch.cuda.synchronize()
+        after = (kmb.mbconv_expand_dw_pool.launches, kse.se_gate_project.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == want
+        assert torch.isfinite(depth).all() and len(records) == sum(want)
+        for rec in records:
+            if rec["kind"] == "mbconv_head":
+                _assert_mbconv_ok(*rec["args"], *rec["out"])
+            else:
+                errs = se_project_errors(*rec["args"], rec["out"], MB_RTOL, MB_ATOL)
+                assert errs["bad"] == 0, errs

@@ -1,0 +1,388 @@
+"""Kernels 7-10 and the encoder's fused routes against the JAX package, on the CPU.
+
+* Kernels 8, 9, 10 and 7: the port's wrappers, which run their plain
+  versions on CPU tensors, against the Pallas kernels in interpret mode, at
+  the JAX tests' own shapes (tests/test_mbconv_pallas.py,
+  test_mbconv_bs.py, test_dw_pallas.py, test_se_project_pallas.py) and
+  tolerances for fp32; bf16 within one bf16 ulp (both sides sum the same
+  bf16-exact products in fp32 and round at the same points).
+* The encoder: efficientnet-tiny, folded, fp32, on each route, against
+  JAX's encoder with ``mbconv_pallas.INTERPRET`` and
+  ``se_project_pallas.INTERPRET`` monkeypatched, at 64x96 (at JAX's own
+  32x48 no block has a tile plan for kernel 8).
+* The slice: the tiny GraphBins of tests/test_torch_fused.py, folded, fp32,
+  with ``encoder_impl="kernel"`` against JAX's GraphBins with kernel 7 on
+  (it has no switch for kernel 8; its blocks' unfused math is what kernel 8
+  computes).
+* B5's routes, counted without a forward; the default route; the wrappers'
+  and the blocks' refusals; the error checks ``chip_smoke.py`` applies.
+"""
+
+import collections
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from objcavit_tpu.models.efficientnet import EfficientNetEncoder as JaxEncoder
+from objcavit_tpu.ops import mbconv_pallas as jax_mp
+from objcavit_tpu.ops import se_project_pallas as jax_sp
+from objcavit_tpu.ops.dw_pallas import dw_conv_silu_pool as jax_dw_conv_silu_pool
+from objcavit_tpu.ops.mbconv_bs import mbconv_bs_expand_dw_pool as jax_mbconv_bs
+from objcavit_tpu.utils.fold_bn import fold_batchnorm as jax_fold_batchnorm
+
+import objcavit_torch.models.common as common
+from objcavit_torch.kernels import mbconv as kmb
+from objcavit_torch.kernels import se_project as kse
+from objcavit_torch.models.efficientnet import EfficientNetEncoder
+from objcavit_torch.models.graphbins import GraphBins
+from objcavit_torch.utils.benchkit import build_flagship_model
+from objcavit_torch.utils.convert import state_dict_from_variables
+from objcavit_torch.utils.fold_bn import fold_batchnorm
+from objcavit_torch.utils.kernel_io import (
+    mbconv_head_errors,
+    record_encoder_kernel_io,
+    se_project_errors,
+)
+from tests.test_torch_fused import DIMS, ENC, N_OBJ, graphbins_variables, jax_graphbins
+
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5  # one bf16 ulp
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+def _close(got, want, rtol, atol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=rtol,
+                               atol=atol)
+
+
+def _mbconv_case(rng, b, h, w, cin, m, k, be_scale=0.3):
+    return (rng.standard_normal((b, h, w, cin)).astype(np.float32),
+            (0.2 * rng.standard_normal((cin, m))).astype(np.float32),
+            (be_scale * rng.standard_normal(m)).astype(np.float32),
+            (0.2 * rng.standard_normal((k, k, 1, m))).astype(np.float32),
+            (0.3 * rng.standard_normal(m)).astype(np.float32))
+
+
+# ----------------------------------------------------------------- kernel 8
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,k", [((2, 8, 10, 6, 24), 3), ((2, 8, 10, 6, 24), 5),
+                                     ((1, 12, 16, 4, 16), 3), ((1, 12, 16, 4, 16), 5),
+                                     ((1, 30, 8, 8, 32), 3)])
+def test_kernel8_matches_pallas(shape, k, dtype):
+    """JAX's tolerances in fp32 (y 1e-4, pool 1e-3). bf16: the expanded band
+    is rounded at the same point on both sides, y within one bf16 ulp, the
+    pool (fp32) within 1e-3."""
+    x, we, be, wd, bd = _mbconv_case(np.random.default_rng(sum(shape) + k), *shape, k)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want_y, want_pool = jax_mp.mbconv_expand_dw_pool(
+        jnp.asarray(x, jdt), jnp.asarray(we, jdt), jnp.asarray(be), jnp.asarray(wd, jdt),
+        jnp.asarray(bd), ksize=k, interpret=True)
+    y, pool = kmb.mbconv_expand_dw_pool(_t(x, tdt), _t(we, tdt), _t(be), _t(wd, tdt), _t(bd), k)
+    assert y.dtype == tdt and pool.dtype == torch.float32
+    tol = (1e-4, 1e-4) if dtype == "float32" else (BF16_RTOL, BF16_ATOL)
+    _close(y, want_y, *tol)
+    _close(pool, want_pool, 1e-3, 1e-3)
+
+
+# ----------------------------------------------------------------- kernel 9
+
+
+@pytest.mark.parametrize("shape,k", [((8, 8, 10, 6, 24), 3), ((8, 8, 10, 6, 24), 5),
+                                     ((16, 12, 16, 4, 16), 3), ((16, 12, 16, 4, 16), 5)])
+def test_kernel9_matches_pallas(shape, k):
+    """(H, W, B, C) layout; JAX's tolerances (B a multiple of 8 for its plan)."""
+    x, we, be, wd, bd = _mbconv_case(np.random.default_rng(sum(shape) * k), *shape, k)
+    x_t = x.transpose(1, 2, 0, 3)
+    want_y, want_pool = jax_mbconv_bs(*map(jnp.asarray, (x_t, we, be, wd, bd)), ksize=k,
+                                      interpret=True)
+    y, pool = kmb.mbconv_bs_expand_dw_pool(*map(_t, (x_t, we, be, wd, bd)), k)
+    assert y.shape == (*x_t.shape[:3], shape[-1]) and y.is_contiguous()
+    _close(y, want_y, 1e-4, 1e-4)
+    _close(pool, want_pool, 1e-3, 1e-3)
+
+
+# ---------------------------------------------------------------- kernel 10
+
+
+@pytest.mark.parametrize("shape,k,with_pool,dtype", [
+    ((2, 10, 12, 128), 3, True, "float32"),
+    ((2, 8, 10, 256), 5, True, "float32"),
+    ((1, 6, 8, 160), 3, True, "float32"),
+    ((1, 6, 8, 128), 3, False, "float32"),
+    ((1, 6, 8, 128), 3, True, "bfloat16"),
+])
+def test_kernel10_matches_pallas(shape, k, with_pool, dtype):
+    """JAX's tolerances in fp32 (y 2e-5; pool 2e-4 relative, 2e-3); bf16 y
+    within one bf16 ulp."""
+    rng = np.random.default_rng(shape[-1] + k)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal((k, k, 1, shape[-1])).astype(np.float32)
+    b = rng.standard_normal(shape[-1]).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want_y, want_pool = jax_dw_conv_silu_pool(jnp.asarray(x, jdt), jnp.asarray(w, jdt),
+                                              jnp.asarray(b), ksize=k, with_pool=with_pool,
+                                              interpret=True)
+    y, pool = kmb.dw_conv_silu_pool(_t(x, tdt), _t(w, tdt), _t(b), k, with_pool)
+    _close(y, want_y, *((2e-5, 2e-5) if dtype == "float32" else (BF16_RTOL, BF16_ATOL)))
+    if with_pool:
+        _close(pool, want_pool, 2e-4, 2e-3)
+    else:
+        assert pool is None and want_pool is None
+
+
+# ----------------------------------------------------------------- kernel 7
+
+
+@pytest.mark.parametrize("b,h,w,m,o,with_skip,dtype", [
+    (2, 8, 16, 24, 24, True, "float32"),
+    (2, 8, 16, 48, 16, False, "float32"),
+    (1, 8, 16, 144, 40, True, "bfloat16"),
+    (1, 8, 16, 144, 40, False, "bfloat16"),
+])
+def test_kernel7_matches_pallas(b, h, w, m, o, with_skip, dtype):
+    """fp32 at JAX's 1e-5. bf16: the gate product and the rounding points
+    are the same; the fp32 sum in another order may round the project one
+    bf16 ulp apart, and the skip add rounds again: two ulps."""
+    rng = np.random.default_rng(m + o)
+    dw = rng.standard_normal((b, h, w, m)).astype(np.float32)
+    gate = rng.uniform(0, 1, (b, m)).astype(np.float32)
+    kern = (0.1 * rng.standard_normal((m, o))).astype(np.float32)
+    bias = (0.01 * rng.standard_normal(o)).astype(np.float32)
+    skip = rng.standard_normal((b, h, w, o)).astype(np.float32) if with_skip else None
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jax_sp.se_gate_project(jnp.asarray(dw, jdt), jnp.asarray(gate), jnp.asarray(kern, jdt),
+                                  jnp.asarray(bias), None if skip is None else jnp.asarray(skip, jdt),
+                                  interpret=True)
+    got = kse.se_gate_project(_t(dw, tdt), _t(gate), _t(kern, tdt), _t(bias),
+                              None if skip is None else _t(skip, tdt))
+    assert got.dtype == tdt
+    _close(got, want, *((1e-5, 1e-5) if dtype == "float32" else (2 * BF16_RTOL, 2 * BF16_RTOL)))
+
+
+# ------------------------------------------------------------ the encoder
+
+
+def _port_encoder(variables, **switches) -> EfficientNetEncoder:
+    prefix = "dense_feature_extractor.encoder.original_model."
+    enc = EfficientNetEncoder(ENC, **switches)
+    enc.load_state_dict({k[len(prefix):]: torch.from_numpy(v) for k, v in
+                         state_dict_from_variables(variables, ENC).items() if k.startswith(prefix)})
+    return fold_batchnorm(enc.eval())
+
+
+@pytest.mark.parametrize("switches", [{"fused_mbconv_head": True}, {"se_project": True},
+                                      {"fused_mbconv_head": True, "se_project": True}],
+                         ids=["mbconv_head", "se_project", "both"])
+def test_encoder_routes_match_jax(switches, monkeypatch):
+    """Every level, at the tolerance of tests/test_mbconv_pallas.py's encoder
+    test (2e-4); JAX's blocks reach its Pallas kernels (counted by wrapping
+    them), the port's blocks take the routes listed."""
+    variables = graphbins_variables()
+    enc_vars = jax_fold_batchnorm({col: tree["dense_feature_extractor"]["encoder"]
+                                   for col, tree in variables.items()})
+    x = np.random.default_rng(3).standard_normal((2, *DIMS, 3)).astype(np.float32)
+    reached = collections.Counter()
+    for mod, name, kind in ((jax_mp, "mbconv_expand_dw_pool", "mbconv_head"),
+                            (jax_sp, "se_gate_project", "se_project")):
+        monkeypatch.setattr(mod, "INTERPRET", switches.get(
+            "fused_mbconv_head" if kind == "mbconv_head" else "se_project", False))
+        original = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _o=original, _k=kind, **kw:
+                            reached.update([_k]) or _o(*a, **kw))
+    jax_enc = JaxEncoder(ENC, fold_bn=True, fused_mbconv_head=switches.get("fused_mbconv_head",
+                                                                           False))
+    want = jax.jit(lambda v, a: jax_enc.apply(v, a, train=False))(enc_vars, jnp.asarray(x))
+    port = _port_encoder(variables, **switches)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x))
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4, atol=2e-4,
+                                   err_msg=f"encoder level {i}")
+    routes = collections.Counter(port.block_routes())
+    if switches.get("fused_mbconv_head"):
+        assert reached["mbconv_head"] >= 1  # stage 4's 4x6 map has a JAX tile plan
+        assert routes["mbconv_head"] == 2  # the two stride-1 MBConv blocks
+    if switches.get("se_project"):
+        assert reached["se_project"] >= 1
+        assert routes["se_project"] == (5 if switches.get("fused_mbconv_head") else 7)
+
+
+def test_graphbins_kernel_route_matches_jax(monkeypatch):
+    """The tiny GraphBins, folded, fp32, on ``encoder_impl="kernel"``: depth
+    within the slice tests' 1e-3 of JAX's GraphBins with kernel 7 on."""
+    variables = graphbins_variables()
+    rng = np.random.default_rng(17)
+    img = (0.5 * rng.standard_normal((2, *DIMS, 3))).astype(np.float32)
+    feats = rng.standard_normal((2, N_OBJ, 512)).astype(np.float32)
+    xywh = np.stack([rng.uniform(0, 96, (2, N_OBJ)), rng.uniform(0, 64, (2, N_OBJ)),
+                     rng.uniform(4, 40, (2, N_OBJ)), rng.uniform(4, 40, (2, N_OBJ))],
+                    -1).astype(np.float32)
+    valid = np.array([[True, True, True, False], [True, False, False, False]])
+    monkeypatch.setattr(jax_sp, "INTERPRET", True)
+    jmodel = jax_graphbins().clone(fold_bn=True)
+    want = jax.jit(lambda v, *a: jmodel.apply(v, *a, train=False))(
+        jax_fold_batchnorm(variables), *map(jnp.asarray, (img, feats, xywh, valid)))
+    model = GraphBins(encoder_name=ENC, n_bins=16, n_queries=5, encoder_impl="kernel")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           state_dict_from_variables(variables, ENC).items()})
+    fold_batchnorm(model.eval())
+    assert model.encoder_impl == "kernel"
+    routes = model.dense_feature_extractor.encoder["original_model"].block_routes()
+    assert collections.Counter(routes) == {"mbconv_head": 2, "se_project": 5}
+    with torch.no_grad():
+        got = model(*map(torch.from_numpy, (img, feats, xywh, valid)))
+    np.testing.assert_allclose(got["depth_pred"].numpy(), np.asarray(want["depth_pred"]),
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got["bin_edges"].numpy(), np.asarray(want["bin_edges"]),
+                               rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------ routes and refusals
+
+
+@pytest.mark.parametrize("switches,want", [
+    ({"fused_mbconv_head": True, "se_project": True}, {"mbconv_head": 32, "se_project": 7}),
+    ({"se_project": True}, {"se_project": 39}),
+    ({"fused_mbconv_head": True}, {"mbconv_head": 32, "plain": 7}),
+    ({}, {"plain": 39}),
+], ids=["kernel", "se_project", "mbconv_head", "plain"])
+def test_b5_routes(switches, want):
+    """B5's 39 blocks: the 32 stride-1 MBConvs take kernel 8, the three
+    DepthwiseSeparables and the four stride-2 first blocks kernel 7; no
+    block takes a fused route unfolded or in training mode."""
+    enc = EfficientNetEncoder("efficientnet-b5", **switches)
+    assert collections.Counter(enc.eval().block_routes()) == {"plain": 39}  # not folded
+    fold_batchnorm(enc)
+    assert collections.Counter(enc.block_routes()) == want
+    assert set(enc.train().block_routes()) == {"plain"}
+
+
+def test_flagship_names_its_encoder_route():
+    """The flagship builders pass ``encoder_impl`` down; the default route
+    takes neither kernel."""
+    for impl, want in (("plain", {"plain": 39}), ("kernel", {"mbconv_head": 32, "se_project": 7})):
+        model = build_flagship_model(device="cpu", encoder_impl=impl, dtype=torch.float32)
+        assert model.encoder_impl == impl
+        enc = model.dense_feature_extractor.encoder["original_model"]
+        assert collections.Counter(enc.block_routes()) == want
+    with pytest.raises(ValueError, match="encoder_impl"):
+        GraphBins(encoder_name=ENC, encoder_impl="pallas")
+
+
+def test_tiny_bf16_forward_records_each_fused_call():
+    """A bf16 forward on the kernel route calls kernels 8 and 7 once per
+    block on their routes (their plain versions on the CPU), each output
+    within the error check chip_smoke.py applies; the plain route calls
+    neither."""
+    calls = {}
+    for impl in ("plain", "kernel"):
+        model = build_flagship_model(device="cpu", encoder_name=ENC, n_bins=16, n_queries=5,
+                                     encoder_impl=impl)
+        img = torch.from_numpy(np.random.default_rng(2).standard_normal((2, *DIMS, 3))
+                               .astype(np.float32))
+        objs = (torch.zeros(2, N_OBJ, 512), torch.full((2, N_OBJ, 4), -1.0),
+                torch.tensor([[True] + [False] * (N_OBJ - 1)] * 2))
+        with torch.no_grad(), record_encoder_kernel_io() as records:
+            depth = model(img, *objs)["depth_pred"]
+        assert torch.isfinite(depth).all()
+        calls[impl] = collections.Counter(r["kind"] for r in records)
+        for rec in records:
+            if rec["kind"] == "mbconv_head":
+                errs = mbconv_head_errors(*rec["args"], *rec["out"], BF16_RTOL, BF16_ATOL, 1e-4)
+            else:
+                errs = se_project_errors(*rec["args"], rec["out"], BF16_RTOL, BF16_ATOL)
+            assert errs["bad"] == 0, errs
+    assert calls == {"plain": {}, "kernel": {"mbconv_head": 2, "se_project": 5}}
+
+
+def test_error_checks_catch_a_wrong_kernel():
+    """The checks pass the plain version's own output and fail one with the
+    halo ring left at silu(be) (kernel 8), a lost tile of the pool, or a
+    project off by 1% (kernel 7)."""
+    rng = np.random.default_rng(4)
+    x, we, be, wd, bd = (_t(a, torch.bfloat16 if i in (0, 1, 3) else torch.float32) for i, a in
+                         enumerate(_mbconv_case(rng, 2, 12, 20, 16, 48, 3, be_scale=3.0)))
+    y, pool = kmb.mbconv_expand_dw_pool_plain(x, we, be, wd, bd, 3)
+    check = lambda yy, pp: mbconv_head_errors(x, we, be, wd, bd, 3, yy, pp, BF16_RTOL,  # noqa: E731
+                                              BF16_ATOL, 1e-4)["bad"]
+    assert check(y, pool) == 0
+    # the halo left unzeroed: the expand of the zero padding is silu(be)
+    x_pad = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    band = F.silu(x_pad @ we.float() + be).to(torch.bfloat16)
+    z = F.conv2d(band.float().permute(0, 3, 1, 2), wd.float().reshape(9, 48).t().reshape(48, 1, 3, 3),
+                 groups=48)
+    bad_y = F.silu(z + bd[:, None, None]).permute(0, 2, 3, 1)
+    assert check(bad_y.to(torch.bfloat16), bad_y.sum((1, 2))) > 0
+    lost = pool.clone()
+    lost[0] -= y[0, :8, :16].float().sum((0, 1))  # one 8x16 tile's share
+    assert check(y, lost) > 0
+
+    dw = _t(rng.standard_normal((2, 15, 20, 48)), torch.bfloat16)
+    gate = _t(rng.uniform(0, 1, (2, 48)), torch.bfloat16)
+    kern = _t(0.1 * rng.standard_normal((48, 24)), torch.bfloat16)
+    bias = _t(rng.standard_normal(24))
+    skip = _t(rng.standard_normal((2, 15, 20, 24)), torch.bfloat16)
+    out = kse.se_gate_project_plain(dw, gate, kern, bias, skip)
+    assert se_project_errors(dw, gate, kern, bias, skip, out, BF16_RTOL, BF16_ATOL)["bad"] == 0
+    wrong = kse.se_gate_project_plain(dw, gate, kern * 1.01, bias, skip)
+    assert se_project_errors(dw, gate, kern, bias, skip, wrong, BF16_RTOL, BF16_ATOL)["bad"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("switch,name", [("fused_mbconv_head", "mbconv_expand_dw_pool"),
+                                         ("se_project", "se_gate_project")])
+def test_fused_blocks_call_the_plain_version_only_in_fp32(monkeypatch, switch, name, dtype):
+    """fp32 is the reference route and calls the plain version; any other
+    dtype calls the kernel's wrapper, which launches on bf16 CUDA tensors and
+    raises on the rest (on the CPU it runs the plain version)."""
+    called = []
+    for fn_name in (name, f"{name}_plain"):
+        fn = getattr(common, fn_name)
+        monkeypatch.setattr(common, fn_name,
+                            lambda *a, _fn=fn, _n=fn_name: called.append(_n) or _fn(*a))
+    block = fold_batchnorm(common.MBConv(16, 16, 6, 3, 1, **{switch: True}).eval()).to(dtype)
+    assert block.route() == switch.replace("fused_", "")
+    with torch.no_grad():
+        out = block(torch.randn((1, 16, 8, 8)).to(dtype))
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert called == [f"{name}_plain" if dtype == torch.float32 else name]
+
+
+def test_wrappers_and_blocks_refuse_what_they_cannot_do():
+    """Forward-only: the wrappers raise under autograd (on the CPU too), as
+    does a block on a fused route; a skip of another dtype raises, as in
+    JAX. Packed weights are made once and remade after an in-place edit."""
+    x = torch.zeros(1, 4, 4, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kmb.mbconv_expand_dw_pool(x, torch.zeros(8, 16), torch.zeros(16), torch.zeros(3, 3, 1, 16),
+                                  torch.zeros(16), 3)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kmb.dw_conv_silu_pool(x, torch.zeros(3, 3, 1, 8), torch.zeros(8), 3)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kse.se_gate_project(x, torch.zeros(1, 8), torch.zeros(8, 8), torch.zeros(8))
+    with pytest.raises(ValueError, match="skip dtype"):
+        kse.se_gate_project(torch.zeros(1, 2, 2, 8), torch.zeros(1, 8), torch.zeros(8, 8),
+                            torch.zeros(8), torch.zeros(1, 2, 2, 8, dtype=torch.bfloat16))
+    block = fold_batchnorm(common.MBConv(8, 8, 2, 3, 1, fused_mbconv_head=True).eval())
+    assert block.route() == "mbconv_head"
+    with pytest.raises(RuntimeError, match="forward-only"):
+        block(torch.zeros(1, 8, 4, 4))  # grad mode on, the weights require grad
+    with torch.no_grad():
+        block(torch.zeros(1, 8, 4, 4))
+        first = block.packed("head", kmb.pack_mbconv, block.conv_pw.weight, block.conv_pw.bias,
+                             block.conv_dw.weight, block.conv_dw.bias)
+        block(torch.zeros(1, 8, 4, 4))
+        assert block.packed("head", None, block.conv_pw.weight, block.conv_pw.bias,
+                            block.conv_dw.weight, block.conv_dw.bias) is first
+        block.conv_dw.weight.mul_(2.0)
+        again = block.packed("head", kmb.pack_mbconv, block.conv_pw.weight, block.conv_pw.bias,
+                             block.conv_dw.weight, block.conv_dw.bias)
+    assert again is not first and torch.equal(again.wd, 2.0 * first.wd)

@@ -283,7 +283,7 @@ def test_unported_options_raise(kwargs):
 
 def test_port_imports_no_jax():
     """Every objcavit_torch module (walked with pkgutil, the language modules
-    and kernel 5's among them) imports without jax, flax or objcavit_tpu."""
+    and kernels 5, 7 and 8's among them) imports without jax, flax or objcavit_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import objcavit_torch\n"
@@ -293,7 +293,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
         "want = {'objcavit_torch.language.embedding', 'objcavit_torch.language.provider',\n"
-        "        'objcavit_torch.kernels.attention', 'objcavit_torch.models.adabins'}\n"
+        "        'objcavit_torch.kernels.attention', 'objcavit_torch.models.adabins',\n"
+        "        'objcavit_torch.kernels.mbconv', 'objcavit_torch.kernels.se_project'}\n"
         "assert want <= set(names), want - set(names)\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
