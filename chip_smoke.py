@@ -14,7 +14,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    shapes, kernel 3 (the bins head with one shared weight) at
    (8, 240, 320, 128), kernel 4 (bins expectation) forward and backward at
    the train step's (8, 56576, 256), kernel 6 (the detect head) at the three
-   NYU 480x640 levels and KITTI 352x1216's level 0, batch 8, kernel 5
+   levels of NYU 480x640 and of KITTI 352x1216, batch 8, kernel 5
    (attention) forward and backward at (8, 300, 4, 32) with the served
    masks, at S = 221 and 1200, at Sq != Sk and on fully masked rows. Each
    kernel's bound (the larger of its bytes over 3.35 TB/s and its
@@ -22,9 +22,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    CUDA-core operations run at once, so the larger of their two times) is
    computed from its
    shapes, and where one PyTorch call computes the same function it is
-   timed beside it (``library_ms``, used nowhere in the port). Kernel 5's
-   calls take tens of microseconds, so theirs are timed as CUDA-graph
-   replays, the card alone (and as eager calls, in the log):
+   timed beside it (``library_ms``, used nowhere in the port). Kernels 5
+   and 6 take tens of microseconds a call, so theirs are timed as CUDA-graph
+   replays, the card alone (kernel 5 also as eager calls, in the log):
    ``F.interpolate`` for kernel 1, the dense head's GEMM for kernel 6,
    ``F.scaled_dot_product_attention`` for kernel 5. Then the encoder's
    kernels at B5's shapes at 480x640, batch 8: kernel 8 (the fused MBConv
@@ -194,8 +194,9 @@ EXP_RTOL, EXP_ATOL = 1e-5, 1e-5
 DLOGITS_RTOL, DLOGITS_ATOL_PER_G = 2.0 ** -7, 1e-4
 DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX = 1e-4, 1e-5
 # kernel 6 at the fused server's levels, (B, S, Cin): NYU 480x640's three,
-# then KITTI 352x1216's level 0; 1203 classes, 32 mask coefficients
-DETECT_SHAPES = [(BATCH, 4800, 256), (BATCH, 1200, 512), (BATCH, 300, 1024), (BATCH, 6688, 256)]
+# then KITTI 352x1216's three; 1203 classes, 32 mask coefficients
+DETECT_SHAPES = {"NYU 480x640": [(BATCH, 4800, 256), (BATCH, 1200, 512), (BATCH, 300, 1024)],
+                 "KITTI 352x1216": [(BATCH, 6688, 256), (BATCH, 1672, 512), (BATCH, 418, 1024)]}
 NUM_CLASSES, NM = 1203, 32
 # kernel 6 vs plain: both round fp32 sums of the same bf16 products (Cin
 # terms, other order) plus the fp32 bias to bf16 once, so a value next to a
@@ -795,39 +796,50 @@ def check_detect_head_outputs(name: str, flat, packed, out) -> dict:
 
 def check_detect_head(gen: torch.Generator, dev) -> dict:
     """Kernel 6 at the fused server's level shapes: features ~N(0, 1) and
-    weights ~N(0, 1/Cin), so logits are of order 1 as the detector's are;
-    ms and plain_ms are the sum over the three NYU levels (one request)."""
+    weights ~N(0, 1/Cin), so logits are of order 1 as the detector's are.
+    Kernel, plain version and the dense head's GEMM are timed as CUDA-graph
+    replays (a level's kernel takes tens of microseconds); ms and plain_ms
+    are the sum over the three NYU levels (one request), and the KITTI
+    request's sum is logged beside it."""
     no = 5 + NUM_CLASSES + NM
     parts, err = [], 0.0
-    for b, s, cin in DETECT_SHAPES:
-        flat = torch.randn((b, s, cin), generator=gen, device=dev).to(torch.bfloat16)
-        w = torch.randn((3 * no, cin), generator=gen, device=dev) / cin ** 0.5
-        bias = 0.1 * torch.randn(3 * no, generator=gen, device=dev)
-        packed = kdetect.pack_detect_head(w, bias, NUM_CLASSES, NM, torch.bfloat16)
-        errs = check_detect_head_outputs(f"detect head {(b, s, cin)}", flat, packed,
-                                         kdetect.fused_detect_head(flat, packed))
-        kernel = lambda: kdetect.fused_detect_head(flat, packed)  # noqa: E731
-        plain = lambda: kdetect.fused_detect_head_plain(flat, packed)  # noqa: E731
-        ms, plain_ms = compare_times(kernel, plain, iters=10)
-        # the dense head's one GEMM (all 3 no logits of every position), the
-        # route the automatic gate takes at NYU
-        wd, bd = w.to(torch.bfloat16), bias.to(torch.bfloat16)
-        lib_ms = library_time(lambda: F.linear(flat, wd, bd), iters=10)
-        tflops = 2 * b * s * cin * 3 * no / ms / 1e9
-        # flat and the weights read once; y5 and coef (bf16), cls_max (fp32)
-        # and cls_arg (int32) written once
-        part = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                **bound(2 * b * s * cin + 2 * 3 * no * cin + 4 * 3 * no
-                        + b * s * 3 * (2 * (5 + NM) + 8), bf16=2 * b * s * cin * 3 * no)}
-        log(f"kernel detect head ({b},{s},{cin}) nc {NUM_CLASSES}: max_abs_err y5 {errs['y5']} "
-            f"coef {errs['coef']} cls_max {errs['cls_max']} (rtol 2^-7, atol 1e-5); cls_arg "
-            f"equal off near-ties, {errs['near_ties']} near-ties of {errs['rows']} rows; kernel "
-            f"{ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, dense head GEMM "
-            f"{lib_ms:.4f} ms, bound {part['bound_ms']:.4f} ms ({part['bound_by']})")
-        err = max(err, errs["y5"], errs["coef"], errs["cls_max"])
-        if (b, s, cin) != DETECT_SHAPES[-1]:
-            parts.append((1, part))
-        del flat, packed
+    for place, shapes in DETECT_SHAPES.items():
+        sums = collections.Counter()
+        for b, s, cin in shapes:
+            flat = torch.randn((b, s, cin), generator=gen, device=dev).to(torch.bfloat16)
+            w = torch.randn((3 * no, cin), generator=gen, device=dev) / cin ** 0.5
+            bias = 0.1 * torch.randn(3 * no, generator=gen, device=dev)
+            packed = kdetect.pack_detect_head(w, bias, NUM_CLASSES, NM, torch.bfloat16)
+            errs = check_detect_head_outputs(f"detect head {(b, s, cin)}", flat, packed,
+                                             kdetect.fused_detect_head(flat, packed))
+            ms, plain_ms = graph_times(lambda: kdetect.fused_detect_head(flat, packed),
+                                       lambda: kdetect.fused_detect_head_plain(flat, packed))
+            # the dense head's one GEMM (all 3 no logits of every position)
+            wd, bd = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+            gemm = captured(lambda: F.linear(flat, wd, bd), GRAPH_CALLS)
+            lib_ms = library_time(gemm.replay, iters=3) / GRAPH_CALLS
+            del gemm
+            flops = 2 * b * s * cin * 3 * no
+            # flat and the weights read once; y5 and coef (bf16), cls_max (fp32)
+            # and cls_arg (int32) written once
+            part = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    **bound(2 * b * s * cin + 2 * 3 * no * cin + 4 * 3 * no
+                            + b * s * 3 * (2 * (5 + NM) + 8), bf16=flops)}
+            log(f"kernel detect head {place} ({b},{s},{cin}) nc {NUM_CLASSES}: max_abs_err y5 "
+                f"{errs['y5']} coef {errs['coef']} cls_max {errs['cls_max']} (rtol 2^-7, atol "
+                f"1e-5); cls_arg equal off near-ties, {errs['near_ties']} near-ties of "
+                f"{errs['rows']} rows; CUDA-graph replays of {GRAPH_CALLS} calls: kernel "
+                f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, dense "
+                f"head GEMM {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), bound "
+                f"{part['bound_ms']:.4f} ms ({part['bound_by']})")
+            err = max(err, errs["y5"], errs["coef"], errs["cls_max"])
+            sums.update({k: part[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+            if place == "NYU 480x640":
+                parts.append((1, part))
+            del flat, packed
+        log(f"kernel detect head, {place} request of {BATCH} (3 launches): kernel "
+            f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, dense head GEMM "
+            f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
     return total_of(parts, err)
 
 

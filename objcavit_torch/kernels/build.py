@@ -45,7 +45,8 @@ SIGNATURES = {
     ),
     "objcavit_bins_expectation_fwd": (_P, _P, _P, _I, _I, _I, _P),
     "objcavit_bins_expectation_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "objcavit_detect_head": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "objcavit_detect_head": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
     "objcavit_attention_fwd": (_P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P),
     "objcavit_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F,
                                _P),

@@ -4,7 +4,8 @@ max and argmax in its epilogue.
 CUDA source: ``objcavit_torch/csrc/detect_head.cu``, which replaces
 ``objcavit_tpu/ops/detect_head_pallas.py::fused_detect_head``. It is bound
 by tensor-core operations on the H100 (128 GFLOP per NYU request of 8); the
-source note says how its design answers that.
+source note says how its design (wgmma, TMA, a resident feature tile, a
+persistent grid) answers that.
 
 The weights are repacked once, by ``pack_detect_head``, into the layout the
 kernel reads (the JAX package folds the same repack into its trace):
@@ -23,10 +24,15 @@ fp32 bias, rounded to the input dtype, then ``max`` and ``argmax`` (the
 first maximum). The kernel is forward-only, so the wrapper raises when
 autograd would need its gradient. The detector takes it for bf16 only: an
 fp32 detector on the card runs the plain version, the reference route.
+
+The kernel splits an anchor's class columns over blocks and merges their
+(max, index) pairs with a 64-bit ``atomicMax``; ``encode_class_key`` and
+``decode_class_key`` are the Python twin of that key.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -41,6 +47,8 @@ PACKED_OTHER = 128  # box/objectness + coefficient columns of all 3 anchors
 COL_TILE = 128  # the kernel's column tile: ncp is a multiple of it
 CHANNEL_CHUNK = 64  # the kernel stages Cin in chunks of 64
 PAD_BIAS = -1e30  # pad classes' bias: far below any logit, finite in bf16
+RING_MIN_STAGES, RING_MAX_STAGES = 4, 8  # the kernel's weight ring: 16 KB stages
+SMEM_LIMIT = 232448  # shared memory a block may take on Hopper (227 KB)
 
 
 @dataclass(frozen=True)
@@ -112,6 +120,50 @@ def fused_detect_head_plain(flat: torch.Tensor, packed: PackedDetectHead):
     return y5, coef, logits.amax(-1), logits.argmax(-1).to(torch.int32)
 
 
+def smem_bytes(block_rows: int, cin: int, ncp: int) -> int:
+    """The least shared memory the kernel takes for a block of ``block_rows``
+    positions: the resident feature tile, the shortest weight ring, the
+    biases, the barriers and 1 KB of alignment (``csrc/detect_head.cu``'s
+    ``smem_bytes``; the kernel deepens the ring into what is left)."""
+    return (1024 + block_rows * cin * 2 + RING_MIN_STAGES * COL_TILE * CHANNEL_CHUNK * 2
+            + (N_ANCHORS * ncp + PACKED_OTHER) * 4 + (2 * RING_MAX_STAGES + 4) * 8)
+
+
+def block_rows_for(cin: int, ncp: int) -> int:
+    """128 positions a block where that block fits in shared memory (Cin up to
+    512 at 1203 classes), else 64; 0 if neither fits."""
+    for rows in (128, 64):
+        if smem_bytes(rows, cin, ncp) <= SMEM_LIMIT:
+            return rows
+    return 0
+
+
+def encode_class_key(value: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The kernel's 64-bit merge key of fp32 ``value`` at int ``index``, less
+    2^63 so that torch's signed int64 order is the kernel's unsigned order:
+    high word the order-preserving bits of the value (-0.0 taken as +0.0),
+    low word 0xFFFFFFFF - index, so a larger value wins and equal values go
+    to the smaller index."""
+    bits = torch.where(value == 0, torch.zeros_like(value), value).float().contiguous()
+    u = bits.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    enc = torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+    return (enc - 0x80000000) * 2 ** 32 + (0xFFFFFFFF - index.to(torch.int64))
+
+
+def decode_class_key(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(fp32 value, int32 index) of keys made by ``encode_class_key``."""
+    enc = torch.div(key, 2 ** 32, rounding_mode="floor") + 0x80000000
+    low = key - (enc - 0x80000000) * 2 ** 32
+    u = torch.where(enc >= 0x80000000, enc & 0x7FFFFFFF, 0xFFFFFFFF - enc)
+    value = (u - ((u >= 0x80000000).to(torch.int64) << 32)).to(torch.int32).view(torch.float32)
+    return value, (0xFFFFFFFF - low).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check_detect_head_inputs(flat: torch.Tensor, packed: PackedDetectHead) -> None:
     """Raise ValueError unless the CUDA kernel takes these arguments."""
     if flat.dim() != 3:
@@ -132,6 +184,10 @@ def check_detect_head_inputs(flat: torch.Tensor, packed: PackedDetectHead) -> No
                          f"{tuple(packed.wcls.shape)} and w5c {tuple(packed.w5c.shape)}")
     if packed.bcls.shape != (N_ANCHORS, ncp) or packed.b5c.shape != (PACKED_OTHER,):
         raise ValueError("detect head kernel: bias shapes do not match the packed weights")
+    if not block_rows_for(cin, ncp):
+        raise ValueError(f"detect head kernel: a 64-row feature tile of Cin={cin} with ncp={ncp} "
+                         f"does not fit in shared memory ({smem_bytes(64, cin, ncp)} > "
+                         f"{SMEM_LIMIT} bytes)")
     tensors = (flat, packed.wcls, packed.bcls, packed.w5c, packed.b5c)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("detect head kernel needs contiguous features and packed weights")
@@ -159,14 +215,14 @@ def fused_detect_head(flat: torch.Tensor, packed: PackedDetectHead):
     coef = torch.empty((b, s, N_ANCHORS, nm), dtype=flat.dtype, device=dev)
     cls_max = torch.empty((b, s, N_ANCHORS), dtype=torch.float32, device=dev)
     cls_arg = torch.empty((b, s, N_ANCHORS), dtype=torch.int32, device=dev)
-    # 128 positions a block, or 64 where 128 would leave the class blocks
-    # under two per SM (the small levels)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    block_rows = 128 if -(-m // 128) * N_ANCHORS >= 2 * n_sm else 64
+    keys = torch.empty((b, s, N_ANCHORS), dtype=torch.int64, device=dev)  # zeroed by the entry
+    ncp = packed.wcls.shape[1]
     rc = getattr(load_library(), _ENTRY)(
         flat.data_ptr(), packed.wcls.data_ptr(), packed.bcls.data_ptr(), packed.w5c.data_ptr(),
         packed.b5c.data_ptr(), y5.data_ptr(), coef.data_ptr(), cls_max.data_ptr(),
-        cls_arg.data_ptr(), m, cin, packed.num_classes, packed.wcls.shape[1], nm, block_rows,
+        cls_arg.data_ptr(), keys.data_ptr(), m, cin, packed.num_classes, ncp, nm,
+        block_rows_for(cin, ncp), _sm_count(dev.index if dev.index is not None else
+                                            torch.cuda.current_device()),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(_ENTRY, rc)

@@ -54,8 +54,12 @@ ANCHORS = (
 )
 STRIDES = (8, 16, 32)
 BN_EPS = 1e-3
-# above this many anchors the detector takes the class-max head (kernel 6);
-# the JAX package's threshold, measured on a TPU v5e (PERF.md §5 has the H100's)
+# above this many anchors the detector takes the class-max head (kernel 6).
+# The JAX package's threshold (a TPU v5e measurement), kept on the H100: on
+# an NVIDIA H100 80GB HBM3 at 700 W, `profile_stages --fused` timed the two
+# head routes in turns at NYU 480x640 (18,900 anchors) and KITTI 352x1216
+# (26,334) with the wgmma kernel 6, and each route's request time and served
+# rate fell within the other's spread (PERF.md §5)
 CLASS_MAX_MIN_ANCHORS = 20000
 
 

@@ -274,9 +274,9 @@ def served_rate(pipe, frames: list, n_req: int = 20, n_lat: int = 21) -> dict:
 
 def profile_fused() -> None:
     """Both head routes at NYU 480x640 (18,900 anchors, 300 slots) and KITTI
-    352x1216 (26,334 anchors, 418 slots), bs 8: the stage split of each,
-    one trace on each route at NYU, and the served rate timed in turns
-    (kernel, dense, dense, kernel) so that the host's drift hits both."""
+    352x1216 (26,334 anchors, 418 slots), bs 8: the stage split and the
+    served rate of each, timed in turns (kernel, dense, dense, kernel) so
+    that the host's drift hits both, and one trace on each route at NYU."""
     from objcavit_torch.serving import FusedDepthPipeline, build_fused_flagship
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -291,13 +291,12 @@ def profile_fused() -> None:
         for head in (True, False, False, True):
             pipe.class_max_head = head
             route = "class-max kernel" if head else "dense head"
-            if len(rates[route]) == 0:
-                print(f"fused {dims} stage_ms_median ({route})",
-                      json.dumps(fused_stage_split(pipe, frames[0])), flush=True)
-                if dims == nyu.eval_dims:
-                    t = trace(lambda: pipe(frames[0]))
-                    print(t.pop("top"), flush=True)
-                    print(f"fused {dims} trace ({route})", json.dumps(t), flush=True)
+            print(f"fused {dims} stage_ms_median ({route})",
+                  json.dumps(fused_stage_split(pipe, frames[0])), flush=True)
+            if not rates[route] and dims == nyu.eval_dims:
+                t = trace(lambda: pipe(frames[0]))
+                print(t.pop("top"), flush=True)
+                print(f"fused {dims} trace ({route})", json.dumps(t), flush=True)
             rates[route].append(served_rate(pipe, frames))
             print(f"fused {dims} served ({route})", json.dumps(rates[route][-1]), flush=True)
 

@@ -219,6 +219,40 @@ def test_detect_head_wrapper_on_cpu_counts_nothing_and_refuses_autograd():
                                  nc, 40, torch.float32)
 
 
+def test_class_keys_max_decodes_to_the_first_argmax():
+    """The kernel merges each anchor's (max, index) over blocks by the max of
+    a 64-bit key; the twin of its encoding in kernels/detect_head.py must
+    order keys so that their max decodes to torch's amax and first argmax:
+    negative rows, -0.0 against +0.0, infinities and exact ties."""
+    rng = np.random.default_rng(11)
+    vals = np.round(rng.standard_normal((40, 300)) * 4) / 4  # many exact ties
+    vals[0] = -np.abs(vals[0]) - 1.0  # every value negative
+    vals[1] = -3.0
+    vals[1, [9, 2, 200]] = [0.0, -0.0, 0.0]  # -0.0 first: it ties with +0.0
+    vals[2] = -7.5  # the whole row one tie
+    vals[3, [4, 250]] = np.inf
+    vals[4] = -np.inf
+    vals[4, 299] = -1e30  # the pad classes' bias
+    vals[5, [17, 18]] = [np.float32(2.0 ** -126), 2.0 ** -149]  # smallest normal, subnormal
+    v = torch.from_numpy(vals.astype(np.float32))
+    idx = torch.arange(v.shape[1], dtype=torch.int32).expand_as(v)
+    keys = kdetect.encode_class_key(v, idx)
+    got_max, got_arg = kdetect.decode_class_key(keys.amax(-1))
+    assert torch.equal(got_max, v.amax(-1)) and torch.equal(got_arg.long(), v.argmax(-1))
+    assert got_arg[1] == 2 and got_arg[2] == 0 and got_arg[3] == 4
+    # a row split over blocks: the max of the parts' keys is the whole row's
+    parts = []
+    for lo in (0, 128, 256):
+        part = v[:, lo:lo + 128]
+        parts.append(kdetect.encode_class_key(part.amax(-1), part.argmax(-1) + lo))
+    merged_max, merged_arg = kdetect.decode_class_key(torch.stack(parts, -1).amax(-1))
+    assert torch.equal(merged_max, got_max) and torch.equal(merged_arg, got_arg)
+    # round trip; -0.0 comes back as +0.0
+    back, back_idx = kdetect.decode_class_key(keys)
+    assert torch.equal(back, v) and torch.equal(back_idx, idx)
+    assert not torch.signbit(back[1, 2])
+
+
 # ------------------------------------------------------------ detector
 
 

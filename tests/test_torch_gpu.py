@@ -283,8 +283,12 @@ def _detect_case(gen, b, s, cin, nc, nm=32):
 
 @gpu
 @pytest.mark.parametrize("shape", [(8, 4800, 256, 1203), (2, 37, 64, 1203), (1, 1, 128, 130),
-                                   (3, 300, 1024, 80), (4, 1000, 512, 1203)],
-                         ids=["nyu-level0", "ragged", "one-row", "coco-classes", "block-rows-64"])
+                                   (3, 300, 1024, 80), (4, 1000, 512, 1203),
+                                   (8, 1672, 512, 1203), (8, 418, 1024, 1203),
+                                   (3, 111, 256, 130), (5, 77, 512, 1203)],
+                         ids=["nyu-level0", "ragged", "one-row", "coco-classes", "block-rows-64",
+                              "kitti-level1", "kitti-level2", "nc-130-ragged-m",
+                              "nc-1203-ragged-m"])
 def test_kernel6_matches_plain(cuda, shape):
     """One bf16 ulp on y5, coef and the max; the argmax equal off near-ties
     and within the band of the max on them (kernel_io.detect_head_errors)."""
@@ -297,6 +301,44 @@ def test_kernel6_matches_plain(cuda, shape):
     assert [tuple(t.shape) for t in out] == [(b, s, 3, 5), (b, s, 3, 32), (b, s, 3), (b, s, 3)]
     errs = detect_head_errors(flat, packed, out, DETECT_RTOL, DETECT_ATOL)
     assert errs["bad"] == 0, errs
+
+
+@gpu
+@pytest.mark.parametrize("shape,dups", [((8, 4800, 256, 1203), (3, 60, 700, 1100)),
+                                        ((3, 111, 512, 130), (3, 129))],
+                         ids=["nyu-level0", "nc-130"])
+def test_kernel6_breaks_exact_ties_to_the_first_class(cuda, shape, dups):
+    """Classes ``dups`` share one weight row and bias, so their logits are
+    equal in every row, in different column tiles and, at level 0's size,
+    in different blocks (the kernel splits an anchor's tiles over blocks and
+    merges them with its 64-bit keys). Wherever they are the clear max, the
+    kernel must give the first of them and the plain max."""
+    b, s, cin, nc = shape
+    no = 5 + nc + 32
+    flat = torch.randn((b, s, cin), generator=cuda, device="cuda").to(torch.bfloat16)
+    w = torch.randn((3 * no, cin), generator=cuda, device="cuda") / cin ** 0.5
+    bias = 0.1 * torch.randn(3 * no, generator=cuda, device="cuda")
+    for a in range(3):
+        cols = [a * no + 5 + c for c in dups]
+        w[cols] = 4.0 * w[cols[0]]
+        bias[cols] = 6.0
+    packed = kdetect.pack_detect_head(w, bias, nc, 32, torch.bfloat16)
+    out = kdetect.fused_detect_head(flat, packed)
+    torch.cuda.synchronize()
+    errs = detect_head_errors(flat, packed, out, DETECT_RTOL, DETECT_ATOL)
+    assert errs["bad"] == 0, errs
+    logits = kdetect.class_logits_plain(flat, packed)
+    dup = logits[..., dups[0]]
+    others = logits.clone()
+    others[..., list(dups)] = -float("inf")
+    x_abs = flat.reshape(b * s, cin).float().abs()
+    slack = cin * 2.0 ** -23 * torch.stack(  # the fp32 accumulation bound, as detect_head_errors
+        [x_abs @ packed.wcls[a, dups[0]].float().abs() for a in range(3)], -1).reshape(dup.shape)
+    band = DETECT_ATOL + DETECT_RTOL * dup.abs() + slack
+    clear = dup > others.amax(-1) + band
+    assert clear.float().mean() > 0.5
+    assert (out[3][clear] == dups[0]).all()
+    assert ((out[2][clear] - dup[clear]).abs() <= band[clear]).all()
 
 
 @gpu
