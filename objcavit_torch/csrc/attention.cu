@@ -43,20 +43,50 @@
 // apart: their sum, the log-sum-exp, rounds to -1e30 on a fully masked row
 // and would lose the 1/Sk.
 //
-// Backward, no atomics, so the result does not depend on timing: one kernel
-// per (query tile, b*h) first sums the row term D = rowsum(dP * P) over all
-// key tiles (dP = g v^T; the TPU kernel's rowsum(dw * w), not rowsum(g * o)
-// of the rounded output), writes it, then takes a second pass over the key
-// tiles to accumulate dq. A second kernel per (key tile, b*h), launched
-// after it, loops over the query tiles to accumulate dk and dv, reading m,
-// L and D. Both recompute P from q, k and the residual.
+// Backward, no atomics, so the result does not depend on timing. D is the
+// row term rowsum(dP * P) (dP = g v^T; the TPU kernel's rowsum(dw * w), not
+// rowsum(g * o) of the rounded output). Two routes, chosen by shape in the
+// entry point:
+//
+// Cluster route (Sq <= 512 and Sk <= 512; the models' shapes). One launch,
+// one thread-block cluster per (b, h) of n = ceil(Sk / 64) <= 8 blocks (the
+// portable cluster size); block r owns key tile r and holds the head's whole
+// Q and G, its own K_r and V_r, and every row's m and L in shared memory.
+// Eight warps: warp w takes the 16 keys 16 (w % 4) of the tile and every
+// second 16-query m-tile (w / 4 picks which), with K and V as the A operand,
+// so P^T and dP^T come out key-major and feed dv += P^T g and dk += dS^T q
+// straight from the accumulators. Phase 1 computes P and dP of each (m-tile,
+// key tile) pair and sums D over the block's keys (warp shuffles, then the
+// four key warps in order); after a cluster barrier each block sums the n blocks'
+// partial D in rank order over distributed shared memory, so every block
+// holds the same D. Phase 2 recomputes P and dP once, forms dS = P (dP - D),
+// accumulates dk and dv, and hands dS^T (hi and lo bf16 terms) through
+// shared memory to the four warps of its query group, which multiply it by
+// K_r (each 8 of the 32 columns) into the block's partial dq (fp32), kept
+// where that m-tile's Q and G rows were: nothing reads them any more. The
+// two query groups' dk and dv are added in order and written; after a
+// second cluster barrier block r sums query tiles r, r + n, ... of the n
+// partial dq in rank order, scales and writes them. At the flagship's
+// (B*H = 32, S = 300) that is 160 blocks of 84 KB of shared memory, two to
+// an SM, each computing P and dP of its 19 m-tiles twice: 4 score-sized
+// products where the two-kernel route takes 6, and no grid-wide dependency.
+//
+// Two-kernel route (Sq or Sk above 512: more than 8 key tiles exceed the
+// portable cluster size): one kernel per (query tile, b*h) first sums D over all key tiles,
+// writes it, then takes a second pass over the key tiles to accumulate dq.
+// A second kernel per (key tile, b*h), launched after it, loops over the
+// query tiles to accumulate dk and dv, reading m, L and D. Both recompute P
+// from q, k and the residual.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kD = 32;       // head dimension
 constexpr int kTile = 64;    // rows of a block's tile: queries, or keys
@@ -118,9 +148,10 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_
 }
 
 // A fragments (hi and lo) of k-step kk from the accumulators of the n-tiles
-// 2kk and 2kk + 1 of a 16 x 64 product: the accumulator layout of two
+// 2kk and 2kk + 1 of a 16 x 8NT product: the accumulator layout of two
 // neighbouring m16n8 tiles is the A layout of one m16k16 step
-__device__ __forceinline__ void acc_to_a(const float (&c)[8][4], int kk, uint32_t (&hi)[4],
+template <int NT>
+__device__ __forceinline__ void acc_to_a(const float (&c)[NT][4], int kk, uint32_t (&hi)[4],
                                          uint32_t (&lo)[4]) {
   split2(c[2 * kk][0], c[2 * kk][1], hi[0], lo[0]);
   split2(c[2 * kk][2], c[2 * kk][3], hi[1], lo[1]);
@@ -128,12 +159,13 @@ __device__ __forceinline__ void acc_to_a(const float (&c)[8][4], int kk, uint32_
   split2(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
 }
 
-// acc (16 x 32) += A (16 x 64, as hi + lo) @ Y (64 x 32 row-major in shared)
-__device__ __forceinline__ void mma_split_by_tile(float (&acc)[4][4], const float (&a)[8][4],
+// acc (16 x 32) += A (16 x 8NT, as hi + lo) @ Y (8NT x 32 row-major in shared)
+template <int NT>
+__device__ __forceinline__ void mma_split_by_tile(float (&acc)[4][4], const float (&a)[NT][4],
                                                   const __nv_bfloat16* y, int lane) {
   const int j = lane >> 3, r = lane & 7;
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
+  for (int kk = 0; kk < NT / 2; ++kk) {
     uint32_t hi[4], lo[4];
     acc_to_a(a, kk, hi, lo);
 #pragma unroll
@@ -175,16 +207,23 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const __nv_bfloat16*
   }
 }
 
-// rows [row0, row0 + 64) of one head (base points at its row 0) -> shared,
-// 16 bytes a copy; rows past n_rows are zero-filled
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long row_stride, int row0, int n_rows) {
-  for (int c = threadIdx.x; c < kTile * (kD / 8); c += kThreads) {
+// rows [row0, row0 + rows) of one head (base points at its row 0) -> shared,
+// 16 bytes a copy by a block of THREADS threads; rows past n_rows are zero-filled
+template <int THREADS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                          long long row_stride, int row0, int rows, int n_rows) {
+  for (int c = threadIdx.x; c < rows * (kD / 8); c += THREADS) {
     const int r = c / (kD / 8), part = c % (kD / 8);
     const bool valid = row0 + r < n_rows;
     const __nv_bfloat16* src = base + (valid ? (long long)(row0 + r) * row_stride : 0) + part * 8;
     cp_async16(dst + r * kLd + part * 8, src, valid);
   }
+}
+
+// a 64-row tile by a block of kThreads threads
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                          long long row_stride, int row0, int n_rows) {
+  load_rows<kThreads>(dst, base, row_stride, row0, kTile, n_rows);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -522,6 +561,327 @@ attn_bwd_dkdv_kernel(Args a, const __nv_bfloat16* __restrict__ gout,
   store_rows(dv + head, ld, dv_acc, key, a.s_k, 1.f, 1.f, t);
 }
 
+// ------------------------------------------------------------ cluster route
+
+constexpr int kCWarps = 8;  // 4 key warps (16 keys each) x 2 query groups
+constexpr int kCThreads = kCWarps * 32;
+constexpr int kGroupThreads = 4 * 32;
+constexpr int kMaxClusterTiles = 8;  // the portable cluster size
+constexpr int kClusterMaxS = kMaxClusterTiles * kTile;
+
+// Shared memory of the cluster kernel, for Sq padded to sq_p (a multiple
+// of 16): the head's Q and G in chunks of one 16-query m-tile (its 16 Q
+// rows, then its 16 G rows); once phase 2 is done with an m-tile, its chunk
+// holds the block's partial dq of those 16 queries (fp32, swizzled). Then
+// K_r, V_r, the dS^T buffers (two a query group, in turns), each row's m,
+// L, D and the block's partial D, and the tile's bias. Byte offsets:
+constexpr int kChunk = 2 * 16 * kLd;  // bf16 elements of an m-tile's chunk
+
+struct BwdSmem {
+  int k, v, ds, m, l, d, dr, bias, total;
+};
+
+__host__ __device__ inline BwdSmem bwd_smem(int sq_p) {
+  BwdSmem s;
+  s.k = sq_p / 16 * kChunk * 2;
+  s.v = s.k + kTile * kLd * 2;
+  s.ds = s.v + kTile * kLd * 2;  // also phase 1's per-warp D and the end's dk, dv sums
+  s.m = s.ds + 4 * kTile * kLd * 2;
+  s.l = s.m + sq_p * 4;
+  s.d = s.l + sq_p * 4;
+  s.dr = s.d + sq_p * 4;
+  s.bias = s.dr + sq_p * 4;
+  s.total = s.bias + kTile * 4;
+  return s;
+}
+
+// a cluster barrier in two halves, so work that needs no other block runs
+// between them: arrive (releasing this thread's shared-memory writes to the
+// cluster), then wait (acquiring the others'). A relaxed arrive releases
+// nothing: it only says this thread's reads of other blocks are done
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(kGroupThreads) : "memory");
+}
+
+// element (row, col) of a 16 x 32 partial dq: columns XOR-swizzled by row so
+// a warp's fragment stores hit distinct banks; groups of 4 columns stay whole
+__device__ __forceinline__ int dq_index(int row, int col) {
+  return row * kD + (col ^ ((row & 3) << 3));
+}
+
+// grid (n, B * H), clusters of (n, 1, 1), n = ceil(Sk / 64) <= 8
+__global__ void __launch_bounds__(kCThreads, 2)
+attn_bwd_cluster_kernel(Args a, const __nv_bfloat16* __restrict__ gout,
+                        const float* __restrict__ stats, __nv_bfloat16* __restrict__ dq,
+                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = gridDim.x, rank = (int)cluster.block_rank();  // the cluster spans x
+  const int sq_p = (a.s_q + 15) & ~15, n_mt = sq_p / 16;
+  const BwdSmem off = bwd_smem(sq_p);
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + off.k);
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + off.v);
+  __nv_bfloat16* ds_s = reinterpret_cast<__nv_bfloat16*>(smem + off.ds);
+  float* m_s = reinterpret_cast<float*>(smem + off.m);
+  float* l_s = reinterpret_cast<float*>(smem + off.l);
+  float* d_s = reinterpret_cast<float*>(smem + off.d);
+  float* dr_s = reinterpret_cast<float*>(smem + off.dr);
+  float* bias_s = reinterpret_cast<float*>(smem + off.bias);
+
+  const int bh = blockIdx.y, b = bh / a.h, hh = bh % a.h;
+  const int k0 = rank * kTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int kw = warp & 3, group = warp >> 2;
+  const long long ld = (long long)a.h * kD;  // token stride of g, dq, dk and dv
+  const __nv_bfloat16* qb = a.q + b * a.sq.b + hh * a.sq.h;
+  const __nv_bfloat16* kb = a.k + b * a.sk.b + hh * a.sk.h;
+  const __nv_bfloat16* vb = a.v + b * a.sv.b + hh * a.sv.h;
+  const __nv_bfloat16* gb = gout + ((size_t)b * a.s_q * a.h + hh) * kD;
+
+  // Q and G rows of m-tiles [mt0, mt1) into their chunks; rows past Sq zero-filled
+  auto load_chunks = [&](int mt0, int mt1) {
+    for (int c = 16 * mt0 * (kD / 8) + threadIdx.x; c < 16 * mt1 * (kD / 8); c += kCThreads) {
+      const int r = c / (kD / 8), part = c % (kD / 8);
+      const bool valid = r < a.s_q;
+      __nv_bfloat16* dst = tiles + (r >> 4) * kChunk + (r & 15) * kLd + part * 8;
+      cp_async16(dst, qb + (valid ? r * a.sq.s : 0) + part * 8, valid);
+      cp_async16(dst + 16 * kLd, gb + (valid ? r * ld : 0) + part * 8, valid);
+    }
+  };
+  // two groups of copies: phase 1 starts on the first half of the m-tiles
+  // while the second is in flight
+  const int half = (n_mt + 1) / 2;
+  load_rows<kCThreads>(k_s, kb, a.sk.s, k0, kTile, a.s_k);
+  load_rows<kCThreads>(v_s, vb, a.sv.s, k0, kTile, a.s_k);
+  load_chunks(0, half);
+  cp_async_commit();
+  load_chunks(half, n_mt);
+  cp_async_commit();
+  const size_t n_rows_all = (size_t)gridDim.y * a.s_q;
+  const float* m_in = stats + (size_t)bh * a.s_q;
+  for (int i = threadIdx.x; i < sq_p; i += kCThreads) {
+    const bool valid = i < a.s_q;
+    // an m of +inf makes P = 0 for the rows past Sq
+    m_s[i] = valid ? m_in[i] : INFINITY;
+    l_s[i] = valid ? m_in[n_rows_all + i] : 0.f;
+  }
+  if (threadIdx.x < kTile) {
+    const int key = k0 + threadIdx.x;
+    bias_s[threadIdx.x] =
+        key < a.s_k ? (a.bias ? a.bias[(size_t)b * a.s_k + key] : 0.f) : -INFINITY;
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+
+  uint32_t ka[2][4], va[2][4];
+  load_a(ka, k_s, 16 * kw, g, t);
+  load_a(va, v_s, 16 * kw, g, t);
+  const float bias_r[2] = {bias_s[16 * kw + g], bias_s[16 * kw + g + 8]};
+
+  // P^T and dP^T (this warp's 16 keys x the 16 queries of m-tile mt):
+  // S^T = K Q^T, P = exp((s * scale + bias - m) - L), dP^T = V G^T
+  auto probs = [&](int mt, float (&p)[2][4], float (&dp)[2][4]) {
+    const __nv_bfloat16* qt = tiles + mt * kChunk;
+    const __nv_bfloat16* gt = qt + 16 * kLd;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[nt][j] = dp[nt][j] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks) {
+        const int at = (nt * 8 + g) * kLd + ks * 16 + 2 * t;
+        mma16816(p[nt], ka[ks], lds32(qt + at), lds32(qt + at + 8));
+        mma16816(dp[nt], va[ks], lds32(gt + at), lds32(gt + at + 8));
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = 16 * mt + nt * 8 + 2 * t + (j & 1);
+        const float x = p[nt][j] * a.scale + bias_r[j >> 1];
+        p[nt][j] = __expf((x - m_s[qc]) - l_s[qc]);
+      }
+    }
+  };
+
+  // phase 1: each warp's sum of dP * P over its 16 keys, per query, for
+  // its m-tiles in [mt0, mt1)
+  float* dpart_s = reinterpret_cast<float*>(ds_s);  // [4][sq_p]
+  auto row_terms = [&](int mt0, int mt1) {
+#pragma unroll 2
+    for (int mt = mt0 + ((group - mt0) & 1); mt < mt1; mt += 2) {
+      float p[2][4], dp[2][4];
+      probs(mt, p, dp);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float s = p[nt][c] * dp[nt][c] + p[nt][2 + c] * dp[nt][2 + c];
+          s += __shfl_xor_sync(0xffffffffu, s, 4);
+          s += __shfl_xor_sync(0xffffffffu, s, 8);
+          s += __shfl_xor_sync(0xffffffffu, s, 16);
+          if (g == 0) dpart_s[kw * sq_p + 16 * mt + nt * 8 + 2 * t + c] = s;
+        }
+    }
+  };
+  row_terms(0, half);
+  cp_async_wait<0>();
+  __syncthreads();
+  row_terms(half, n_mt);
+  __syncthreads();
+  for (int i = threadIdx.x; i < sq_p; i += kCThreads)
+    dr_s[i] = ((dpart_s[i] + dpart_s[sq_p + i]) + dpart_s[2 * sq_p + i]) + dpart_s[3 * sq_p + i];
+  cluster_arrive();
+
+  // phase 2's set-up while the other blocks finish phase 1: K_r's B
+  // fragments for this warp's 8 columns of dq (4 k-steps), and the sums
+  uint32_t kfrag[8];
+#pragma unroll
+  for (int pair = 0; pair < 2; ++pair) {
+    uint32_t r4[4];
+    ldsm_x4_trans(r4, k_s + (32 * pair + 8 * (lane >> 3) + (lane & 7)) * kLd + 8 * kw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kfrag[4 * pair + j] = r4[j];
+  }
+  float dk_acc[4][4], dv_acc[4][4];
+#pragma unroll
+  for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk_acc[nd][j] = dv_acc[nd][j] = 0.f;
+
+  cluster_wait();
+  for (int i = threadIdx.x; i < sq_p; i += kCThreads) {
+    float part[kMaxClusterTiles];  // all n loads in flight, then the sum in rank order
+#pragma unroll
+    for (int r = 0; r < kMaxClusterTiles; ++r)
+      if (r < n) part[r] = r == rank ? dr_s[i] : cluster.map_shared_rank(dr_s, r)[i];
+    float s = part[0];
+#pragma unroll
+    for (int r = 1; r < kMaxClusterTiles; ++r)
+      if (r < n) s += part[r];
+    d_s[i] = s;
+  }
+  __syncthreads();
+
+  // phase 2
+  for (int mt = group, turn = 0; mt < n_mt; mt += 2, turn ^= 1) {
+    const __nv_bfloat16* qt = tiles + mt * kChunk;
+    float p[2][4], dp[2][4];
+    probs(mt, p, dp);
+    mma_split_by_tile(dv_acc, p, qt + 16 * kLd, lane);  // dv += P^T g
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[nt][j] *= dp[nt][j] - d_s[16 * mt + nt * 8 + 2 * t + (j & 1)];
+    mma_split_by_tile(dk_acc, p, qt, lane);  // dk += dS^T q
+    // dS^T to shared, a row per key: hi terms in columns 0-15, lo in 16-31.
+    // The group's buffers take m-tiles in turns: a warp writes one only
+    // after the whole group passed the barrier that follows the last reads
+    __nv_bfloat16* ds_buf = ds_s + (2 * group + turn) * kTile * kLd;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        uint32_t hi, lo;
+        split2(p[nt][2 * hf], p[nt][2 * hf + 1], hi, lo);
+        __nv_bfloat16* row = ds_buf + (16 * kw + g + 8 * hf) * kLd + nt * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(row) = hi;
+        *reinterpret_cast<uint32_t*>(row + 16) = lo;
+      }
+    group_sync(group);  // dS^T is whole; the group is done with this m-tile's Q and G
+    // the block's partial dq of these 16 queries, columns 8 kw .. 8 kw + 7:
+    // dS (16 x 64 keys, transposed out of shared) times K_r, into the chunk
+    // (hi and lo terms in two accumulators: two chains of 4 products)
+    float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc_lo[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const int mat = lane >> 3;
+      const __nv_bfloat16* src =
+          ds_buf + (16 * kk + 8 * (mat >> 1) + (lane & 7)) * kLd + 8 * (mat & 1);
+      uint32_t ah[4], al[4];
+      ldsm_x4_trans(ah, src);
+      ldsm_x4_trans(al, src + 16);
+      mma16816(acc, ah, kfrag[2 * kk], kfrag[2 * kk + 1]);
+      mma16816(acc_lo, al, kfrag[2 * kk], kfrag[2 * kk + 1]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j] += acc_lo[j];
+    float* dq_t = reinterpret_cast<float*>(tiles + mt * kChunk);
+    const int col = 8 * kw + 2 * t;
+    *reinterpret_cast<float2*>(dq_t + dq_index(g, col)) = make_float2(acc[0], acc[1]);
+    *reinterpret_cast<float2*>(dq_t + dq_index(g + 8, col)) = make_float2(acc[2], acc[3]);
+  }
+
+  cluster_arrive();  // the partial dq is whole once every thread arrives
+
+  // dk and dv: group 0's sums plus group 1's, in that order
+  __syncthreads();  // the dS^T buffers are done with: group 1's sums go there
+  float* red = reinterpret_cast<float*>(ds_s);
+  const int gt = threadIdx.x % kGroupThreads;
+  if (group == 1) {
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        red[(nd * 4 + j) * kGroupThreads + gt] = dk_acc[nd][j];
+        red[(16 + nd * 4 + j) * kGroupThreads + gt] = dv_acc[nd][j];
+      }
+  }
+  __syncthreads();
+  if (group == 0) {
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dk_acc[nd][j] += red[(nd * 4 + j) * kGroupThreads + gt];
+        dv_acc[nd][j] += red[(16 + nd * 4 + j) * kGroupThreads + gt];
+      }
+    const size_t head = ((size_t)b * a.s_k * a.h + hh) * kD;
+    const int key = k0 + 16 * kw + g;
+    store_rows(dk + head, ld, dk_acc, key, a.s_k, a.scale, a.scale, t);
+    store_rows(dv + head, ld, dv_acc, key, a.s_k, 1.f, 1.f, t);
+  }
+
+  // dq: block r sums m-tiles r, r + n, ... of the n partials in rank order
+  cluster_wait();
+  const float* dq_parts = reinterpret_cast<const float*>(tiles);
+  const int mine = (n_mt - rank + n - 1) / n;  // m-tiles of this block
+  __nv_bfloat16* dqb = dq + ((size_t)b * a.s_q * a.h + hh) * kD;
+  for (int it = threadIdx.x; it < mine * 16 * (kD / 4); it += kCThreads) {
+    const int mt = rank + n * (it / (16 * (kD / 4))), r16 = (it / (kD / 4)) % 16;
+    const int row = 16 * mt + r16, c4 = 4 * (it % (kD / 4));
+    if (row >= a.s_q) continue;
+    const int at = mt * (kChunk / 2) + dq_index(r16, c4);
+    float4 part[kMaxClusterTiles];  // all n loads in flight, then the sum in rank order
+#pragma unroll
+    for (int r = 0; r < kMaxClusterTiles; ++r)
+      if (r < n)
+        part[r] = *reinterpret_cast<const float4*>(
+            (r == rank ? dq_parts : cluster.map_shared_rank(dq_parts, r)) + at);
+    float4 s = part[0];
+#pragma unroll
+    for (int r = 1; r < kMaxClusterTiles; ++r)
+      if (r < n) s.x += part[r].x, s.y += part[r].y, s.z += part[r].z, s.w += part[r].w;
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dqb + row * ld + c4);
+    out[0] = __floats2bfloat162_rn(s.x * a.scale, s.y * a.scale);
+    out[1] = __floats2bfloat162_rn(s.z * a.scale, s.w * a.scale);
+  }
+  // no block leaves while another reads its shared memory
+  cluster_arrive_relaxed();
+  cluster_wait();
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* bias,
                const long long* strides, int h, int s_q, int s_k, float scale) {
   Args a;
@@ -537,6 +897,40 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
   a.s_k = s_k;
   a.scale = scale;
   return a;
+}
+
+// the cluster kernel's shared memory limit and carveout, set once: they
+// hold for the process
+cudaError_t configure_cluster_kernel() {
+  static bool configured = false;
+  if (configured) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_cluster_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bwd_smem(kClusterMaxS).total);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_cluster_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  configured = err == cudaSuccess;
+  return err;
+}
+
+// the cluster route's launch: grid (n, B * H), clusters of n = ceil(Sk / 64)
+cudaLaunchConfig_t cluster_config(int b, int h, int s_q, int s_k, void* stream,
+                                  cudaLaunchAttribute (&attr)[1]) {
+  const int n = (s_k + kTile - 1) / kTile;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n, b * h);
+  cfg.blockDim = dim3(kCThreads);
+  cfg.dynamicSmemBytes = bwd_smem((s_q + 15) & ~15).total;
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
@@ -560,17 +954,43 @@ extern "C" int objcavit_attention_fwd(const void* q, const void* k, const void* 
   return (int)cudaGetLastError();
 }
 
+// How many of the cluster route's clusters (Sq, Sk at most 512) the card
+// holds at once, into *clusters; a launch of more runs in waves.
+extern "C" int objcavit_attention_bwd_clusters(int b, int h, int s_q, int s_k, int* clusters) {
+  *clusters = 0;
+  cudaError_t err = configure_cluster_kernel();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(b, h, s_q, s_k, nullptr, attr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, attn_bwd_cluster_kernel, &cfg);
+}
+
 // As the forward, plus g (B, Sq, H, 32) bf16 contiguous (the gradient of o),
 // stats from the forward, dq (B, Sq, H, 32), dk and dv (B, Sk, H, 32) bf16
-// contiguous, and drow (B * H, Sq) fp32 scratch for the row term. Launches
-// the dq kernel, then the dk/dv kernel, on the stream.
+// contiguous, and drow (B * H, Sq) fp32 scratch for the row term of the
+// two-kernel route. With Sq and Sk at most 512 it launches the cluster
+// kernel and sets *route to 1; otherwise the dq kernel, then the dk/dv
+// kernel, on the stream, and *route to 2.
 extern "C" int objcavit_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* bias, const void* g, const void* stats,
                                       void* dq, void* dk, void* dv, void* drow,
                                       const long long* strides, int b, int h, int s_q, int s_k,
-                                      float scale, void* stream) {
+                                      float scale, int* route, void* stream) {
+  *route = 0;
   if (b == 0 || h == 0 || s_q == 0 || s_k == 0) return (int)cudaSuccess;
   const Args a = make_args(q, k, v, bias, strides, h, s_q, s_k, scale);
+  if (s_q <= kClusterMaxS && s_k <= kClusterMaxS) {
+    const cudaError_t err = configure_cluster_kernel();
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(b, h, s_q, s_k, stream, attr);
+    *route = 1;
+    const cudaError_t launch = cudaLaunchKernelEx(
+        &cfg, attn_bwd_cluster_kernel, a, (const __nv_bfloat16*)g, (const float*)stats,
+        (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv);
+    return (int)(launch != cudaSuccess ? launch : cudaGetLastError());
+  }
+  *route = 2;
   attn_bwd_dq_kernel<<<dim3((s_q + kTile - 1) / kTile, b * h), kThreads, 0,
                        (cudaStream_t)stream>>>(a, (const __nv_bfloat16*)g, (const float*)stats,
                                                (__nv_bfloat16*)dq, (float*)drow);

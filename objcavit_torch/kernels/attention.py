@@ -13,6 +13,14 @@ recomputes the weights and returns ``dv = w^T g``, ``ds = w (g v^T -
 rowsum(g v^T w))``, ``dq = ds k / sqrt(D)``, ``dk = ds^T q / sqrt(D)``, each
 in its input's dtype, and no gradient for the mask.
 
+The backward takes one of two CUDA routes, chosen by shape in the C entry
+point (``bwd_route`` is its rule): one launch of a thread-block cluster per
+(b, h) for Sq and Sk up to ``CLUSTER_MAX_S``, each block of the cluster one
+tile of ``KEY_TILE`` keys (``mha_bwd_by_key_tiles`` is that decomposition's
+arithmetic in PyTorch), or two kernels in series beyond.
+``fused_mha_bwd.launches`` counts both routes, and
+``fused_mha_bwd.cluster_launches`` the cluster route's.
+
 ``FusedMHA`` is the counterpart of the JAX package's custom-VJP function: a
 ``torch.autograd.Function`` whose forward calls ``fused_mha_fwd`` and whose
 backward calls ``fused_mha_bwd``. Each of those launches its kernel for CUDA
@@ -38,6 +46,8 @@ _FWD = "objcavit_attention_fwd"
 _BWD = "objcavit_attention_bwd"
 HEAD_DIM = 32  # the kernel's head dimension
 MASK_VALUE = -1e30  # the additive bias of a masked key (pallas_attention.py:27)
+KEY_TILE = 64  # keys of one block of the backward's cluster
+CLUSTER_MAX_S = 8 * KEY_TILE  # the portable cluster size: 8 blocks
 
 
 def mask_bias(key_padding_mask: torch.Tensor | None) -> torch.Tensor | None:
@@ -79,6 +89,45 @@ def mha_fused_bwd_plain(q, k, v, bias, g) -> tuple[torch.Tensor, torch.Tensor, t
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(w.dtype)) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(w.dtype)) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def mha_bwd_by_key_tiles(q, k, v, bias, g, key_tile: int = KEY_TILE):
+    """The cluster route's decomposition of the backward in PyTorch: block r
+    of a cluster owns keys [r key_tile, (r + 1) key_tile). Its partial row
+    terms rowsum(P_r dP_r) are summed in rank order into D; each block's dv_r
+    = P_r^T g and dk_r = dS_r^T q scale are complete on their own; dq is the
+    blocks' partials dS_r k_r summed in rank order, then scaled. Same
+    signature and outputs as ``mha_fused_bwd_plain``."""
+    w, scale = _weights(q, k, bias)
+    gf, qf, kf, vf = (t.to(w.dtype) for t in (g, q, k, v))
+    dw = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    tiles = [slice(s, s + key_tile) for s in range(0, k.shape[1], key_tile)]
+    d = torch.zeros_like(w[..., 0])
+    for r in tiles:
+        d = d + (w[..., r] * dw[..., r]).sum(-1)
+    dq, dks, dvs = torch.zeros_like(qf), [], []
+    for r in tiles:
+        ds = w[..., r] * (dw[..., r] - d[..., None])
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", w[..., r], gf))
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale)
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, kf[:, r])
+    return ((dq * scale).to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+def bwd_route(s_q: int, s_k: int) -> str:
+    """The backward's CUDA route at these lengths, the C entry point's rule:
+    'cluster' (one launch) or 'two_kernel'."""
+    return "cluster" if max(s_q, s_k) <= CLUSTER_MAX_S else "two_kernel"
+
+
+def bwd_clusters_resident(b: int, h: int, s_q: int, s_k: int) -> int:
+    """How many of the cluster route's clusters (one a (b, h)) the current
+    card holds at once at these lengths; fewer than b * h means waves."""
+    clusters = ctypes.c_int(0)
+    check_launch("objcavit_attention_bwd_clusters", load_library().objcavit_attention_bwd_clusters(
+        b, h, s_q, s_k, ctypes.byref(clusters)))
+    return clusters.value
 
 
 def _device_checked(q: torch.Tensor) -> bool:
@@ -156,20 +205,23 @@ def fused_mha_bwd(q, k, v, bias, g, stats) -> tuple[torch.Tensor, torch.Tensor, 
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
-    drow = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    drow = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)  # two-kernel route
+    route = ctypes.c_int(0)
     rc = getattr(load_library(), _BWD)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
         g.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         drow.data_ptr(), _strides(q, k, v), b, h, sq, sk, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.byref(route), torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(_BWD, rc)
     fused_mha_bwd.launches += 1
+    fused_mha_bwd.cluster_launches += route.value == 1
     return dq, dk, dv
 
 
 fused_mha_fwd.launches = 0
 fused_mha_bwd.launches = 0
+fused_mha_bwd.cluster_launches = 0
 
 
 class FusedMHA(torch.autograd.Function):

@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)
+_IP = ctypes.POINTER(ctypes.c_int)
 # C entry point -> argument types (pointers and the stream as c_void_p, so
 # ctypes never cuts a 64-bit address to a 32-bit int)
 SIGNATURES = {
@@ -49,7 +50,8 @@ SIGNATURES = {
                              _P),
     "objcavit_attention_fwd": (_P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P),
     "objcavit_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F,
-                               _P),
+                               _IP, _P),
+    "objcavit_attention_bwd_clusters": (_I, _I, _I, _I, _IP),
     "objcavit_mbconv_head": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _P),
     "objcavit_se_project": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -1,0 +1,203 @@
+"""Kernel 5's backward against an earlier build of it and SDPA's, in turns on one card.
+
+    python -m objcavit_torch.utils.attention_ab --old OLD.cu [--alt ALT.cu ...] [--rounds 8]
+
+``OLD.cu`` is an earlier ``csrc/attention.cu`` with the two-kernel
+backward's C interface (``git show 7e28ee7:objcavit_torch/csrc/attention.cu``):
+``objcavit_attention_bwd(q, k, v, bias, g, stats, dq, dk, dv, drow, strides,
+b, h, s_q, s_k, scale, stream)``. Each ``ALT.cu`` is a variant of the
+current source, with its C interface, timed beside them (a variant's
+errors are printed, not enforced, so a variant may leave work out to time
+the rest). Each source is
+compiled alone into ``objcavit_torch/_build/ab/``.
+
+At the flagship's served self-attention (8, 300, 4, 32) and the train
+step's (8, 221, 4, 32), with the served objects' masks, q, k and v read in
+place from one in_proj output: the current backward (``fused_mha_bwd``) and
+the old one are held against the plain version (chip_smoke.py's tolerance),
+then each is timed as CUDA-graph replays of ``CALLS`` calls, in turns (the
+order reversed every round), beside SDPA's backward, which is SDPA's forward
+plus backward less its forward (autograd runs a backward on its forward's
+stream, so a captured backward needs its forward in the same graph). Prints
+the card's name and power limit, then one JSON line per shape: medians and
+spreads in ms per call, the current route, how many of its clusters the
+card holds at once, and the bound (bytes once over
+3.35 TB/s, or the five products over 989 TFLOP/s).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import statistics
+import subprocess
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from objcavit_torch.kernels import attention as kattn
+from objcavit_torch.kernels import build
+from objcavit_torch.utils.detect_head_ab import CALLS, captured, replay_ms
+
+HEADS, HEAD_DIM = 4, kattn.HEAD_DIM
+SHAPES = [("flagship 480x640", 8, 300, 300), ("train 416x544", 8, 221, 221)]
+SERVED_VALID = [3, 17, 40, 1, 120, 300, 64, 8]  # valid object slots per served image
+RTOL, ATOL_PER_MAX = 2.0 ** -7, 1e-4  # chip_smoke.py's ATTN_RTOL, ATTN_ATOL_PER_MAX
+HBM_BYTES_PER_MS, BF16_PER_MS = 3.35e12 / 1e3, 989e12 / 1e3
+
+
+def attention_inputs(gen: torch.Generator, b: int, sq: int, sk: int, mask_kind: str):
+    """bf16 q, k, v, g (B, S, 4, 32) on the card and a mask. A self-attention
+    (Sq = Sk) reads q, k, v in place from one chunked in_proj output, as the
+    model does. Masks: 'served', image i's first SERVED_VALID[i] keys valid;
+    'full', image 0 fully masked and the others served; 'none'."""
+    e = HEADS * HEAD_DIM
+    if sq == sk:
+        qkv = torch.randn((b, sq, 3 * e), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (t.reshape(b, sq, HEADS, HEAD_DIM) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.randn((b, s, HEADS, HEAD_DIM), generator=gen,
+                               device="cuda").to(torch.bfloat16) for s in (sq, sk, sk))
+    g = torch.randn((b, sq, HEADS, HEAD_DIM), generator=gen, device="cuda").to(torch.bfloat16)
+    mask = None
+    if mask_kind != "none":
+        counts = torch.tensor([SERVED_VALID[i % len(SERVED_VALID)] for i in range(b)],
+                              device="cuda").clamp(max=sk)
+        mask = torch.arange(sk, device="cuda")[None] >= counts[:, None]
+        if mask_kind == "full":
+            mask[0] = True
+    return q, k, v, g, mask
+
+
+def bwd_cost(b: int, h: int, sq: int, sk: int) -> tuple[int, int]:
+    """(bytes, bf16 operations) of one backward: q, k, v, g, the bias and the
+    residual (each row's max and log-sum, fp32) read once, dq, dk, dv written
+    once (bf16 rows of H * D: q, g, dq are Sq rows, k, v, dk, dv Sk rows);
+    the five products (scores, g v^T, dv, dq, dk)."""
+    row = 2 * b * h * HEAD_DIM
+    nbytes = row * (3 * sq + 4 * sk) + 4 * b * sk + 2 * 4 * b * h * sq
+    return nbytes, 5 * 2 * b * h * sq * sk * HEAD_DIM
+
+
+def bwd_bound(b: int, h: int, sq: int, sk: int) -> dict:
+    nbytes, ops = bwd_cost(b, h, sq, sk)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, ops / BF16_PER_MS
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def load_entry(source: Path, name: str, argtypes: tuple):
+    """Compile ``source`` alone and bind its ``objcavit_attention_bwd``."""
+    out_dir = build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / f"libattention_{name}.so"
+    cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib_path), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(str(lib_path)).objcavit_attention_bwd
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def old_bwd(fn, q, k, v, bias, g, stats, route=None):
+    """An earlier or variant backward, called as its wrapper calls it: with
+    ``route`` (a ctypes int) for the current C interface, without for the
+    two-kernel one."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dq = torch.empty_like(g)
+    dk, dv = (torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device) for _ in range(2))
+    drow = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in t.stride()[:3]))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+            g.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            drow.data_ptr(), strides, b, h, sq, sk, 1.0 / math.sqrt(d),
+            *(() if route is None else (ctypes.byref(route),)),
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch("old objcavit_attention_bwd", rc)
+    return dq, dk, dv
+
+
+def errors(got, want) -> dict:
+    """The largest absolute error of (dq, dk, dv) and the count of elements
+    out of tolerance or not finite."""
+    err, bad = 0.0, 0
+    for x, w in zip(got, want):
+        x, w = x.float(), w.float()
+        diff = (x - w).abs()
+        bad += int((~(diff <= ATOL_PER_MAX * float(w.abs().max()) + RTOL * w.abs())).sum())
+        err = max(err, float(diff.nan_to_num(float("inf")).max()))
+    return {"max_abs_err": err, "bad": bad}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--old", type=Path, required=True, help="an earlier attention.cu")
+    parser.add_argument("--alt", type=Path, action="append", default=[],
+                        help="a variant of the current attention.cu (repeatable)")
+    parser.add_argument("--rounds", type=int, default=8)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("attention_ab: needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    old = load_entry(args.old, "old", (p,) * 10 + (ctypes.POINTER(ctypes.c_longlong), i, i, i, i,
+                                              ctypes.c_float, p))
+    alts = {f"alt{n}": load_entry(path, f"alt{n}", build.SIGNATURES["objcavit_attention_bwd"])
+            for n, path in enumerate(args.alt)}
+    for name, path in zip(alts, args.alt):
+        print(f"{name}: {path}", flush=True)
+    route = ctypes.c_int(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, b, sq, sk in SHAPES:
+        q, k, v, g, mask = attention_inputs(gen, b, sq, sk, "served")
+        bias = kattn.mask_bias(mask)
+        _, stats = kattn.fused_mha_fwd(q, k, v, bias)
+        want = kattn.mha_fused_bwd_plain(q, k, v, bias, g)
+        c0 = kattn.fused_mha_bwd.cluster_launches
+        errs = {"new": errors(kattn.fused_mha_bwd(q, k, v, bias, g, stats), want),
+                "old": errors(old_bwd(old, q, k, v, bias, g, stats), want),
+                **{name: errors(old_bwd(fn, q, k, v, bias, g, stats, route), want)
+                   for name, fn in alts.items()}}
+        if errs["new"]["bad"] or errs["old"]["bad"]:
+            raise AssertionError(f"{label}: elements out of tolerance {errs}")
+        taken = "cluster" if kattn.fused_mha_bwd.cluster_launches > c0 else "two_kernel"
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        sdpa_mask, gs = bias.to(torch.bfloat16)[:, None, None, :], g.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=sdpa_mask)
+
+        calls = {"new": lambda: kattn.fused_mha_bwd(q, k, v, bias, g, stats),
+                 "old": lambda: old_bwd(old, q, k, v, bias, g, stats),
+                 **{name: (lambda fn=fn: old_bwd(fn, q, k, v, bias, g, stats, route))
+                    for name, fn in alts.items()},
+                 "sdpa_fwd_bwd": lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), gs),
+                 "sdpa_fwd": sdpa}
+        graphs = {name: captured(fn) for name, fn in calls.items()}
+        times = {name: [] for name in calls}
+        for r in range(args.rounds):
+            order = list(calls) if r % 2 == 0 else list(calls)[::-1]
+            for name in order:
+                times[name].append(replay_ms(graphs[name]))
+        del graphs
+        times["sdpa_bwd"] = [fb - f for fb, f in zip(times["sdpa_fwd_bwd"], times["sdpa_fwd"])]
+        row = {"shape": label, "b_s_h_d": [b, sq, HEADS, HEAD_DIM], "route": taken,
+               "clusters": b * HEADS,
+               "clusters_resident": kattn.bwd_clusters_resident(b, HEADS, sq, sk),
+               "errors": errs, "calls_per_graph": CALLS, "rounds": args.rounds,
+               **{f"{n}_ms": statistics.median(t) for n, t in times.items()},
+               **{f"{n}_spread_ms": [min(t), max(t)] for n, t in times.items()},
+               **bwd_bound(b, HEADS, sq, sk), "card": smi}
+        print("attention_ab", json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

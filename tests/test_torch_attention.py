@@ -133,6 +133,64 @@ def test_kernel5_gradients_match_pallas(dtype, mask_kind):
         np.testing.assert_allclose(_f32(leaf.grad), _f32(w), rtol=rtol, atol=atol, err_msg=name)
 
 
+def _tiled_inputs(sq: int, sk: int, mask_kind: str, seed: int = 11):
+    """As ``_inputs``, with masks that end inside the second and third
+    64-key tiles (image 0 keeps 100 keys, image 1 keeps 130), or image 1
+    entirely masked ('full')."""
+    (q, k, v, g), _ = _inputs("float32", "none", sq, sk, seed)
+    mask = np.zeros((B, sk), bool)
+    mask[0, 100:] = True
+    mask[1, 130:] = True
+    if mask_kind == "full":
+        mask[1] = True
+    return (q, k, v, g), mask
+
+
+@pytest.mark.parametrize("dtype,sq,mask_kind", [("float32", 40, "partial"),
+                                                ("float32", 150, "full"),
+                                                ("bfloat16", 40, "partial")])
+def test_kernel5_key_tile_decomposition_matches_pallas(dtype, sq, mask_kind):
+    """The cluster route's arithmetic (``mha_bwd_by_key_tiles``: Sk 150 in
+    three 64-key tiles, the partial row terms and the partial dq summed in
+    rank order, dk and dv per tile) against ``jax.grad`` through the Pallas
+    custom VJP in interpret mode, at ``test_kernel5_gradients_match_pallas``'s
+    tolerances; and against the plain backward formula in fp64 (1e-12)."""
+    sk = 150
+    (q, k, v, g), mask = _tiled_inputs(sq, sk, mask_kind)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _both((q, k, v, g), dtype)
+    jmask = jnp.asarray(mask)
+
+    def loss(q_, k_, v_):
+        out = jax_mha_core(q_, k_, v_, jmask, impl="pallas")
+        return jnp.sum(out.astype(jnp.float32) * jg.astype(jnp.float32))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    bias = kattn.mask_bias(torch.from_numpy(mask))
+    got = kattn.mha_bwd_by_key_tiles(tq, tk, tv, bias, tg)
+    assert kattn.bwd_route(sq, sk) == "cluster" and -(-sk // kattn.KEY_TILE) == 3
+    rtol, atol = GRAD_TOLS[dtype]
+    for name, x, w in zip("qkv", got, want):
+        assert x.dtype == getattr(torch, dtype), name
+        np.testing.assert_allclose(_f32(x), _f32(w), rtol=rtol, atol=atol, err_msg=name)
+    f64 = [torch.from_numpy(a).double() for a in (q, k, v, g)]
+    tiled = kattn.mha_bwd_by_key_tiles(*f64[:3], bias.double(), f64[3])
+    for x, w in zip(tiled, kattn.mha_fused_bwd_plain(*f64[:3], bias.double(), f64[3])):
+        torch.testing.assert_close(x, w, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("sq,sk,route", [(300, 300, "cluster"), (221, 221, "cluster"),
+                                         (512, 512, "cluster"), (1, 512, "cluster"),
+                                         (513, 513, "two_kernel"), (40, 513, "two_kernel"),
+                                         (513, 40, "two_kernel"), (1200, 1200, "two_kernel")])
+def test_kernel5_backward_route_by_shape(sq, sk, route):
+    """The backward takes one cluster launch while every key tile of 64 fits
+    a portable cluster of 8 blocks (and the queries fit its shared memory),
+    the two-kernel route beyond: the C entry point's rule."""
+    assert kattn.bwd_route(sq, sk) == route
+    assert (route == "cluster") == (-(-sk // kattn.KEY_TILE) <= 8 and sq <= kattn.CLUSTER_MAX_S)
+
+
 def test_kernel5_plain_backward_is_the_gradient_of_the_plain_forward():
     """The plain backward formula equals autograd of the plain forward in
     fp64, a fully masked image included."""

@@ -435,27 +435,62 @@ def _assert_attn_close(pairs):
     "case",
     [(8, 300, 300, "partial", True), (8, 221, 221, "full", True), (2, 1200, 1200, "none", True),
      (3, 77, 200, "partial", False), (2, 130, 65, "full", False), (1, 1, 5, "none", False),
-     (2, 64, 64, "full", False)],
+     (2, 64, 64, "full", False), (8, 300, 77, "partial", False), (4, 64, 64, "partial", True),
+     (4, 65, 65, "partial", True), (2, 512, 512, "full", True), (2, 513, 513, "partial", True),
+     (2, 40, 513, "partial", False)],
     ids=["flagship-480x640", "train-416x544", "S1200", "Sq<Sk", "Sq>Sk", "one-query",
-         "one-tile"],
+         "one-tile", "Sq300-Sk77", "Sk64", "Sk65", "Sk512", "Sk513", "Sq40-Sk513"],
 )
 def test_kernel5_forward_and_backward_match_plain(cuda, case):
     """Forward and backward wrappers against the plain versions, each
-    launch counted once; a fully masked row is uniform over its keys."""
+    launch counted once and the backward on the route its shape takes (one
+    cluster launch up to 512 keys and queries, the two-kernel route beyond);
+    a fully masked row is uniform over its keys."""
     b, sq, sk, mask_kind, in_proj = case
     q, k, v, g, mask = _attn_inputs(cuda, b, sq, sk, mask_kind, in_proj=in_proj)
     bias = kattn.mask_bias(mask)
     f0, b0 = kattn.fused_mha_fwd.launches, kattn.fused_mha_bwd.launches
+    c0 = kattn.fused_mha_bwd.cluster_launches
     out, stats = kattn.fused_mha_fwd(q, k, v, bias)
     dq, dk, dv = kattn.fused_mha_bwd(q, k, v, bias, g, stats)
     torch.cuda.synchronize()
     assert (kattn.fused_mha_fwd.launches, kattn.fused_mha_bwd.launches) == (f0 + 1, b0 + 1)
+    cluster = kattn.bwd_route(sq, sk) == "cluster"
+    assert cluster == (max(sq, sk) <= 512)
+    assert kattn.fused_mha_bwd.cluster_launches == c0 + cluster
     want = kattn.mha_fused_bwd_plain(q, k, v, bias, g)
     _assert_attn_close([("out", out, kattn.mha_fused_plain(q, k, v, bias)),
                         *zip(("dq", "dk", "dv"), (dq, dk, dv), want)])
     if mask_kind == "full":
         uniform = v[0].float().mean(0)  # (H, D)
         _assert_close(out[0].float(), uniform.expand(sq, *uniform.shape), 2.0 ** -7, 1e-3)
+
+
+@gpu
+@pytest.mark.parametrize("case", [(8, 300, 300), (8, 221, 221), (2, 513, 513)],
+                         ids=["flagship-480x640", "train-416x544", "two-kernel-Sk513"])
+def test_kernel5_backward_is_bitwise_deterministic(cuda, case):
+    """Two backward calls on the same inputs give identical dq, dk and dv:
+    neither route sums through atomics, so no order depends on timing."""
+    b, sq, sk = case
+    q, k, v, g, mask = _attn_inputs(cuda, b, sq, sk, "partial", in_proj=True)
+    bias = kattn.mask_bias(mask)
+    _, stats = kattn.fused_mha_fwd(q, k, v, bias)
+    first = kattn.fused_mha_bwd(q, k, v, bias, g, stats)
+    second = kattn.fused_mha_bwd(q, k, v, bias, g, stats)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@gpu
+@pytest.mark.parametrize("case", [(8, 300, 300), (8, 221, 221)],
+                         ids=["flagship-480x640", "train-416x544"])
+def test_kernel5_card_holds_every_backward_cluster_at_once(cuda, case):
+    """At the model's shapes the card holds all B * H clusters of the
+    backward at once (two blocks an SM), so the launch runs in one wave."""
+    b, sq, sk = case
+    assert kattn.bwd_clusters_resident(b, 4, sq, sk) >= b * 4
 
 
 @gpu
@@ -507,11 +542,12 @@ def test_tiny_graphbins_on_the_kernel_route(cuda):
 @gpu
 def test_tiny_adabins_on_the_kernel_route(cuda):
     """The tiny AdaBins: 4 kernel-5 launches a bf16 forward, and 4 forward
-    and 4 backward launches a train step (with one kernel-4 forward and
+    and 4 backward launches (on the cluster route) a train step (with one kernel-4 forward and
     backward), each matching the plain versions on its own tensors."""
     model = build_adabins_model(device="cuda", encoder_name="efficientnet-tiny",
                                 attn_impl="kernel")
     f0, b0 = kattn.fused_mha_fwd.launches, kattn.fused_mha_bwd.launches
+    c0 = kattn.fused_mha_bwd.cluster_launches
     with torch.no_grad(), record_attention_io() as records:
         model(torch.randn((2, 384, 352, 3), device="cuda"))
     step, batch = build_adabins_train(batch=2, h=384, w=352, device="cuda",
@@ -521,6 +557,7 @@ def test_tiny_adabins_on_the_kernel_route(cuda):
         loss = step(batch, None)
     torch.cuda.synchronize()
     assert kattn.fused_mha_fwd.launches == f0 + 8 and kattn.fused_mha_bwd.launches == b0 + 4
+    assert kattn.fused_mha_bwd.cluster_launches == c0 + 4  # 132 tokens: the cluster route
     assert kexp.bins_expectation_fwd.launches == e0 + 1 and torch.isfinite(loss)
     assert [r["kind"] for r in train_records].count("bwd") == 4
     for rec in records + train_records:
