@@ -31,7 +31,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``F.interpolate`` for kernel 1, the dense head's GEMM for kernel 6,
    ``F.scaled_dot_product_attention`` for kernel 5. Then the encoder's
    kernels at B5's shapes at 480x640, batch 8: kernel 8 (the fused MBConv
-   head) at the eight shapes of the 32 stride-1 MBConv blocks, kernel 9
+   head; the build prints its ptxas registers and spills) at the eight
+   shapes of the 32 stride-1 MBConv blocks (``utils/mbconv_ab.py``'s
+   ``MBCONV_SHAPES`` and ``mbconv_bound``), kernel 9
    (its (H, W, B, C) form) at stages 1 and 5, kernel 10 (its depthwise-only
    mode) with and without the pool at k 3 and 5, kernel 7 (the SE-gate
    project) at the seven shapes of its route and stage 6's 3072 -> 512;
@@ -112,6 +114,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +136,7 @@ from objcavit_torch.kernels import se_project as kse
 from objcavit_torch.losses import LossWrapper
 from objcavit_torch.models.yolov7 import n_anchors
 from objcavit_torch.ops.bins import bins_head_depth
+from objcavit_torch.utils.mbconv_ab import MBCONV_SHAPES, mbconv_bound
 from objcavit_torch.serving import (
     DepthPipeline,
     FusedDepthPipeline,
@@ -275,11 +279,9 @@ ATTN_CASES = [("flagship 480x640", BATCH, 300, 300, "served"),
               ("Sq != Sk", BATCH, 300, 77, "served"),
               ("fully masked rows", BATCH, 300, 300, "full")]
 GRAPH_CALLS = 20  # kernel 5's calls in one timed CUDA graph
-# kernel 8 at B5's stride-1 MBConv blocks at 480x640: (H, W, k, Cin, M,
-# blocks of that shape in a forward); 32 blocks
-MBCONV_SHAPES = [(120, 160, 3, 40, 240, 4), (60, 80, 5, 64, 384, 4), (30, 40, 3, 128, 768, 6),
-                 (30, 40, 5, 128, 768, 1), (30, 40, 5, 176, 1056, 6), (15, 20, 5, 304, 1824, 8),
-                 (15, 20, 3, 304, 1824, 1), (15, 20, 3, 512, 3072, 2)]
+# kernel 8 at B5's stride-1 MBConv blocks at 480x640 (MBCONV_SHAPES: H, W,
+# k, Cin, M, blocks of that shape in a forward; 32 blocks) and its bound
+# (mbconv_bound) come from the kernel's profiler, utils/mbconv_ab.py
 MBCONV_BS_SHAPES = [MBCONV_SHAPES[0], MBCONV_SHAPES[5]]  # kernel 9: stages 1 and 5
 DW_CASES = [(120, 160, 3, 240, True), (120, 160, 3, 240, False),  # kernel 10: (H, W, k, C,
             (60, 80, 5, 384, True), (15, 20, 5, 1824, False)]     # with the pool)
@@ -409,6 +411,25 @@ def phase_build() -> None:
     for line in out.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
+    log_kernel8_ptxas(out)
+
+
+def log_kernel8_ptxas(out: str) -> None:
+    """One line per instantiation of kernel 8 (mbconv_kernel<k, row tiles>):
+    its registers and spills, as ptxas reported them."""
+    name, found, spills = None, [], ""
+    for line in out.splitlines():
+        if "Compiling entry" in line:
+            name = None
+            m = re.search(r"mbconv_kernelILi(\d)ELi(\d)E", line)
+            if m:
+                name = f"k{m.group(1)} row tiles {m.group(2)}"
+        elif name and "spill stores" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            found.append(f"{name}: {line.split('Used')[1].split(',')[0].strip()}, {spills}")
+            name = None
+    log("kernel 8 ptxas: " + ("; ".join(found) if found else "not reported"))
 
 
 def bound(nbytes: float, bf16: float = 0.0, fp32: float = 0.0) -> dict:
@@ -682,16 +703,6 @@ def check_se_project(name: str, dw, gate, kern, bias, skip, out) -> dict:
     if errs["bad"]:
         raise AssertionError(f"{name}: {errs['bad']} values out of tolerance: {errs}")
     return errs
-
-
-def mbconv_bound(n: int, cin: int, m: int, k: int, expand: bool, with_pool: bool) -> dict:
-    """x read and y written once (bf16), the weights and biases read once,
-    the pool written once; the expand's 2 n Cin M products on the tensor
-    cores, the depthwise's 2 k^2 n M on the CUDA cores (n = B H W)."""
-    nbytes = 2 * n * (cin + m) + 2 * k * k * m + 4 * m + 4 * BATCH * m * with_pool
-    if expand:
-        nbytes += 2 * cin * m + 4 * m
-    return bound(nbytes, bf16=2 * n * cin * m * expand, fp32=2 * k * k * n * m)
 
 
 def check_encoder_kernels(gen) -> dict:
@@ -1533,9 +1544,9 @@ def main() -> None:
               encoder_serving["se_project"], "se_project"),
         entry("mbconv_expand_dw_pool", "mbconv_head.cu", "mbconv_pallas.py:153",
               encoder_serving["mbconv_head"], "mbconv_head"),
-        entry("mbconv_bs_expand_dw_pool (kernel 8, (H, W, B, C) strides)", "mbconv_head.cu",
+        entry("mbconv_bs_expand_dw_pool (kernel 8 on an (H, W, B, C) tensor map)", "mbconv_head.cu",
               "mbconv_bs.py:180", encoder_functions["mbconv_bs"], "mbconv_bs"),
-        entry("dw_conv_silu_pool (kernel 8 without the expand)", "mbconv_head.cu",
+        entry("dw_conv_silu_pool (the first port's tiled kernel, no expand)", "mbconv_head.cu",
               "dw_pallas.py:88", encoder_functions["dw_conv"], "dw_conv"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

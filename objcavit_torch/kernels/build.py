@@ -53,7 +53,7 @@ SIGNATURES = {
                                _IP, _P),
     "objcavit_attention_bwd_clusters": (_I, _I, _I, _I, _IP),
     "objcavit_mbconv_head": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _P),
+                             _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _LL, _P),
     "objcavit_se_project": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 

@@ -31,6 +31,7 @@ reads them; the encoder makes it once per set of weights.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -41,14 +42,168 @@ from objcavit_torch.kernels.build import check_launch, load_library
 
 _ENTRY = "objcavit_mbconv_head"
 KSIZES = (3, 5)
-TILE_H, TILE_W = 8, 16  # the kernel's output tile
+TILE_H, TILE_W = 8, 16  # kernel 10's output tile (PR 5's kernel)
 CHANNEL_ALIGN = 8  # Cin and M: 16-byte rows of bf16
+
+# kernel 8's launch (csrc/mbconv_head.cu, the note there): the numbers the
+# plan and the source share
+SLAB = 64  # channels a work item: a warp's 32 lanes, a channel pair each
+K_CHUNK = 64  # input channels a TMA box and a 128-byte swizzled row
+M_TILE = 64  # pixels a wgmma row tile
+MAX_MTILES = 2  # row tiles a group: 64 fp32 accumulators a thread
+RING_GROUPS = 4  # groups of expanded rows the ring holds: even, as the stages
+RING_PIXEL_BYTES = 144  # a ring pixel's 64 bf16 channels, padded against bank conflicts
+RUN = 8  # output columns a depthwise item
+DW_WARPS = 7
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100
+PLAN_SMS, PLAN_BATCH = 132, 8  # the card and batch the plan is chosen for
+
+
+@dataclass(frozen=True)
+class MBConvPlan:
+    """Kernel 8's launch for (H, W, Cin, M, k). A work item is one slab of
+    SLAB channels, one image, a column strip of ``strip_w`` output columns
+    and a segment of ``seg_groups`` groups of ``group_rows`` output rows; the
+    block that takes it walks the segment's band of input rows down a group
+    at a time. A persistent grid of at most one block an SM takes the items
+    in slab-major order, an equal share each."""
+
+    h: int
+    w: int
+    cin: int
+    m: int
+    k: int
+    strip_w: int
+    group_rows: int
+    seg_groups: int
+    stages: int
+
+    @property
+    def band_w(self) -> int:  # input columns a strip reads: its halo too
+        return self.strip_w + 2 * (self.k // 2)
+
+    @property
+    def strips(self) -> int:
+        return -(-self.w // self.strip_w)
+
+    @property
+    def segments(self) -> int:
+        return -(-(-(-self.h // self.group_rows)) // self.seg_groups)
+
+    @property
+    def slabs(self) -> int:
+        return -(-self.m // SLAB)
+
+    @property
+    def partials(self) -> int:  # pool partials an image: one a (strip, segment)
+        return self.strips * self.segments
+
+    @property
+    def mtiles(self) -> int:
+        return -(-self.group_rows * self.band_w // M_TILE)
+
+    @property
+    def kchunks(self) -> int:
+        return -(-self.cin // K_CHUNK)
+
+    @property
+    def smem(self) -> int:
+        return smem_bytes(self.k, self.band_w, self.group_rows, self.kchunks, self.stages)
+
+    def work_items(self, batch: int) -> int:
+        return self.slabs * batch * self.partials
+
+    def grid(self, batch: int, sms: int = PLAN_SMS) -> int:
+        """Blocks a launch on ``batch`` images takes on a card of ``sms`` SMs."""
+        return min(self.work_items(batch), sms)
+
+
+def smem_bytes(k: int, band_w: int, group_rows: int, kchunks: int, stages: int) -> int:
+    """Shared memory of a block, as the source lays it out: 1024 bytes of
+    alignment, the x stages (a group's row tiles of every K chunk each), the
+    weight slab (a K chunk of SLAB rows each), the ring of RING_GROUPS
+    groups of expanded rows with RUN pixels of slack for the last run's
+    reads, the depthwise warps' pool sums, two mbarriers a stage and two a
+    ring slot."""
+    mtiles = -(-group_rows * band_w // M_TILE)
+    ring = (RING_GROUPS * group_rows * band_w + RUN) * RING_PIXEL_BYTES
+    return (1024 + stages * mtiles * kchunks * M_TILE * 128 + kchunks * SLAB * 128 + ring
+            + DW_WARPS * SLAB * 4 + 16 * stages + 16 * RING_GROUPS)
+
+
+@functools.lru_cache(maxsize=None)
+def mbconv_plan(h: int, w: int, cin: int, m: int, k: int) -> MBConvPlan:
+    """Kernel 8's launch: the strip width, the group and segment, the stages,
+    the shared memory and (``plan.grid(b, sms)``) the grid. Of the strips of
+    a multiple of RUN columns (or the whole width) and the groups of at
+    least 2p rows whose row tiles fit MAX_MTILES and whose block fits
+    SMEM_LIMIT with two or four stages (even: each expand warpgroup owns
+    half the stages and ring slots), it takes the one with the least
+    estimated time at batch PLAN_BATCH on PLAN_SMS SMs: a block's share of
+    the work items x a segment's band groups (its output groups and one
+    more) x a group's cost, the larger of the depthwise's and the expand's
+    (they run at once), plus a weight slab's load for each slab a block
+    meets. Raises ValueError when none fits."""
+    if k not in KSIZES or min(h, w, cin, m) <= 0:
+        raise ValueError(f"mbconv_plan: no plan for H={h}, W={w}, Cin={cin}, M={m}, k={k}")
+    p = k // 2
+    kchunks = -(-cin // K_CHUNK)
+    slabs = -(-m // SLAB)
+    best, best_cost = None, None
+    for strip_w in sorted({w, *range(RUN, w, RUN)}):
+        band_w = strip_w + 2 * p
+        strips = -(-w // strip_w)
+        for group_rows in range(max(2 * p, 1), 17):
+            mtiles = -(-group_rows * band_w // M_TILE)
+            if mtiles > MAX_MTILES:
+                break
+            stages = max((s for s in (2, 4) if smem_bytes(k, band_w, group_rows, kchunks, s)
+                          <= SMEM_LIMIT), default=None)
+            if stages is None:
+                continue
+            # lane operations a group takes: the depthwise's items over its
+            # warps; the expand's row tiles (SiLU on each value) over two
+            # warpgroups in turns
+            dw = group_rows * (-(-strip_w // RUN) * RUN * 2 * k * k + strip_w * 24) / DW_WARPS
+            ex = mtiles * M_TILE * 72 / DW_WARPS + kchunks * 20
+            step = max(dw, ex) + 150
+            groups = -(-h // group_rows)
+            for seg_groups in range(1, groups + 1):
+                segments = -(-groups // seg_groups)
+                if seg_groups > 1 and -(-groups // (seg_groups - 1)) == segments:
+                    continue  # a shorter segment with as many segments
+                items = slabs * PLAN_BATCH * strips * segments
+                share = -(-items // PLAN_SMS)
+                slab_loads = 1 + -(-share // (PLAN_BATCH * strips * segments))
+                cost = share * ((seg_groups + 1) * step + 100) + slab_loads * kchunks * 300
+                if best_cost is None or cost < best_cost:
+                    best_cost = cost
+                    best = MBConvPlan(h, w, cin, m, k, strip_w, group_rows, seg_groups, stages)
+    if best is None:
+        raise ValueError(f"mbconv_plan: no block of H={h}, W={w}, Cin={cin}, M={m}, k={k} fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return best
+
+
+def pool_scratch(plan: MBConvPlan, batch: int) -> tuple[int, int, int] | None:
+    """The shape of kernel 8's pool-partial scratch: one fp32 partial a
+    (strip, segment), image and channel; None when a block covers a whole
+    image and writes the pool itself."""
+    return None if plan.partials == 1 else (plan.partials, batch, plan.m)
 
 
 def mbconv_eligible(cin: int, m: int, ksize: int, stride: int) -> bool:
-    """Whether the kernel takes a block of these widths (any H and W)."""
-    return (stride == 1 and ksize in KSIZES and cin % CHANNEL_ALIGN == 0
-            and m % CHANNEL_ALIGN == 0)
+    """Whether the kernel takes a block of these widths (any H and W: a plan
+    that fits at 8 x 8 fits at any size, its 8-column strips among the
+    choices)."""
+    if not (stride == 1 and ksize in KSIZES and cin % CHANNEL_ALIGN == 0
+            and m % CHANNEL_ALIGN == 0 and cin > 0 and m > 0):
+        return False
+    try:
+        mbconv_plan(8, 8, cin, m, ksize)
+    except ValueError:
+        return False
+    return True
 
 
 @dataclass(frozen=True)
@@ -99,6 +254,74 @@ def mbconv_expand_dw_pool_plain(x, we, be, wd, bd, ksize: int):
     pool (B, M) fp32)."""
     y = depthwise_silu_plain(expand_plain(x, we, be).to(x.dtype), wd, bd, ksize)
     return y.to(x.dtype), y.sum((1, 2))
+
+
+def mbconv_by_plan(x, we, be, wd, bd, ksize: int, plan: MBConvPlan | None = None):
+    """Kernel 8 computed the way its CUDA kernel orders it, in PyTorch: for
+    each block of ``plan`` (image, strip, segment; the slabs split only the
+    channels), the band's rows expanded a group at a time into a ring of
+    RING_GROUPS groups (rounded to x's dtype, zero outside the image), the
+    output rows of group s - 2 from the ring at step s, each output's taps in
+    the TPU kernel's order, the pool as each depthwise warp's sums over its
+    items, added in warp order, then over the (strip, segment) partials in
+    order. fp32 arithmetic; returns (y in x's dtype, pool fp32)."""
+    b, h, w, cin = x.shape
+    m, k, p = we.shape[1], ksize, ksize // 2
+    plan = plan or mbconv_plan(h, w, cin, m, k)
+    g, bw = plan.group_rows, plan.band_w
+    taps = _taps(wd, k).to(x.dtype).float()
+    wef, bef, bdf = we.to(x.dtype).float(), be.float(), bd.float()
+    y = torch.zeros((b, h, w, m), dtype=torch.float32)
+    parts = torch.zeros((plan.partials, b, m), dtype=torch.float32)
+    runs = -(-plan.strip_w // RUN)
+    for bi in range(b):
+        for unit in range(plan.partials):
+            strip, seg = divmod(unit, plan.segments)
+            w0, r0 = strip * plan.strip_w, seg * plan.seg_groups * g
+            n_groups = min(plan.seg_groups, -(-(h - r0) // g))
+            ring = torch.zeros((RING_GROUPS, g, bw, m), dtype=torch.float32)
+            psum = torch.zeros((DW_WARPS, m), dtype=torch.float32)
+            for s in range(n_groups + 2):
+                if s <= n_groups:  # expand band group s: rows r0 - p + s g ...
+                    band = torch.zeros((g, bw, cin), dtype=torch.float32)
+                    rows = range(r0 - p + s * g, r0 - p + (s + 1) * g)
+                    for i, r in enumerate(rows):
+                        c_lo, c_hi = max(w0 - p, 0), min(w0 - p + bw, w)
+                        if 0 <= r < h and c_lo < c_hi:
+                            band[i, c_lo - (w0 - p):c_hi - (w0 - p)] = x[bi, r, c_lo:c_hi].float()
+                    e = F.silu(band @ wef + bef)
+                    inside = torch.zeros((g, bw, 1), dtype=torch.bool)
+                    for i, r in enumerate(rows):
+                        if 0 <= r < h:
+                            lo, hi = max(0, p - w0), min(bw, w - w0 + p)
+                            inside[i, lo:hi] = True
+                    ring[s % RING_GROUPS] = torch.where(inside, e, 0.0).to(x.dtype).float()
+                d = s - 2
+                if d < 0:
+                    continue
+                for item in range(g * runs):
+                    o, c0 = item // runs, (item % runs) * RUN
+                    ro = d * g + o
+                    if r0 + ro >= h:
+                        break
+                    cols = [c for c in range(c0, c0 + RUN) if c < plan.strip_w and w0 + c < w]
+                    acc = torch.zeros((len(cols), m), dtype=torch.float32)
+                    for i in range(k):
+                        br = ro + i
+                        row = ring[(br // g) % RING_GROUPS, br % g]
+                        for j in range(k):
+                            acc = acc + row[[c + j for c in cols]] * taps[i * k + j]
+                    out = F.silu(acc + bdf)
+                    y[bi, r0 + ro, [w0 + c for c in cols]] = out
+                    psum[item % DW_WARPS] += out.sum(0)  # in item order per warp
+            block = torch.zeros(m, dtype=torch.float32)
+            for warp in range(DW_WARPS):
+                block = block + psum[warp]
+            parts[unit, bi] = block
+    pool = parts[0].clone()
+    for unit in range(1, plan.partials):
+        pool = pool + parts[unit]
+    return y.to(x.dtype), pool
 
 
 def mbconv_bs_expand_dw_pool_plain(x_t, we, be, wd, bd, ksize: int):
@@ -162,16 +385,26 @@ def _launch(x, we, be, wd, bd, ksize: int, expand: bool, with_pool: bool, batch_
     y = torch.empty((*x.shape[:3], m), dtype=x.dtype, device=x.device)
     # element strides of an image, a row and a column, for x and for y
     strides = [(c, w * b * c, b * c) if batch_minor else (h * w * c, w * c, c) for c in (cin, m)]
-    n_tiles = -(-h // TILE_H) * -(-w // TILE_W)
+    if expand:
+        plan = mbconv_plan(h, w, cin, m, ksize)
+        scratch = pool_scratch(plan, b)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count \
+            if x.device.type == "cuda" else PLAN_SMS
+        knobs = (plan.strip_w, plan.group_rows, plan.seg_groups, plan.grid(b, sms), plan.stages,
+                 plan.smem)
+    else:
+        scratch = (-(-h // TILE_H) * -(-w // TILE_W), b, m)
+        knobs = (0, 0, 0, 0, 0, 0)
     partial = pool = None
     if with_pool:
-        partial = torch.empty((n_tiles, b, m), dtype=torch.float32, device=x.device)
+        if scratch is not None:
+            partial = torch.empty(scratch, dtype=torch.float32, device=x.device)
         pool = torch.empty((b, m), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = getattr(load_library(), _ENTRY)(
         x.data_ptr(), ptr(we) if expand else None, ptr(be) if expand else None, wd.data_ptr(),
         bd.data_ptr(), y.data_ptr(), ptr(partial), ptr(pool), b, h, w, cin, m, ksize,
-        *strides[0], *strides[1], int(expand), int(with_pool),
+        *strides[0], *strides[1], int(expand), int(with_pool), *knobs,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_launch(_ENTRY, rc)

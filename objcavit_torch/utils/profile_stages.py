@@ -306,7 +306,7 @@ def kernel_kind(name: str) -> str:
     for needle, kind in (("attn_", "kernel 5 (attention)"),
                          ("detect_head", "kernel 6 (detect head)"),
                          ("se_project", "kernel 7 (SE-gate project)"),
-                         ("mbconv_head", "kernel 8 (MBConv head)"),
+                         ("mbconv_kernel", "kernel 8 (MBConv head)"),
                          ("pool_reduce", "kernel 8 (MBConv head)"),
                          ("bins_expectation", "kernel 4 (bins expectation)"),
                          ("conv_bins_depth", "kernel 2 (bins)"),

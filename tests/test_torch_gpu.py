@@ -583,12 +583,16 @@ def _assert_mbconv_ok(x, we, be, wd, bd, k, y, pool):
 
 @gpu
 @pytest.mark.parametrize("shape", [
-    (8, 120, 160, 40, 240, 3),  # B5 stage 1
-    (2, 15, 20, 304, 1824, 5),  # B5 stage 5: ragged 8x16 tiles
-    (2, 17, 23, 24, 48, 5),  # Cin 24: one zero-filled chunk
-    (3, 9, 33, 512, 96, 3),  # Cin 512 streamed in 16 chunks
-    (1, 10, 10, 16, 56, 5),  # M 56: a ragged channel tile
+    (8, 120, 160, 40, 240, 3),  # B5 stage 1: four strips, partials added by a second launch
+    (2, 15, 20, 304, 1824, 5),  # B5 stage 5: 29 slabs, blocks that change slab
+    (2, 17, 23, 24, 48, 5),  # Cin 24: one K chunk zero-filled past Cin; ragged strips
+    (3, 9, 33, 512, 96, 3),  # Cin 512: 8 K chunks a stage
+    (1, 10, 10, 16, 56, 5),  # M 56: one ragged slab
     (1, 1, 1, 8, 8, 3),  # one pixel: every tap but the centre is halo
+    (1, 12, 50, 16, 64, 5),  # W 50: seven strips, a boundary every 8 columns
+    (2, 15, 20, 176, 1056, 5),  # M 1056: 17 slabs, the last ragged
+    (2, 1, 37, 24, 96, 5),  # H 1: every band row but one outside the image
+    (8, 30, 40, 176, 1056, 5),  # B5 stage 4: about three items a block, one pipeline
 ])
 def test_kernel8_matches_plain(cuda, shape):
     b, h, w, cin, m, k = shape
@@ -597,6 +601,22 @@ def test_kernel8_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert y.shape == (b, h, w, m) and y.dtype == torch.bfloat16 and pool.shape == (b, m)
     _assert_mbconv_ok(*args, k, y, pool)
+
+
+@gpu
+@pytest.mark.parametrize("shape", [(8, 120, 160, 40, 240, 3), (8, 30, 40, 128, 768, 3)],
+                         ids=["stage1-pool-partials", "stage3-pool-direct"])
+def test_kernel8_is_bitwise_deterministic(cuda, shape):
+    """Two calls on the same inputs give identical y and pool: the pool's
+    sums run in a fixed order, with no atomics (partials added by a second
+    kernel at stage 1, written by the block that covers the image at stage
+    3)."""
+    b, h, w, cin, m, k = shape
+    args = _mbconv_inputs(cuda, b, h, w, cin, m, k)
+    first = kmb.mbconv_expand_dw_pool(*args, k)
+    second = kmb.mbconv_expand_dw_pool(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @gpu

@@ -19,6 +19,8 @@
 """
 
 import collections
+import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +44,7 @@ from objcavit_torch.models.graphbins import GraphBins
 from objcavit_torch.utils.benchkit import build_flagship_model
 from objcavit_torch.utils.convert import state_dict_from_variables
 from objcavit_torch.utils.fold_bn import fold_batchnorm
+from objcavit_torch.utils.mbconv_ab import MBCONV_SHAPES
 from objcavit_torch.utils.kernel_io import (
     mbconv_head_errors,
     record_encoder_kernel_io,
@@ -90,6 +93,124 @@ def test_kernel8_matches_pallas(shape, k, dtype):
     tol = (1e-4, 1e-4) if dtype == "float32" else (BF16_RTOL, BF16_ATOL)
     _close(y, want_y, *tol)
     _close(pool, want_pool, 1e-3, 1e-3)
+
+
+def _jax_unfused(x, we, be, wd, bd, k):
+    """tests/test_mbconv_pallas.py's reference: JAX's unfused convs, which pin
+    the Pallas kernel, for a shape it has no tile plan for (one pixel)."""
+    e = jax.nn.silu(jax.lax.conv_general_dilated(
+        x, we[None, None], (1, 1), "VALID", dimension_numbers=("NHWC", "HWIO", "NHWC")) + be)
+    e = e.astype(x.dtype)
+    y = jax.nn.silu(jax.lax.conv_general_dilated(
+        e.astype(jnp.float32), wd.astype(x.dtype).astype(jnp.float32), (1, 1), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), feature_group_count=e.shape[-1]) + bd)
+    return y.astype(x.dtype), jnp.sum(y, axis=(1, 2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,k,plan_edit", [
+    ((2, 8, 10, 8, 24), 3, {}),  # k 3: two strips, segments of one group
+    ((2, 8, 10, 8, 24), 5, {}),  # k 5
+    ((1, 30, 8, 8, 32), 3, {"group_rows": 4, "seg_groups": 8}),  # H 30 over groups of 4
+    ((1, 12, 40, 8, 16), 5, {}),  # W 40 over five strips
+    ((1, 12, 16, 8, 80), 5, {"seg_groups": 3}),  # M 80: a ragged second slab; one segment
+    ((1, 1, 1, 8, 8), 3, {}),  # one pixel
+], ids=["k3", "k5", "H-ragged-groups", "W-strips", "M-ragged-slab", "one-pixel"])
+def test_kernel8_decomposition_matches_pallas(shape, k, plan_edit, dtype):
+    """``mbconv_by_plan``, kernel 8 as the CUDA kernel orders it (strips,
+    segments and a ring of expanded row groups as ``mbconv_plan`` cuts them,
+    or with the edits named, the pool's partials in the kernel's order),
+    against the Pallas kernel in interpret mode at
+    test_kernel8_matches_pallas's tolerances; one pixel, which the Pallas
+    kernel has no tile plan for, against the unfused JAX convs that pin it."""
+    b, h, w, cin, m = shape
+    plan = dataclasses.replace(kmb.mbconv_plan(h, w, cin, m, k), **plan_edit)
+    if plan_edit.get("group_rows"):
+        assert h % plan.group_rows and plan.segments == 1
+    if w == 40:
+        assert plan.strips > 1
+    if m == 80:
+        assert m % kmb.SLAB and plan.slabs == 2 and plan.segments == 1
+    x, we, be, wd, bd = _mbconv_case(np.random.default_rng(sum(shape) * k), *shape, k)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jargs = (jnp.asarray(x, jdt), jnp.asarray(we, jdt), jnp.asarray(be), jnp.asarray(wd, jdt),
+             jnp.asarray(bd))
+    if h * w == 1:
+        want_y, want_pool = _jax_unfused(*jargs, k)
+    else:
+        want_y, want_pool = jax_mp.mbconv_expand_dw_pool(*jargs, ksize=k, interpret=True)
+    y, pool = kmb.mbconv_by_plan(_t(x, tdt), _t(we, tdt), _t(be), _t(wd, tdt), _t(bd), k, plan)
+    tol = (1e-4, 1e-4) if dtype == "float32" else (BF16_RTOL, BF16_ATOL)
+    _close(y, want_y, *tol)
+    _close(pool, want_pool, 1e-3, 1e-3)
+
+
+# B5's eight stride-1 shapes (H, W, Cin, M, k) and the card tests' kernel-8
+# and kernel-9 shapes
+PLAN_SHAPES = ([(h, w, cin, m, k) for h, w, k, cin, m, _ in MBCONV_SHAPES]
+               + [(120, 160, 40, 240, 3), (15, 20, 304, 1824, 5), (17, 23, 24, 48, 5),
+                  (9, 33, 512, 96, 3), (10, 10, 16, 56, 5), (1, 1, 8, 8, 3), (12, 50, 16, 64, 5),
+                  (15, 20, 176, 1056, 5), (1, 37, 24, 96, 5), (12, 17, 40, 240, 3),
+                  (7, 9, 24, 48, 5)])
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=[str(s) for s in PLAN_SHAPES])
+def test_mbconv_plan(shape, monkeypatch):
+    """The plan fits the card (shared memory, wgmma's row tiles, TMA's box),
+    its work items cover every (image, pixel, channel) once, its grid is one
+    block an SM or fewer, and the wrapper launches it with the scratch it
+    sizes."""
+    h, w, cin, m, k = shape
+    plan = kmb.mbconv_plan(h, w, cin, m, k)
+    p = k // 2
+    assert plan.smem == kmb.smem_bytes(k, plan.band_w, plan.group_rows, plan.kchunks, plan.stages)
+    assert plan.smem <= 232448 and plan.stages in (2, 4)
+    assert plan.mtiles <= kmb.MAX_MTILES and plan.group_rows >= 2 * p and plan.band_w <= 256
+    cover = torch.zeros((h, w, m), dtype=torch.int32)
+    for slab in range(plan.slabs):
+        for unit in range(plan.partials):
+            strip, seg = divmod(unit, plan.segments)
+            r0 = seg * plan.seg_groups * plan.group_rows
+            rows = slice(r0, min(h, r0 + plan.seg_groups * plan.group_rows))
+            cols = slice(strip * plan.strip_w, min(w, (strip + 1) * plan.strip_w))
+            cover[rows, cols, slab * kmb.SLAB:min(m, (slab + 1) * kmb.SLAB)] += 1
+    assert bool((cover == 1).all())
+    items = plan.slabs * 3 * plan.partials
+    assert plan.work_items(3) == items and plan.grid(3, 132) == min(items, 132)
+
+    calls = []
+
+    class FakeLibrary:
+        def objcavit_mbconv_head(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(kmb, "load_library", lambda: FakeLibrary())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(
+        cuda_stream=0))
+    allocated = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: allocated.append(
+        tuple(a[0] if len(a) == 1 else a)) or empty(*a, **kw))
+    x = torch.zeros((2, h, w, cin), dtype=torch.bfloat16)
+    we = torch.zeros((cin, m), dtype=torch.bfloat16)
+    wd = torch.zeros((k * k, m), dtype=torch.bfloat16)
+    be, bd = torch.zeros(m), torch.zeros(m)
+    kmb._launch(x, we, be, wd, bd, k, expand=True, with_pool=True, batch_minor=False)
+    (args,) = calls
+    assert args[22:28] == (plan.strip_w, plan.group_rows, plan.seg_groups, plan.grid(2),
+                           plan.stages, plan.smem)
+    scratch = kmb.pool_scratch(plan, 2)
+    assert (args[6] is None) == (scratch is None) == (plan.partials == 1)
+    assert allocated == [(2, h, w, m)] + ([scratch] if scratch else []) + [(2, m)]
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 4096, 64, 3), (8, 8, 64, 64, 7), (0, 8, 64, 64, 3)],
+                         ids=["weight-slab-too-large", "k7", "no-rows"])
+def test_mbconv_plan_raises_on_what_does_not_fit(shape):
+    with pytest.raises(ValueError, match="mbconv_plan"):
+        kmb.mbconv_plan(*shape)
+    assert not kmb.mbconv_eligible(shape[2], shape[3], shape[4], 1) or shape[0] == 0
 
 
 # ----------------------------------------------------------------- kernel 9
