@@ -7,11 +7,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the CUDA kernels from ``objcavit_torch/csrc`` with nvcc,
-   one process per source, all at once;
+   one process per source, all at once, and prints the ptxas registers and
+   spills of kernels 1, 7 and 8;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (TF32 off), then both timed in turns with CUDA events:
-   kernel 1 (resize) and kernel 2 (factored bins head) at the server's
-   shapes, kernel 3 (the bins head with one shared weight) at
+   kernel 1 (resize) at the flagship's four decoder upsamples, bare and in
+   its concat form (the upsample and the skip into the decoder's concat
+   buffer, the skip bit for bit; beside the bare kernel + ``torch.cat``, the
+   route it replaced), both as CUDA-graph replays; kernel 2 (factored bins
+   head) at the server's shape, kernel 3 (the bins head with one shared weight) at
    (8, 240, 320, 128), kernel 4 (bins expectation) forward and backward at
    the train step's (8, 56576, 256), kernel 6 (the detect head) at the three
    levels of NYU 480x640 and of KITTI 352x1216, batch 8, kernel 5
@@ -43,9 +47,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    object slots, random weights from seed 0) answers requests of 8 uint8
    frames, with detector-style object slots and with the no-detection
    sentinel. Launch counters, zeroed just before, must show 4 resize
-   launches and 1 bins launch per forward; depth must be finite and in
-   range; each kernel's output in those forwards must match its plain
-   version on the very tensors the forward gave it; and ObjCAViT's outputs
+   launches, all in the concat form, and 1 bins launch per forward; depth
+   must be finite and in range; each kernel's output in those forwards must
+   match its plain version on the very tensors the forward gave it (each
+   concat buffer's skip slice bit for bit); kernel 1's bare form, driven on
+   a served forward's four upsample inputs, must give the concat form's
+   upsamples bit for bit; and ObjCAViT's outputs
    must stay close to an fp32 run of the same weights (plain versions, no
    kernel) on a small input. Then the served rate and peak memory.
 5. unfactored head: ``ops.bins.bins_head_depth`` at inference, bf16, on
@@ -137,6 +144,7 @@ from objcavit_torch.losses import LossWrapper
 from objcavit_torch.models.yolov7 import n_anchors
 from objcavit_torch.ops.bins import bins_head_depth
 from objcavit_torch.utils.mbconv_ab import MBCONV_SHAPES, mbconv_bound
+from objcavit_torch.utils.resize_se_ab import RESIZE_SHAPES, SE_SHAPES
 from objcavit_torch.serving import (
     DepthPipeline,
     FusedDepthPipeline,
@@ -165,6 +173,7 @@ from objcavit_torch.utils.kernel_io import (
     record_encoder_kernel_io,
     record_kernel_io,
     se_project_errors,
+    skip_mismatches,
 )
 from objcavit_torch.utils.profile_stages import (
     fused_stage_split,
@@ -175,13 +184,8 @@ from objcavit_torch.utils.profile_stages import (
 
 BATCH = 8
 EVAL_DIMS = (480, 640)
-# decoder upsamples of the flagship at 480x640: (Hi, Wi, C) -> (Ho, Wo)
-RESIZE_SHAPES = [
-    (17, 22, 2048, 30, 40),
-    (30, 40, 1024, 60, 80),
-    (60, 80, 512, 120, 160),
-    (120, 160, 256, 240, 320),
-]
+# RESIZE_SHAPES (the flagship's decoder upsamples at 480x640, with their
+# skips' channels) and SE_SHAPES (kernel 7's) come from utils/resize_se_ab.py
 BINS_SHAPE = (BATCH, 240, 320, 128)  # decoder features at half resolution
 TRAIN_DIMS = (416, 544)
 TRAIN_SLOTS = 221  # min(max_det 1000, the 13 x 17 image tokens at 416x544)
@@ -285,13 +289,6 @@ GRAPH_CALLS = 20  # kernel 5's calls in one timed CUDA graph
 MBCONV_BS_SHAPES = [MBCONV_SHAPES[0], MBCONV_SHAPES[5]]  # kernel 9: stages 1 and 5
 DW_CASES = [(120, 160, 3, 240, True), (120, 160, 3, 240, False),  # kernel 10: (H, W, k, C,
             (60, 80, 5, 384, True), (15, 20, 5, 1824, False)]     # with the pool)
-# kernel 7 on its route: (H, W, M, O, skip, launches in a forward): the
-# DepthwiseSeparable blocks at 240x320, the four stride-2 first blocks, and
-# stage 6's 3072 -> 512 (kernel 8's route there: no launch)
-SE_SHAPES = [(240, 320, 48, 24, False, 1), (240, 320, 24, 24, True, 2),
-             (120, 160, 144, 40, False, 1), (60, 80, 240, 64, False, 1),
-             (30, 40, 384, 128, False, 1), (15, 20, 1056, 304, False, 1),
-             (15, 20, 3072, 512, True, 0)]
 # kernels 7-10 vs plain: one bf16 ulp, plus what kernel_io's checks add: the
 # fp32 accumulation bound of the Cin- or M-term sum (and of the k^2-term
 # depthwise), the expanded band's elements within that bound of a bf16
@@ -310,7 +307,7 @@ MBCONV_PER_FORWARD, SE_PROJECT_PER_FORWARD = 32, 7
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 PEAK_OPS_PER_MS = {"bf16": 989e12 / 1e3, "fp32": 67e12 / 1e3}
 COUNTERS = {
-    "resize": kresize.resize_bilinear_align_corners,
+    "resize": kresize.resize_bilinear_align_corners,  # either form of kernel 1
     "bins": kbins.conv_bins_depth_batched,
     "bins_shared": kbins.conv_bins_depth,
     "bins_expectation_fwd": kexp.bins_expectation_fwd,
@@ -345,23 +342,29 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float, a
 # sequences take the two-kernel route): every backward on the main paths
 # (S 132 to 300) must take it
 CLUSTER_COUNTER = "attention_bwd_cluster"
+# kernel 1's launches in its concat form: every served upsample takes it
+# (the decoder writes its concat buffers), unless a phase says otherwise
+CONCAT_COUNTER = "resize_concat"
 
 
 def zero_counters() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
     kattn.fused_mha_bwd.cluster_launches = 0
+    kresize.resize_bilinear_align_corners.concat_launches = 0
 
 
 def read_counters() -> dict:
     return {**{name: fn.launches for name, fn in COUNTERS.items()},
-            CLUSTER_COUNTER: kattn.fused_mha_bwd.cluster_launches}
+            CLUSTER_COUNTER: kattn.fused_mha_bwd.cluster_launches,
+            CONCAT_COUNTER: kresize.resize_bilinear_align_corners.concat_launches}
 
 
 def expect_launches(what: str, **want: int) -> dict:
     got = read_counters()
     want = {**{name: want.get(name, 0) for name in COUNTERS},
-            CLUSTER_COUNTER: want.get("attention_bwd", 0)}
+            CLUSTER_COUNTER: want.get("attention_bwd", 0),
+            CONCAT_COUNTER: want.get(CONCAT_COUNTER, want.get("resize", 0))}
     log(f"  {what}: launches {got}")
     if got != want:
         raise AssertionError(f"{what}: want launches {want}, got {got}")
@@ -411,25 +414,31 @@ def phase_build() -> None:
     for line in out.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
-    log_kernel8_ptxas(out)
+    log_ptxas(out)
 
 
-def log_kernel8_ptxas(out: str) -> None:
-    """One line per instantiation of kernel 8 (mbconv_kernel<k, row tiles>):
-    its registers and spills, as ptxas reported them."""
-    name, found, spills = None, [], ""
-    for line in out.splitlines():
-        if "Compiling entry" in line:
-            name = None
-            m = re.search(r"mbconv_kernelILi(\d)ELi(\d)E", line)
-            if m:
-                name = f"k{m.group(1)} row tiles {m.group(2)}"
-        elif name and "spill stores" in line:
-            spills = line.strip()
-        elif name and "Used" in line and "registers" in line:
-            found.append(f"{name}: {line.split('Used')[1].split(',')[0].strip()}, {spills}")
-            name = None
-    log("kernel 8 ptxas: " + ("; ".join(found) if found else "not reported"))
+# kernels whose ptxas registers and spills get a line of their own: the
+# label, the mangled name's pattern and how its template arguments read
+PTXAS_KERNELS = (("kernel 1", r"resize_kernelILi(\d+)E", "CV {}"),
+                 ("kernel 7", r"se_project_kernelILi(\d+)ELi(\d+)E", "MT {} NT {}"),
+                 ("kernel 8", r"mbconv_kernelILi(\d)ELi(\d)E", "k{} row tiles {}"))
+
+
+def log_ptxas(out: str) -> None:
+    """One line per kernel of PTXAS_KERNELS: each instantiation's registers
+    and spills, as ptxas reported them."""
+    for label, pattern, fmt in PTXAS_KERNELS:
+        name, found, spills = None, [], ""
+        for line in out.splitlines():
+            if "Compiling entry" in line:
+                m = re.search(pattern, line)
+                name = fmt.format(*m.groups()) if m else None
+            elif name and "spill stores" in line:
+                spills = line.strip()
+            elif name and "Used" in line and "registers" in line:
+                found.append(f"{name}: {line.split('Used')[1].split(',')[0].strip()}, {spills}")
+                name = None
+        log(f"{label} ptxas: " + ("; ".join(found) if found else "not reported"))
 
 
 def bound(nbytes: float, bf16: float = 0.0, fp32: float = 0.0) -> dict:
@@ -487,14 +496,14 @@ def phase_kernels() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
 
-    resize, resize_err = [], 0.0
-    for hi, wi, c, ho, wo in RESIZE_SHAPES:
+    resize, resize_err, concat, concat_err, old_route = [], 0.0, [], 0.0, 0.0
+    for hi, wi, c, ho, wo, cs in RESIZE_SHAPES:
         x = torch.randn((BATCH, hi, wi, c), generator=g, device=dev).to(torch.bfloat16)
         kernel = lambda: kresize.resize_bilinear_align_corners(x, ho, wo)  # noqa: E731
         plain = lambda: kresize.resize_bilinear_align_corners_plain(x, ho, wo)  # noqa: E731
         err = check_close(f"resize {(hi, wi, c)}->{(ho, wo)}", kernel(), plain(),
                           RESIZE_RTOL, RESIZE_ATOL)
-        ms, plain_ms = compare_times(kernel, plain)
+        ms, plain_ms = graph_times(kernel, plain)
         lib_ms = library_time(lambda: F.interpolate(x.permute(0, 3, 1, 2), size=(ho, wo),
                                                     mode="bilinear", align_corners=True))
         # bytes: the input read once, the output written once; 3 lerps of
@@ -502,10 +511,42 @@ def phase_kernels() -> dict:
         part = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 **bound(2 * BATCH * c * (hi * wi + ho * wo), fp32=6 * BATCH * c * ho * wo)}
         log(f"kernel resize ({BATCH},{hi},{wi},{c})->({ho},{wo}): max_abs_err {err} "
-            f"(rtol 2^-7, atol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"F.interpolate {lib_ms:.4f} ms, bound {part['bound_ms']:.4f} ms")
+            f"(rtol 2^-7, atol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA-graph "
+            f"replays), F.interpolate {lib_ms:.4f} ms, bound {part['bound_ms']:.4f} ms")
         resize_err = max(resize_err, err)
         resize.append((1, part))
+
+        # the concat form, as the decoder runs it, beside its plain version
+        # (resize, then torch.cat) and the route it replaced (the bare kernel,
+        # then torch.cat); no one PyTorch call computes it: library_ms null
+        skip = torch.randn((BATCH, ho, wo, cs), generator=g, device=dev).to(torch.bfloat16)
+        kernel = lambda: kresize.resize_bilinear_align_corners_into_concat(x, skip)  # noqa: E731
+        plain = lambda: kresize.resize_into_concat_plain(x, skip)  # noqa: E731
+        bare_cat = lambda: torch.cat(  # noqa: E731
+            [kresize.resize_bilinear_align_corners(x, ho, wo), skip], -1)
+        got = kernel()
+        err = check_close(f"resize into concat {(hi, wi, c)}->{(ho, wo)} + {cs}", got[..., :c],
+                          kresize.resize_bilinear_align_corners_plain(x, ho, wo),
+                          RESIZE_RTOL, RESIZE_ATOL)
+        if not torch.equal(got[..., c:].view(torch.int16), skip.view(torch.int16)):
+            raise AssertionError(f"resize into concat {(hi, wi, c)}: the skip slice is not the skip")
+        ms, plain_ms = graph_times(kernel, plain)
+        _, cat_ms = graph_times(kernel, bare_cat)
+        part = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                **bound(2 * BATCH * (c * hi * wi + cs * ho * wo + (c + cs) * ho * wo),
+                        fp32=6 * BATCH * c * ho * wo)}
+        log(f"kernel resize into concat ({BATCH},{hi},{wi},{c})->({ho},{wo}) + skip {cs}: "
+            f"max_abs_err {err}, skip bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bare kernel + torch.cat {cat_ms:.4f} ms, bound {part['bound_ms']:.4f} ms")
+        concat_err = max(concat_err, err)
+        concat.append((1, part))
+        old_route += cat_ms
+        del x, skip, got
+
+    bare, cat = total_of(resize, resize_err), total_of(concat, concat_err)
+    log(f"kernel 1 a forward (4 launches): bare {bare['ms']:.4f} ms (bound "
+        f"{bare['bound_ms']:.4f}); concat form {cat['ms']:.4f} ms (bound {cat['bound_ms']:.4f}), "
+        f"plain {cat['plain_ms']:.4f} ms, bare kernel + torch.cat {old_route:.4f} ms")
 
     b, h, w, c = BINS_SHAPE
     x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
@@ -524,7 +565,7 @@ def phase_kernels() -> dict:
                        bf16=2 * pixels * c * 256)
     log(f"kernel bins {BINS_SHAPE}: max_abs_err {err} (rtol 1e-5, atol 1e-5); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bins_bound['bound_ms']:.4f} ms")
-    out = {"resize": total_of(resize, resize_err),
+    out = {"resize": total_of(resize, resize_err), "resize_concat": total_of(concat, concat_err),
            "bins": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                     **bins_bound}}
 
@@ -957,11 +998,13 @@ def check_served_kernels(model, records: list[dict]) -> None:
         resize, (depth, plain_depth) = plain_outputs(model, rec)
         errs = [check_close(f"request {i} resize {j + 1}", y, want, RESIZE_RTOL, RESIZE_ATOL)
                 for j, (y, want) in enumerate(resize)]
+        if skip_mismatches(rec):
+            raise AssertionError(f"request {i}: a concat buffer's skip slice is not the skip")
         err = check_close(f"request {i} bins", depth, plain_depth, BINS_RTOL, BINS_ATOL)
         spread = float(plain_depth.max() - plain_depth.min())
         band = BINS_ATOL + BINS_RTOL * float(plain_depth.abs().max())
         log(f"  request {i}: served kernels vs plain on their own inputs: resize max abs err "
-            f"{max(errs)}, bins max abs err {err} (depth spread {spread:.5f} m, "
+            f"{max(errs)}, skip slices bit for bit, bins max abs err {err} (depth spread {spread:.5f} m, "
             f"{spread / band:.0f}x the bins tolerance)")
         if spread < MIN_SPREAD_IN_TOLERANCES * band:
             raise AssertionError(f"request {i}: depth too flat to check the bins kernel")
@@ -1040,6 +1083,7 @@ def phase_slice(attn_impl: str = "plain") -> dict:
     check_served_kernels(model, records)
     if attn_impl == "kernel":
         check_attention_records("served requests", attn_records)
+    launches["resize_bare"] = drive_bare_resize(records[-1])
     del records, attn_records
 
     check_against_fp32(model, rng)
@@ -1065,6 +1109,26 @@ def phase_slice(attn_impl: str = "plain") -> dict:
     if attn_impl == "kernel":
         log_route_splits(pipe, build_flagship_pipeline, frames[1])
     return launches
+
+
+def drive_bare_resize(record: dict) -> int:
+    """Kernel 1's bare form, which no model takes (the decoder writes its
+    concat buffers), driven as a function on a served forward's four
+    upsample inputs. Each output must equal the concat form's upsample
+    slice bit for bit: one kernel, one arithmetic."""
+    torch.cuda.synchronize()
+    zero_counters()
+    with torch.no_grad():
+        outs = [kresize.resize_bilinear_align_corners(x.contiguous(), y.shape[1], y.shape[2])
+                for x, y in record["resize"]]
+    torch.cuda.synchronize()
+    launches = expect_launches("kernel 1's bare form on a served forward's inputs", resize=4,
+                               resize_concat=0)
+    for j, (out, (_, y)) in enumerate(zip(outs, record["resize"])):
+        if not torch.equal(out.view(torch.int16), y.contiguous().view(torch.int16)):
+            raise AssertionError(f"upsample {j + 1}: the bare form differs from the concat form")
+    log("  kernel 1's bare form on the served inputs: bit for bit the concat form's upsamples")
+    return launches["resize"]
 
 
 def log_route_splits(pipe, build, frames) -> None:
@@ -1524,8 +1588,10 @@ def main() -> None:
                 "replaces": f"objcavit_tpu/ops/{replaces}", "launches": launches, **kernels[key]}
 
     print(json.dumps({"kernels": [
-        entry("resize_bilinear_align_corners_nhwc_bf16", "resize_bilinear.cu",
-              "resize_pallas.py:104", serving["resize"], "resize"),
+        entry("resize_bilinear_align_corners_into_concat (kernel 1's concat form)",
+              "resize_bilinear.cu", "resize_pallas.py:104", serving["resize"], "resize_concat"),
+        entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form, a function path)",
+              "resize_bilinear.cu", "resize_pallas.py:104", serving["resize_bare"], "resize"),
         entry("conv_bins_depth_batched", "bins_depth.cu", "pallas_bins.py:214",
               serving["bins"], "bins"),
         entry("conv_bins_depth (kernel 2, shared W)", "bins_depth.cu", "pallas_bins.py:163",

@@ -39,7 +39,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # ctypes never cuts a 64-bit address to a 32-bit int)
 SIGNATURES = {
     "objcavit_resize_bilinear_ac_nhwc_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "objcavit_resize_bilinear_ac_concat_bf16": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "objcavit_conv_bins_depth_batched": (
         _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P,
@@ -54,7 +57,8 @@ SIGNATURES = {
     "objcavit_attention_bwd_clusters": (_I, _I, _I, _I, _IP),
     "objcavit_mbconv_head": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _LL, _P),
-    "objcavit_se_project": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "objcavit_se_project": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P),
 }
 
 

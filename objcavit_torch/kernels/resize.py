@@ -1,27 +1,89 @@
-"""Kernel 1: the decoder's align_corners=True bilinear upsample (NHWC bf16).
+"""Kernel 1: the decoder's align_corners=True bilinear upsample (NHWC bf16),
+alone or written straight into the decoder's concat buffer.
 
 CUDA source: ``objcavit_torch/csrc/resize_bilinear.cu``, which replaces
 ``objcavit_tpu/ops/resize_pallas.py::resize_bilinear_pallas``. It is bound by
 bytes on the H100; the source note says how its design answers that.
 
-``resize_bilinear_align_corners`` launches the kernel for a CUDA tensor and
-raises on anything the kernel does not take; for a CPU tensor it runs
-``resize_bilinear_align_corners_plain``, the plain PyTorch version. The
-kernel has no backward, so the wrapper also raises, on any device, when
-autograd would need its gradient. The decoder calls it for bf16 outside
-training only: an fp32 model on the card takes the plain version there, the
-reference route, and launches no kernel.
+``resize_bilinear_align_corners(x, out_h, out_w)`` is the bare upsample;
+``resize_bilinear_align_corners_into_concat(x, skip)`` returns the (B, Ho,
+Wo, C + Cs) buffer the decoder's next conv reads: the upsample of x to the
+skip's size in channels [0, C) and the skip, bit for bit, in [C, C + Cs).
+One kernel computes both (the concat form copies the skip in the same
+launch), and one counter, ``resize_bilinear_align_corners.launches``, counts
+a launch of either; ``.concat_launches`` counts those of the concat form.
+Each launches the kernel for a CUDA tensor and raises on anything the
+kernel does not take; for a CPU tensor it runs its plain PyTorch version. The kernel has no backward, so the wrappers also raise, on
+any device, when autograd would need its gradient. The decoder calls the
+concat form for bf16 outside training only: an fp32 model on the card takes
+the plain version there, the reference route, and launches no kernel.
+
+``resize_plan`` picks the kernel's channel slice, column strips and row
+bands for a shape; the C entry points take it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 from objcavit_torch.kernels.bins import check_no_grad
 from objcavit_torch.kernels.build import check_launch, load_library
-from objcavit_torch.ops.resize import device_taps, resize_bilinear
+from objcavit_torch.ops.resize import device_taps, interp_taps, resize_bilinear
 
 _ENTRY = "objcavit_resize_bilinear_ac_nhwc_bf16"
+_ENTRY_CONCAT = "objcavit_resize_bilinear_ac_concat_bf16"
+
+SLOTS = 4  # input rows a block holds in shared memory (csrc kSlots)
+SMEM_BUDGET = 55 * 1024  # a block's shared memory: four blocks an SM
+BAND_ROWS = 4  # output rows of a block
+MAX_SLICE = 256  # channels of x a block takes at most
+
+
+@dataclasses.dataclass(frozen=True)
+class ResizePlan:
+    slice_c: int  # channels of x a block takes: 256 where C allows
+    strip_w: int  # output columns of a block
+    strips: int
+    cols: int  # the most input columns a strip reads
+    band_rows: int
+    smem: int  # a block's shared memory, bytes
+
+
+def smem_bytes(slice_c: int, cols: int, strip_w: int, c: int, cs: int = 0) -> int:
+    """csrc's smem_bytes: SLOTS bf16 rows and one fp32 row of cols x
+    slice_c; three bf16 skip rows of cs channels of a slice's share of the
+    strip's pixels, ceil(strip_w / (c / slice_c)); and 12 bytes of W taps a
+    strip column."""
+    skip_px = -(-strip_w // (c // slice_c))
+    return cols * slice_c * (2 * SLOTS + 4) + 6 * skip_px * cs + 12 * strip_w
+
+
+@functools.lru_cache(maxsize=128)
+def resize_plan(hi: int, wi: int, c: int, ho: int, wo: int, cs: int = 0) -> ResizePlan:
+    """The kernel's tiling for (B, hi, wi, c) -> (ho, wo), with a skip of cs
+    channels in the concat form: bands of BAND_ROWS output rows; the widest
+    channel slice dividing C up to MAX_SLICE; then the fewest even column
+    strips whose input span (read off the host taps) and skip rows keep a
+    block within SMEM_BUDGET. Wide
+    slices write long runs of each pixel's record: where
+    C + Cs channels are not a whole number of 32-byte sectors (the B5
+    decoder's up3 and up4), 64-channel slices left each sector at a slice
+    boundary to two blocks, and the concat form ran 1.5x slower on an H100."""
+    slice_c = next(s for s in (MAX_SLICE, 128, 64, 32, 16, 8) if c % s == 0)
+    lo, hi_tap, _ = interp_taps(wi, wo, True)
+    for strips in range(1, wo + 1):
+        strip_w = -(-wo // strips)
+        starts = np.arange(0, wo, strip_w)
+        ends = np.minimum(starts + strip_w, wo) - 1
+        cols = int((hi_tap[ends] - lo[starts]).max()) + 1
+        smem = smem_bytes(slice_c, cols, strip_w, c, cs)
+        if smem <= SMEM_BUDGET:
+            return ResizePlan(slice_c, strip_w, len(starts), cols, BAND_ROWS, smem)
+    raise AssertionError("unreachable: a one-column strip reads at most two columns")
 
 
 def resize_bilinear_align_corners_plain(
@@ -29,6 +91,12 @@ def resize_bilinear_align_corners_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: same taps, fp32 lerp, one rounding."""
     return resize_bilinear(x, out_h, out_w, align_corners=True)
+
+
+def resize_into_concat_plain(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """Plain version of the concat form: cat([upsample of x to skip's size, skip], -1)."""
+    return torch.cat([resize_bilinear_align_corners_plain(x, skip.shape[1], skip.shape[2]), skip],
+                     -1)
 
 
 def check_resize_inputs(x: torch.Tensor, out_h: int, out_w: int) -> None:
@@ -41,10 +109,51 @@ def check_resize_inputs(x: torch.Tensor, out_h: int, out_w: int) -> None:
         raise ValueError(f"resize kernel needs C % 8 == 0, got C={x.shape[3]}")
     if min(x.shape[1], x.shape[2]) < 1 or min(out_h, out_w) < 1:
         raise ValueError("resize kernel needs non-empty input and output sizes")
+    if x.shape[0] > 65535:
+        raise ValueError(f"resize kernel takes at most 65535 images, got {x.shape[0]}")
     if not x.is_contiguous():
         raise ValueError("resize kernel needs a contiguous NHWC tensor")
     if x.data_ptr() % 16:
         raise ValueError("resize kernel needs a 16-byte aligned tensor")
+
+
+def check_concat_inputs(x: torch.Tensor, skip: torch.Tensor) -> None:
+    """Raise ValueError unless the concat form takes x and skip."""
+    if skip.dim() != 4:
+        raise ValueError(f"resize kernel takes the skip as NHWC (B, Ho, Wo, Cs), got shape "
+                         f"{tuple(skip.shape)}")
+    check_resize_inputs(x, skip.shape[1], skip.shape[2])
+    if skip.dtype != x.dtype:
+        raise ValueError(f"resize kernel takes a bfloat16 skip, got {skip.dtype}")
+    if skip.shape[0] != x.shape[0]:
+        raise ValueError(f"skip has batch {skip.shape[0]}, x has {x.shape[0]}")
+    if skip.shape[3] % 8 or skip.shape[3] == 0:
+        raise ValueError(f"resize kernel needs Cs % 8 == 0 and Cs > 0, got Cs={skip.shape[3]}")
+    if skip.device != x.device:
+        raise ValueError(f"x on {x.device}, skip on {skip.device}")
+    if not skip.is_contiguous() or skip.data_ptr() % 16:
+        raise ValueError("resize kernel needs a contiguous, 16-byte aligned skip")
+
+
+def _launch(x: torch.Tensor, skip: torch.Tensor | None, out_h: int, out_w: int) -> torch.Tensor:
+    b, hi, wi, c = x.shape
+    cs = 0 if skip is None else skip.shape[3]
+    plan = resize_plan(hi, wi, c, out_h, out_w, cs)
+    taps = (*device_taps(hi, out_h, True, x.device), *device_taps(wi, out_w, True, x.device))
+    y = torch.empty((b, out_h, out_w, c + cs), dtype=x.dtype, device=x.device)
+    head = (x.data_ptr(), y.data_ptr()) if skip is None else (x.data_ptr(), skip.data_ptr(),
+                                                              y.data_ptr())
+    sizes = (b, hi, wi, c, out_h, out_w) if skip is None else (b, hi, wi, c, cs, out_h, out_w)
+    name = _ENTRY if skip is None else _ENTRY_CONCAT
+    rc = getattr(load_library(), name)(
+        *head, *(t.data_ptr() for t in taps), *sizes,
+        plan.slice_c, plan.strip_w, plan.cols, plan.band_rows,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check_launch(name, rc)
+    resize_bilinear_align_corners.launches += 1
+    resize_bilinear_align_corners.concat_launches += skip is not None
+    return y
 
 
 def resize_bilinear_align_corners(
@@ -57,20 +166,20 @@ def resize_bilinear_align_corners(
     if x.device.type != "cuda":
         raise ValueError(f"resize kernel runs on CUDA tensors, got {x.device}")
     check_resize_inputs(x, out_h, out_w)
-    b, hi, wi, c = x.shape
-    h_lo, h_hi, h_frac = device_taps(hi, out_h, True, x.device)
-    w_lo, w_hi, w_frac = device_taps(wi, out_w, True, x.device)
-    y = torch.empty((b, out_h, out_w, c), dtype=x.dtype, device=x.device)
-    rc = getattr(load_library(), _ENTRY)(
-        x.data_ptr(), y.data_ptr(),
-        h_lo.data_ptr(), h_hi.data_ptr(), h_frac.data_ptr(),
-        w_lo.data_ptr(), w_hi.data_ptr(), w_frac.data_ptr(),
-        b, hi, wi, c, out_h, out_w,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    check_launch(_ENTRY, rc)
-    resize_bilinear_align_corners.launches += 1
-    return y
+    return _launch(x, None, out_h, out_w)
+
+
+def resize_bilinear_align_corners_into_concat(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """x (B, Hi, Wi, C), skip (B, Ho, Wo, Cs) -> (B, Ho, Wo, C + Cs): the
+    align_corners=True upsample of x, then the skip, along channels."""
+    check_no_grad("resize_bilinear_align_corners_into_concat", x, skip)
+    if x.device.type == "cpu" and skip.device.type == "cpu":
+        return resize_into_concat_plain(x, skip)
+    if x.device.type != "cuda":
+        raise ValueError(f"resize kernel runs on CUDA tensors, got {x.device}")
+    check_concat_inputs(x, skip)
+    return _launch(x, skip, skip.shape[1], skip.shape[2])
 
 
 resize_bilinear_align_corners.launches = 0
+resize_bilinear_align_corners.concat_launches = 0  # those of the concat form

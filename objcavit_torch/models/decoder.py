@@ -9,14 +9,18 @@ names (``conv2``, ``up1..up4._net.{0,1,3,4}``, ``conv3``):
   the skip, then runs 2x [3x3 conv -> BN (eps 1e-5) -> LeakyReLU(0.01)]. The
   JAX package split that conv along its input channels to keep the concat out
   of TPU memory; here it is the concat and one conv.
-* In bf16, outside training, the upsample is CUDA kernel 1
-  (``kernels/resize.py``), whose wrapper runs the plain version on a CPU
-  tensor. The kernel has no backward, so a module in training mode takes
-  the differentiable plain version, as the JAX package gates its Pallas
-  resize on ``not train`` (``objcavit_tpu/models/decoder.py:91-98``). An
-  fp32 model runs the plain version on any device, as the JAX package gates
-  that kernel on bf16: on the card that is the reference route, which
-  launches no kernel.
+* In bf16, outside training, the upsample and the concat are one launch of
+  CUDA kernel 1's concat form (``kernels/resize.py::
+  resize_bilinear_align_corners_into_concat``): it writes the upsample and
+  the skip into the one buffer the conv reads, which keeps the concat's
+  extra read and write out of memory on the card, as the JAX package's
+  split conv did on the TPU. Its wrapper runs the plain version (resize,
+  then ``torch.cat``) on a CPU tensor. The kernel has no backward, so a
+  module in training mode takes the differentiable plain route, as the JAX
+  package gates its Pallas resize on ``not train``
+  (``objcavit_tpu/models/decoder.py:91-98``). An fp32 model takes the plain
+  route on any device, as the JAX package gates that kernel on bf16: on the
+  card that is the reference route, which launches no kernel.
 
 Modules take and return NHWC tensors; inside, they are NCHW views in
 ``torch.channels_last`` memory, which is the same memory.
@@ -27,7 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from objcavit_torch.kernels.resize import resize_bilinear_align_corners
+from objcavit_torch.kernels.resize import resize_bilinear_align_corners_into_concat
 from objcavit_torch.models.efficientnet import EfficientNetEncoder, encoder_spec
 from objcavit_torch.ops.resize import resize_bilinear
 
@@ -35,14 +39,14 @@ DECODER_BN_EPS = 1e-5
 ENCODER_IMPLS = ("plain", "kernel")
 
 
-def upsample_align_corners(x: torch.Tensor, out_h: int, out_w: int, train: bool) -> torch.Tensor:
-    """NCHW channels_last -> (out_h, out_w), align_corners=True bilinear."""
-    x_nhwc = x.permute(0, 2, 3, 1)
+def upsample_concat(x: torch.Tensor, skip: torch.Tensor, train: bool) -> torch.Tensor:
+    """NCHW channels_last x and skip -> cat([x upsampled to skip's size with
+    align_corners=True, skip], channels), NCHW channels_last."""
+    x_nhwc, skip_nhwc = x.permute(0, 2, 3, 1), skip.permute(0, 2, 3, 1)
     if x.dtype == torch.bfloat16 and not train:
-        y = resize_bilinear_align_corners(x_nhwc, out_h, out_w)
-    else:
-        y = resize_bilinear(x_nhwc, out_h, out_w, align_corners=True)
-    return y.permute(0, 3, 1, 2)
+        return resize_bilinear_align_corners_into_concat(x_nhwc, skip_nhwc).permute(0, 3, 1, 2)
+    up = resize_bilinear(x_nhwc, skip.shape[2], skip.shape[3], align_corners=True)
+    return torch.cat([up.permute(0, 3, 1, 2), skip], dim=1)
 
 
 class UpSampleWithSkip(nn.Module):
@@ -61,8 +65,7 @@ class UpSampleWithSkip(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         """x, skip: NCHW channels_last."""
-        up = upsample_align_corners(x, skip.shape[2], skip.shape[3], self.training)
-        return self._net(torch.cat([up, skip], dim=1))
+        return self._net(upsample_concat(x, skip, self.training))
 
 
 class Decoder(nn.Module):

@@ -1,15 +1,19 @@
 """What GraphBins hands its kernels, and what they give back.
 
 Serving: ``record_kernel_io`` hooks a model (GraphBins or AdaBins) so that
-each forward leaves a record of the four decoder upsamples (input and
-output, NHWC) and of the bins head (ObjCAViT's or miniViT's outputs, which
-are its inputs, and the depth it returned). ``plain_outputs`` runs the
-plain versions on a record's inputs, so a kernel's served output can be
-held against its plain version on the very tensors the main path gave it:
+each forward leaves a record of the four decoder upsamples (the input and
+the skip, and the two channel slices of the concat buffer the stage's conv
+read: the upsample and the skip, NHWC) and of the bins head (ObjCAViT's or
+miniViT's outputs, which are its inputs, and the depth it returned).
+``plain_outputs`` runs the plain versions on a record's inputs, so a
+kernel's served output can be held against its plain version on the very
+tensors the main path gave it, and ``skip_mismatches`` counts the skip
+slice's elements that differ from the skip, bit for bit:
 
     with record_kernel_io(model) as records:
         pipeline(frames)
     resize_pairs, bins_pair = plain_outputs(model, records[0])
+    assert skip_mismatches(records[0]) == 0
 
 Training: ``record_bins_expectation_io`` records each call of kernel 4 on
 the bins head's training route, forward (logits, centres, depth) and
@@ -61,26 +65,31 @@ from objcavit_torch.ops.bins import bins_head_operands
 @contextlib.contextmanager
 def record_kernel_io(model):
     """Yield a list that gets one dict per forward of ``model`` (a GraphBins
-    or an AdaBins): ``resize`` [(x, y)] for up1..up4, ``bins_inputs``
+    or an AdaBins): ``resize`` [(x, y)] for up1..up4, ``skips`` [(skip, the
+    concat buffer's skip slice)] for the same stages, ``bins_inputs``
     (widths, feat, queries: ObjCAViT's or miniViT's outputs) and ``depth``."""
     records: list[dict] = []
-    current: dict = {"resize": []}
+    current: dict = {"resize": [], "skips": []}
 
     def on_upsample(module, args):
         current["resize"].append([args[0].permute(0, 2, 3, 1)])
+        current["skips"].append([args[1].permute(0, 2, 3, 1)])
 
     def on_concat(module, args):
         # the stage's conv input is cat([upsampled, skip]) along channels
-        pair = current["resize"][-1]
-        pair.append(args[0][:, : pair[0].shape[3]].permute(0, 2, 3, 1))
+        pair, skip = current["resize"][-1], current["skips"][-1]
+        c = pair[0].shape[3]
+        pair.append(args[0][:, :c].permute(0, 2, 3, 1))
+        skip.append(args[0][:, c:].permute(0, 2, 3, 1))
 
     def on_head(module, args, out):
         current["bins_inputs"] = out
 
     def on_model(module, args, out):
         records.append({**current, "resize": [tuple(p) for p in current["resize"]],
+                        "skips": [tuple(p) for p in current["skips"]],
                         "depth": out["depth_pred"]})
-        current.update(resize=[])
+        current.update(resize=[], skips=[])
 
     decoder = model.dense_feature_extractor.decoder
     stages = [getattr(decoder, f"up{i}") for i in range(1, 5)]
@@ -108,6 +117,14 @@ def plain_outputs(model, record: dict):
         widths, queries, conv.weight, conv.bias, model.min_depth, model.max_depth, feat.dtype
     )
     return resize, (record["depth"], conv_bins_depth_batched_plain(feat, m, bias, centers))
+
+
+def skip_mismatches(record: dict) -> int:
+    """Elements of the recorded concat buffers' skip slices that are not the
+    skip, bit for bit (the concat form copies it)."""
+    bits = {2: torch.int16, 4: torch.int32}
+    return sum(int((got.view(bits[got.element_size()]) != skip.view(bits[skip.element_size()]))
+                   .sum()) for skip, got in record["skips"])
 
 
 @contextlib.contextmanager

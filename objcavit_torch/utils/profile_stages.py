@@ -310,7 +310,7 @@ def kernel_kind(name: str) -> str:
                          ("pool_reduce", "kernel 8 (MBConv head)"),
                          ("bins_expectation", "kernel 4 (bins expectation)"),
                          ("conv_bins_depth", "kernel 2 (bins)"),
-                         ("resize_bilinear", "kernel 1 (resize)"), ("memcpy", "memcpy")):
+                         ("resize_kernel", "kernel 1 (resize)"), ("memcpy", "memcpy")):
         if needle in n:
             return kind
     if any(k in n for k in ("fprop", "conv2d_c1_k1", "cudnn", "implicit_gemm")):

@@ -36,6 +36,7 @@ from objcavit_torch.utils.benchkit import (
     build_flagship_train,
 )
 from objcavit_torch.utils.fold_bn import fold_batchnorm
+from objcavit_torch.utils.resize_se_ab import SE_SHAPES
 from objcavit_torch.utils.kernel_io import (
     attention_plain_outputs,
     bins_expectation_plain_outputs,
@@ -48,6 +49,7 @@ from objcavit_torch.utils.kernel_io import (
     record_encoder_kernel_io,
     record_kernel_io,
     se_project_errors,
+    skip_mismatches,
 )
 
 gpu = pytest.mark.gpu
@@ -104,6 +106,37 @@ def test_resize_kernel_matches_plain(cuda, shape):
 
 
 @gpu
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (8, 17, 22, 2048, 30, 40, 176),  # the flagship's four upsamples and skips
+        (8, 30, 40, 1024, 60, 80, 64),
+        (8, 60, 80, 512, 120, 160, 40),
+        (8, 120, 160, 256, 240, 320, 24),
+        (2, 88, 304, 256, 176, 608, 24),  # KITTI 352x1216's up4: five strips
+        (3, 5, 7, 24, 9, 13, 8),  # odd sizes, 8-channel slices
+        (1, 21, 30, 16, 9, 11, 16),  # down in both
+    ],
+)
+def test_resize_concat_form_matches_plain(cuda, shape):
+    """The upsample slice within one bf16 ulp of the plain version, the skip
+    slice bit for bit, two calls bitwise equal, one launch counted a call."""
+    b, hi, wi, c, ho, wo, cs = shape
+    x = torch.randn((b, hi, wi, c), generator=cuda, device="cuda").to(torch.bfloat16)
+    skip = torch.randn((b, ho, wo, cs), generator=cuda, device="cuda").to(torch.bfloat16)
+    before = kresize.resize_bilinear_align_corners.launches
+    got = kresize.resize_bilinear_align_corners_into_concat(x, skip)
+    again = kresize.resize_bilinear_align_corners_into_concat(x, skip)
+    torch.cuda.synchronize()
+    assert kresize.resize_bilinear_align_corners.launches == before + 2
+    assert got.shape == (b, ho, wo, c + cs)
+    _assert_close(got[..., :c], kresize.resize_bilinear_align_corners_plain(x, ho, wo),
+                  RESIZE_RTOL, RESIZE_ATOL)
+    assert torch.equal(got[..., c:].view(torch.int16), skip.view(torch.int16))
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+@gpu
 @pytest.mark.parametrize("shared_weight", [False, True], ids=["per-image-W", "shared-W"])
 @pytest.mark.parametrize(
     "shape",
@@ -130,6 +163,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     strided = torch.zeros(1, 4, 16, 4, dtype=torch.bfloat16, device="cuda").transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         kresize.resize_bilinear_align_corners(strided, 8, 8)
+    x8 = torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="batch"):
+        kresize.resize_bilinear_align_corners_into_concat(
+            x8, torch.zeros(2, 8, 8, 8, dtype=torch.bfloat16, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        kresize.resize_bilinear_align_corners_into_concat(x8, strided)
     x = torch.zeros(1, 2, 2, 8, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match=r"\(B, C, 256\)"):
         kbins.conv_bins_depth_batched(
@@ -180,9 +219,40 @@ def test_tiny_graphbins_runs_through_both_kernels(cuda):
     assert len(resize) == 4
     for y, want in resize:
         _assert_close(y, want, RESIZE_RTOL, RESIZE_ATOL)
+    assert skip_mismatches(records[0]) == 0
     _assert_close(depth, plain_depth, BINS_RTOL, BINS_ATOL)
     feat, feat_ref = records[0]["bins_inputs"][1].float().cpu(), cpu_records[0]["bins_inputs"][1]
     assert float((feat - feat_ref).norm() / feat_ref.norm()) < 0.02
+
+
+@gpu
+def test_tiny_decoder_concats_through_kernel1_alone(cuda, monkeypatch):
+    """The bf16 decoder at inference: each up-stage's concat buffer comes
+    from one launch of kernel 1's concat form (4 a forward), with no
+    torch.cat and no plain resize; the fp32 decoder takes the plain route
+    and launches nothing. Both match on the same features."""
+    import objcavit_torch.models.decoder as decoder_module
+
+    model = build_flagship_model(device="cuda", encoder_name="efficientnet-tiny")
+    ref = build_flagship_model(dtype=torch.float32, device="cuda", encoder_name="efficientnet-tiny")
+    img = torch.randn((2, 384, 352, 3), generator=cuda, device="cuda")
+    with torch.no_grad():
+        feats = model.dense_feature_extractor.encoder["original_model"](img.to(torch.bfloat16))
+        cats = []
+        real_cat, real_resize = torch.cat, decoder_module.resize_bilinear
+        monkeypatch.setattr(torch, "cat", lambda *a, **k: cats.append(1) or real_cat(*a, **k))
+        monkeypatch.setattr(decoder_module, "resize_bilinear", None)
+        before = kresize.resize_bilinear_align_corners.launches
+        got = model.dense_feature_extractor.decoder(list(feats))
+        torch.cuda.synchronize()
+        assert kresize.resize_bilinear_align_corners.launches == before + 4
+        assert cats == []
+        monkeypatch.setattr(decoder_module, "resize_bilinear", real_resize)
+        before = kresize.resize_bilinear_align_corners.launches
+        want = ref.dense_feature_extractor.decoder([f.float() for f in feats])
+        assert kresize.resize_bilinear_align_corners.launches == before
+        assert len(cats) == 4
+    assert float((got.float() - want).norm() / want.norm()) < 0.02
 
 
 @gpu
@@ -651,6 +721,8 @@ def test_kernel10_matches_plain(cuda, shape, k, with_pool):
     ((2, 15, 20, 3072, 512), False),  # B5 stage 6's last block
     ((1, 5, 5, 144, 40), False),  # O 40: a ragged column tile
     ((8, 120, 160, 144, 40), False),  # B5 stage 2's first block
+    ((8, 2, 3, 48, 24), True),  # H*W = 6: a 128-row tile crosses 22 images
+    ((8, 5, 5, 144, 40), True),  # H*W = 25, three 64-row chunks of M
 ])
 def test_kernel7_matches_plain(cuda, shape, with_skip):
     b, h, w, m, o = shape
@@ -664,6 +736,28 @@ def test_kernel7_matches_plain(cuda, shape, with_skip):
     torch.cuda.synchronize()
     errs = se_project_errors(dw, gate, kern, bias, skip, out, MB_RTOL, MB_ATOL)
     assert errs["bad"] == 0, errs
+
+
+@gpu
+@pytest.mark.parametrize("with_skip", [False, True], ids=["no-skip", "skip"])
+@pytest.mark.parametrize("shape", [s[:4] for s in SE_SHAPES], ids=[str(s[:4]) for s in SE_SHAPES])
+def test_kernel7_at_the_b5_shapes_is_right_and_deterministic(cuda, shape, with_skip):
+    """Kernel 7 at its seven B5 shapes, batch 8, each with and without a
+    skip: within the error check of its plain version, and two calls
+    bitwise equal (no atomics)."""
+    h, w, m, o = shape
+    dw = torch.randn((8, h, w, m), generator=cuda, device="cuda").to(torch.bfloat16)
+    gate = torch.rand((8, m), generator=cuda, device="cuda").to(torch.bfloat16)
+    kern = (torch.randn((m, o), generator=cuda, device="cuda") / m ** 0.5).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(o, generator=cuda, device="cuda")
+    skip = (torch.randn((8, h, w, o), generator=cuda, device="cuda").to(torch.bfloat16)
+            if with_skip else None)
+    out = kse.se_gate_project(dw, gate, kern, bias, skip)
+    again = kse.se_gate_project(dw, gate, kern, bias, skip)
+    torch.cuda.synchronize()
+    errs = se_project_errors(dw, gate, kern, bias, skip, out, MB_RTOL, MB_ATOL)
+    assert errs["bad"] == 0, errs
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
 
 
 @gpu

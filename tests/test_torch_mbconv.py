@@ -262,6 +262,53 @@ def test_kernel10_matches_pallas(shape, k, with_pool, dtype):
 # ----------------------------------------------------------------- kernel 7
 
 
+# kernel 7's plan at its seven B5 shapes, batch 8 (utils/resize_se_ab.py's
+# SE_SHAPES): (H, W, M, O, skip) -> (nt, n_ct, mt, resident, bulk, stages,
+# blocks an SM)
+SE_PLANS = {
+    (240, 320, 48, 24, False): (3, 1, 2, True, True, 2, 2),
+    (240, 320, 24, 24, True): (3, 1, 2, True, True, 2, 2),
+    (120, 160, 144, 40, False): (5, 1, 2, True, True, 2, 1),
+    (60, 80, 240, 64, False): (8, 1, 2, False, False, 2, 3),
+    (30, 40, 384, 128, False): (16, 1, 2, False, False, 2, 2),
+    (15, 20, 1056, 304, False): (20, 2, 1, False, False, 2, 2),
+    (15, 20, 3072, 512, True): (16, 4, 2, False, False, 2, 1),
+}
+
+
+@pytest.mark.parametrize("shape", list(SE_PLANS), ids=[str(s) for s in SE_PLANS])
+def test_se_plan(shape):
+    """Pinned: column tiles fitted to O (no tile all padding), the bulk
+    route (W resident) at the narrow rows of 240x320 and 120x160, W streamed
+    where keeping it would cost a block an SM, a ring of 2 stages, the
+    shared memory within the card's and no 64 mt-row window touching more
+    images than the gate holds."""
+    h, w, m, o, with_skip = shape
+    plan = kse.se_plan(8 * h * w, h * w, m, o, 8, with_skip)
+    assert (plan.nt, plan.n_ct, plan.mt, plan.resident, plan.bulk, plan.stages,
+            plan.blocks_per_sm) == SE_PLANS[shape]
+    assert plan.bulk == (m <= kse.BULK_MAX_M)
+    assert plan.nt in kse.NT_CHOICES and plan.n_ct * 8 * plan.nt >= o
+    assert (plan.n_ct - 1) * 8 * plan.nt < o  # the last column tile holds real columns
+    assert plan.smem <= kse.SMEM_MAX
+    assert plan.blocks_per_sm * (plan.smem + 1024) <= kse.SM_SMEM
+    assert plan.resident <= (m * o * 2 <= kse.RESIDENT_MAX and plan.n_ct == 1)
+    tm = 64 * plan.mt
+    assert plan.tiles == -(-8 * h * w // tm) * plan.n_ct
+    spans = {(r0 + tm - 1) // (h * w) - r0 // (h * w) + 1 for r0 in range(0, 8 * h * w, tm)}
+    assert max(spans) <= plan.g_imgs
+
+
+@pytest.mark.parametrize("hw,b", [(1, 3), (5, 40), (25, 2), (300, 8), (63, 4), (64, 4)])
+def test_se_plan_gate_box_covers_every_row_tile(hw, b):
+    """At small images a row tile crosses many: the gate box holds them all."""
+    plan = kse.se_plan(b * hw, hw, 48, 24, b)
+    tm = 64 * plan.mt
+    for r0 in range(0, b * hw, tm):
+        last = min(r0 + tm, b * hw) - 1
+        assert last // hw - r0 // hw + 1 <= plan.g_imgs <= b
+
+
 @pytest.mark.parametrize("b,h,w,m,o,with_skip,dtype", [
     (2, 8, 16, 24, 24, True, "float32"),
     (2, 8, 16, 48, 16, False, "float32"),

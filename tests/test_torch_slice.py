@@ -18,7 +18,7 @@ from objcavit_tpu.utils.fold_bn import fold_batchnorm as jax_fold_batchnorm
 from objcavit_torch.serving import DepthPipeline, build_flagship_pipeline, image_seq_len
 from objcavit_torch.utils.benchkit import build_flagship, build_flagship_model
 from objcavit_torch.utils.fold_bn import fold_batchnorm
-from objcavit_torch.utils.kernel_io import plain_outputs, record_kernel_io
+from objcavit_torch.utils.kernel_io import plain_outputs, record_kernel_io, skip_mismatches
 from objcavit_torch.utils.profile_stages import union_us
 from tests.test_torch_modules import (
     H,
@@ -166,7 +166,8 @@ def test_build_flagship_inputs_and_forward_tiny():
 def test_record_kernel_io_sees_each_kernel_call_of_a_served_forward():
     """The hooks record the four upsamples and the bins head of every served
     forward; on the CPU the wrappers run the plain versions, so each
-    recorded output equals the plain version on the recorded inputs."""
+    recorded output equals the plain version on the recorded inputs, and
+    each concat buffer's skip slice is the skip."""
     model = build_flagship_model(device="cpu", encoder_name="efficientnet-tiny")
     frames = np.random.default_rng(3).integers(0, 256, (B, H, W, 3), dtype=np.uint8)
     pipe = DepthPipeline(model, eval_dims=(H, W))
@@ -182,6 +183,8 @@ def test_record_kernel_io_sees_each_kernel_call_of_a_served_forward():
         ]
         for y, want in resize:
             assert y.dtype == torch.bfloat16 and torch.equal(y, want)
+        assert [s.shape[:3] for s, _ in rec["skips"]] == [y.shape[:3] for y, _ in resize]
+        assert skip_mismatches(rec) == 0
         assert torch.equal(served, plain)
 
 
