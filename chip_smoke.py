@@ -8,22 +8,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the CUDA kernels from ``objcavit_torch/csrc`` with nvcc,
    one process per source, all at once, and prints the ptxas registers and
-   spills of kernels 1, 7 and 8;
+   spills of kernels 1, 2, 5's forward, 7 and 8;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (TF32 off), then both timed in turns with CUDA events:
    kernel 1 (resize) at the flagship's four decoder upsamples, bare and in
    its concat form (the upsample and the skip into the decoder's concat
    buffer, the skip bit for bit; beside the bare kernel + ``torch.cat``, the
    route it replaced), both as CUDA-graph replays; kernel 2 (factored bins
-   head) at the server's shape, kernel 3 (the bins head with one shared weight) at
-   (8, 240, 320, 128), kernel 4 (bins expectation) forward and backward at
+   head) at the server's shape, two calls bitwise equal, and kernel 3 (the
+   bins head with one shared weight) at (8, 240, 320, 128), both as
+   CUDA-graph replays, with their exps' count and time on the SFU beside the
+   bound; kernel 4 (bins expectation) forward and backward at
    the train step's (8, 56576, 256), kernel 6 (the detect head) at the three
    levels of NYU 480x640 and of KITTI 352x1216, batch 8, kernel 5
    (attention) forward and backward at (8, 300, 4, 32) with the served
-   masks, at S = 221 and 1200, at Sq != Sk and on fully masked rows, each
+   masks, at S = 221 and 1200, at Sq != Sk and on fully masked rows, the
+   forward with and without its residual (bitwise the same), each
    backward on the route its shape takes (one cluster launch up to 512
    keys and queries: every case but S = 1200), both timed at S = 300 and
-   at the train step's S = 221. Each
+   at the train step's S = 221 (the forward as a served call, without the
+   residual, and as a train step's). Each
    kernel's bound (the larger of its bytes over 3.35 TB/s and its
    operations over the card's peak for their type; tensor-core and
    CUDA-core operations run at once, so the larger of their two times) is
@@ -62,7 +66,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 5a. attention-kernel server: the flagship server with ``attn_impl="kernel"``
    answers 4 requests of 8 frames at 480x640: 10 kernel-5 launches, 4
    resize and 1 bins launch per forward; each kernel's output in those
-   forwards must match its plain version on its own tensors; ObjCAViT's
+   forwards must match its plain version on its own tensors, and no served
+   kernel-5 forward may write the residual (no backward reads it); ObjCAViT's
    outputs must stay close to an fp32 run of the same weights (the plain
    route). Then the served rate and ObjCAViT's stage time on each route;
 5b. encoder-kernel server: the flagship server with ``encoder_impl="kernel"``
@@ -100,7 +105,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    launches (nothing reads the cross-attention's object branch), and one
    kernel-4 forward and backward, per step; kernel 5's
    forward and backward and kernel 4's outputs in one recorded step must
-   match their plain versions on its tensors; the bf16 gradients must stay
+   match their plain versions on its tensors, each forward having written
+   its residual (the served phases 5a and 8 must write none); the bf16
+   gradients must stay
    close to an fp32 plain-route step's; the regressor's and the first image
    attention's gradient errors are logged beside the plain route's (a
    "watch" line). In phases 3, 7a and 8 every kernel-5 backward must take
@@ -155,6 +162,8 @@ from objcavit_torch.serving import (
 )
 from objcavit_torch.training.steps import make_train_loss_fn
 from objcavit_torch.utils.attention_ab import SERVED_VALID, attention_inputs, bwd_cost
+from objcavit_torch.utils.attention_ab import fwd_bound as attn_fwd_bound
+from objcavit_torch.utils.bins_ab import bins_cost, max_sm_mhz, sfu_ms
 from objcavit_torch.utils.benchkit import (
     TRAIN_LOSSES,
     build_adabins_train,
@@ -164,7 +173,9 @@ from objcavit_torch.utils.benchkit import (
 from objcavit_torch.utils.kernel_io import (
     attention_plain_outputs,
     bins_expectation_plain_outputs,
+    bins_operands,
     detect_head_errors,
+    exact_fold_units,
     mbconv_head_errors,
     plain_outputs,
     record_attention_io,
@@ -420,6 +431,9 @@ def phase_build() -> None:
 # kernels whose ptxas registers and spills get a line of their own: the
 # label, the mangled name's pattern and how its template arguments read
 PTXAS_KERNELS = (("kernel 1", r"resize_kernelILi(\d+)E", "CV {}"),
+                 ("kernel 2", r"conv_bins_depth_kernelILi(\d+)E", "KSTEPS {}"),
+                 ("kernel 5 forward", r"attn_fwd_(resident_|)kernelE",
+                  "attn_fwd_{}kernel"),
                  ("kernel 7", r"se_project_kernelILi(\d+)ELi(\d+)E", "MT {} NT {}"),
                  ("kernel 8", r"mbconv_kernelILi(\d)ELi(\d)E", "k{} row tiles {}"))
 
@@ -555,16 +569,25 @@ def phase_kernels() -> dict:
     centers = torch.sort(0.001 + 10 * torch.rand((b, 256), generator=g, device=dev), dim=1).values
     kernel = lambda: kbins.conv_bins_depth_batched(x, wts, bias, centers)  # noqa: E731
     plain = lambda: kbins.conv_bins_depth_batched_plain(x, wts, bias, centers)  # noqa: E731
-    err = check_close("bins", kernel(), plain(), BINS_RTOL, BINS_ATOL)
-    ms, plain_ms = compare_times(kernel, plain)
+    first = kernel()
+    err = check_close("bins", first, plain(), BINS_RTOL, BINS_ATOL)
+    if not torch.equal(first, kernel()):
+        raise AssertionError("bins: two calls of kernel 2 differ")
+    ms, plain_ms = graph_times(kernel, plain)
     # x, the weights, bias and centres read once, fp32 depth written once;
-    # the (B, S, C) x (C, 256) products on the tensor cores. No one PyTorch
-    # call computes conv, softmax and expectation together: library_ms null
-    pixels = b * h * w
-    bins_bound = bound(2 * pixels * c + 2 * b * c * 256 + 4 * 256 + 4 * b * 256 + 4 * pixels,
-                       bf16=2 * pixels * c * 256)
-    log(f"kernel bins {BINS_SHAPE}: max_abs_err {err} (rtol 1e-5, atol 1e-5); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bins_bound['bound_ms']:.4f} ms")
+    # the (B, S, C) x (C, 256) products on the tensor cores
+    # (bins_ab.bins_cost). No one PyTorch call computes conv, softmax and
+    # expectation together: library_ms null. The exps, one a logit, are
+    # logged beside the bound, with their time on the SFU alone
+    cost = bins_cost(b, h * w, c, shared_w=False)
+    bins_bound = bound(cost["bytes"], bf16=cost["flops"])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = max_sm_mhz()
+    log(f"kernel bins {BINS_SHAPE}: max_abs_err {err} (rtol 1e-5, atol 1e-5), two calls "
+        f"bitwise equal; kernel {ms:.5f} ms, plain {plain_ms:.4f} ms (CUDA-graph replays), bound "
+        f"{bins_bound['bound_ms']:.5f} ms ({bins_bound['bound_by']}); {cost['exps']} exps, "
+        f"{sfu_ms(cost['exps'], n_sm, mhz):.5f} ms on the SFU alone (16 ex2 a clock an SM at "
+        f"{mhz:.0f} MHz)")
     out = {"resize": total_of(resize, resize_err), "resize_concat": total_of(concat, concat_err),
            "bins": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                     **bins_bound}}
@@ -573,12 +596,13 @@ def phase_kernels() -> dict:
     kernel = lambda: kbins.conv_bins_depth(x, shared, bias, centers)  # noqa: E731
     plain = lambda: kbins.conv_bins_depth_plain(x, shared, bias, centers)  # noqa: E731
     err = check_close("bins shared W", kernel(), plain(), BINS_RTOL, BINS_ATOL)
-    ms, plain_ms = compare_times(kernel, plain)
-    shared_bound = bound(2 * pixels * c + 2 * c * 256 + 4 * 256 + 4 * b * 256 + 4 * pixels,
-                         bf16=2 * pixels * c * 256)
+    ms, plain_ms = graph_times(kernel, plain)
+    cost = bins_cost(b, h * w, c, shared_w=True)
+    shared_bound = bound(cost["bytes"], bf16=cost["flops"])
     log(f"kernel bins, shared W (kernel 3) {BINS_SHAPE}: max_abs_err {err} (rtol 1e-5, "
-        f"atol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{shared_bound['bound_ms']:.4f} ms")
+        f"atol 1e-5); kernel {ms:.5f} ms, plain {plain_ms:.4f} ms (CUDA-graph replays), bound "
+        f"{shared_bound['bound_ms']:.5f} ms; {cost['exps']} exps, "
+        f"{sfu_ms(cost['exps'], n_sm, mhz):.5f} ms on the SFU alone")
     out["bins_shared"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "library_ms": None, **shared_bound}
     del x, wts
@@ -609,13 +633,17 @@ def check_attention(gen: torch.Generator, dev) -> dict:
     forward at the served S 300 and the backward at the train step's S 221,
     the shapes the main paths launch them at."""
     errs = {"fwd": 0.0, "bwd": 0.0}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for label, b, sq, sk, mask_kind in ATTN_CASES:
         q, k, v, g, mask = attention_inputs(gen, b, sq, sk, mask_kind)
         bias = kattn.mask_bias(mask)
         c0 = kattn.fused_mha_bwd.cluster_launches
         out, stats = kattn.fused_mha_fwd(q, k, v, bias)
+        served, none = kattn.fused_mha_fwd(q, k, v, bias, residual=False)
         grads = kattn.fused_mha_bwd(q, k, v, bias, g, stats)
         torch.cuda.synchronize()
+        if none is not None or not torch.equal(served, out):
+            raise AssertionError(f"attention {label}: the forward without a residual differs")
         route = "cluster" if kattn.fused_mha_bwd.cluster_launches > c0 else "two_kernel"
         if route != kattn.bwd_route(sq, sk):
             raise AssertionError(f"attention {label}: the backward took the {route} route")
@@ -628,7 +656,9 @@ def check_attention(gen: torch.Generator, dev) -> dict:
             check_close(f"attention {label}: the masked image", out[0], uniform, 2.0 ** -7, 1e-3)
         log(f"kernel attention {label} (B {b}, Sq {sq}, Sk {sk}, H {ATTN_HEADS}, D {HEAD_DIM}, "
             f"mask {mask_kind}): max_abs_err forward {err_f}, backward {err_b} (rtol 2^-7, "
-            f"atol 1e-4 max|plain|); backward route {route}")
+            f"atol 1e-4 max|plain|), the forward without a residual bitwise the same; forward "
+            f"plan {kattn.fwd_plan(b * ATTN_HEADS, sq, sk, n_sm)}, backward route {route}")
+        del served
         errs["fwd"], errs["bwd"] = max(errs["fwd"], err_f), max(errs["bwd"], err_b)
         del q, k, v, g, out, stats, grads
     timed = {label: time_attention(gen, b, sq, sk, mask_kind)
@@ -658,8 +688,11 @@ def time_attention(gen: torch.Generator, b: int, sq: int, sk: int, mask_kind: st
         # backward needs its forward in the same capture
         return torch.autograd.grad(sdpa(), (qs, ks, vs), gs)
 
-    calls = {"fwd": lambda: kattn.fused_mha_fwd(q, k, v, bias),
+    # the forward as a served request launches it (no residual), and as a
+    # train step does (the residual written, for the backward)
+    calls = {"fwd": lambda: kattn.fused_mha_fwd(q, k, v, bias, residual=False),
              "fwd_plain": lambda: kattn.mha_fused_plain(q, k, v, bias),
+             "fwd_train": lambda: kattn.fused_mha_fwd(q, k, v, bias),
              "bwd": lambda: kattn.fused_mha_bwd(q, k, v, bias, g, stats),
              "bwd_plain": lambda: kattn.mha_fused_bwd_plain(q, k, v, bias, g),
              "sdpa": sdpa, "sdpa_fwd_bwd": sdpa_fwd_bwd}
@@ -678,22 +711,21 @@ def time_attention(gen: torch.Generator, b: int, sq: int, sk: int, mask_kind: st
     for kernel, plain in (("fwd", "fwd_plain"), ("bwd", "bwd_plain")):
         tk, tp = compare_times(graphs[kernel].replay, graphs[plain].replay, iters=3)
         per_call[kernel], per_call[plain] = tk / GRAPH_CALLS, tp / GRAPH_CALLS
-    for name in ("sdpa", "sdpa_fwd_bwd"):
+    for name in ("sdpa", "sdpa_fwd_bwd", "fwd_train"):
         per_call[name] = library_time(graphs[name].replay, iters=3) / GRAPH_CALLS
     del graphs
     lib_bwd = per_call["sdpa_fwd_bwd"] - per_call["sdpa"]
-    # bytes, each input read once and each output written once: the forward
-    # reads q, k, v and the bias and writes o and the residual (each row's
-    # max and log-sum, fp32); the backward's bytes and five products are
-    # attention_ab.bwd_cost's. Operations: the forward's two products
-    row = 2 * b * ATTN_HEADS * HEAD_DIM
-    residual = 2 * 4 * b * ATTN_HEADS * sq
-    prod = 2 * b * ATTN_HEADS * sq * sk * HEAD_DIM
-    fwd_bound = bound(row * (2 * sq + 2 * sk) + 4 * b * sk + residual, bf16=2 * prod)
+    # bytes, each input read once and each output written once: the served
+    # forward reads q, k, v and the bias and writes o (a train step's also
+    # the residual: each row's max and log-sum, fp32; attention_ab.fwd_bound);
+    # the backward's bytes and five products are attention_ab.bwd_cost's.
+    # Operations: the forward's two products
+    fwd_bound = attn_fwd_bound(b, ATTN_HEADS, sq, sk, residual=False)
     bwd_bytes, bwd_ops = bwd_cost(b, ATTN_HEADS, sq, sk)
     bwd_bound = bound(bwd_bytes, bf16=bwd_ops)
     log(f"kernel attention (B {b}, S {sq}, H {ATTN_HEADS}, D {HEAD_DIM}) timed, CUDA-graph "
-        f"replays of {GRAPH_CALLS} calls: forward {per_call['fwd']:.5f} ms, plain "
+        f"replays of {GRAPH_CALLS} calls: forward {per_call['fwd']:.5f} ms (no residual; "
+        f"{per_call['fwd_train']:.5f} ms writing it), plain "
         f"{per_call['fwd_plain']:.4f} ms, SDPA {per_call['sdpa']:.5f} ms, bound "
         f"{fwd_bound['bound_ms']:.5f} ms ({fwd_bound['bound_by']}); backward "
         f"{per_call['bwd']:.5f} ms, plain {per_call['bwd_plain']:.4f} ms, SDPA's backward "
@@ -993,9 +1025,14 @@ def check_depth(name: str, depth: torch.Tensor, lo: float, hi: float, batch: int
 
 def check_served_kernels(model, records: list[dict]) -> None:
     """Each kernel's output in the served forwards against its plain version
-    on the same inputs, at the kernel phase's tolerances."""
+    on the same inputs, at the kernel phase's tolerances, and how many of
+    kernel 2's units took its exact fold (three chains of products, not
+    one: ``exact_fold_units``)."""
+    exact = units = 0
     for i, rec in enumerate(records):
         resize, (depth, plain_depth) = plain_outputs(model, rec)
+        n_exact, n_units = exact_fold_units(*bins_operands(model, rec)[:3])
+        exact, units = exact + n_exact, units + n_units
         errs = [check_close(f"request {i} resize {j + 1}", y, want, RESIZE_RTOL, RESIZE_ATOL)
                 for j, (y, want) in enumerate(resize)]
         if skip_mismatches(rec):
@@ -1008,21 +1045,31 @@ def check_served_kernels(model, records: list[dict]) -> None:
             f"{spread / band:.0f}x the bins tolerance)")
         if spread < MIN_SPREAD_IN_TOLERANCES * band:
             raise AssertionError(f"request {i}: depth too flat to check the bins kernel")
+    log(f"  kernel 2's units on the exact fold over {len(records)} requests: {exact} of {units} "
+        f"({exact / max(units, 1):.4%})")
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def check_attention_records(what: str, records: list[dict]) -> None:
+def check_attention_records(what: str, records: list[dict], residual: bool) -> None:
     """Each recorded kernel-5 launch against the plain version on its own
-    tensors."""
+    tensors; each forward must have written a residual where a backward may
+    read it (``residual``: a train step) and none where none can (a served
+    request, under no_grad)."""
+    wrong = [i for i, rec in enumerate(records) if rec["kind"] == "fwd"
+             and rec["residual"] != residual]
+    if wrong:
+        raise AssertionError(f"{what}: kernel-5 forwards {wrong} "
+                             f"{'skipped' if residual else 'wrote'} the residual")
     errs = collections.defaultdict(float)
     for i, rec in enumerate(records):
         errs[rec["kind"]] = max(errs[rec["kind"]], check_attention_pairs(
             f"{what} kernel-5 {rec['kind']} {i}", attention_plain_outputs(rec)))
     kinds = collections.Counter(rec["kind"] for rec in records)
-    log(f"  {what}: kernel 5 vs plain on its own tensors, {dict(kinds)} launches: max abs err "
+    log(f"  {what}: kernel 5 vs plain on its own tensors, {dict(kinds)} launches (residual "
+        f"{'written' if residual else 'skipped'} on every forward): max abs err "
         + ", ".join(f"{k} {v}" for k, v in errs.items()))
 
 
@@ -1082,7 +1129,7 @@ def phase_slice(attn_impl: str = "plain") -> dict:
     log(f"  valid object slots per image on the objects route: {slots.tolist()}")
     check_served_kernels(model, records)
     if attn_impl == "kernel":
-        check_attention_records("served requests", attn_records)
+        check_attention_records("served requests", attn_records, residual=False)
     launches["resize_bare"] = drive_bare_resize(records[-1])
     del records, attn_records
 
@@ -1287,7 +1334,7 @@ def check_train_kernels(record: dict) -> None:
         raise AssertionError("train step: depth too flat to check kernel 4")
 
 
-def check_train_against_fp32(model, rng: np.random.Generator) -> None:
+def check_train_against_fp32(model, rng: np.random.Generator) -> dict:
     """One step's gradients on the bf16 kernel route against the same
     weights in fp32 (plain versions, cuDNN without TF32) on a small input,
     with the same draws of augmentation and dropout (one generator seed).
@@ -1384,7 +1431,7 @@ def phase_train(attn_impl: str = "plain", n_timed: int = 5) -> tuple[dict, dict]
         raise AssertionError(f"train: recorded {len(records)} kernel-4 calls, want 1 with its backward")
     check_train_kernels(records[0])
     if attn_impl == "kernel":
-        check_attention_records("recorded step", attn_records)
+        check_attention_records("recorded step", attn_records, residual=True)
     del records, attn_records
     split = train_stage_split(step, batch, objects, iters=6, warmup=1)
     log("  stage split, ms (CUDA events, median of 5 steps): "
@@ -1415,7 +1462,7 @@ def phase_adabins() -> int:
     for i, depth in enumerate(depths):
         check_depth(f"adabins request {i}", depth, lo, hi)
     check_served_kernels(model, records)
-    check_attention_records("adabins requests", attn_records)
+    check_attention_records("adabins requests", attn_records, residual=False)
     del records, attn_records
     r = served_rate(pipe, frames[:2])
     log(f"  served {r['img_per_s']:.2f} img/s over 20 requests of {BATCH}; p50 "
@@ -1437,7 +1484,7 @@ def phase_adabins() -> int:
                     attention_fwd=4, attention_bwd=4)
     if not np.isfinite(loss):
         raise AssertionError("adabins train: the loss is not finite")
-    check_attention_records("adabins train step", attn_records)
+    check_attention_records("adabins train step", attn_records, residual=True)
     return launches
 
 
@@ -1546,22 +1593,25 @@ def phase_fused() -> int:
 
 
 # the regressor's gradient rel L2 on the seed's weights, kernel 5's route
-# against the plain route, as an H100 read them with the two-kernel
-# backward: a gap to watch, not a bound (the check's bound is 0.3)
-WATCH_REGRESSOR = {"kernel": 0.11180, "plain": 0.09133}
+# against the plain route, as an H100 read them with the forward's planned
+# key groups and the cluster backward: a gap to watch, not a bound (the
+# check's bound is 0.3). With one key group (the first port's summation
+# order) the kernel route read 0.11180; the groups change the fp32 rounding
+# of the sums, not the forward's accuracy against fp64 (PERF.md §6)
+WATCH_REGRESSOR = {"kernel": 0.11606, "plain": 0.09133}
 
 
 def watch_gradients(plain: dict, kernel: dict) -> None:
     """Log the regressor's and the first image attention's gradient rel L2
     on kernel 5's route beside the plain route's, and whether the
-    regressor's gap is wider than with the two-kernel backward."""
-    gap, watched = kernel["regressor"] - plain["regressor"], WATCH_REGRESSOR
+    regressor's gap is wider than the stored reading's."""
+    watched = WATCH_REGRESSOR
     old_gap = watched["kernel"] - watched["plain"]
+    gap = kernel["regressor"] - plain["regressor"]
     log(f"watch: gradient rel L2 on the seed's weights, kernel 5's route vs the plain route: "
         f"regressor {kernel['regressor']:.5f} vs {plain['regressor']:.5f} (gap {gap:.5f}; "
-        f"{watched['kernel']} vs {watched['plain']}, gap {old_gap:.5f}, with the two-kernel "
-        f"backward), image attention 0 {kernel['image attention 0']:.5f} vs "
-        f"{plain['image attention 0']:.5f}; "
+        f"{watched['kernel']} vs {watched['plain']}, gap {old_gap:.5f}, stored), image "
+        f"attention 0 {kernel['image attention 0']:.5f} vs {plain['image attention 0']:.5f}; "
         # the stored readings are rounded to 1e-5 each
         + ("WIDER than before" if gap > old_gap + 2e-5 else "no wider than before"))
 

@@ -26,15 +26,31 @@
 // 0.93 us).
 //
 // Design. The TPU kernel keeps a whole (Sq, Sk) score tile of one (b, h) in
-// VMEM; here the scores never leave registers. Flash-style: a block of 4
-// warps takes 64 query rows of one (b, h), each warp 16 rows, and streams K
-// and V through shared memory in tiles of 64 keys, double-buffered with
-// cp.async. Both products run on the tensor cores, mma.sync m16n8k16 bf16
-// with fp32 accumulators; the softmax is online in fp32 (running row max and
+// VMEM; here the scores never leave registers. Flash-style, in tiles of 64
+// keys: both products run on the tensor cores, mma.sync m16n8k16 bf16 with
+// fp32 accumulators; the softmax is online in fp32 (running row max and
 // sum). The weights enter the w v product split in two bf16 terms, hi =
 // bf16(w) and lo = bf16(w - hi), so they keep ~16 bits, not 8: the TPU
 // kernel multiplies fp32 weights. The same split carries ds and w into the
 // backward's products.
+//
+// Forward, up to 512 keys (every model shape): a block takes R m-tiles of
+// 16 query rows of one (b, h) and holds the head's whole K, V and bias in
+// shared memory (38 KB at S 300). It issues every copy up front (cp.async,
+// one group a key tile), so no key tile waits on a load once its copies
+// have landed; the first version walked the key tiles in series with a
+// one-tile prefetch and waited out most of a load's latency each tile. G
+// key groups of R warps each take a share of the key tiles for the same
+// rows, so a warp's chain is at most ceil(n / G) tiles (5 before, 2 now at
+// S 300), and groups 1.. hand their running max, sums and accumulators to
+// group 0 through shared memory. fwd_plan picks R so the B*H heads' blocks
+// fill the card once (at (32 heads, S 300) on 132 SMs: R = 5, 128 blocks;
+// 64-row blocks made 160, 28 SMs ran two) and G as 16 warps allow
+// (kernels/attention.py::fwd_plan, passed in by the wrapper). Where no
+// backward reads the residual (the wrapper passes a null stats pointer: no
+// grad, or no input needing it), it is not written. Beyond 512 keys a
+// block of 4 warps takes 64 rows and streams K and V through two cp.async
+// stages.
 //
 // Hazards. Keys past Sk in the last tile get -inf, so they weigh exactly 0;
 // a masked key gets -1e30, so a row whose keys are all masked is uniform
@@ -253,6 +269,52 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out_head, long long ro
   }
 }
 
+// One 64-key tile for a warp's 16 query rows (A fragments qa): the scores
+// q k^T * scale + bias, the online softmax (running max m_run, this lane's
+// share of the running sum l_run) and acc += w v, the weights as hi + lo.
+// K and V are 64 x 32 row-major tiles in shared memory.
+__device__ __forceinline__ void fwd_tile(const uint32_t (&qa)[2][4], const __nv_bfloat16* k_tile,
+                                         const __nv_bfloat16* v_tile, const float* bias_tile,
+                                         float scale, float (&m_run)[2], float (&l_run)[2],
+                                         float (&acc)[4][4], int lane, int g, int t) {
+  float s[8][4];
+  mma_by_tile_t(s, qa, k_tile, g, t);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x = s[nt][j] * scale + bias_tile[nt * 8 + 2 * t + (j & 1)];
+      s[nt][j] = x;
+      mx[j >> 1] = fmaxf(mx[j >> 1], x);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // every tile holds a real key, so the new max is finite
+    const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+    alpha[r] = __expf(m_run[r] - m_new);
+    m_run[r] = m_new;
+    l_run[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int nd = 0; nd < 4; ++nd) {
+    acc[nd][0] *= alpha[0];
+    acc[nd][1] *= alpha[0];
+    acc[nd][2] *= alpha[1];
+    acc[nd][3] *= alpha[1];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = __expf(s[nt][j] - m_run[j >> 1]);
+      s[nt][j] = p;
+      l_run[j >> 1] += p;
+    }
+  mma_split_by_tile(acc, s, v_tile, lane);
+}
+
 struct Args {
   const __nv_bfloat16 *q, *k, *v;
   const float* bias;  // (B, Sk) or null
@@ -305,42 +367,7 @@ attn_fwd_kernel(Args a, __nv_bfloat16* __restrict__ o, float* __restrict__ stats
     __syncthreads();
     if (kt == 0) load_a(qa, q_s, warp * 16, g, t);
 
-    float s[8][4];
-    mma_by_tile_t(s, qa, k_s[st], g, t);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = s[nt][j] * a.scale + bias_s[st][nt * 8 + 2 * t + (j & 1)];
-        s[nt][j] = x;
-        mx[j >> 1] = fmaxf(mx[j >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // every tile holds a real key, so the new max is finite
-      const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
-      alpha[r] = __expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nd = 0; nd < 4; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = __expf(s[nt][j] - m_run[j >> 1]);
-        s[nt][j] = p;
-        l_run[j >> 1] += p;
-      }
-    mma_split_by_tile(acc, s, v_s[st], lane);
+    fwd_tile(qa, k_s[st], v_s[st], bias_s[st], a.scale, m_run, l_run, acc, lane, g, t);
     __syncthreads();  // stage st is refilled in the next iteration
   }
 
@@ -349,7 +376,199 @@ attn_fwd_kernel(Args a, __nv_bfloat16* __restrict__ o, float* __restrict__ stats
   const long long ld_o = (long long)a.h * kD;
   store_rows(o + ((size_t)b * a.s_q * a.h + hh) * kD, ld_o, acc, row, a.s_q, 1.f / l0, 1.f / l1,
              t);
-  if (t == 0) {
+  if (t == 0 && stats) {
+    const size_t n = (size_t)gridDim.y * a.s_q;
+    float* m_out = stats + (size_t)bh * a.s_q;
+    if (row < a.s_q) m_out[row] = m_run[0], m_out[n + row] = logf(l0);
+    if (row + 8 < a.s_q) m_out[row + 8] = m_run[1], m_out[n + row + 8] = logf(l1);
+  }
+}
+
+// ---------------------------------------------- forward, keys resident
+
+constexpr int kMaxFWarps = 16;
+constexpr int kResMaxTiles = 8;  // keys a head holds in shared memory: 512
+constexpr int kMaxKeyGroups = 4;
+constexpr int kMergeVals = 20;   // a thread's 16 accumulators, 2 maxima, 2 sums
+
+// A block of the resident forward: `rows` m-tiles of 16 query rows of one
+// (b, h), each taken by one warp of every one of `groups` key groups. The
+// wrapper picks it (kernels/attention.py::fwd_plan).
+struct FwdPlan {
+  int rows, groups;
+};
+
+// Byte offsets of the resident forward's shared memory: Q (16 rows an
+// m-tile), the head's K and V (n tiles each), the bias of every key, and
+// the states of key groups 1.. for the merge (value-major, so a warp's
+// stores hit distinct banks)
+struct FwdSmem {
+  int k, v, bias, merge, total;
+};
+
+__host__ __device__ inline FwdSmem fwd_smem(int n_kt, int rows, int groups) {
+  FwdSmem s;
+  s.k = 16 * rows * kLd * 2;
+  s.v = s.k + n_kt * kTile * kLd * 2;
+  s.bias = s.v + n_kt * kTile * kLd * 2;
+  s.merge = s.bias + n_kt * kTile * 4;
+  s.total = s.merge + (groups - 1) * kMergeVals * 32 * rows * 4;
+  return s;
+}
+
+// the most any plan takes: 8 key tiles, Q of 8 m-tiles, 12 warps' states
+constexpr int kFwdSmemMax = 16 * 8 * kLd * 2 + 2 * kResMaxTiles * kTile * kLd * 2 +
+                            kResMaxTiles * kTile * 4 + 12 * kMergeVals * 32 * 4;
+
+// key group g's tiles of n among G: [first(g), first(g + 1)); group 0
+// always holds tile 0, and no group more than ceil(n / G)
+__device__ __forceinline__ int group_first_tile(int g, int n_kt, int groups) {
+  return (n_kt * g + groups - 1) / groups;
+}
+
+// rows [row0, row0 + rows) of one head -> shared by `nthreads` threads of
+// which this is `tid`, 16 bytes a copy; rows past n_rows are zero-filled
+__device__ __forceinline__ void load_rows_by(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                             long long row_stride, int row0, int rows, int n_rows,
+                                             int tid, int nthreads) {
+  for (int c = tid; c < rows * (kD / 8); c += nthreads) {
+    const int r = c / (kD / 8), part = c % (kD / 8);
+    const bool valid = row0 + r < n_rows;
+    const __nv_bfloat16* src = base + (valid ? (long long)(row0 + r) * row_stride : 0) + part * 8;
+    cp_async16(dst + r * kLd + part * 8, src, valid);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// wait until at most n of this thread's cp.async groups are pending; n is
+// at most a group's key tiles, kResMaxTiles (one key group over 8 tiles)
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  static_assert(kResMaxTiles == 8, "cp_async_wait_upto covers n up to 8");
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 7: cp_async_wait<7>(); break;
+    default: cp_async_wait<8>(); break;
+  }
+}
+
+// grid (ceil(Sq / (16 plan.rows)), B * H) of 32 plan.rows plan.groups
+// threads, Sk <= 512. A block takes 16 plan.rows query rows of one (b, h)
+// and holds the head's whole K, V and bias: every copy is issued up front, one cp.async group a
+// key tile, so no tile waits on a load once its copies have landed. Key
+// group k's warps take every query row of the block over its share of the
+// key tiles (group_first_tile); groups 1.. hand their running max, sums and
+// accumulators to group 0 through shared memory, which merges them and
+// writes o, and the residual when stats is not null.
+__global__ void __launch_bounds__(kMaxFWarps * 32)
+attn_fwd_resident_kernel(Args a, FwdPlan plan, __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char fsm[];
+  const int n_kt = (a.s_k + kTile - 1) / kTile;
+  const FwdSmem off = fwd_smem(n_kt, plan.rows, plan.groups);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(fsm);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(fsm + off.k);
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(fsm + off.v);
+  float* bias_s = reinterpret_cast<float*>(fsm + off.bias);
+  float* merge_s = reinterpret_cast<float*>(fsm + off.merge);
+
+  const int gsize = 32 * plan.rows;  // threads of a key group
+  const int bh = blockIdx.y, b = bh / a.h, hh = bh % a.h;
+  const int q0 = blockIdx.x * 16 * plan.rows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int grp = warp / plan.rows, mt = warp - grp * plan.rows;  // key group, m-tile
+  const int gt = threadIdx.x - grp * gsize;                         // thread within the group
+  const int t0 = group_first_tile(grp, n_kt, plan.groups);
+  const int t1 = group_first_tile(grp + 1, n_kt, plan.groups);
+  const int most = (n_kt + plan.groups - 1) / plan.groups;  // tiles of the largest group
+  const __nv_bfloat16* qb = a.q + b * a.sq.b + hh * a.sq.h;
+  const __nv_bfloat16* kb = a.k + b * a.sk.b + hh * a.sk.h;
+  const __nv_bfloat16* vb = a.v + b * a.sv.b + hh * a.sv.h;
+  const float* biasb = a.bias ? a.bias + (size_t)b * a.s_k : nullptr;
+
+  // Q and every key's bias (keys past Sk get -inf), then each group's K and
+  // V tiles, one commit group a tile, padded to `most` groups in all
+  load_rows_by(q_s, qb, a.sq.s, q0, 16 * plan.rows, a.s_q, threadIdx.x, blockDim.x);
+  for (int i = threadIdx.x; i < n_kt * kTile; i += blockDim.x) {
+    if (i < a.s_k && biasb)
+      cp_async4(bias_s + i, biasb + i);
+    else
+      bias_s[i] = i < a.s_k ? 0.f : -INFINITY;
+  }
+  cp_async_commit();
+  for (int j = 0; j < most; ++j) {
+    const int kt = t0 + j;
+    if (kt < t1) {
+      load_rows_by(k_s + kt * kTile * kLd, kb, a.sk.s, kt * kTile, kTile, a.s_k, gt, gsize);
+      load_rows_by(v_s + kt * kTile * kLd, vb, a.sv.s, kt * kTile, kTile, a.s_k, gt, gsize);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait_upto(most);  // this thread's share of Q and the bias
+  __syncthreads();           // everyone's
+
+  uint32_t qa[2][4];
+  load_a(qa, q_s, mt * 16, g, t);
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float acc[4][4];
+#pragma unroll
+  for (int nd = 0; nd < 4; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  for (int j = 0; t0 + j < t1; ++j) {
+    cp_async_wait_upto(most - 1 - j);
+    // the group's copies of its tile j
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(gsize) : "memory");
+    const int kt = t0 + j;
+    fwd_tile(qa, k_s + kt * kTile * kLd, v_s + kt * kTile * kLd, bias_s + kt * kTile, a.scale,
+             m_run, l_run, acc, lane, g, t);
+  }
+
+  // groups 1..'s states (a max of -inf and zero sums where a group took no tile)
+  if (grp > 0) {
+    float* mine = merge_s + (grp - 1) * kMergeVals * gsize + gt;
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mine[(nd * 4 + j) * gsize] = acc[nd][j];
+    mine[16 * gsize] = m_run[0];
+    mine[17 * gsize] = m_run[1];
+    mine[18 * gsize] = l_run[0];
+    mine[19 * gsize] = l_run[1];
+  }
+  __syncthreads();
+  if (grp > 0) return;
+  for (int other_g = 1; other_g < plan.groups; ++other_g) {
+    const float* other = merge_s + (other_g - 1) * kMergeVals * gsize + gt;
+    float alpha[2], beta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mb = other[(16 + r) * gsize];
+      const float m = fmaxf(m_run[r], mb);  // group 0's max is finite: tile 0 holds key 0
+      alpha[r] = __expf(m_run[r] - m);
+      beta[r] = __expf(mb - m);
+      l_run[r] = l_run[r] * alpha[r] + other[(18 + r) * gsize] * beta[r];
+      m_run[r] = m;
+    }
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[nd][j] = acc[nd][j] * alpha[j >> 1] + other[(nd * 4 + j) * gsize] * beta[j >> 1];
+  }
+
+  const int row = q0 + mt * 16 + g;
+  const float l0 = quad_sum(l_run[0]), l1 = quad_sum(l_run[1]);
+  const long long ld_o = (long long)a.h * kD;
+  store_rows(o + ((size_t)b * a.s_q * a.h + hh) * kD, ld_o, acc, row, a.s_q, 1.f / l0, 1.f / l1,
+             t);
+  if (t == 0 && stats) {
     const size_t n = (size_t)gridDim.y * a.s_q;
     float* m_out = stats + (size_t)bh * a.s_q;
     if (row < a.s_q) m_out[row] = m_run[0], m_out[n + row] = logf(l0);
@@ -899,6 +1118,17 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
   return a;
 }
 
+// the resident forward's shared memory limit, set once: it holds for the
+// process
+cudaError_t configure_fwd_kernel() {
+  static bool configured = false;
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmemMax);
+  configured = err == cudaSuccess;
+  return err;
+}
+
 // the cluster kernel's shared memory limit and carveout, set once: they
 // hold for the process
 cudaError_t configure_cluster_kernel() {
@@ -939,18 +1169,39 @@ cudaLaunchConfig_t cluster_config(int b, int h, int s_q, int s_k, void* stream,
 // dimension, 16-byte aligned, every stride a multiple of 8 elements; strides
 // = the (batch, token, head) element strides of q, then k, then v. bias
 // (B, Sk) fp32 contiguous or null. o (B, Sq, H, 32) bf16 contiguous; stats
-// (2, B * H, Sq) fp32: each row's max, then its log-sum. Returns
-// cudaGetLastError() after the launch.
+// (2, B * H, Sq) fp32: each row's max, then its log-sum; or null where no
+// backward reads them. Up to 512 keys the head's keys are resident (one
+// block holds its whole K, V and bias); beyond, they stream through two
+// stages. plan_rows and plan_groups are the resident kernel's plan
+// (kernels/attention.py::fwd_plan: 1 <= rows <= 8, 1 <= groups <= min(4,
+// key tiles), rows * groups <= 16), both 0 beyond 512 keys. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a plan
+// the kernel does not take.
 extern "C" int objcavit_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* bias, void* o, void* stats,
                                       const long long* strides, int b, int h, int s_q, int s_k,
-                                      float scale, void* stream) {
+                                      float scale, int plan_rows, int plan_groups, void* stream) {
   if (b == 0 || h == 0 || s_q == 0) return (int)cudaSuccess;
   if (s_k == 0) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, bias, strides, h, s_q, s_k, scale);
-  const dim3 grid((s_q + kTile - 1) / kTile, b * h);
-  attn_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a, (__nv_bfloat16*)o,
-                                                               (float*)stats);
+  const int n_kt = (s_k + kTile - 1) / kTile;
+  if (n_kt <= kResMaxTiles) {
+    const FwdPlan plan = {plan_rows, plan_groups};
+    if (plan.rows < 1 || plan.rows > 8 || plan.groups < 1 || plan.groups > kMaxKeyGroups ||
+        plan.groups > n_kt || plan.rows * plan.groups > kMaxFWarps)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t err = configure_fwd_kernel();
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((s_q + 16 * plan.rows - 1) / (16 * plan.rows), b * h);
+    attn_fwd_resident_kernel<<<grid, 32 * plan.rows * plan.groups,
+                               fwd_smem(n_kt, plan.rows, plan.groups).total,
+                               (cudaStream_t)stream>>>(a, plan, (__nv_bfloat16*)o, (float*)stats);
+  } else {
+    if (plan_rows != 0 || plan_groups != 0) return (int)cudaErrorInvalidValue;
+    const dim3 grid((s_q + kTile - 1) / kTile, b * h);
+    attn_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a, (__nv_bfloat16*)o,
+                                                                 (float*)stats);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -115,6 +115,28 @@ def mha_bwd_by_key_tiles(q, k, v, bias, g, key_tile: int = KEY_TILE):
             torch.cat(dvs, 1).to(v.dtype))
 
 
+RESIDENT_MAX_KEYS = 8 * KEY_TILE  # keys the forward holds in shared memory
+MAX_KEY_GROUPS = 4  # the C entry point's kMaxKeyGroups
+
+
+def fwd_plan(bh: int, s_q: int, s_k: int, n_sm: int) -> tuple[int, int] | None:
+    """The forward's launch plan, which the wrapper passes to the C entry
+    point: (m-tiles of 16 query rows a block, key groups) for the kernel
+    that holds a head's keys resident, or None beyond ``RESIDENT_MAX_KEYS``
+    keys (the streaming kernel). The m-tiles make the B*H heads' blocks fill
+    the ``n_sm`` SMs once (at most 8 a block), the key groups as many as 16
+    warps, the key tiles and ``MAX_KEY_GROUPS`` allow. More than one key
+    group changes the fp32 rounding of the sums against the first port's
+    order, not their accuracy (PERF.md §6)."""
+    n_kt = -(-s_k // KEY_TILE)
+    if n_kt > RESIDENT_MAX_KEYS // KEY_TILE:
+        return None
+    m_tiles = -(-s_q // 16)
+    per_head = max(1, n_sm // bh)  # blocks a head may take
+    rows = min(8, -(-m_tiles // per_head))
+    return rows, min(16 // rows, MAX_KEY_GROUPS, n_kt)
+
+
 def bwd_route(s_q: int, s_k: int) -> str:
     """The backward's CUDA route at these lengths, the C entry point's rule:
     'cluster' (one launch) or 'two_kernel'."""
@@ -170,19 +192,32 @@ def _strides(q, k, v):
     return (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in t.stride()[:3]))
 
 
-def fused_mha_fwd(q, k, v, bias=None) -> tuple[torch.Tensor, torch.Tensor | None]:
+def residual_needed(*tensors: torch.Tensor) -> bool:
+    """Whether autograd may call kernel 5's backward on a forward of these
+    inputs: grad mode is on and one of them requires grad. Otherwise (under
+    ``torch.no_grad()`` or inference mode, or with no input requiring grad)
+    the forward writes no residual."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def fused_mha_fwd(q, k, v, bias=None,
+                  residual: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
     """-> (o (B, Sq, H, D) in q's dtype, the residual for the backward: each
-    row's max and log-sum, (2, B * H, Sq) fp32; None on the CPU)."""
+    row's max and log-sum, (2, B * H, Sq) fp32; None on the CPU, or with
+    ``residual=False``, where the kernel writes none)."""
     if not _device_checked(q):
         return mha_fused_plain(q, k, v, bias), None
     check_attention_inputs(q, k, v, bias)
     b, sq, h, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    stats = torch.empty((2, b * h, sq), dtype=torch.float32, device=q.device)
+    stats = (torch.empty((2, b * h, sq), dtype=torch.float32, device=q.device) if residual
+             else None)
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = fwd_plan(b * h, sq, k.shape[1], n_sm) or (0, 0)
     rc = getattr(load_library(), _FWD)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        o.data_ptr(), stats.data_ptr(), _strides(q, k, v), b, h, sq, k.shape[1],
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+        o.data_ptr(), None if stats is None else stats.data_ptr(), _strides(q, k, v), b, h, sq,
+        k.shape[1], 1.0 / math.sqrt(d), *plan, torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(_FWD, rc)
     fused_mha_fwd.launches += 1
@@ -226,11 +261,13 @@ fused_mha_bwd.cluster_launches = 0
 
 class FusedMHA(torch.autograd.Function):
     """Attention with the recomputing backward (the JAX package's ``_attn``
-    custom VJP); no gradient reaches the bias."""
+    custom VJP); no gradient reaches the bias. ``residual`` says whether the
+    forward keeps the residual for a backward (``residual_needed``, decided
+    by the caller: inside ``forward`` grad mode is always off)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias):
-        o, stats = fused_mha_fwd(q, k, v, bias)
+    def forward(ctx, q, k, v, bias, residual):
+        o, stats = fused_mha_fwd(q, k, v, bias, residual)
         ctx.save_for_backward(q, k, v, bias, stats)
         return o
 
@@ -238,11 +275,12 @@ class FusedMHA(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, stats = ctx.saved_tensors
         dq, dk, dv = fused_mha_bwd(q, k, v, bias, g.contiguous(), stats)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
     """q (B, Sq, H, D), k and v (B, Sk, H, D), mask (B, Sk) bool True =
-    masked -> (B, Sq, H, D): ``pallas_mha``'s signature."""
-    return FusedMHA.apply(q, k, v, mask_bias(key_padding_mask))
+    masked -> (B, Sq, H, D): ``pallas_mha``'s signature. The residual is
+    written only where a backward may read it (``residual_needed``)."""
+    return FusedMHA.apply(q, k, v, mask_bias(key_padding_mask), residual_needed(q, k, v))

@@ -1,7 +1,10 @@
 """Kernels 2 and 3: 1x1 conv, softmax over bins, expectation, in one pass.
 
-CUDA source: ``objcavit_torch/csrc/bins_depth.cu``. It is bound by
-operations on the H100; the source note says how its design answers that.
+CUDA source: ``objcavit_torch/csrc/bins_depth.cu``: a persistent grid of one
+block an SM over units of (image, 64-pixel tile), TMA loads, ``wgmma`` and
+three consumer warpgroups; the source note says what bounds it on the H100
+and how the design answers that. ``ring_plan`` picks its ring of stages and
+its consumers, which the wrapper passes to the C entry point.
 
 * Kernel 2, ``conv_bins_depth_batched``, one (C, K) weight per image:
   replaces ``objcavit_tpu/ops/pallas_bins.py::fused_conv_bins_depth_batched``,
@@ -26,9 +29,26 @@ import torch
 from objcavit_torch.kernels.build import check_launch, load_library
 
 _ENTRY = "objcavit_conv_bins_depth_batched"
-N_BINS = 256  # the kernel's fixed bin count: two passes of 128
-MAX_CHANNELS = 256  # W and the x tiles must fit a block's shared memory
-_BLOCK_PIXELS = 128  # pixels a block's 8 warps take per step (8 warps x 16)
+N_BINS = 256  # the kernel's fixed bin count: two wgmma halves of 128
+MAX_CHANNELS = 256  # W and the x ring must fit a block's shared memory
+UNIT_PIXELS = 64  # pixels of one unit: wgmma's M
+CONSUMERS = 3  # consumer warpgroups of a block (csrc/bins_depth.cu kConsumers)
+_SMEM_MAX = 232448  # shared memory a block may use
+# alignment slack, then the bias, bias log2 e and centres (fp32) and 18 barriers
+# (csrc/bins_depth.cu smem_bytes)
+_SMEM_HEAD = 1024 + 3 * N_BINS * 4 + 18 * 8
+
+
+def ring_plan(c: int) -> tuple[int, int]:
+    """(stages of the x ring, consumer warpgroups that take units) at C
+    channels, which the wrapper passes to the C entry point (it refuses a
+    plan that does not fit): as many 64-pixel x tiles of C channels (in
+    64-channel boxes) as shared memory holds beside W, at most 8; and no
+    more consumers than stages, since a consumer waits on a stage's fill by
+    parity and must not run two fills ahead."""
+    stage = -(-c // 64) * UNIT_PIXELS * 64 * 2
+    stages = min(8, (_SMEM_MAX - _SMEM_HEAD - c * N_BINS * 2) // stage)
+    return stages, min(CONSUMERS, stages)
 
 
 def conv_bins_depth_batched_plain(
@@ -77,8 +97,8 @@ def check_bins_inputs(
     devices = {t.device for t in (x, kernels, bias, centers)}
     if len(devices) != 1:
         raise ValueError(f"bins kernel inputs lie on several devices: {devices}")
-    if x.data_ptr() % 16 or kernels.data_ptr() % 16:
-        raise ValueError("bins kernel needs 16-byte aligned x and W")
+    if x.data_ptr() % 16 or kernels.data_ptr() % 16 or centers.data_ptr() % 16:
+        raise ValueError("bins kernel needs 16-byte aligned x, W and centers")
 
 
 def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -96,17 +116,12 @@ def _launch(x: torch.Tensor, kernels: torch.Tensor, bias: torch.Tensor,
             centers: torch.Tensor) -> torch.Tensor:
     check_bins_inputs(x, kernels, bias, centers)
     b, h, w, c = x.shape
-    s = h * w
-    # about two blocks per SM over the whole batch; each block stages its
-    # image's W once, so fewer, longer blocks amortise that copy
+    # a persistent grid: one block an SM
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks_per_image = max(1, -(-2 * n_sm // b))
-    pix_per_block = -(-s // blocks_per_image)
-    pix_per_block = -(-pix_per_block // _BLOCK_PIXELS) * _BLOCK_PIXELS
     depth = torch.empty((b, h, w, 1), dtype=torch.float32, device=x.device)
     rc = getattr(load_library(), _ENTRY)(
         x.data_ptr(), kernels.data_ptr(), bias.data_ptr(), centers.data_ptr(),
-        depth.data_ptr(), b, s, c, kernels.stride(0), pix_per_block,
+        depth.data_ptr(), b, h * w, c, kernels.stride(0), n_sm, *ring_plan(c),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_launch(_ENTRY, rc)

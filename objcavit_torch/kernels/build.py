@@ -45,13 +45,13 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "objcavit_conv_bins_depth_batched": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P,
     ),
     "objcavit_bins_expectation_fwd": (_P, _P, _P, _I, _I, _I, _P),
     "objcavit_bins_expectation_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "objcavit_detect_head": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P),
-    "objcavit_attention_fwd": (_P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P),
+    "objcavit_attention_fwd": (_P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _I, _I, _P),
     "objcavit_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F,
                                _IP, _P),
     "objcavit_attention_bwd_clusters": (_I, _I, _I, _I, _IP),

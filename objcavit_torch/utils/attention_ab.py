@@ -1,6 +1,7 @@
-"""Kernel 5's backward against an earlier build of it and SDPA's, in turns on one card.
+"""Kernel 5's backward, or forward, against an earlier build of it and SDPA's, in turns on one card.
 
     python -m objcavit_torch.utils.attention_ab --old OLD.cu [--alt ALT.cu ...] [--rounds 8]
+    python -m objcavit_torch.utils.attention_ab --fwd --old OLD.cu [--rounds 8]
 
 ``OLD.cu`` is an earlier ``csrc/attention.cu`` with the two-kernel
 backward's C interface (``git show 7e28ee7:objcavit_torch/csrc/attention.cu``):
@@ -23,6 +24,21 @@ the card's name and power limit, then one JSON line per shape: medians and
 spreads in ms per call, the current route, how many of its clusters the
 card holds at once, and the bound (bytes once over
 3.35 TB/s, or the five products over 989 TFLOP/s).
+
+With ``--fwd`` it times the forward instead, at the same two shapes and
+masks: the current forward as a served call (no residual: what
+``fused_mha`` launches under ``torch.no_grad()``) and as a training call
+(the residual written), the old source's forward (the interface of
+``git show 43c3e27:objcavit_torch/csrc/attention.cu``, the current one less
+the plan arguments: ``objcavit_attention_fwd(q, k, v, bias, o, stats,
+strides, b, h, s_q, s_k, scale, stream)``; it always writes the residual)
+and SDPA's forward with the same additive mask. Each is first held against the plain
+forward, and the current residual must give the plain backward through
+``fused_mha_bwd``. The forward's accuracy against an fp64 reference is
+printed for each count of key groups at the plan's rows, and whether one
+key group gives the old forward's bits (``fwd_precision``). The bound is q,
+k, v and the bias read and o written once (the residual too for the
+training call) over 3.35 TB/s, or the two products over 989 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -89,8 +105,19 @@ def bwd_bound(b: int, h: int, sq: int, sk: int) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def load_entry(source: Path, name: str, argtypes: tuple):
-    """Compile ``source`` alone and bind its ``objcavit_attention_bwd``."""
+def fwd_bound(b: int, h: int, sq: int, sk: int, residual: bool) -> dict:
+    """q, k, v, the bias read and o written once (and the residual, two fp32
+    values a row, where it is written) over the memory rate, or the two
+    products over the bf16 peak."""
+    row = 2 * b * h * HEAD_DIM
+    nbytes = row * (2 * sq + 2 * sk) + 4 * b * sk + (2 * 4 * b * h * sq if residual else 0)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, 2 * 2 * b * h * sq * sk * HEAD_DIM / BF16_PER_MS
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def load_entry(source: Path, name: str, argtypes: tuple, entry: str = "objcavit_attention_bwd"):
+    """Compile ``source`` alone and bind its ``entry``."""
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"libattention_{name}.so"
@@ -98,10 +125,100 @@ def load_entry(source: Path, name: str, argtypes: tuple):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(str(lib_path)).objcavit_attention_bwd
+    fn = getattr(ctypes.CDLL(str(lib_path)), entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def old_fwd(fn, q, k, v, bias, plan=None):
+    """An earlier forward, called as its wrapper called it (with a residual);
+    a variant of the current source with ``plan`` (its plan arguments)."""
+    b, sq, h, d = q.shape
+    o = torch.empty_like(q)
+    stats = torch.empty((2, b * h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in t.stride()[:3]))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+            o.data_ptr(), stats.data_ptr(), strides, b, h, sq, k.shape[1], 1.0 / math.sqrt(d),
+            *(() if plan is None else plan), torch.cuda.current_stream().cuda_stream)
+    build.check_launch("old objcavit_attention_fwd", rc)
+    return o
+
+
+def fwd_precision(q, k, v, bias, rows: int, old) -> dict:
+    """The forward's bf16 output against the fp64 softmax attention, for
+    each count of key groups its C entry takes beside the plan's ``rows``
+    (called with that plan directly) and for the plain fp32 version: the
+    share of outputs that are not the correctly rounded bf16 of the fp64
+    result, and the mean error in units of the bf16 ulp of that result.
+    Also whether one key group, the first port's summation order, gives the
+    old source's output bit for bit."""
+    w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double())
+                      / math.sqrt(q.shape[-1]) + bias.double()[:, None, None, :], -1)
+    ref = torch.einsum("bhqk,bkhd->bqhd", w, v.double())
+    ref_bf = ref.to(torch.bfloat16)
+    ulp = torch.exp2(torch.floor(torch.log2(ref_bf.double().abs().clamp_min(1e-30))) - 7)
+
+    def stats(out):
+        return {"not_rounded_fp64": float((out != ref_bf).double().mean()),
+                "mean_err_ulp": float(((out.double() - ref).abs() / ulp).mean())}
+
+    entry = getattr(build.load_library(), "objcavit_attention_fwd")
+    n_kt = -(-k.shape[1] // kattn.KEY_TILE)
+    out, one = {}, None
+    for groups in range(1, min(kattn.MAX_KEY_GROUPS, 16 // rows, n_kt) + 1):
+        got = old_fwd(entry, q, k, v, bias, (rows, groups))
+        one = got if groups == 1 else one
+        out[f"key_groups_{groups}"] = stats(got)
+    out["plain_fp32"] = stats(kattn.mha_fused_plain(q, k, v, bias))
+    out["one_group_equals_old"] = torch.equal(one, old_fwd(old, q, k, v, bias))
+    return out
+
+
+def run_fwd(old, alts: dict, rounds: int, smi: str) -> None:
+    """The ``--fwd`` comparison (see the module's note); ``alts`` are
+    variants' forwards, timed with their errors printed."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, b, sq, sk in SHAPES:
+        q, k, v, g, mask = attention_inputs(gen, b, sq, sk, "served")
+        bias = kattn.mask_bias(mask)
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = kattn.fwd_plan(b * HEADS, sq, sk, n_sm) or (0, 0)
+        want = kattn.mha_fused_plain(q, k, v, bias)
+        served, none = kattn.fused_mha_fwd(q, k, v, bias, residual=False)
+        trained, stats = kattn.fused_mha_fwd(q, k, v, bias)
+        errs = {"served": errors([served], [want]), "train": errors([trained], [want]),
+                "old": errors([old_fwd(old, q, k, v, bias)], [want]),
+                **{name: errors([old_fwd(fn, q, k, v, bias, plan)], [want])
+                   for name, fn in alts.items()},
+                "bwd_on_residual": errors(kattn.fused_mha_bwd(q, k, v, bias, g, stats),
+                                          kattn.mha_fused_bwd_plain(q, k, v, bias, g))}
+        if none is not None or any(errs[n]["bad"] for n in ("served", "train", "old",
+                                                            "bwd_on_residual")):
+            raise AssertionError(f"{label}: elements out of tolerance {errs}")
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_mask = bias.to(torch.bfloat16)[:, None, None, :]
+        calls = {"served": lambda: kattn.fused_mha_fwd(q, k, v, bias, residual=False),
+                 "train": lambda: kattn.fused_mha_fwd(q, k, v, bias),
+                 "old": lambda: old_fwd(old, q, k, v, bias),
+                 **{name: (lambda fn=fn: old_fwd(fn, q, k, v, bias, plan))
+                    for name, fn in alts.items()},
+                 "sdpa": lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=sdpa_mask)}
+        graphs = {name: captured(fn) for name, fn in calls.items()}
+        times = {name: [] for name in calls}
+        for r in range(rounds):
+            for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                times[name].append(replay_ms(graphs[name]))
+        del graphs
+        row = {"shape": label, "b_s_h_d": [b, sq, HEADS, HEAD_DIM], "plan": plan, "errors": errs,
+               "precision": fwd_precision(q, k, v, bias, plan[0], old),
+               "calls_per_graph": CALLS, "rounds": rounds,
+               **{f"{n}_ms": statistics.median(t) for n, t in times.items()},
+               **{f"{n}_spread_ms": [min(t), max(t)] for n, t in times.items()},
+               **fwd_bound(b, HEADS, sq, sk, residual=False),
+               "train_bound_ms": fwd_bound(b, HEADS, sq, sk, residual=True)["bound_ms"],
+               "card": smi}
+        print("attention_ab fwd", json.dumps(row), flush=True)
 
 
 def old_bwd(fn, q, k, v, bias, g, stats, route=None):
@@ -141,12 +258,26 @@ def main() -> None:
     parser.add_argument("--alt", type=Path, action="append", default=[],
                         help="a variant of the current attention.cu (repeatable)")
     parser.add_argument("--rounds", type=int, default=8)
+    parser.add_argument("--fwd", action="store_true",
+                        help="time the forward against OLD.cu's forward instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attention_ab: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    if args.fwd:
+        # the old source's forward has no plan arguments; variants of the
+        # current one do
+        old_sig = build.SIGNATURES["objcavit_attention_fwd"][:-3] + (ctypes.c_void_p,)
+        alts = {f"alt{n}": load_entry(path, f"alt{n}", build.SIGNATURES["objcavit_attention_fwd"],
+                                      "objcavit_attention_fwd")
+                for n, path in enumerate(args.alt)}
+        for name, path in zip(alts, args.alt):
+            print(f"{name}: {path}", flush=True)
+        run_fwd(load_entry(args.old, "old", old_sig, "objcavit_attention_fwd"), alts, args.rounds,
+                smi)
+        return
     p, i = ctypes.c_void_p, ctypes.c_int
     old = load_entry(args.old, "old", (p,) * 10 + (ctypes.POINTER(ctypes.c_longlong), i, i, i, i,
                                               ctypes.c_float, p))

@@ -7,8 +7,10 @@ read: the upsample and the skip, NHWC) and of the bins head (ObjCAViT's or
 miniViT's outputs, which are its inputs, and the depth it returned).
 ``plain_outputs`` runs the plain versions on a record's inputs, so a
 kernel's served output can be held against its plain version on the very
-tensors the main path gave it, and ``skip_mismatches`` counts the skip
-slice's elements that differ from the skip, bit for bit:
+tensors the main path gave it, ``skip_mismatches`` counts the skip
+slice's elements that differ from the skip, bit for bit, and
+``exact_fold_units`` counts the bins head's units that kernel 2 folds
+exactly (``bins_operands`` gives its inputs):
 
     with record_kernel_io(model) as records:
         pipeline(frames)
@@ -51,7 +53,7 @@ import objcavit_torch.kernels.detect_head as kdetect
 import objcavit_torch.models.common as common
 import objcavit_torch.models.yolov7 as yolov7
 import objcavit_torch.ops.bins as ops_bins
-from objcavit_torch.kernels.bins import conv_bins_depth_batched_plain
+from objcavit_torch.kernels.bins import UNIT_PIXELS, conv_bins_depth_batched_plain
 from objcavit_torch.kernels.bins_expectation import (
     bins_expectation_bwd_plain,
     bins_expectation_plain,
@@ -104,6 +106,22 @@ def record_kernel_io(model):
             h.remove()
 
 
+# kernel 2's fast fold takes a row whose sum of e over its 256 logits, with
+# no max subtracted, lies in this range (csrc/bins_depth.cu kSumLo, kSumHi)
+FAST_FOLD_SUMS = (2.0 ** -16, 2.0 ** 40)
+
+
+@torch.inference_mode()
+def bins_operands(model, record: dict):
+    """-> kernel 2's inputs in a record's forward: (x, W, bias, centres)."""
+    widths, feat, queries = record["bins_inputs"]
+    conv = model.conv_out[0]
+    m, bias, centers, _ = bins_head_operands(
+        widths, queries, conv.weight, conv.bias, model.min_depth, model.max_depth, feat.dtype
+    )
+    return feat, m, bias, centers
+
+
 @torch.inference_mode()
 def plain_outputs(model, record: dict):
     """-> ([(served, plain)] for each upsample, (served, plain) depth)."""
@@ -111,12 +129,31 @@ def plain_outputs(model, record: dict):
         (y, resize_bilinear_align_corners_plain(x.contiguous(), y.shape[1], y.shape[2]))
         for x, y in record["resize"]
     ]
-    widths, feat, queries = record["bins_inputs"]
-    conv = model.conv_out[0]
-    m, bias, centers, _ = bins_head_operands(
-        widths, queries, conv.weight, conv.bias, model.min_depth, model.max_depth, feat.dtype
-    )
-    return resize, (record["depth"], conv_bins_depth_batched_plain(feat, m, bias, centers))
+    return resize, (record["depth"], conv_bins_depth_batched_plain(*bins_operands(model, record)))
+
+
+@torch.inference_mode()
+def exact_fold_units(x: torch.Tensor, kernels: torch.Tensor,
+                     bias: torch.Tensor) -> tuple[int, int]:
+    """(units that kernel 2 folds exactly, units) on these inputs. A unit is
+    64 rows of x from one image's tile on (the rows past S are the next
+    image's, with this image's W; rows past B*S read zeros); it takes the
+    exact fold, its products run twice more, when any row's sum of e leaves
+    ``FAST_FOLD_SUMS``. Read from the fp32 logits of the plain version, so
+    a row at the range's edge may fall the other way in the kernel's own
+    exps (ex2.approx)."""
+    b, h, w, c = x.shape
+    s, flat = h * w, x.reshape(-1, c)
+    tiles = -(-s // UNIT_PIXELS)
+    lo, hi = FAST_FOLD_SUMS
+    exact = 0
+    for i in range(b):
+        rows = torch.zeros((tiles * UNIT_PIXELS, c), dtype=torch.float32, device=x.device)
+        part = flat[i * s:i * s + tiles * UNIT_PIXELS]
+        rows[:part.shape[0]] = part.float()
+        se = torch.exp(rows @ kernels[i].float() + bias.float()).sum(-1)
+        exact += int((~((se >= lo) & (se <= hi))).view(tiles, UNIT_PIXELS).any(1).sum())
+    return exact, b * tiles
 
 
 def skip_mismatches(record: dict) -> int:
@@ -177,23 +214,25 @@ def bins_expectation_plain_outputs(record: dict) -> dict:
 def record_attention_io():
     """Yield a list that gets one dict per forward or backward of kernel 5's
     ``FusedMHA`` (its ``forward`` and ``backward``, which this wraps for the
-    duration): 'kind' ('fwd' or 'bwd'), 'q', 'k', 'v', 'bias', and 'out'
-    for a forward, or 'g', 'dq', 'dk', 'dv' for a backward."""
+    duration): 'kind' ('fwd' or 'bwd'), 'q', 'k', 'v', 'bias', and 'out' and
+    'residual' (whether it kept one) for a forward, or 'g', 'dq', 'dk', 'dv'
+    for a backward."""
     fwd0, bwd0 = kattn.FusedMHA.forward, kattn.FusedMHA.backward
     records: list[dict] = []
 
-    def forward(ctx, q, k, v, bias):
-        out = fwd0(ctx, q, k, v, bias)
+    def forward(ctx, q, k, v, bias, residual):
+        out = fwd0(ctx, q, k, v, bias, residual)
         records.append({"kind": "fwd", "q": q.detach(), "k": k.detach(), "v": v.detach(),
-                        "bias": bias, "out": out.detach()})
+                        "bias": bias, "out": out.detach(), "residual": residual})
         return out
 
     def backward(ctx, g):
         q, k, v, bias, _ = ctx.saved_tensors
-        dq, dk, dv, none = bwd0(ctx, g)
+        grads = bwd0(ctx, g)
+        dq, dk, dv = grads[:3]
         records.append({"kind": "bwd", "q": q.detach(), "k": k.detach(), "v": v.detach(),
                         "bias": bias, "g": g.contiguous(), "dq": dq, "dk": dk, "dv": dv})
-        return dq, dk, dv, none
+        return grads
 
     kattn.FusedMHA.forward, kattn.FusedMHA.backward = staticmethod(forward), staticmethod(backward)
     try:

@@ -157,6 +157,78 @@ def test_bins_kernel_matches_plain(cuda, shape, shared_weight):
 
 
 @gpu
+@pytest.mark.parametrize("shared_weight", [False, True], ids=["per-image-W", "shared-W"])
+@pytest.mark.parametrize(
+    "shape",
+    [(1, 7, 9, 16), (8, 13, 17, 48), (8, 30, 41, 128), (1, 5, 67, 256), (8, 11, 7, 256),
+     (1, 240, 320, 128), (8, 60, 80, 256), (600, 1, 90, 128)],
+)
+def test_kernel2_hopper_matches_plain(cuda, shape, shared_weight):
+    """The persistent TMA + wgmma kernel at C 16-256, B 1 and 8, S not a
+    multiple of its 64-pixel unit, one W an image or one for the batch.
+    (8, 60, 80, 256) gives each block ~29 units through a ring of two
+    stages: with three consumers on it, one could pass a stage's parity
+    wait two fills early and read another unit's x. (600, 1, 90, 128) gives
+    each block ~9 images of 2 units: a consumer skips images, and must still
+    wait for each one's W before handing it back."""
+    b, h, w, c = shape
+    x = torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16)
+    wts = (0.1 * torch.randn((b, c, 256), generator=cuda, device="cuda")).to(torch.bfloat16)
+    if shared_weight:
+        wts = wts[:1].expand(b, c, 256)
+    bias = 0.1 * torch.randn(256, generator=cuda, device="cuda")
+    centers = torch.sort(10 * torch.rand((b, 256), generator=cuda, device="cuda"), dim=1).values
+    got = kbins.conv_bins_depth_batched(x, wts, bias, centers)
+    _assert_close(got, kbins.conv_bins_depth_batched_plain(x, wts, bias, centers),
+                  BINS_RTOL, BINS_ATOL)
+
+
+@gpu
+@pytest.mark.parametrize("shift", [30.0, 120.0, -200.0, "mixed"])
+def test_kernel2_rows_outside_the_fast_fold_take_the_exact_one(cuda, shift):
+    """Logits far from 0 (a row's sum of e outside [2^-16, 2^40]) make the
+    kernel fold the unit again with each row's max subtracted. 'mixed' puts
+    such pixels beside ordinary ones in the same 64-pixel units: channel 0
+    of W is 0.5 for every bin, so x's channel 0 (80, -60 or 0 by image row)
+    shifts a pixel's logits by +40, -30 or 0 exactly."""
+    b, h, w, c = 2, 16, 20, 128
+    x = torch.randn((b, h, w, c), generator=cuda, device="cuda")
+    wts = 0.1 * torch.randn((b, c, 256), generator=cuda, device="cuda")
+    offset = 0.0
+    if shift == "mixed":
+        wts[:, 0] = 0.5
+        x[..., 0] = 0.0
+        x[:, ::3, :, 0] = 80.0
+        x[:, 1::3, :, 0] = -60.0
+    else:
+        offset = shift
+    x, wts = x.to(torch.bfloat16), wts.to(torch.bfloat16)
+    bias = 0.1 * torch.randn(256, generator=cuda, device="cuda") + offset
+    centers = torch.sort(10 * torch.rand((b, 256), generator=cuda, device="cuda"), dim=1).values
+    got = kbins.conv_bins_depth_batched(x, wts, bias, centers)
+    _assert_close(got, kbins.conv_bins_depth_batched_plain(x, wts, bias, centers),
+                  BINS_RTOL, BINS_ATOL)
+
+
+@gpu
+@pytest.mark.parametrize("shared_weight", [False, True], ids=["kernel2", "kernel3"])
+def test_kernel2_two_calls_give_the_same_bits(cuda, shared_weight):
+    b, h, w, c = 8, 240, 320, 128
+    x = torch.randn((b, h, w, c), generator=cuda, device="cuda").to(torch.bfloat16)
+    wts = (0.1 * torch.randn((b, c, 256), generator=cuda, device="cuda")).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(256, generator=cuda, device="cuda")
+    centers = torch.sort(10 * torch.rand((b, 256), generator=cuda, device="cuda"), dim=1).values
+    if shared_weight:
+        first = kbins.conv_bins_depth(x, wts[0], bias, centers)
+        second = kbins.conv_bins_depth(x, wts[0], bias, centers)
+    else:
+        first = kbins.conv_bins_depth_batched(x, wts, bias, centers)
+        second = kbins.conv_bins_depth_batched(x, wts, bias, centers)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@gpu
 def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         kresize.resize_bilinear_align_corners(torch.zeros(1, 4, 4, 8, device="cuda"), 8, 8)
@@ -534,6 +606,42 @@ def test_kernel5_forward_and_backward_match_plain(cuda, case):
     if mask_kind == "full":
         uniform = v[0].float().mean(0)  # (H, D)
         _assert_close(out[0].float(), uniform.expand(sq, *uniform.shape), 2.0 ** -7, 1e-3)
+
+
+@gpu
+@pytest.mark.parametrize(
+    "case",
+    [(8, 300, 300, "partial"), (8, 221, 221, "partial"), (2, 1200, 1200, "none"),
+     (8, 300, 77, "partial"), (8, 300, 300, "full")],
+    ids=["flagship-480x640", "train-416x544", "S1200", "Sq300-Sk77", "fully-masked"],
+)
+def test_kernel5_forward_with_and_without_residual(cuda, case):
+    """chip_smoke.py's ATTN_CASES: the forward without a residual (what a
+    served call launches) and with one give the same bits and match the
+    plain version; the residual it writes gives the plain backward."""
+    b, sq, sk, mask_kind = case
+    q, k, v, g, mask = _attn_inputs(cuda, b, sq, sk, mask_kind, in_proj=sq == sk)
+    bias = kattn.mask_bias(mask)
+    served, none = kattn.fused_mha_fwd(q, k, v, bias, residual=False)
+    trained, stats = kattn.fused_mha_fwd(q, k, v, bias)
+    grads = kattn.fused_mha_bwd(q, k, v, bias, g, stats)
+    torch.cuda.synchronize()
+    assert none is None and stats.shape == (2, b * 4, sq)
+    assert torch.equal(served, trained)
+    _assert_attn_close([("out", served, kattn.mha_fused_plain(q, k, v, bias)),
+                        *zip(("dq", "dk", "dv"), grads, kattn.mha_fused_bwd_plain(q, k, v, bias, g))])
+
+
+@gpu
+def test_kernel5_served_forward_writes_no_residual(cuda):
+    """Under torch.no_grad(), fused_mha launches the forward without a
+    residual; with an input that requires grad, with one."""
+    q, k, v, _, mask = _attn_inputs(cuda, 2, 150, 150, "partial", in_proj=True)
+    with record_attention_io() as records:
+        with torch.no_grad():
+            kattn.fused_mha(q, k, v, mask)
+        kattn.fused_mha(q.detach().requires_grad_(), k, v, mask)
+    assert [r["residual"] for r in records] == [False, True]
 
 
 @gpu
