@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the CUDA kernels from ``objcavit_torch/csrc`` with nvcc,
    one process per source, all at once, and prints the ptxas registers and
-   spills of kernels 1, 2, 5's forward, 7 and 8;
+   spills of kernels 1, 2, 5's forward, 7, 8 and 10;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (TF32 off), then both timed in turns with CUDA events:
    kernel 1 (resize) at the flagship's four decoder upsamples, bare and in
@@ -20,7 +20,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    CUDA-graph replays, with their exps' count and time on the SFU beside the
    bound; kernel 4 (bins expectation) forward and backward at
    the train step's (8, 56576, 256), kernel 6 (the detect head) at the three
-   levels of NYU 480x640 and of KITTI 352x1216, batch 8, kernel 5
+   levels of NYU 480x640 and of KITTI 352x1216, batch 8 (and, checked but
+   not timed, on grids whose block shares start or end at a row tile's
+   edge, at NYU level 0 and a small shape), kernel 5
    (attention) forward and backward at (8, 300, 4, 32) with the served
    masks, at S = 221 and 1200, at Sq != Sk and on fully masked rows, the
    forward with and without its residual (bitwise the same), each
@@ -42,8 +44,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    head; the build prints its ptxas registers and spills) at the eight
    shapes of the 32 stride-1 MBConv blocks (``utils/mbconv_ab.py``'s
    ``MBCONV_SHAPES`` and ``mbconv_bound``), kernel 9
-   (its (H, W, B, C) form) at stages 1 and 5, kernel 10 (its depthwise-only
-   mode) with and without the pool at k 3 and 5, kernel 7 (the SE-gate
+   (its (H, W, B, C) form) at stages 1 and 5, kernel 10 (the depthwise conv
+   alone, ``csrc/dw_silu_pool.cu``) with and without the pool at k 3 and
+   5, with cuDNN's depthwise conv + bias beside it (a part of the
+   function, logged), kernel 7 (the SE-gate
    project) at the seven shapes of its route and stage 6's 3072 -> 512;
    each held against its plain version by ``kernel_io``'s checks, timed as
    CUDA-graph replays, kernel 7 beside one ``torch.baddbmm``;
@@ -150,7 +154,7 @@ from objcavit_torch.kernels import se_project as kse
 from objcavit_torch.losses import LossWrapper
 from objcavit_torch.models.yolov7 import n_anchors
 from objcavit_torch.ops.bins import bins_head_depth
-from objcavit_torch.utils.mbconv_ab import MBCONV_SHAPES, mbconv_bound
+from objcavit_torch.utils.mbconv_ab import DW_CASES, MBCONV_SHAPES, cudnn_depthwise, mbconv_bound
 from objcavit_torch.utils.resize_se_ab import RESIZE_SHAPES, SE_SHAPES
 from objcavit_torch.serving import (
     DepthPipeline,
@@ -184,6 +188,7 @@ from objcavit_torch.utils.kernel_io import (
     record_encoder_kernel_io,
     record_kernel_io,
     se_project_errors,
+    share_edge_grids,
     skip_mismatches,
 )
 from objcavit_torch.utils.profile_stages import (
@@ -224,6 +229,9 @@ DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX = 1e-4, 1e-5
 DETECT_SHAPES = {"NYU 480x640": [(BATCH, 4800, 256), (BATCH, 1200, 512), (BATCH, 300, 1024)],
                  "KITTI 352x1216": [(BATCH, 6688, 256), (BATCH, 1672, 512), (BATCH, 418, 1024)]}
 NUM_CLASSES, NM = 1203, 32
+# kernel 6 on grids whose shares start or end at a row tile's edge
+# (share_edge_grids): NYU level 0 and a small shape, (B, S, Cin, nc)
+DETECT_EDGE_SHAPES = [(BATCH, 4800, 256, NUM_CLASSES), (3, 111, 256, 130)]
 # kernel 6 vs plain: both round fp32 sums of the same bf16 products (Cin
 # terms, other order) plus the fp32 bias to bf16 once, so a value next to a
 # rounding boundary may land one bf16 ulp (<= 2^-7 relative) away; beside
@@ -298,15 +306,17 @@ GRAPH_CALLS = 20  # kernel 5's calls in one timed CUDA graph
 # k, Cin, M, blocks of that shape in a forward; 32 blocks) and its bound
 # (mbconv_bound) come from the kernel's profiler, utils/mbconv_ab.py
 MBCONV_BS_SHAPES = [MBCONV_SHAPES[0], MBCONV_SHAPES[5]]  # kernel 9: stages 1 and 5
-DW_CASES = [(120, 160, 3, 240, True), (120, 160, 3, 240, False),  # kernel 10: (H, W, k, C,
-            (60, 80, 5, 384, True), (15, 20, 5, 1824, False)]     # with the pool)
+# kernel 10's cases (DW_CASES: H, W, k, C, with the pool) come from
+# utils/mbconv_ab.py, its profiler
 # kernels 7-10 vs plain: one bf16 ulp, plus what kernel_io's checks add: the
 # fp32 accumulation bound of the Cin- or M-term sum (and of the k^2-term
 # depthwise), the expanded band's elements within that bound of a bf16
 # rounding boundary (each may round one ulp apart), SiLU's slope and
 # __expf's error; the pool, an fp32 sum of H x W values in another order
-# (the kernel's longest chain of adds is 26 + 5 + the tile count, at most
-# 186 adds here, ~1.1e-5 of sum |y|), is held to 1e-4 sum |y| plus those bounds
+# (kernel 8's longest chain of adds is 26 + 5 + the tile count, at most 186
+# adds here, ~1.1e-5 of sum |y|; kernel 10's a lane's outputs of an item, at
+# most 60 x 10 at B5's shapes, then the warps and the items, ~3.6e-5), is
+# held to 1e-4 sum |y| plus those bounds
 MB_RTOL, MB_ATOL, POOL_RTOL = 2.0 ** -7, 1e-5, 1e-4
 # the encoder's five outputs, bf16 on the kernel route vs the same weights
 # in fp32 on the plain route, rel L2 on 2x384x352: bf16 keeps 8 bits through
@@ -435,7 +445,8 @@ PTXAS_KERNELS = (("kernel 1", r"resize_kernelILi(\d+)E", "CV {}"),
                  ("kernel 5 forward", r"attn_fwd_(resident_|)kernelE",
                   "attn_fwd_{}kernel"),
                  ("kernel 7", r"se_project_kernelILi(\d+)ELi(\d+)E", "MT {} NT {}"),
-                 ("kernel 8", r"mbconv_kernelILi(\d)ELi(\d)E", "k{} row tiles {}"))
+                 ("kernel 8", r"mbconv_kernelILi(\d)ELi(\d)E", "k{} row tiles {}"),
+                 ("kernel 10", r"dw_silu_pool_kernelILi(\d)E", "k{}"))
 
 
 def log_ptxas(out: str) -> None:
@@ -827,11 +838,22 @@ def check_encoder_kernels(gen) -> dict:
                             pool)
         ms, plain_ms = graph_times(lambda: kmb.dw_conv_silu_pool(x, wd, bd, k, with_pool),
                                    lambda: kmb.dw_conv_silu_pool_plain(x, wd, bd, k, with_pool))
+        # a part of the function, for context: cuDNN's depthwise conv with
+        # its bias alone (no SiLU, no pool), never called by the port
+        conv = cudnn_depthwise(x, wd, bd, k)
+        gconv = captured(conv, GRAPH_CALLS)
+        cudnn_ms = library_time(gconv.replay, iters=3) / GRAPH_CALLS
+        del gconv
         part = {"ms": ms, "plain_ms": plain_ms,
                 **mbconv_bound(BATCH * h * w, c, c, k, expand=False, with_pool=with_pool)}
+        plan = kmb.dw_plan(BATCH, h, w, c, k,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
         log(f"kernel depthwise ({BATCH},{h},{w},{c}) k{k} pool {with_pool}: max_abs_err y "
             f"{errs['y']} pool {errs.get('pool')}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {part['bound_ms']:.4f} ms ({part['bound_by']})")
+            f"cuDNN's depthwise conv + bias alone (a part of the function) {cudnn_ms:.4f} ms, "
+            f"bound {part['bound_ms']:.4f} ms ({part['bound_by']}); plan strip {plan.strip_w} "
+            f"segment {plan.seg_rows} warps {plan.warps} stages {plan.stages} grid {plan.grid} "
+            f"items {plan.items}")
         dw.append((1, part))
         errs_dw = max(errs_dw, errs["y"])
         del x, y, pool
@@ -930,6 +952,26 @@ def check_detect_head(gen: torch.Generator, dev) -> dict:
         log(f"kernel detect head, {place} request of {BATCH} (3 launches): kernel "
             f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, dense head GEMM "
             f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
+    # the share edges: grids in which a block's share starts at a row tile's
+    # last unit and one ends at a row tile's first unit, where a consumer
+    # warpgroup hands feature tiles back (checked, not timed)
+    for b, s, cin, nc in DETECT_EDGE_SHAPES:
+        no_e = 5 + nc + NM
+        flat = torch.randn((b, s, cin), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((3 * no_e, cin), generator=gen, device=dev) / cin ** 0.5
+        bias = 0.1 * torch.randn(3 * no_e, generator=gen, device=dev)
+        packed = kdetect.pack_detect_head(w, bias, nc, NM, torch.bfloat16)
+        grids = share_edge_grids(b * s, cin, packed.wcls.shape[1])
+        if not grids:
+            raise AssertionError(f"detect head {(b, s, cin)}: no share-edge grid")
+        for grid in grids:
+            errs = check_detect_head_outputs(f"detect head {(b, s, cin)} nc {nc} on {grid} blocks",
+                                             flat, packed,
+                                             kdetect._fused_detect_head_on_grid(flat, packed, grid))
+            err = max(err, errs["y5"], errs["coef"], errs["cls_max"])
+            log(f"kernel detect head share edges ({b},{s},{cin}) nc {nc}, {grid} blocks: "
+                f"max_abs_err y5 {errs['y5']} coef {errs['coef']} cls_max {errs['cls_max']}")
+        del flat, packed
     return total_of(parts, err)
 
 
@@ -1662,8 +1704,8 @@ def main() -> None:
               encoder_serving["mbconv_head"], "mbconv_head"),
         entry("mbconv_bs_expand_dw_pool (kernel 8 on an (H, W, B, C) tensor map)", "mbconv_head.cu",
               "mbconv_bs.py:180", encoder_functions["mbconv_bs"], "mbconv_bs"),
-        entry("dw_conv_silu_pool (the first port's tiled kernel, no expand)", "mbconv_head.cu",
-              "dw_pallas.py:88", encoder_functions["dw_conv"], "dw_conv"),
+        entry("dw_conv_silu_pool (a ring of input rows by TMA, rolling tap rows; a function path)",
+              "dw_silu_pool.cu", "dw_pallas.py:88", encoder_functions["dw_conv"], "dw_conv"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -40,8 +40,11 @@
 // * Features read once per row tile: the block's feature tile (BM x Cin)
 //   stays resident for all of that row tile's units, 3 ncp / 128 + 1 = 31
 //   at 1203 classes, and is reloaded when both consumers have handed it
-//   back. BM is 128 where the tile, the ring and the biases fit in 227 KB
-//   (Cin <= 512: 64 or 128 KB of features), else 64 (Cin 1024: 128 KB).
+//   back. A consumer hands a tile back only after its own products on it
+//   are done and after it has waited for that tile's load
+//   (tests/test_torch_schedules.py walks a twin of this protocol). BM is
+//   128 where the tile, the ring and the biases fit in 227 KB (Cin <= 512:
+//   64 or 128 KB of features), else 64 (Cin 1024: 128 KB).
 //   Streaming the features with the weights instead would read them 31
 //   times from L2, as much as the weights' own traffic at BM = 128.
 // * The epilogue overlaps the products: a consumer queues all of its unit's
@@ -465,13 +468,27 @@ __global__ void __launch_bounds__(384, 1)
   const int n_rows = u1 > u0 ? (u1 - 1) / job.per_row - r_first + 1 : 0;
   int released = 0;  // feature tiles, from the block's first, this warpgroup handed back
   int have = -1;     // the feature tile it last waited for
+  // hand back the tiles before `upto`. A warpgroup waits for a tile's load
+  // before handing it back, also a tile it takes no unit of, so its arrivals
+  // never run ahead of the producer's phase: 8 arrivals of one warpgroup
+  // (two tiles at once) would otherwise complete a phase while the other's
+  // products on that tile are still in flight, and the next load would land
+  // on them
+  auto hand_back = [&](int upto) {
+    for (; released < upto; ++released) {
+      if (released > have) {
+        mbar_wait(a_full, released & 1);
+        have = released;
+      }
+      if (lane == 0) mbar_arrive(a_empty);
+    }
+  };
   uint32_t turn_phase = 0;
   float acc[MT][64];
   for (int u = u0 + wg; u < u1; u += 2) {
     const Unit x = decode_unit(u, u1, job);
     const int tile = x.r - r_first;
-    for (; released < tile; ++released)  // tiles this warpgroup never reads
-      if (lane == 0) mbar_arrive(a_empty);
+    hand_back(tile);  // tiles before this unit's: done with, or never read
     if (u != u0) {  // the other warpgroup has queued its unit's products
       mbar_wait(turn + 8 * wg, turn_phase);
       turn_phase ^= 1;
@@ -517,9 +534,7 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
     if (lane == 0) mbar_arrive(empty + 8 * prev);
-    const int next_tile = u + 2 < u1 ? (u + 2) / job.per_row - r_first : n_rows;
-    for (; released < next_tile; ++released)
-      if (lane == 0) mbar_arrive(a_empty);
+    hand_back(u + 2 < u1 ? (u + 2) / job.per_row - r_first : n_rows);
     if (x.anchor < 0) {
       fold_box(acc, x, job, f);
     } else {

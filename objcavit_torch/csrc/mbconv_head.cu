@@ -1,18 +1,15 @@
 // Fused MBConv head: 1x1 expand -> SiLU -> kxk depthwise -> SiLU -> SE pool.
 //
-// Replaces three TPU kernels:
+// Replaces two TPU kernels:
 //   * objcavit_tpu/ops/mbconv_pallas.py::mbconv_expand_dw_pool (_kernel), the
 //     EfficientNet MBConv body of fused_mbconv_head=True, on NHWC tensors
 //     (kernel 8: mbconv_kernel below);
 //   * objcavit_tpu/ops/mbconv_bs.py::mbconv_bs_expand_dw_pool (_kernel), the
 //     same on (H, W, B, C) tensors (kernel 9: the same kernel, another
-//     tensor map);
-//   * objcavit_tpu/ops/dw_pallas.py::dw_conv_silu_pool (_dw_kernel), the
-//     depthwise conv, bias, SiLU and optional pool sum without the expand
-//     (kernel 10: dw_kernel, the tiled kernel of the first port).
+//     tensor map).
+// The depthwise conv without the expand (kernel 10) is csrc/dw_silu_pool.cu.
 //
 //   e    = silu(x @ we + be), zeroed outside the image, rounded to bf16
-//          (kernel 10: e = x)
 //   y    = silu(sum_ij e[h+i-p, w+j-p] * wd[i, j] + bd)     SAME, stride 1
 //   pool = sum_hw y, from the fp32 y before its bf16 rounding
 //
@@ -81,44 +78,10 @@
 // each, as bf16 pairs (128 bytes a pixel, conflict-free at the ring's
 // 144-byte pixel stride), and adds each into the outputs it touches, each
 // sum in the TPU kernel's tap order.
-//
-// Kernel 10 (no expand) keeps the first port's kernel: a block owns an 8 x
-// 16 tile and 48 channels, loads the haloed band by cp.async (zero outside
-// the image) and runs the same tap loops, with per-tile pool partials.
 
-#include <cuda.h>  // CUtensorMap and the encoder's types; no -lcuda: see encode_fn
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// v * sigmoid(v) as v / (1 + e^-v), both on the fast path (a very negative
-// v gives -0). The first port's round-to-nearest reciprocal (__frcp_rn)
-// calls a slow path per value: in an early build of this kernel it cost
-// 4.6 of the forward's 10.5 ms on the H100.
-__device__ __forceinline__ float silu(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
-
-// a bf16 pair as two floats
-__device__ __forceinline__ float2 unpack(uint32_t u) {
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-
-// pool[i] = sum over partials t, in order, of partial[t][i]; i < B * M
-__global__ void pool_reduce_kernel(const float* __restrict__ partial, float* __restrict__ pool,
-                                   int n_parts, int bm) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= bm) return;
-  float s = 0.0f;
-  for (int t = 0; t < n_parts; ++t) s += partial[(long long)t * bm + i];
-  pool[i] = s;
-}
 
 // ================================================= kernel 8 (and 9): Hopper
 
@@ -161,45 +124,6 @@ __host__ __device__ inline size_t smem_bytes(int band_w, int g, int kchunks, int
   return 1024 + (size_t)stages * mtiles * kchunks * kTileBytes + (size_t)kchunks * kTileBytes +
          ((size_t)kRingGroups * g * band_w + kRun) * kRingPix + kDwWarps * kSlab * 4 + 16 * stages +
          16 * kRingGroups;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a wait that never
-// ends (a broken pipeline) traps, so it fails the launch instead of hanging
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint32_t tries = 0;
-  do {
-    if (++tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a 4-D box of x into shared memory, completing on the barrier
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
 }
 
 // wgmma descriptor of a K-major tile of 128-byte rows, 128-byte swizzle:
@@ -547,29 +471,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime, so the
-// library needs no -lcuda
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn) return fn;
-  void* ptr = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  const cudaError_t err =
-      cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-  const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-  fn = reinterpret_cast<EncodeTiled>(ptr);
-  return fn;
-}
-
 // x as a 4-D tensor, channels innermost, read in boxes of 64 channels x
 // band_w columns x g rows of one image: NHWC as (C, W, H, B), (H, W, B, C)
 // as (C, B, W, H), each dimension by its stride, so the strides rise
@@ -613,148 +514,6 @@ int launch_mbconv(const CUtensorMap& tm, const void* we, const void* be, const v
   return (int)cudaGetLastError();
 }
 
-// ============================================ kernel 10: the tiled kernel
-
-constexpr int kTH = 8;        // output tile rows
-constexpr int kTW = 16;       // output tile columns
-constexpr int kMT = 48;       // channels per block
-constexpr int kLdE = kMT + 8; // 112-byte band rows
-constexpr int kTThreads = 256;
-constexpr int kStrip = 4;                          // depthwise job: 4 output rows of a column
-constexpr int kStrips = (kTH / kStrip) * kTW;      // 32 column strips a tile
-constexpr int kPairs = kMT / 2;                    // 24 channel pairs
-constexpr int kJobs = kStrips * kPairs;            // 768 = 3 a thread
-static_assert(kJobs % kTThreads == 0, "the depthwise jobs split evenly over the threads");
-
-template <int K>
-struct Geo {
-  static constexpr int kP = K / 2;
-  static constexpr int kBW = kTW + 2 * kP;         // band columns
-  static constexpr int kR = (kTH + 2 * kP) * kBW;  // band pixels
-  static constexpr int kBand = kR * kLdE;
-  static constexpr size_t kSmem = (size_t)kBand * 2 + kStrips * kMT * 4;
-};
-
-// 16-byte async copy; with pred false the destination is zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(n));
-}
-
-template <int K>
-__global__ void __launch_bounds__(kTThreads, 3) dw_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ wd, const float* __restrict__ bd,
-    bf16* __restrict__ y, float* __restrict__ partial, int nb, int h_img, int w_img, int m,
-    long long xsb, long long xsh, long long xsw, long long ysb, long long ysh, long long ysw,
-    int tiles_w, int with_pool) {
-  using G = Geo<K>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* band = reinterpret_cast<bf16*>(smem_raw);  // (kR, kLdE) bf16
-  float* red = reinterpret_cast<float*>(band + G::kBand);  // (kStrips, kMT) pool partials
-
-  const int tile = blockIdx.x;
-  const int m0 = blockIdx.y * kMT;
-  const int b = blockIdx.z;
-  const int h0 = (tile / tiles_w) * kTH;
-  const int w0 = (tile % tiles_w) * kTW;
-  const int tid = threadIdx.x;
-  const bf16* xb = x + b * xsb;
-
-  // the band: x's channels m0..m0+47, zero outside the image
-  for (int i = tid; i < G::kR * (kMT / 8); i += kTThreads) {
-    const int q = i / (kMT / 8), s = i % (kMT / 8);
-    const int hh = h0 - G::kP + q / G::kBW, ww = w0 - G::kP + q % G::kBW;
-    const bool ok = hh >= 0 && hh < h_img && ww >= 0 && ww < w_img && m0 + s * 8 < m;
-    cp_async16(band + q * kLdE + s * 8, ok ? xb + hh * xsh + ww * xsw + m0 + s * 8 : x, ok);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-
-  // job j takes channels m0 + 2 (j % 24) + {0, 1} and the strip j / 24
-  // (column strip % 16, rows 4 (strip / 16) .. + 3)
-  bf16* yb = y + b * ysb;
-#pragma unroll 1
-  for (int job = tid; job < kJobs; job += kTThreads) {
-    const int pair = job % kPairs, strip = job / kPairs;
-    const int c = strip % kTW, r0 = (strip / kTW) * kStrip;
-    const int mc = m0 + 2 * pair;
-    float2 psum = make_float2(0.0f, 0.0f);
-    if (mc < m) {  // M % 8 == 0: mc + 1 < m too
-      float2 wr[K * K];
-#pragma unroll
-      for (int i = 0; i < K * K; ++i)
-        wr[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(wd + (long long)i * m + mc));
-      float2 acc[kStrip];
-#pragma unroll
-      for (int o = 0; o < kStrip; ++o) acc[o] = make_float2(0.0f, 0.0f);
-#pragma unroll
-      for (int rr = 0; rr < kStrip + 2 * G::kP; ++rr) {
-        float2 v[K];
-#pragma unroll
-        for (int j = 0; j < K; ++j)
-          v[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              band + ((r0 + rr) * G::kBW + c + j) * kLdE + 2 * pair));
-        // band row r0 + rr is tap row i = rr - o of output row r0 + o; rows
-        // reach each output in increasing i, so each sum keeps the tap order
-#pragma unroll
-        for (int o = 0; o < kStrip; ++o) {
-          const int i = rr - o;
-          if (i < 0 || i >= K) continue;
-#pragma unroll
-          for (int j = 0; j < K; ++j) {
-            acc[o].x += v[j].x * wr[i * K + j].x;
-            acc[o].y += v[j].y * wr[i * K + j].y;
-          }
-        }
-      }
-      const float2 bias = make_float2(__ldg(bd + mc), __ldg(bd + mc + 1));
-      const int w = w0 + c;
-#pragma unroll
-      for (int o = 0; o < kStrip; ++o) {
-        const int hh = h0 + r0 + o;
-        if (hh >= h_img || w >= w_img) continue;
-        const float v0 = silu(acc[o].x + bias.x), v1 = silu(acc[o].y + bias.y);
-        *reinterpret_cast<__nv_bfloat162*>(yb + hh * ysh + w * ysw + mc) =
-            __floats2bfloat162_rn(v0, v1);
-        psum.x += v0;
-        psum.y += v1;
-      }
-    }
-    if (with_pool) *reinterpret_cast<float2*>(red + strip * kMT + 2 * pair) = psum;
-  }
-  if (with_pool) {
-    __syncthreads();
-    if (tid < kMT && m0 + tid < m) {
-      float s = 0.0f;
-      for (int st = 0; st < kStrips; ++st) s += red[st * kMT + tid];
-      partial[((long long)tile * nb + b) * m + m0 + tid] = s;
-    }
-  }
-}
-
-template <int K>
-int launch_dw(const void* x, const void* wd, const void* bd, void* y, void* partial, void* pool,
-              int nb, int h, int w, int m, long long xsb, long long xsh, long long xsw,
-              long long ysb, long long ysh, long long ysw, int with_pool, cudaStream_t stream) {
-  const size_t smem = Geo<K>::kSmem;
-  cudaError_t err =
-      cudaFuncSetAttribute(dw_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_h = (h + kTH - 1) / kTH, tiles_w = (w + kTW - 1) / kTW;
-  const dim3 grid(tiles_h * tiles_w, (m + kMT - 1) / kMT, nb);
-  dw_kernel<K><<<grid, kTThreads, smem, stream>>>(
-      (const bf16*)x, (const bf16*)wd, (const float*)bd, (bf16*)y, (float*)partial, nb, h, w, m,
-      xsb, xsh, xsw, ysb, ysh, ysw, tiles_w, with_pool);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !with_pool) return (int)err;
-  const int bm = nb * m;
-  pool_reduce_kernel<<<(bm + 255) / 256, 256, 0, stream>>>((const float*)partial, (float*)pool,
-                                                           tiles_h * tiles_w, bm);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // x: B images of H x W pixels of Cin bf16 channels at element strides (xsb,
@@ -762,33 +521,24 @@ int launch_dw(const void* x, const void* wd, const void* bd, void* y, void* part
 // same with M channels at (ysb, ysh, ysw). wd (k*k, M) bf16, bd (M,) fp32.
 // Cin % 8 == 0, M % 8 == 0, strides multiples of 8, pointers 16-byte
 // aligned; k is 3 or 5.
-// expand != 0 (kernels 8 and 9): we (Cin, M) bf16 and be (M,) fp32 are the
-// 1x1 expand; strip_w, group_rows, seg_groups, cluster, stages and smem are
+// we (Cin, M) bf16 and be (M,) fp32 are the 1x1 expand; strip_w,
+// group_rows, seg_groups, grid, stages and smem are
 // kernels/mbconv.py::mbconv_plan's (smem must be its smem_bytes); with_pool
 // != 0: pool (B, M) fp32 gets the spatial sum of the fp32 y and, unless the
 // plan has one strip and one segment, partial is scratch of strips x
 // segments x B x M fp32.
-// expand == 0 (kernel 10): Cin == M, we, be and the plan are unused; with
-// with_pool, partial is scratch of ceil(H/8) ceil(W/16) B M fp32.
 // Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
 // for a plan the kernel does not take or a tensor map the driver refuses.
 extern "C" int objcavit_mbconv_head(const void* x, const void* we, const void* be, const void* wd,
                                     const void* bd, void* y, void* partial, void* pool, int nb,
                                     int h, int w, int cin, int m, int ksize, long long xsb,
                                     long long xsh, long long xsw, long long ysb, long long ysh,
-                                    long long ysw, int expand, int with_pool, int strip_w,
-                                    int group_rows, int seg_groups, int grid, int stages,
-                                    long long smem, void* stream) {
+                                    long long ysw, int with_pool, int strip_w, int group_rows,
+                                    int seg_groups, int grid, int stages, long long smem,
+                                    void* stream) {
   if (nb == 0 || h == 0 || w == 0 || m == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   if (ksize != 3 && ksize != 5) return (int)cudaErrorInvalidValue;
-  if (!expand) {
-    if (ksize == 3)
-      return launch_dw<3>(x, wd, bd, y, partial, pool, nb, h, w, m, xsb, xsh, xsw, ysb, ysh, ysw,
-                          with_pool, s);
-    return launch_dw<5>(x, wd, bd, y, partial, pool, nb, h, w, m, xsb, xsh, xsw, ysb, ysh, ysw,
-                        with_pool, s);
-  }
   const int p = ksize / 2;
   Plan P;
   P.nb = nb, P.h = h, P.w = w, P.cin = cin, P.m = m;

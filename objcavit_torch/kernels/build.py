@@ -1,13 +1,14 @@
 """Build the package's CUDA kernels with nvcc and bind them with ctypes.
 
 Every ``objcavit_torch/csrc/*.cu`` file exports plain C entry points (device
-pointers and the stream as ``void*``). The first time a kernel is called,
-each source is compiled for Hopper (``sm_90a``) by its own nvcc process, all
-started together, and the objects are linked into one shared library under
-``objcavit_torch/_build/`` (a directory git ignores). A hash of the sources
-and flags is stored beside the library, so an edited source rebuilds and an
-unchanged one loads at once. Building takes seconds: no source includes
-PyTorch's headers.
+pointers and the stream as ``void*``); ``csrc/*.cuh`` holds device helpers
+that some of them include. The first time a kernel is called, each source
+is compiled for Hopper (``sm_90a``) by its own nvcc process, all started
+together, and the objects are linked into one shared library under
+``objcavit_torch/_build/`` (a directory git ignores). A hash of the
+sources, headers and flags is stored beside the library, so an edited
+source rebuilds and an unchanged one loads at once. Building takes
+seconds: no source includes PyTorch's headers.
 """
 
 from __future__ import annotations
@@ -56,7 +57,9 @@ SIGNATURES = {
                                _IP, _P),
     "objcavit_attention_bwd_clusters": (_I, _I, _I, _I, _IP),
     "objcavit_mbconv_head": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _LL, _P),
+                             _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _LL, _P),
+    "objcavit_dw_silu_pool": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P),
     "objcavit_se_project": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P),
 }
@@ -67,8 +70,9 @@ def _sources() -> list[Path]:
 
 
 def sources_hash() -> str:
+    """A hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in sorted([*_sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()

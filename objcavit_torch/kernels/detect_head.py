@@ -198,15 +198,8 @@ def check_detect_head_inputs(flat: torch.Tensor, packed: PackedDetectHead) -> No
         raise ValueError("detect head kernel needs 16-byte aligned inputs")
 
 
-def fused_detect_head(flat: torch.Tensor, packed: PackedDetectHead):
-    """Kernel 6. flat (B, S, Cin) bf16 -> (y5 (B, S, 3, 5), coef (B, S, 3,
-    nm) bf16; cls_max (B, S, 3) fp32, cls_arg (B, S, 3) int32): the dense
-    head flat @ W + b reduced over each anchor's classes."""
-    check_no_grad("fused_detect_head", flat)
-    if flat.device.type == "cpu":
-        return fused_detect_head_plain(flat, packed)
-    if flat.device.type != "cuda":
-        raise ValueError(f"detect head kernel runs on CUDA tensors, got {flat.device}")
+def _launch(flat: torch.Tensor, packed: PackedDetectHead, grid: int):
+    """Launch kernel 6 on at most ``grid`` blocks and count the launch."""
     check_detect_head_inputs(flat, packed)
     b, s, cin = flat.shape
     m, nm = b * s, packed.nm
@@ -221,13 +214,41 @@ def fused_detect_head(flat: torch.Tensor, packed: PackedDetectHead):
         flat.data_ptr(), packed.wcls.data_ptr(), packed.bcls.data_ptr(), packed.w5c.data_ptr(),
         packed.b5c.data_ptr(), y5.data_ptr(), coef.data_ptr(), cls_max.data_ptr(),
         cls_arg.data_ptr(), keys.data_ptr(), m, cin, packed.num_classes, ncp, nm,
-        block_rows_for(cin, ncp), _sm_count(dev.index if dev.index is not None else
-                                            torch.cuda.current_device()),
-        torch.cuda.current_stream(dev).cuda_stream,
+        block_rows_for(cin, ncp), grid, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(_ENTRY, rc)
     fused_detect_head.launches += 1
     return y5, coef, cls_max, cls_arg
+
+
+def _route(flat: torch.Tensor) -> bool:
+    """True for a CUDA launch, False for the plain version on the CPU."""
+    check_no_grad("fused_detect_head", flat)
+    if flat.device.type == "cpu":
+        return False
+    if flat.device.type != "cuda":
+        raise ValueError(f"detect head kernel runs on CUDA tensors, got {flat.device}")
+    return True
+
+
+def fused_detect_head(flat: torch.Tensor, packed: PackedDetectHead):
+    """Kernel 6. flat (B, S, Cin) bf16 -> (y5 (B, S, 3, 5), coef (B, S, 3,
+    nm) bf16; cls_max (B, S, 3) fp32, cls_arg (B, S, 3) int32): the dense
+    head flat @ W + b reduced over each anchor's classes."""
+    if not _route(flat):
+        return fused_detect_head_plain(flat, packed)
+    dev = flat.device
+    return _launch(flat, packed, _sm_count(dev.index if dev.index is not None
+                                           else torch.cuda.current_device()))
+
+
+def _fused_detect_head_on_grid(flat: torch.Tensor, packed: PackedDetectHead, grid: int):
+    """Kernel 6 on a grid of at most ``grid`` blocks, not one an SM: a test
+    seam for the share edges (``utils/kernel_io.py::share_edge_grids``).
+    CUDA tensors only."""
+    if not _route(flat):
+        raise ValueError("_fused_detect_head_on_grid launches the kernel: it takes CUDA tensors")
+    return _launch(flat, packed, grid)
 
 
 fused_detect_head.launches = 0

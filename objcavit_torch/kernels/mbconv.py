@@ -1,7 +1,9 @@
-"""Kernels 8, 9 and 10: the fused MBConv head, one CUDA kernel in three forms.
+"""Kernels 8, 9 and 10: the fused MBConv head and the depthwise conv alone.
 
-CUDA source: ``objcavit_torch/csrc/mbconv_head.cu``. It is bound by bytes on
-the H100; the source note says how its design answers that.
+CUDA sources: ``objcavit_torch/csrc/mbconv_head.cu`` (kernels 8 and 9, one
+kernel in two forms) and ``objcavit_torch/csrc/dw_silu_pool.cu`` (kernel
+10). Each is bound by bytes on the H100; the source notes say how their
+designs answer that.
 
 * Kernel 8, ``mbconv_expand_dw_pool``: ``silu(dw(silu(x @ we + be)) + bd)``
   and its spatial sum on NHWC tensors; replaces
@@ -11,8 +13,9 @@ the H100; the source note says how its design answers that.
   replaces ``objcavit_tpu/ops/mbconv_bs.py::mbconv_bs_expand_dw_pool``. The
   kernel reads and writes through strides, so only they differ.
 * Kernel 10, ``dw_conv_silu_pool``: ``silu(dw(x) + b)`` and, optionally, its
-  spatial sum: the kernel without the expand; replaces
-  ``objcavit_tpu/ops/dw_pallas.py::dw_conv_silu_pool``.
+  spatial sum, with no expand; replaces
+  ``objcavit_tpu/ops/dw_pallas.py::dw_conv_silu_pool``. ``dw_plan`` picks
+  its work items and ring, which the wrapper passes to the C entry.
 
 Each wrapper has the JAX function's name, arguments and layouts (``we``
 (Cin, M), ``wd`` (k, k, 1, M), any (k, k, ...) form of it, or the packed
@@ -41,8 +44,8 @@ from objcavit_torch.kernels.bins import check_no_grad
 from objcavit_torch.kernels.build import check_launch, load_library
 
 _ENTRY = "objcavit_mbconv_head"
+_DW_ENTRY = "objcavit_dw_silu_pool"
 KSIZES = (3, 5)
-TILE_H, TILE_W = 8, 16  # kernel 10's output tile (PR 5's kernel)
 CHANNEL_ALIGN = 8  # Cin and M: 16-byte rows of bf16
 
 # kernel 8's launch (csrc/mbconv_head.cu, the note there): the numbers the
@@ -204,6 +207,144 @@ def mbconv_eligible(cin: int, m: int, ksize: int, stride: int) -> bool:
     except ValueError:
         return False
     return True
+
+
+# kernel 10's launch (csrc/dw_silu_pool.cu, the note there): the numbers
+# the plan and the source share
+DW_COLS = {3: 10, 5: 5}  # output columns a tap warp takes, by k
+DW_MAX_WARPS = 8  # tap warps a block, beside the producer warp
+DW_MAX_STAGES = 8  # input rows the ring holds
+DW_PIXEL_BYTES = SLAB * 2  # a pixel's 64-channel slab in a ring row
+# the plan's cost model: an SM's share of the H100's 3.35 TB/s at ~1.75 GHz
+# in bytes a clock; the warps an SM holds at the registers a lane the
+# kernel takes; the shared memory an SM gives its blocks
+DW_SM_BYTES_PER_CLOCK = 14.5
+DW_SM_WARPS = 12
+DW_SM_SMEM = 233472
+
+
+def dw_row_instructions(k: int) -> int:
+    """A tap warp's instructions an input row: the FMAs, the row's loads and
+    unpacking, an output's bias, SiLU, store and pool sum."""
+    cols = DW_COLS[k]
+    return 2 * k * k * cols + 3 * (cols + 2 * (k // 2)) + 14 * cols + 20
+
+
+@dataclass(frozen=True)
+class DWPlan:
+    """Kernel 10's launch for (B, H, W, C, k). A work item is one image, one
+    slab of SLAB channels, a column strip of ``strip_w`` output columns and
+    a segment of ``seg_rows`` output rows; ``warps`` tap warps take
+    DW_COLS[k] columns each (``strip_w`` = their columns), a ring of
+    ``stages`` input rows feeds them, and a persistent grid of ``grid``
+    blocks (as many as the SMs hold at once, at most the items) takes
+    items i, i + grid, ..."""
+
+    b: int
+    h: int
+    w: int
+    c: int
+    k: int
+    strip_w: int
+    seg_rows: int
+    warps: int
+    stages: int
+    grid: int
+
+    @property
+    def band_w(self) -> int:  # input columns a strip reads: its halo too
+        return self.strip_w + 2 * (self.k // 2)
+
+    @property
+    def strips(self) -> int:
+        return -(-self.w // self.strip_w)
+
+    @property
+    def segments(self) -> int:
+        return -(-self.h // self.seg_rows)
+
+    @property
+    def slabs(self) -> int:
+        return -(-self.c // SLAB)
+
+    @property
+    def parts(self) -> int:  # pool partials an (image, slab): one an item
+        return self.strips * self.segments
+
+    @property
+    def items(self) -> int:
+        return self.b * self.slabs * self.parts
+
+    @property
+    def smem(self) -> int:
+        return dw_smem_bytes(self.band_w, self.stages)
+
+
+def dw_smem_bytes(band_w: int, stages: int) -> int:
+    """Shared memory of a kernel-10 block, as the source lays it out: 128
+    bytes of alignment, the ring of input rows, the tap warps' pool sums and
+    two mbarriers a stage of the most the source allows."""
+    return 128 + stages * band_w * DW_PIXEL_BYTES + DW_MAX_WARPS * SLAB * 4 + 16 * DW_MAX_STAGES
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(b: int, h: int, w: int, c: int, k: int, n_sm: int) -> DWPlan:
+    """Kernel 10's launch on a card of ``n_sm`` SMs. Of the strips (a
+    multiple of DW_COLS[k] columns, at most DW_MAX_WARPS warps of them) and
+    the segments, it takes the one with the least estimated time: a block
+    walks its items' input rows one after another, so the time is its
+    share of the items (the grid is as many blocks as the SMs hold at once,
+    by warps and shared memory, at most the items) x an item's rows (its
+    output rows and the 2p halo rows) x a row's time, plus a fixed cost an
+    item. A row's time is the larger of its bytes (the band row in, the
+    strip's outputs) over the SM's share of the card's rate and its tap
+    warps' instructions over the SM's four schedulers (at half the rate
+    while the SM holds fewer than eight tap warps), times the blocks
+    sharing the SM. The ring takes DW_MAX_STAGES rows, or fewer where a
+    block of that many would keep a second block off the SM. Raises ValueError for a k or a
+    shape it has no plan for."""
+    if k not in KSIZES or min(b, h, w, c) <= 0 or n_sm <= 0:
+        raise ValueError(f"dw_plan: no plan for B={b}, H={h}, W={w}, C={c}, k={k}, {n_sm} SMs")
+    p, cols = k // 2, DW_COLS[k]
+    slabs = -(-c // SLAB)
+    seg_options = sorted({-(-h // n) for n in range(1, h + 1)})
+    best, best_key = None, None
+    for strip_w in sorted({-(-(-(-w // n)) // cols) * cols for n in range(1, -(-w // cols) + 1)}):
+        warps = strip_w // cols
+        if warps > DW_MAX_WARPS:
+            continue
+        band = strip_w + 2 * p
+        by_warps = max(1, DW_SM_WARPS // (warps + 1))
+        stages = DW_MAX_STAGES
+        smem = functools.partial(dw_smem_bytes, band)
+        while stages > 2 and by_warps * (smem(stages) + 1024) > DW_SM_SMEM:
+            stages -= 1
+        if smem(stages) > SMEM_LIMIT:
+            continue
+        per_sm = min(by_warps, DW_SM_SMEM // (smem(stages) + 1024))
+        strips = -(-w // strip_w)
+        row_bytes = (band + strip_w) * DW_PIXEL_BYTES
+        for seg_rows in seg_options:
+            items = b * slabs * strips * -(-h // seg_rows)
+            grid = min(items, n_sm * per_sm)
+            sharing = -(-grid // n_sm)  # blocks on the busiest SM
+            rate = 4.0 if sharing * warps >= 8 else 2.0  # instructions a clock an SM issues
+            row = sharing * max(row_bytes / DW_SM_BYTES_PER_CLOCK,
+                                warps * dw_row_instructions(k) / rate)
+            share = -(-items // grid)  # items of the busiest block
+            key = (share * ((seg_rows + 2 * p) * row + 300), items)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = DWPlan(b, h, w, c, k, strip_w, seg_rows, warps, stages, grid)
+    if best is None:
+        raise ValueError(f"dw_plan: no block of W={w}, k={k} fits {SMEM_LIMIT} bytes")
+    return best
+
+
+def dw_pool_scratch(plan: DWPlan) -> tuple[int, int, int] | None:
+    """The shape of kernel 10's pool-partial scratch: one fp32 partial an
+    item; None when an item covers an image's slab and writes the pool."""
+    return None if plan.parts == 1 else (plan.parts, plan.b, plan.c)
 
 
 @dataclass(frozen=True)
@@ -374,40 +515,62 @@ def check_mbconv_inputs(x, we, be, wd, bd, ksize: int, expand: bool) -> None:
         raise ValueError("mbconv kernel needs 16-byte aligned inputs")
 
 
-def _launch(x, we, be, wd, bd, ksize: int, expand: bool, with_pool: bool, batch_minor: bool):
-    """Launch on x (B, H, W, Cin), or (H, W, B, Cin) with ``batch_minor``."""
-    check_mbconv_inputs(x, we, be, wd, bd, ksize, expand)
+def _launch(x, we, be, wd, bd, ksize: int, batch_minor: bool):
+    """Launch kernel 8 on x (B, H, W, Cin), or (H, W, B, Cin) with ``batch_minor``."""
+    check_mbconv_inputs(x, we, be, wd, bd, ksize, expand=True)
     if batch_minor:
         h, w, b, cin = x.shape
     else:
         b, h, w, cin = x.shape
-    m = we.shape[1] if expand else cin
+    m = we.shape[1]
     y = torch.empty((*x.shape[:3], m), dtype=x.dtype, device=x.device)
     # element strides of an image, a row and a column, for x and for y
     strides = [(c, w * b * c, b * c) if batch_minor else (h * w * c, w * c, c) for c in (cin, m)]
-    if expand:
-        plan = mbconv_plan(h, w, cin, m, ksize)
-        scratch = pool_scratch(plan, b)
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count \
-            if x.device.type == "cuda" else PLAN_SMS
-        knobs = (plan.strip_w, plan.group_rows, plan.seg_groups, plan.grid(b, sms), plan.stages,
-                 plan.smem)
-    else:
-        scratch = (-(-h // TILE_H) * -(-w // TILE_W), b, m)
-        knobs = (0, 0, 0, 0, 0, 0)
-    partial = pool = None
-    if with_pool:
-        if scratch is not None:
-            partial = torch.empty(scratch, dtype=torch.float32, device=x.device)
-        pool = torch.empty((b, m), dtype=torch.float32, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    plan = mbconv_plan(h, w, cin, m, ksize)
+    scratch = pool_scratch(plan, b)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count \
+        if x.device.type == "cuda" else PLAN_SMS
+    partial = None if scratch is None else torch.empty(scratch, dtype=torch.float32,
+                                                       device=x.device)
+    pool = torch.empty((b, m), dtype=torch.float32, device=x.device)
     rc = getattr(load_library(), _ENTRY)(
-        x.data_ptr(), ptr(we) if expand else None, ptr(be) if expand else None, wd.data_ptr(),
-        bd.data_ptr(), y.data_ptr(), ptr(partial), ptr(pool), b, h, w, cin, m, ksize,
-        *strides[0], *strides[1], int(expand), int(with_pool), *knobs,
+        x.data_ptr(), we.data_ptr(), be.data_ptr(), wd.data_ptr(), bd.data_ptr(), y.data_ptr(),
+        None if partial is None else partial.data_ptr(), pool.data_ptr(), b, h, w, cin, m, ksize,
+        *strides[0], *strides[1], 1, plan.strip_w, plan.group_rows, plan.seg_groups,
+        plan.grid(b, sms), plan.stages, plan.smem,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_launch(_ENTRY, rc)
+    return y, pool
+
+
+def _launch_dw(x, wd, bd, ksize: int, with_pool: bool, plan: DWPlan | None = None):
+    """Launch kernel 10 on x (B, H, W, C) by ``plan`` (``dw_plan`` on the
+    card's SMs when None). An empty x (B, H or W of 0) has no work items:
+    it launches nothing and gets an empty y and a zero pool."""
+    check_mbconv_inputs(x, None, None, wd, bd, ksize, expand=False)
+    b, h, w, c = x.shape
+    if x.numel() == 0:
+        pool = torch.zeros((b, c), dtype=torch.float32, device=x.device) if with_pool else None
+        return torch.empty_like(x), pool
+    if plan is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count \
+            if x.device.type == "cuda" else PLAN_SMS
+        plan = dw_plan(b, h, w, c, ksize, sms)
+    y = torch.empty_like(x)
+    partial = pool = None
+    if with_pool:
+        scratch = dw_pool_scratch(plan)
+        if scratch is not None:
+            partial = torch.empty(scratch, dtype=torch.float32, device=x.device)
+        pool = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = getattr(load_library(), _DW_ENTRY)(
+        x.data_ptr(), wd.data_ptr(), bd.data_ptr(), y.data_ptr(), ptr(partial), ptr(pool), b, h,
+        w, c, ksize, int(with_pool), plan.strip_w, plan.seg_rows, plan.warps, plan.stages,
+        plan.grid, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check_launch(_DW_ENTRY, rc)
     return y, pool
 
 
@@ -428,7 +591,7 @@ def mbconv_expand_dw_pool(x, we, be, wd, bd, ksize: int):
     spatial sum."""
     if not _route("mbconv_expand_dw_pool", x, we, be, wd, bd):
         return mbconv_expand_dw_pool_plain(x, we, be, wd, bd, ksize)
-    out = _launch(x, we, be, wd, bd, ksize, expand=True, with_pool=True, batch_minor=False)
+    out = _launch(x, we, be, wd, bd, ksize, batch_minor=False)
     mbconv_expand_dw_pool.launches += 1
     return out
 
@@ -438,7 +601,7 @@ def mbconv_bs_expand_dw_pool(x_t, we, be, wd, bd, ksize: int):
     (B, M) fp32)."""
     if not _route("mbconv_bs_expand_dw_pool", x_t, we, be, wd, bd):
         return mbconv_bs_expand_dw_pool_plain(x_t, we, be, wd, bd, ksize)
-    out = _launch(x_t, we, be, wd, bd, ksize, expand=True, with_pool=True, batch_minor=True)
+    out = _launch(x_t, we, be, wd, bd, ksize, batch_minor=True)
     mbconv_bs_expand_dw_pool.launches += 1
     return out
 
@@ -449,8 +612,9 @@ def dw_conv_silu_pool(x, w, b, ksize: int, with_pool: bool = True):
     ``silu(dw(x) + b)``, SAME, stride 1."""
     if not _route("dw_conv_silu_pool", x, w, b):
         return dw_conv_silu_pool_plain(x, w, b, ksize, with_pool)
-    out = _launch(x, None, None, w, b, ksize, expand=False, with_pool=with_pool, batch_minor=False)
-    dw_conv_silu_pool.launches += 1
+    out = _launch_dw(x, w, b, ksize, with_pool)
+    if x.numel():  # an empty x launches nothing
+        dw_conv_silu_pool.launches += 1
     return out
 
 

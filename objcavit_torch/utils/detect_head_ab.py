@@ -2,11 +2,14 @@
 
     python -m objcavit_torch.utils.detect_head_ab --old OLD.cu [--alt ALT.cu ...] [--rounds 6]
 
-``OLD.cu`` is an earlier ``csrc/detect_head.cu`` with the C interface of the
-``mma.sync`` version (``git show <commit>:objcavit_torch/csrc/detect_head.cu``
-of any commit before the wgmma redesign): ``objcavit_detect_head(x, wcls,
-bcls, w5c, b5c, y5, coef, cls_max, cls_arg, m, cin, nc, ncp, nm, block_rows,
-stream)``. Each ``ALT.cu`` is a variant of the current source, with its C
+``OLD.cu`` is an earlier ``csrc/detect_head.cu`` (``git show
+<commit>:objcavit_torch/csrc/detect_head.cu``): either one with the current C
+interface (the wgmma design, its entry taking the key scratch and the grid),
+called as ``fused_detect_head`` calls the current one, or one with the
+interface of the ``mma.sync`` version (any commit before the wgmma
+redesign): ``objcavit_detect_head(x, wcls, bcls, w5c, b5c, y5, coef,
+cls_max, cls_arg, m, cin, nc, ncp, nm, block_rows, stream)``; the source's
+text tells which. Each ``ALT.cu`` is a variant of the current source, with its C
 interface, timed beside them (a variant's errors are printed, not
 enforced, so a variant may leave work out to time the rest). Each source
 is compiled alone into ``objcavit_torch/_build/ab/``.
@@ -134,7 +137,11 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     p, i = ctypes.c_void_p, ctypes.c_int
-    old = load_entry(args.old, "old", (p,) * 9 + (i,) * 6 + (p,))
+    old_takes_grid = "int block_rows, int grid" in args.old.read_text()
+    old = load_entry(args.old, "old", build.SIGNATURES["objcavit_detect_head"] if old_takes_grid
+                     else (p,) * 9 + (i,) * 6 + (p,))
+    print(f"old: {args.old} ({'the current' if old_takes_grid else 'the mma.sync'} interface)",
+          flush=True)
     alts = {f"alt{k}": load_entry(path, f"alt{k}", build.SIGNATURES["objcavit_detect_head"])
             for k, path in enumerate(args.alt)}
     for name, path in zip(alts, args.alt):
@@ -150,7 +157,8 @@ def main() -> None:
             packed = kdetect.pack_detect_head(w, bias, NUM_CLASSES, NM, torch.bfloat16)
             wd, bd = w.to(torch.bfloat16), bias.to(torch.bfloat16)
             calls = {"new": lambda: kdetect.fused_detect_head(flat, packed),
-                     "old": lambda: old_head(old, flat, packed),
+                     "old": (lambda: alt_head(old, flat, packed)) if old_takes_grid
+                     else (lambda: old_head(old, flat, packed)),
                      **{name: (lambda fn=fn: alt_head(fn, flat, packed))
                         for name, fn in alts.items()},
                      "gemm": lambda: F.linear(flat, wd, bd)}

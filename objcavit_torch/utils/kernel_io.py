@@ -32,6 +32,10 @@ Detection: ``record_detect_head_io`` records each call of kernel 6 from the
 detector's class-max head (the level's features, its packed weights and the
 four outputs), and ``detect_head_errors`` holds a call's outputs against the
 plain version on the same tensors, with a tie-aware check of the argmax.
+``share_edge_grids`` picks the grids on which the card test and
+chip_smoke.py launch kernel 6 to reach its consumers' feature-tile
+hand-back at a block share's edges (from a copy of the kernel's unit split,
+``detect_unit_count`` and ``detect_unit_shares``).
 
 Encoder: ``record_encoder_kernel_io`` records each call of kernel 8 (the
 fused MBConv head) and kernel 7 (the SE-gate project) from the encoder's
@@ -315,6 +319,41 @@ def detect_head_errors(flat, packed, out, rtol: float, atol: float) -> dict:
     bad += int(((want_max - at_arg).abs() > band).sum())
     bad += int(((cls_arg < 0) | (cls_arg >= nc)).sum())
     return {**errs, "near_ties": int((~clear).sum()), "rows": clear.numel(), "bad": bad}
+
+
+def detect_unit_count(m: int, cin: int, ncp: int) -> tuple[int, int]:
+    """(units, units a row tile) of kernel 6's work list for M positions. A
+    copy of the C entry's rule in csrc/detect_head.cu (``job.per_row``,
+    ``job.units``), not the kernel's own code: each row tile of
+    ``block_rows_for(cin, ncp)`` positions has 3 ncp / 128 class tiles and
+    the box tile."""
+    per_row = kdetect.N_ANCHORS * ncp // kdetect.COL_TILE + 1
+    return -(-m // kdetect.block_rows_for(cin, ncp)) * per_row, per_row
+
+
+def detect_unit_shares(units: int, grid: int) -> list[tuple[int, int]]:
+    """A copy of kernel 6's split of the units (csrc/detect_head.cu, the
+    block's u0 and u1): block i of min(grid, units) takes [units i //
+    blocks, units (i + 1) // blocks)."""
+    blocks = min(units, grid)
+    return [(units * i // blocks, units * (i + 1) // blocks) for i in range(blocks)]
+
+
+def share_edge_grids(m: int, cin: int, ncp: int, max_grid: int = 264) -> list[int]:
+    """Grids of at most ``max_grid`` blocks in which one block's share starts
+    at a row tile's last unit and one block's share ends at a row tile's
+    first unit (at least 3 units long): where kernel 6's consumers hand
+    feature tiles back at a share's edges. The smallest such grid and the
+    largest."""
+    units, per_row = detect_unit_count(m, cin, ncp)
+    found = []
+    for grid in range(2, max_grid + 1):
+        shares = detect_unit_shares(units, grid)
+        starts = any(u0 % per_row == per_row - 1 and u1 - u0 >= 2 for u0, u1 in shares)
+        ends = any((u1 - 1) % per_row == 0 and u1 - u0 >= 3 for u0, u1 in shares)
+        if starts and ends:
+            found.append(grid)
+    return sorted({found[0], found[-1]}) if found else []
 
 
 @contextlib.contextmanager

@@ -11,6 +11,7 @@ card, with the tolerances chip_smoke.py states.
 runs on the CPU, in a subprocess, in the Tier-1 command.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -49,6 +50,7 @@ from objcavit_torch.utils.kernel_io import (
     record_encoder_kernel_io,
     record_kernel_io,
     se_project_errors,
+    share_edge_grids,
     skip_mismatches,
 )
 
@@ -484,6 +486,24 @@ def test_kernel6_breaks_exact_ties_to_the_first_class(cuda, shape, dups):
 
 
 @gpu
+@pytest.mark.parametrize("shape", [(8, 4800, 256, 1203), (3, 111, 256, 130), (5, 77, 512, 1203)],
+                         ids=["nyu-level0", "small-nc130", "small-cin512"])
+def test_kernel6_share_edges_match_plain(cuda, shape):
+    """Grids in which one block's share starts at a row tile's last unit
+    and one ends at a row tile's first unit (``kernel_io.share_edge_grids``), where a
+    consumer warpgroup hands feature tiles back at the share's edges."""
+    b, s, cin, nc = shape
+    flat, packed = _detect_case(cuda, b, s, cin, nc)
+    grids = share_edge_grids(b * s, cin, packed.wcls.shape[1])
+    assert grids
+    for grid in grids:
+        out = kdetect._fused_detect_head_on_grid(flat, packed, grid)
+        torch.cuda.synchronize()
+        errs = detect_head_errors(flat, packed, out, DETECT_RTOL, DETECT_ATOL)
+        assert errs["bad"] == 0, (grid, errs)
+
+
+@gpu
 def test_kernel6_wrapper_raises_instead_of_falling_back(cuda):
     flat, packed = _detect_case(cuda, 1, 4, 64, 10)
     with pytest.raises(ValueError, match="bf16"):
@@ -812,7 +832,18 @@ def test_kernel9_matches_plain(cuda, shape):
 @pytest.mark.parametrize("shape,k,with_pool", [((8, 30, 40, 768), 3, True),
                                                ((2, 15, 20, 160), 5, True),
                                                ((2, 15, 20, 160), 5, False),
-                                               ((1, 3, 2, 56), 3, True)])
+                                               ((1, 3, 2, 56), 3, True),
+                                               ((2, 9, 21, 240), 3, True),
+                                               ((8, 15, 20, 1824), 5, False),
+                                               ((8, 15, 20, 1824), 5, True),
+                                               ((2, 7, 300, 64), 3, True),
+                                               ((2, 6, 130, 72), 5, True),
+                                               ((2, 1, 37, 64), 5, True),
+                                               ((3, 1, 9, 8), 3, True),
+                                               ((2, 2, 30, 64), 5, True)],
+                         ids=["stage3", "k5", "k5-no-pool", "c56", "c240-slab-tail",
+                              "stage5-1824", "stage5-1824-pool", "wider-than-a-strip",
+                              "k5-wider-than-a-strip", "h1", "h1-c8", "h-below-k"])
 def test_kernel10_matches_plain(cuda, shape, k, with_pool):
     b, h, w, c = shape
     x, _, _, wd, bd = _mbconv_inputs(cuda, b, h, w, c, c, k)
@@ -820,6 +851,64 @@ def test_kernel10_matches_plain(cuda, shape, k, with_pool):
     torch.cuda.synchronize()
     assert (pool is None) == (not with_pool)
     _assert_mbconv_ok(x, None, None, wd, bd, k, y, pool)
+
+
+@gpu
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("edit", [dict(seg_rows=1, stages=2), dict(seg_rows=4, stages=3, grid=1),
+                                  dict(narrow=True, stages=5), dict(seg_rows=17, grid=7)],
+                         ids=["one-row-segments", "one-block", "narrow-strips", "whole-height"])
+def test_kernel10_matches_plain_on_other_plans(cuda, k, edit):
+    """Plans the wrapper would not pick, through its launch: one-row
+    segments on a ring of 2 (every slot reused each row), one block walking
+    every item, strips of one warp, segments of the whole height; each with
+    the pool from partials (and, at one strip and segment, directly)."""
+    b, h, w, c = 2, 17, 45, 136
+    x, _, _, wd, bd = _mbconv_inputs(cuda, b, h, w, c, c, k)
+    plan = kmb.dw_plan(b, h, w, c, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    edit = dict(edit)
+    if edit.pop("narrow", False):
+        edit.update(strip_w=kmb.DW_COLS[k], warps=1)
+    plan = dataclasses.replace(plan, **edit)
+    plan = dataclasses.replace(plan, grid=min(plan.grid, plan.items))
+    y, pool = kmb._launch_dw(x, wd.reshape(k * k, c), bd, k, True, plan)
+    torch.cuda.synchronize()
+    _assert_mbconv_ok(x, None, None, wd, bd, k, y, pool)
+
+
+@gpu
+@pytest.mark.parametrize("shape,with_pool", [((0, 15, 20, 160), True), ((2, 0, 20, 160), True),
+                                             ((2, 15, 0, 160), False)],
+                         ids=["no-images", "no-rows", "no-columns-no-pool"])
+def test_kernel10_empty_x_launches_nothing(cuda, shape, with_pool):
+    """An empty x on the card: an empty y, a zero pool on the card, no
+    launch counted."""
+    b, h, w, c = shape
+    x, _, _, wd, bd = _mbconv_inputs(cuda, b, h, w, c, c, 5)
+    before = kmb.dw_conv_silu_pool.launches
+    y, pool = kmb.dw_conv_silu_pool(x, wd, bd, 5, with_pool)
+    torch.cuda.synchronize()
+    assert kmb.dw_conv_silu_pool.launches == before
+    assert y.shape == x.shape and y.device == x.device
+    if with_pool:
+        assert pool.device == x.device and torch.equal(pool.cpu(), torch.zeros((b, c)))
+    else:
+        assert pool is None
+
+
+@gpu
+@pytest.mark.parametrize("shape,k", [((8, 120, 160, 240), 3), ((8, 15, 20, 1824), 5)],
+                         ids=["stage1-pool-partials", "stage5-pool-direct"])
+def test_kernel10_is_bitwise_deterministic(cuda, shape, k):
+    """Two calls on the same inputs give identical y and pool: the pool's
+    sums run in a fixed order, with no atomics."""
+    b, h, w, c = shape
+    x, _, _, wd, bd = _mbconv_inputs(cuda, b, h, w, c, c, k)
+    first = kmb.dw_conv_silu_pool(x, wd, bd, k)
+    second = kmb.dw_conv_silu_pool(x, wd, bd, k)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0].view(torch.int16), second[0].view(torch.int16))
+    assert torch.equal(first[1], second[1])
 
 
 @gpu

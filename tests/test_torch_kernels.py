@@ -359,3 +359,19 @@ def test_c_entry_points_match_their_ctypes_signatures():
 def test_sources_hash_is_stable_and_covers_flags():
     assert build.sources_hash() == build.sources_hash()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_sources_hash_covers_the_headers(tmp_path, monkeypatch):
+    """An edit of a shared ``csrc/*.cuh`` header changes the hash, so the
+    sources that include it rebuild; the sources' own include lines name
+    headers that exist."""
+    for name in ("a.cu", "common.cuh"):
+        (tmp_path / name).write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    before = build.sources_hash()
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert build.sources_hash() != before
+    monkeypatch.undo()
+    for source in sorted(build.CSRC_DIR.glob("*.cu")):
+        for header in re.findall(r'#include "([^"]+)"', source.read_text()):
+            assert (build.CSRC_DIR / header).is_file(), (source.name, header)

@@ -44,7 +44,7 @@ from objcavit_torch.models.graphbins import GraphBins
 from objcavit_torch.utils.benchkit import build_flagship_model
 from objcavit_torch.utils.convert import state_dict_from_variables
 from objcavit_torch.utils.fold_bn import fold_batchnorm
-from objcavit_torch.utils.mbconv_ab import MBCONV_SHAPES
+from objcavit_torch.utils.mbconv_ab import DW_CASES, MBCONV_SHAPES
 from objcavit_torch.utils.kernel_io import (
     mbconv_head_errors,
     record_encoder_kernel_io,
@@ -196,9 +196,9 @@ def test_mbconv_plan(shape, monkeypatch):
     we = torch.zeros((cin, m), dtype=torch.bfloat16)
     wd = torch.zeros((k * k, m), dtype=torch.bfloat16)
     be, bd = torch.zeros(m), torch.zeros(m)
-    kmb._launch(x, we, be, wd, bd, k, expand=True, with_pool=True, batch_minor=False)
+    kmb._launch(x, we, be, wd, bd, k, batch_minor=False)
     (args,) = calls
-    assert args[22:28] == (plan.strip_w, plan.group_rows, plan.seg_groups, plan.grid(2),
+    assert args[20:27] == (1, plan.strip_w, plan.group_rows, plan.seg_groups, plan.grid(2),
                            plan.stages, plan.smem)
     scratch = kmb.pool_scratch(plan, 2)
     assert (args[6] is None) == (scratch is None) == (plan.partials == 1)
@@ -257,6 +257,97 @@ def test_kernel10_matches_pallas(shape, k, with_pool, dtype):
         _close(pool, want_pool, 2e-4, 2e-3)
     else:
         assert pool is None and want_pool is None
+
+
+DW_PLAN_SHAPES = ([(8, h, w, c, k) for h, w, k, c, _ in DW_CASES]
+                  + [(1, 3, 2, 56, 3), (2, 15, 20, 160, 5), (2, 2, 30, 64, 5), (1, 1, 37, 64, 5)])
+
+
+@pytest.mark.parametrize("with_pool", [True, False], ids=["pool", "no-pool"])
+@pytest.mark.parametrize("shape", DW_PLAN_SHAPES, ids=[str(s) for s in DW_PLAN_SHAPES])
+def test_dw_plan(shape, with_pool, monkeypatch):
+    """Kernel 10's plan covers every (image, pixel, channel) once, by the C
+    entry's order of the items (the part innermost, then the slab, then the
+    image); its warps take the strip, its ring fits shared memory, its grid
+    is at most the items; the wrapper passes it to the C entry, with pool
+    scratch where the items do not each cover an image's slab."""
+    b, h, w, c, k = shape
+    plan = kmb.dw_plan(b, h, w, c, k, kmb.PLAN_SMS)
+    cover = np.zeros((b, h, w, plan.slabs * kmb.SLAB), np.int64)
+    for i in range(plan.items):
+        part, rest = i % plan.parts, i // plan.parts
+        img, slab = divmod(rest, plan.slabs)
+        strip, seg = divmod(part, plan.segments)
+        cover[img, seg * plan.seg_rows:(seg + 1) * plan.seg_rows,
+              strip * plan.strip_w:(strip + 1) * plan.strip_w,
+              slab * kmb.SLAB:(slab + 1) * kmb.SLAB] += 1
+    assert (cover == 1).all()
+    cols = kmb.DW_COLS[k]
+    assert plan.strip_w == plan.warps * cols and 1 <= plan.warps <= kmb.DW_MAX_WARPS
+    assert plan.strip_w - cols < w and 1 <= plan.seg_rows <= h
+    assert 2 <= plan.stages <= kmb.DW_MAX_STAGES and plan.smem <= kmb.SMEM_LIMIT
+    assert 1 <= plan.grid <= min(plan.items, kmb.DW_SM_WARPS * kmb.PLAN_SMS)
+
+    calls = []
+
+    class FakeLibrary:
+        def objcavit_dw_silu_pool(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(kmb, "load_library", lambda: FakeLibrary())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(
+        cuda_stream=0))
+    allocated = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: allocated.append(
+        tuple(a[0] if len(a) == 1 else a)) or empty(*a, **kw))
+    x = torch.zeros((b, h, w, c), dtype=torch.bfloat16)
+    y, pool = kmb._launch_dw(x, torch.zeros((k * k, c), dtype=torch.bfloat16), torch.zeros(c), k,
+                             with_pool)
+    (args,) = calls
+    assert args[6:17] == (b, h, w, c, k, int(with_pool), plan.strip_w, plan.seg_rows, plan.warps,
+                          plan.stages, plan.grid)
+    scratch = kmb.dw_pool_scratch(plan)
+    assert (scratch is None) == (plan.parts == 1)
+    assert (args[4] is None) == (not with_pool or scratch is None)
+    assert (pool is None) == (args[5] is None) == (not with_pool)
+    want = [scratch] if with_pool and scratch else []
+    assert allocated == want + ([(b, c)] if with_pool else [])
+    assert y.shape == x.shape
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 10, 64, 7), (0, 8, 10, 64, 3), (1, 4, 4, 64, 3, 0)],
+                         ids=["k7", "no-images", "no-SMs"])
+def test_dw_plan_raises_on_what_it_cannot_plan(shape):
+    with pytest.raises(ValueError, match="dw_plan"):
+        kmb.dw_plan(*shape[:5], *(shape[5:] or (kmb.PLAN_SMS,)))
+
+
+@pytest.mark.parametrize("shape,with_pool", [((0, 4, 4, 64), True), ((2, 0, 5, 64), True),
+                                             ((2, 3, 0, 64), False)],
+                         ids=["no-images", "no-rows", "no-columns-no-pool"])
+def test_kernel10_launch_on_an_empty_x_calls_no_entry(shape, with_pool, monkeypatch):
+    """An empty x has no work items (``dw_plan`` refuses it): the launch
+    calls no C entry and returns an empty y and a zero pool, as the plain
+    version does on an empty batch."""
+    def no_library():
+        raise AssertionError("an empty x reached the C entry")
+
+    monkeypatch.setattr(kmb, "load_library", no_library)
+    b, c = shape[0], shape[3]
+    x = torch.zeros(shape, dtype=torch.bfloat16)
+    y, pool = kmb._launch_dw(x, torch.zeros((9, c), dtype=torch.bfloat16), torch.zeros(c), 3,
+                             with_pool)
+    assert y.shape == x.shape and y.dtype == x.dtype
+    if with_pool:
+        assert pool.dtype == torch.float32 and torch.equal(pool, torch.zeros((b, c)))
+    else:
+        assert pool is None
+    if b == 0:
+        want_y, want_pool = kmb.dw_conv_silu_pool_plain(
+            x, torch.zeros((3, 3, 1, c), dtype=torch.bfloat16), torch.zeros(c), 3, with_pool)
+        assert want_y.shape == y.shape and torch.equal(want_pool, pool)
 
 
 # ----------------------------------------------------------------- kernel 7

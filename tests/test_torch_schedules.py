@@ -1,4 +1,4 @@
-"""The schedules and launch rules of the Hopper kernels 2, 3 and 5, on the CPU.
+"""The schedules and launch rules of the Hopper kernels 2, 3, 5 and 6, on the CPU.
 
 Kernel 2 (``csrc/bins_depth.cu``) is a persistent grid: units of (image,
 64-pixel tile), image-major, a contiguous share of them a block, and a
@@ -14,8 +14,16 @@ outside the fast fold's range) is held against the JAX package's Pallas
 kernel in interpret mode. Kernel 5's forward writes its residual only
 where a backward may read it (``kernels/attention.py::residual_needed``),
 and ``fwd_plan`` picks its launch plan, which the wrapper passes in.
+Kernel 6 (``csrc/detect_head.cu``) hands its feature tile between a
+producer and two consumer warpgroups on mbarriers; ``_simulate_detect`` is
+a twin of that protocol (asynchronous products, waits by parity), which
+finds the race of the hand-back before its repair and none after; the
+card test's share-edge grids are checked here, on a copy of the kernel's
+unit split (``utils/kernel_io.py``) that a test holds to the source's text.
 """
 
+import collections
+import random
 import types
 
 import numpy as np
@@ -28,7 +36,14 @@ from objcavit_tpu.ops.pallas_bins import fused_conv_bins_depth_batched
 
 from objcavit_torch.kernels import attention as kattn
 from objcavit_torch.kernels import bins as kbins
-from objcavit_torch.utils.kernel_io import exact_fold_units
+from objcavit_torch.kernels import detect_head as kdetect
+from objcavit_torch.kernels.build import CSRC_DIR
+from objcavit_torch.utils.kernel_io import (
+    detect_unit_count,
+    detect_unit_shares,
+    exact_fold_units,
+    share_edge_grids,
+)
 
 H100_SMS = 132
 # the fast fold's range of a row's sum of e (csrc/bins_depth.cu kSumLo, kSumHi)
@@ -146,8 +161,8 @@ class _Bar:
     def __init__(self, count=1):
         self.n, self.arrivals, self.count = 0, 0, count
 
-    def arrive(self):
-        self.arrivals += 1
+    def arrive(self, n=1):
+        self.arrivals += n
         while self.arrivals >= (self.n + 1) * self.count:
             self.n += 1
 
@@ -339,6 +354,262 @@ def test_kernel2_contract_rejects_misaligned_centers_and_other_w_strides():
     padded = torch.zeros(3, 16, 256, dtype=torch.bfloat16)[::2]  # batch stride 2 C K
     with pytest.raises(ValueError, match="batch stride"):
         kbins.check_bins_inputs(x, padded, torch.zeros(256), torch.zeros(2, 256))
+
+
+# ------------------------------------------------------------- kernel 6
+
+
+def _simulate_detect(per_row, u0, u1, kc, stages, seed, protocol="repaired"):
+    """Kernel 6's block protocol on units [u0, u1) (``per_row`` units a row
+    tile, ``kc`` weight chunks a unit), each actor a generator stepped in a
+    random order, every wait by parity alone (``_Bar``):
+
+    * the producer: a row tile's features into the single A buffer when the
+      tile changes (after waiting ``a_empty`` for the tile before), then the
+      unit's weight chunks into the ring of ``stages`` (``full``/``empty``);
+    * two consumer warpgroups on alternate units, ordered by the ``turn``
+      barriers: each issues a unit's products chunk by chunk, hands the
+      turn over, waits for its own products (``wgmma_wait<0>``) and hands
+      back its stage and the feature tiles it is done with;
+    * TMA landings, in any order, and the products' completions, each a
+      separate event some random steps after its issue: an issued product
+      reads A and its stage until it completes.
+
+    ``protocol``: "repaired" (a warpgroup waits for a tile's load before
+    handing the tile back), "parent" (tiles handed back unread), "no-turn"
+    (the parent's, without the turn barriers). -> the faults seen: a wait
+    that passed before its phase completed, a product that read another
+    tile or chunk, a TMA issued onto a buffer that a product in flight still
+    reads, or a hang."""
+    rnd = random.Random(seed)
+    p_done = rnd.choice([0.03, 0.1, 0.3])  # how slowly products complete
+    full = [_Bar() for _ in range(stages)]
+    empty = [_Bar(4) for _ in range(stages)]  # one warpgroup's four warps
+    a_full, a_empty = _Bar(), _Bar(8)  # the eight consumer warps
+    turn = [_Bar(4), _Bar(4)]
+    r_first = u0 // per_row
+    n_rows = (u1 - 1) // per_row - r_first + 1
+    smem = {"a": None, "w": [None] * stages}
+    writing = collections.Counter()  # buffers a TMA copy is writing: "a" or a stage
+    reading = [[], []]  # each warpgroup's products in flight: the stage each reads
+    landing, bad = [], []
+
+    def wait(bar, phase, who):
+        while not bar.parity_passes(phase & 1):
+            yield
+        if bar.n <= phase:
+            bad.append(("early wait", who, phase))
+
+    def tma(buf, what, bar):
+        if any(buf == "a" or buf == s for group in reading for s in group):
+            bad.append(("overwrite in flight", buf, what))
+        writing[buf] += 1
+        landing.append((buf, what, bar))
+
+    def producer():
+        cur = -1
+        for u in range(u0, u1):
+            t = u // per_row - r_first
+            if t != cur:
+                if cur >= 0:
+                    yield from wait(a_empty, t - 1, "producer a_empty")
+                tma("a", t, a_full)
+                cur = t
+            for k in range(kc):
+                g = (u - u0) * kc + k
+                yield from wait(empty[g % stages], g // stages - 1, "producer empty")
+                tma(g % stages, g, full[g % stages])
+                yield
+
+    def consumer(wg):
+        released, have, turns = 0, -1, 0
+
+        def hand_back(upto):  # feature tiles before ``upto``
+            nonlocal released, have
+            while released < upto:
+                if protocol == "repaired" and released > have:
+                    yield from wait(a_full, released, f"wg{wg} a_full before hand-back")
+                    have = released
+                a_empty.arrive(4)
+                released += 1
+                yield
+
+        for u in range(u0 + wg, u1, 2):
+            t = u // per_row - r_first
+            yield from hand_back(t)
+            if u != u0 and protocol != "no-turn":
+                yield from wait(turn[wg], turns, f"wg{wg} turn")
+                turns += 1
+            if t != have:
+                yield from wait(a_full, t, f"wg{wg} a_full")
+                have = t
+            prev = None
+            for k in range(kc):
+                g = (u - u0) * kc + k
+                s = g % stages
+                yield from wait(full[s], g // stages, f"wg{wg} full")
+                if smem["a"] != t or writing["a"] or smem["w"][s] != g or writing[s]:
+                    bad.append(("read", wg, u, k))
+                reading[wg].append(s)
+                yield
+                if k > 0:
+                    while len(reading[wg]) > 1:  # wgmma_wait<1>
+                        yield
+                    empty[prev].arrive(4)
+                prev = s
+            if protocol != "no-turn":
+                turn[1 - wg].arrive(4)
+            while reading[wg]:  # wgmma_wait<0>
+                yield
+            empty[prev].arrive(4)
+            yield from hand_back((u + 2) // per_row - r_first if u + 2 < u1 else n_rows)
+
+    actors = [producer(), consumer(0), consumer(1)]
+    for _ in range(4000 + 400 * (u1 - u0) * kc):  # a wait on the wrong phase can hang it
+        if not (actors or landing):
+            return bad
+        x = rnd.random()
+        if landing and (not actors or x < 0.25):
+            buf, what, bar = landing.pop(rnd.randrange(len(landing)))
+            if buf == "a":
+                smem["a"] = what
+            else:
+                smem["w"][buf] = what
+            writing[buf] -= 1
+            bar.arrive()
+            continue
+        busy = [group for group in reading if group]
+        if busy and rnd.random() < p_done:
+            rnd.choice(busy).pop(0)  # a warpgroup's products complete in order
+            continue
+        actor = actors[rnd.randrange(len(actors))]
+        try:
+            next(actor)
+        except StopIteration:
+            actors.remove(actor)
+    return bad + [("hang",)]
+
+
+def _share_kinds(per_row: int, units: int, grid: int) -> set[tuple[int, int]]:
+    """The block shares of a grid as (first unit's place in its row tile,
+    units): the protocol depends on nothing else."""
+    return {(u0 % per_row, u1 - u0) for u0, u1 in detect_unit_shares(units, grid)}
+
+
+def test_kernel6_split_copy_follows_the_source():
+    """``kernel_io.detect_unit_count`` and ``detect_unit_shares`` copy
+    csrc/detect_head.cu's split; the source's lines for it are still the
+    ones copied, so a change there fails here until the copy follows."""
+    text = (CSRC_DIR / "detect_head.cu").read_text()
+    for line in ("job.per_row = kNa * job.ntile + 1;",
+                 "job.units = (m + block_rows - 1) / block_rows * job.per_row;",
+                 "const int blocks = job.units < grid ? job.units : grid;",
+                 "const int u0 = (int)((long long)job.units * blockIdx.x / gridDim.x);",
+                 "const int u1 = (int)((long long)job.units * (blockIdx.x + 1) / gridDim.x);",
+                 "job.ntile = ncp / kBN;"):
+        assert line in text, line
+    assert "constexpr int kNa = 3;" in text and "constexpr int kBN = 128;" in text
+    assert (kdetect.N_ANCHORS, kdetect.COL_TILE) == (3, 128)
+    assert detect_unit_count(8 * 4800, 256, 1280) == (300 * 31, 31)
+    assert detect_unit_shares(10, 4) == [(0, 2), (2, 5), (5, 7), (7, 10)]
+
+
+def test_kernel6_parent_protocol_races_at_a_share_ending_on_a_row_tile_first_unit():
+    """The hand-back before the repair: a share whose last unit is the first
+    of row tile T + 1. The warpgroup that ran the unit before it hands back
+    T and T + 1 at once, 8 arrivals that complete a_empty's phase T alone,
+    while the other warpgroup's products on tile T may still be in flight;
+    the producer then loads T + 1 over them."""
+    per_row, kc, stages = 31, 2, 4
+    # each share's last unit opens a row tile: tile 1 or 2 of the block
+    shares = [(0, per_row + 1), (per_row - 3, per_row + 1), (2 * per_row - 5, 3 * per_row + 1)]
+    for u0, u1 in shares:
+        found = [_simulate_detect(per_row, u0, u1, kc, stages, seed, "parent")
+                 for seed in range(50)]
+        kinds = {fault[0] for faults in found for fault in faults}
+        assert kinds == {"overwrite in flight"}, (u0, u1, kinds)
+        assert not any(_simulate_detect(per_row, u0, u1, kc, stages, seed) for seed in range(50))
+
+
+def test_kernel6_twin_without_turns_sees_the_start_race():
+    """Without the turn barriers, a share that starts at a row tile's last
+    unit lets the second warpgroup hand tile 0 back unread and wait for
+    tile 1 by parity while phase 0 is pending: the wait passes at once."""
+    per_row, kc, stages = 4, 2, 4
+    found = [_simulate_detect(per_row, per_row - 1, 3 * per_row, kc, stages, seed, "no-turn")
+             for seed in range(20)]
+    kinds = {fault[0] for faults in found for fault in faults}
+    assert "early wait" in kinds and "read" in kinds
+
+
+@pytest.mark.parametrize("per_row,rows", [(4, 75), (31, 12)], ids=["nc128", "nc1203"])
+def test_kernel6_repaired_protocol_is_clean_on_every_grid(per_row, rows):
+    """Every grid of 1-264 blocks, 20 seeds each: no early wait, no wrong
+    read, no overwrite, no hang. Shares that start or end at any place in a
+    row tile occur across the grids (one of each kind is simulated once)."""
+    units = rows * per_row
+    kinds = set().union(*(_share_kinds(per_row, units, grid) for grid in range(1, 265)))
+    ends_on_first = [(s, n) for s, n in kinds if (s + n - 1) % per_row == 0 and n >= 3]
+    starts_on_last = [(s, n) for s, n in kinds if s == per_row - 1 and n >= 2]
+    assert ends_on_first and starts_on_last
+    for start, n in sorted(kinds):
+        for seed in range(20):
+            assert _simulate_detect(per_row, start, start + n, 2, 4, seed) == [], (start, n, seed)
+
+
+@pytest.mark.parametrize("kc,stages", [(4, 8), (8, 5), (16, 5)],
+                         ids=["level0-cin256", "level1-cin512", "level2-cin1024"])
+def test_kernel6_repaired_protocol_is_clean_on_the_levels_rings(kc, stages):
+    """The weight ring as the levels at 1203 classes size it (Cin / 64
+    chunks a unit, as many 16 KB stages as fit beside the feature tile), on
+    shares that start at a row tile's last unit, end at its first, or both."""
+    per_row = 31
+    for u0, u1 in [(per_row - 1, 2 * per_row + 1), (per_row - 1, 3 * per_row),
+                   (2, per_row + 1), (per_row - 1, per_row + 1)]:
+        for seed in range(20):
+            assert _simulate_detect(per_row, u0, u1, kc, stages, seed) == [], (u0, u1, seed)
+
+
+@pytest.mark.parametrize("m,cin,ncp", [(8 * 4800, 256, 1280), (3 * 111, 256, 256),
+                                       (5 * 77, 512, 1280), (8 * 300, 1024, 1280)],
+                         ids=["nyu-level0", "small-nc130", "small-cin512", "nyu-level2"])
+def test_kernel6_share_edge_grids_hold_both_edges(m, cin, ncp):
+    """The card test's grids (``kernel_io.share_edge_grids``): in each, one
+    share starts at a row tile's last unit and one ends at a row tile's
+    first unit."""
+    units, per_row = detect_unit_count(m, cin, ncp)
+    assert per_row == 3 * ncp // 128 + 1
+    grids = share_edge_grids(m, cin, ncp)
+    assert grids and all(2 <= grid <= 264 for grid in grids)
+    for grid in grids:
+        shares = detect_unit_shares(units, grid)
+        assert any(u0 % per_row == per_row - 1 and u1 - u0 >= 2 for u0, u1 in shares)
+        assert any((u1 - 1) % per_row == 0 and u1 - u0 >= 3 for u0, u1 in shares)
+
+
+def test_kernel6_wrapper_passes_the_grid(monkeypatch):
+    """``fused_detect_head`` launches on the SM count, the test seam on the
+    grid it is given; each counts its launch."""
+    calls = []
+
+    class FakeLibrary:
+        def objcavit_detect_head(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(kdetect, "load_library", lambda: FakeLibrary())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(
+        cuda_stream=0))
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn((3 * (5 + 130 + 32), 256), generator=gen)
+    packed = kdetect.pack_detect_head(w, torch.zeros(w.shape[0]), 130, 32, torch.bfloat16)
+    flat = torch.zeros((3, 111, 256), dtype=torch.bfloat16)
+    before = kdetect.fused_detect_head.launches
+    kdetect._launch(flat, packed, 7)
+    assert calls[0][10:17] == (333, 256, 130, 256, 32, 128, 7)
+    assert kdetect.fused_detect_head.launches == before + 1
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kdetect._fused_detect_head_on_grid(flat, packed, 7)
 
 
 # ------------------------------------------------------------- kernel 5
