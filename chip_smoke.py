@@ -123,6 +123,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    range; then one train step at bs 8, 416x544 with 4 + 4 kernel-5
    launches and one kernel-4 forward and backward, each kernel-5 output
    matching its plain version.
+9. validate and predict: the -v/-i entry points through
+   ``objcavit_torch.cli.main`` on a reference-layout ``.ckpt`` of a seeded
+   random GraphBins-B5 and copies of the flagship's params file (the data
+   root points at nothing: the 16 synthetic 480x640 NYU images, with
+   basicParams.yaml's Eigen crop). (a) ``-v --bf16`` with the zeros
+   provider (300 slots): 16 x 4 kernel-1 concat launches and 16 kernel-2
+   launches, the first flip-TTA forward's kernel outputs against their
+   plain versions on its own tensors, validation_output.txt read back, the
+   per-image latency (wall and CUDA events after a warm-up, and the device's
+   busy time from a trace); (a') ``-v`` in fp32 with TF32 off: no launch,
+   the 16 metrics within a stated bound of (a)'s; (b) ``-v --debug --bf16``
+   on the 'clip' config with random YOLOv7-seg and CLIP towers: the
+   provider runs on the image and re-detects its mirror; (c) ``-i --debug
+   --bf16`` on it: prediction_metrics.csv's pinned header and every
+   per-image file.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -131,18 +146,25 @@ The last two lines are a JSON summary of the kernels and
 from __future__ import annotations
 
 import collections
+import contextlib
+import csv
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import torch.nn.functional as F
+import yaml
 
+import objcavit_torch.training.loop as eval_loop
+from objcavit_torch import cli
 from objcavit_torch.kernels import attention as kattn
 from objcavit_torch.kernels import bins as kbins
 from objcavit_torch.kernels import bins_expectation as kexp
@@ -164,7 +186,10 @@ from objcavit_torch.serving import (
     build_fused_flagship,
     image_seq_len,
 )
-from objcavit_torch.training.steps import make_train_loss_fn
+from objcavit_torch.language.provider import YoloClipObjectProvider
+from objcavit_torch.metrics import METRIC_NAMES
+from objcavit_torch.training.checkpoint import checkpoint_dict
+from objcavit_torch.training.steps import build_model, make_train_loss_fn
 from objcavit_torch.utils.attention_ab import SERVED_VALID, attention_inputs, bwd_cost
 from objcavit_torch.utils.attention_ab import fwd_bound as attn_fwd_bound
 from objcavit_torch.utils.bins_ab import bins_cost, max_sm_mhz, sfu_ms
@@ -173,6 +198,7 @@ from objcavit_torch.utils.benchkit import (
     build_adabins_train,
     build_detector,
     build_flagship_train,
+    init_weights_,
 )
 from objcavit_torch.utils.kernel_io import (
     attention_plain_outputs,
@@ -195,6 +221,7 @@ from objcavit_torch.utils.profile_stages import (
     fused_stage_split,
     route_split,
     served_rate,
+    trace,
     train_stage_split,
 )
 
@@ -341,6 +368,29 @@ COUNTERS = {
     "mbconv_bs": kmb.mbconv_bs_expand_dw_pool,
     "dw_conv": kmb.dw_conv_silu_pool,
 }
+# phase 9: the -v/-i entry points on the flagship's params file, with
+# params/basicParams.yaml's dataset sections (NYU: Eigen crop, 480x640);
+# the data root points at nothing, so the 16 synthetic NYU images are used
+REPO = os.path.dirname(os.path.abspath(__file__))
+FLAGSHIP_PARAMS = os.path.join(
+    REPO, "params", "nyu_graphbins_enet-b5_ocv_pos_learned_bbox_wh_emb_128_lang_name_synset_def_"
+    "wn_rel_sz_clip_1.yaml")
+BASIC_PARAMS = os.path.join(REPO, "params", "basicParams.yaml")
+VALIDATE_IMAGES = 16
+# conv_out's random weights times this: with PyTorch's default init the
+# depth of a random model spreads over ~1 mm; the CPU tests scale by 10 too
+EVAL_LOGIT_SCALE = 10.0
+# kernel launches of one eval forward: kernel 1's concat form at the four
+# up-stages, kernel 2 once
+EVAL_RESIZE, EVAL_BINS = 4, 1
+# the 16 metrics of the bf16 validate (kernels) vs the fp32 one (plain
+# versions, TF32 off) on the same checkpoint and images: bf16 keeps 8 bits
+# and ObjCAViT's outputs stay within 0.02 rel L2 of fp32 (FEATURE_REL_BOUND),
+# so each metric, a mean over ~1.7M pixels of a smooth function of the
+# depth (or a fraction of pixels under a threshold), moves by at most 2% of
+# its value, plus 1e-3 for the threshold fractions near 0
+EVAL_METRIC_RTOL, EVAL_METRIC_ATOL = 0.02, 1e-3
+NUMBER = re.compile(r"-?\d+\.\d+(?:e-?\d+)?")
 
 
 def log(msg: str) -> None:
@@ -1634,6 +1684,199 @@ def phase_fused() -> int:
     return launches
 
 
+@contextlib.contextmanager
+def instrumented_eval_steps():
+    """While open, each eval step the trainer makes is timed (synchronised
+    before and after: wall ms and the CUDA events' span) and its first call
+    records what kernels 1 and 2 got (``record_kernel_io``). Yields a dict:
+    'times' [(wall_ms, event_ms)], 'records', 'step' and 'args' (the last
+    step and its arguments, to trace it again)."""
+    real = eval_loop.make_eval_step
+    seen: dict = {"times": [], "records": []}
+
+    def make(model, *args, **kwargs):
+        step = real(model, *args, **kwargs)
+
+        def timed(*step_args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            if seen["records"]:
+                out = step(*step_args)
+            else:
+                with record_kernel_io(model) as records:
+                    out = step(*step_args)
+                seen["records"] = records
+            end.record()
+            torch.cuda.synchronize()
+            seen["times"].append((1000 * (time.perf_counter() - t0), start.elapsed_time(end)))
+            seen.update(step=step, args=step_args, model=model)
+            return out
+
+        return timed
+
+    eval_loop.make_eval_step = make
+    try:
+        yield seen
+    finally:
+        eval_loop.make_eval_step = real
+
+
+def write_eval_files(tmp: str) -> dict[str, str]:
+    """A reference-layout .ckpt of a seeded random GraphBins-B5
+    (learned_bbox_wh, 256 bins) and two copies of the flagship's params file
+    that validate it on synthetic data: 'zeros' sets the zeros provider
+    (deterministic slots, 300 at 480x640), 'clip' keeps YOLOv7-seg + CLIP
+    with random towers (allow_random_detector)."""
+    with open(FLAGSHIP_PARAMS) as f:
+        cfg = yaml.safe_load(f)
+    args = cli.load_args(FLAGSHIP_PARAMS)
+    args.nyu = cli.load_args(BASIC_PARAMS).nyu
+    model = init_weights_(build_model(args), torch.Generator().manual_seed(0))
+    with torch.no_grad():  # spread the bin logits, so depth varies over the image
+        model.conv_out[0].weight.mul_(EVAL_LOGIT_SCALE)
+    ckpt = os.path.join(tmp, "run", "checkpoints", "last.ckpt")
+    os.makedirs(os.path.dirname(ckpt))
+    torch.save(checkpoint_dict(model), ckpt)
+    cfg["basic"]["val_checkpoint"] = ckpt
+    cfg["paths"] = {"run_dir": os.path.join(tmp, "runs"), "data_dir": os.path.join(tmp, "no_data")}
+    paths = {}
+    for name, strategy in (("zeros", "control_obj_zeros_512"), ("clip", "clip")):
+        cfg["graphbins"]["objcavit"]["language_embedding_strategy"] = strategy
+        cfg["allow_random_detector"] = name == "clip"
+        paths[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+    log(f"validate: GraphBins-B5 checkpoint {os.path.getsize(ckpt) / 2**20:.1f} MiB, configs "
+        f"from {os.path.basename(FLAGSHIP_PARAMS)}")
+    return paths
+
+
+def read_validation_output(path: str) -> dict[str, float]:
+    """The 16 metrics of validation_output.txt's log block (each also in
+    the dict before it: 32 numbers, all finite)."""
+    with open(path) as f:
+        numbers = [float(x) for x in NUMBER.findall(f.read())]
+    names = list(METRIC_NAMES) + [f"{k}_ra" for k in METRIC_NAMES]
+    if len(numbers) != 2 * len(names) or not all(np.isfinite(numbers)):
+        raise AssertionError(f"{path}: want 32 finite numbers, read {numbers}")
+    return dict(zip(names, numbers[len(names):]))
+
+
+def run_cli(what: str, argv: list[str], **launches) -> tuple[object, dict]:
+    """One cli.main run on the card with the counters zeroed just before;
+    its launches must be ``launches``."""
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    with instrumented_eval_steps() as seen:
+        out = cli.main(argv, basic_params_path=BASIC_PARAMS)
+    torch.cuda.synchronize()
+    seen["seconds"] = time.perf_counter() - t0
+    seen["launches"] = expect_launches(what, **launches)
+    return out, seen
+
+
+def log_latency(what: str, seen: dict) -> dict:
+    """Per-image latency after the first (warm-up) image: median and spread
+    of wall and CUDA-event ms, and the device's busy ms per image from one
+    trace of 5 more steps on the last image."""
+    wall = [t[0] for t in seen["times"][1:]]
+    span = [t[1] for t in seen["times"][1:]]
+    traced = trace(lambda: seen["step"](*seen["args"]), n_req=5)
+    stats = {"wall_p50": statistics.median(wall), "wall_min": min(wall), "wall_max": max(wall),
+             "event_p50": statistics.median(span), "busy": traced["device_busy_ms_per_request"],
+             "idle": traced["idle_share"], "kernels": traced["device_kernels_per_request"]}
+    log(f"  {what}: per image over {len(wall)} images after a warm-up (bs 1, flip-TTA, "
+        f"synchronised): wall p50 {stats['wall_p50']:.3f} ms (min {stats['wall_min']:.3f}, max "
+        f"{stats['wall_max']:.3f}), CUDA-event span p50 {stats['event_p50']:.3f} ms; traced: device "
+        f"busy {stats['busy']:.3f} ms, {stats['kernels']:.0f} kernels, idle share "
+        f"{stats['idle']:.3f}; whole run {seen['seconds']:.2f} s "
+        f"({1000 * seen['seconds'] / len(seen['times']):.1f} ms an image with data, objects, "
+        f"build and restore)")
+    log("  top device ops of a traced eval step:\n" + traced["top"])
+    return stats
+
+
+def phase_validate() -> dict:
+    """The -v/-i entry points through ``cli.main``: (a) -v --bf16 on the
+    zeros config, 16 images, each forward 4 + 1 kernel launches, the first
+    one's kernel outputs against their plain versions; (a') -v in fp32,
+    TF32 off, no launch, metrics within the bound of (a)'s; (b) -v --debug
+    --bf16 on the clip config (random YOLOv7-seg, NMS, phrases, CLIP, a
+    re-detect for the mirror); (c) -i --debug --bf16 on the clip config."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfgs = write_eval_files(tmp)
+        out_dir = os.path.join(tmp, "run")
+
+        bf16, seen = run_cli(f"(a) -v --bf16, {VALIDATE_IMAGES} images", [
+            "-c", cfgs["zeros"], "-v", "--bf16"], resize=VALIDATE_IMAGES * EVAL_RESIZE,
+            bins=VALIDATE_IMAGES * EVAL_BINS)
+        launches = seen["launches"]
+        if len(seen["times"]) != VALIDATE_IMAGES:
+            raise AssertionError(f"(a): {len(seen['times'])} eval steps, want {VALIDATE_IMAGES}")
+        check_depth("(a) first flip-TTA forward", seen["records"][0]["depth"], 0.001, 10.0,
+                    batch=2)
+        check_served_kernels(seen["model"], seen["records"])
+        written = read_validation_output(os.path.join(out_dir, "validation_output.txt"))
+        if any(abs(written[k] - bf16[k]) > 1e-6 * abs(bf16[k]) for k in bf16):
+            raise AssertionError("(a): validation_output.txt disagrees with the returned metrics")
+        latency = log_latency("(a) bf16", seen)
+        del seen
+
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        fp32, seen = run_cli(f"(a') -v fp32, TF32 off, {VALIDATE_IMAGES} images",
+                             ["-c", cfgs["zeros"], "-v"])
+        latency["fp32_wall_p50"] = statistics.median(t[0] for t in seen["times"][1:])
+        del seen
+        gaps = {k: abs(bf16[k] - fp32[k]) for k in fp32}
+        log("  (a) bf16 vs (a') fp32 metrics: " + ", ".join(
+            f"{k} {bf16[k]:.5f}/{fp32[k]:.5f}" for k in fp32))
+        bad = [k for k, g in gaps.items() if g > EVAL_METRIC_ATOL + EVAL_METRIC_RTOL * abs(fp32[k])]
+        worst = max(gaps, key=lambda k: gaps[k] / (EVAL_METRIC_ATOL + EVAL_METRIC_RTOL * abs(fp32[k])))
+        log(f"  largest gap relative to its bound ({EVAL_METRIC_RTOL} rel + {EVAL_METRIC_ATOL}): "
+            f"{worst} {gaps[worst]:.6f}; fp32 wall p50 {latency['fp32_wall_p50']:.3f} ms an image")
+        if bad:
+            raise AssertionError(f"bf16 metrics stray from fp32's: {bad}")
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+        calls = collections.Counter()
+        real_call = YoloClipObjectProvider.__call__
+
+        def counted(self, images):
+            calls["provider"] += 1
+            return real_call(self, images)
+
+        YoloClipObjectProvider.__call__ = counted
+        try:
+            clip_metrics, _ = run_cli("(b) -v --debug --bf16, clip config, 1 image", [
+                "-c", cfgs["clip"], "-v", "--debug", "--bf16"], resize=EVAL_RESIZE, bins=EVAL_BINS)
+            if calls["provider"] != 2 or not all(np.isfinite(v) for v in clip_metrics.values()):
+                raise AssertionError(f"(b): provider calls {calls['provider']} (want 2: the image "
+                                     f"and its mirror), metrics {clip_metrics}")
+            log(f"  (b) the YOLOv7-seg + CLIP provider ran on the image and re-detected its "
+                f"mirror; abs_rel {clip_metrics['abs_rel']:.5f}")
+            rows, _ = run_cli("(c) -i --debug --bf16, clip config, 1 image", [
+                "-c", cfgs["clip"], "-i", "--debug", "--bf16"], resize=EVAL_RESIZE, bins=EVAL_BINS)
+        finally:
+            YoloClipObjectProvider.__call__ = real_call
+        pred_dir = os.path.join(out_dir, "predict_output")
+        with open(os.path.join(pred_dir, "prediction_metrics.csv"), newline="") as f:
+            table = list(csv.reader(f))
+        header = (["", "batch_idx", "image_filename", "depth_gt_filename"] + list(METRIC_NAMES)
+                  + [f"{k}_ra" for k in METRIC_NAMES] + ["loss"])
+        files = sorted(os.listdir(pred_dir))
+        want_files = sorted(["prediction_metrics.csv"] + [
+            f"0_{k}" for k in ("im.png", "dets.png", "depth_gt.png", "depth_pred.png",
+                               "depth_gt_raw.npy", "depth_pred_raw.npy")])
+        if table[0] != header or len(table) != 2 or files != want_files:
+            raise AssertionError(f"(c): header {table[0]}, {len(table) - 1} rows, files {files}")
+        log(f"  (c) prediction_metrics.csv: pinned header, 1 row; files {files}")
+    return {"launches": launches, "latency": latency}
+
+
 # the regressor's gradient rel L2 on the seed's weights, kernel 5's route
 # against the plain route, as an H100 read them with the forward's planned
 # key groups and the cluster backward: a gap to watch, not a bound (the
@@ -1674,6 +1917,9 @@ def main() -> None:
     adabins = phase_adabins()
     log(f"  kernel-5 launches: flagship server {attn_serving['attention_fwd']}, flagship train "
         f"{attn_train['attention_fwd']} + {attn_train['attention_bwd']}, adabins server {adabins}")
+    validate = phase_validate()
+    log(f"  validate path (-v --bf16, {VALIDATE_IMAGES} images): kernel-1 concat launches "
+        f"{validate['launches'][CONCAT_COUNTER]}, kernel-2 launches {validate['launches']['bins']}")
 
     def entry(name, source, replaces, launches, key):
         return {"name": name, "route": "cuda", "source": f"objcavit_torch/csrc/{source}",

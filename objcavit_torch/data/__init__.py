@@ -1,1 +1,2 @@
-"""Device-side data transforms of the port (objcavit_tpu.data)."""
+"""The port's data layer (objcavit_tpu.data): device-side augmentation, the
+eval datasets and the loader."""

@@ -23,11 +23,9 @@ import os
 import re
 from functools import lru_cache
 
+from objcavit_torch.errors import MissingAssetError  # importable from here too
+
 CONTEXT_LENGTH = 77
-
-
-class MissingAssetError(FileNotFoundError):
-    """A required external asset (here the BPE merges file) is absent."""
 
 
 @lru_cache()

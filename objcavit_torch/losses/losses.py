@@ -70,6 +70,11 @@ class LossWrapper:
         self.names = tuple(names)
         self.coeffs = tuple(float(c) for c in coeffs)
 
+    @classmethod
+    def from_args(cls, args) -> "LossWrapper":
+        """From a config tree's ``loss.names`` and ``loss.coeffs``."""
+        return cls(list(args.loss.names), list(args.loss.coeffs))
+
     def __call__(self, depth_pred: torch.Tensor, depth_gt: torch.Tensor,
                  depth_mask: torch.Tensor, bin_edges: torch.Tensor | None = None) -> torch.Tensor:
         total = torch.zeros((), dtype=torch.float32, device=depth_gt.device)

@@ -9,7 +9,9 @@ maps a batch of normalised images (numpy NHWC) to padded slots
   detector: the no-detection sentinel (slot 0 valid, xywh = -1, zero
   features) for every image;
 * ``StubObjectProvider``: deterministic pseudo-detections, for tests and
-  runs without detector weights; the same draws as the JAX package's.
+  runs without detector weights; the same draws as the JAX package's;
+* ``mirror_objects``: the slots of the horizontally flipped image, for the
+  eval's flip-TTA.
 
 The slot count is ``n_max`` or, when None, min(max_det, the image sequence
 length of the batch's own size). A detector behind the zeros provider and
@@ -88,3 +90,13 @@ class StubObjectProvider(_SlotSizing):
             valid[i, :n] = True
             feats[i, :n] = rng.standard_normal((n, self.obj_dim)) * 0.02
         return {"features": feats, "xywh": xywh, "valid": valid}
+
+
+def mirror_objects(objects: dict, image_width: int) -> dict:
+    """The slots of the horizontally flipped image: a valid slot's centre x
+    becomes W - x (as the JAX package mirrors it, not W - 1 - x); padded
+    slots (x = -1) stay as they are."""
+    xywh = objects["xywh"].copy()
+    real = objects["valid"] & (xywh[..., 0] >= 0)
+    xywh[..., 0] = np.where(real, image_width - xywh[..., 0], xywh[..., 0])
+    return {**objects, "xywh": xywh}

@@ -1031,3 +1031,50 @@ def test_tiny_graphbins_on_the_encoder_kernel_route(cuda):
             else:
                 errs = se_project_errors(*rec["args"], rec["out"], MB_RTOL, MB_ATOL)
                 assert errs["bad"] == 0, errs
+
+
+@gpu
+def test_bf16_eval_step_launches_kernels_1_and_2_and_fp32_none(cuda):
+    """The flip-TTA eval step (batch 1, so a 2-image forward) on the tiny
+    GraphBins with BN unfolded, as validate runs it: in bf16, 4 concat-form
+    kernel-1 launches and 1 kernel-2 launch, each output matching its plain
+    version on its own tensors; in fp32 no launch. The two depths agree
+    within 0.02 relative L2 (chip_smoke.py's feature bound)."""
+    from objcavit_torch.losses import LossWrapper
+    from objcavit_torch.metrics import MetricsPreprocessConfig, metrics_init
+    from objcavit_torch.models.graphbins import GraphBins
+    from objcavit_torch.training.steps import make_eval_step
+    from objcavit_torch.utils.benchkit import init_weights_
+
+    model = init_weights_(GraphBins(encoder_name="efficientnet-tiny"),
+                          torch.Generator().manual_seed(0))
+    model.to("cuda", memory_format=torch.channels_last)
+    gen = torch.Generator().manual_seed(4)
+    batch = {"image": torch.randn((1, 384, 352, 3), generator=gen),
+             "depth": 0.01 + 9 * torch.rand((1, 384, 352, 1), generator=gen),
+             "sample_valid": torch.tensor([True])}
+    objects = {"features": torch.zeros((1, 6, 512)), "xywh": torch.full((1, 6, 4), -1.0),
+               "valid": torch.tensor([[True] + [False] * 5])}
+    batch, objects = ({k: v.cuda() for k, v in d.items()} for d in (batch, objects))
+    depths = {}
+    for dtype, launches in ((torch.bfloat16, (4, 4, 1)), (torch.float32, (0, 0, 0))):
+        step = make_eval_step(model, LossWrapper(["silog"], [1.0]),
+                              MetricsPreprocessConfig(0.001, 10.0), flip_tta=True,
+                              compute_dtype=dtype)
+        resize_fn, bins_fn = kresize.resize_bilinear_align_corners, kbins.conv_bins_depth_batched
+        before = (resize_fn.launches, resize_fn.concat_launches, bins_fn.launches)
+        with record_kernel_io(model) as records:
+            state, loss, depths[dtype] = step(batch, objects, objects, metrics_init("cuda"))
+        torch.cuda.synchronize()
+        after = (resize_fn.launches, resize_fn.concat_launches, bins_fn.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == launches
+        assert torch.isfinite(loss) and float(state["abs_rel/count"]) > 0
+        if dtype == torch.bfloat16:
+            assert records[0]["depth"].shape[0] == 2  # the image and its mirror
+            resize, (depth, plain_depth) = plain_outputs(model, records[0])
+            for y, want in resize:
+                _assert_close(y, want, RESIZE_RTOL, RESIZE_ATOL)
+            assert skip_mismatches(records[0]) == 0
+            _assert_close(depth, plain_depth, BINS_RTOL, BINS_ATOL)
+    got, want = depths[torch.bfloat16], depths[torch.float32]
+    assert float((got - want).norm() / want.norm()) < 0.02

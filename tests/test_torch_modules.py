@@ -282,8 +282,9 @@ def test_unported_options_raise(kwargs):
 
 
 def test_port_imports_no_jax():
-    """Every objcavit_torch module (walked with pkgutil, the language modules
-    and kernels 5, 7 and 8's among them) imports without jax, flax or objcavit_tpu."""
+    """Every objcavit_torch module (walked with pkgutil, the language modules,
+    kernels 5, 7 and 8's and the eval protocol's among them) imports without
+    jax, flax or objcavit_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import objcavit_torch\n"
@@ -294,7 +295,14 @@ def test_port_imports_no_jax():
         "assert len(names) >= 15, names\n"
         "want = {'objcavit_torch.language.embedding', 'objcavit_torch.language.provider',\n"
         "        'objcavit_torch.kernels.attention', 'objcavit_torch.models.adabins',\n"
-        "        'objcavit_torch.kernels.mbconv', 'objcavit_torch.kernels.se_project'}\n"
+        "        'objcavit_torch.kernels.mbconv', 'objcavit_torch.kernels.se_project',\n"
+        "        'objcavit_torch.errors', 'objcavit_torch.config', 'objcavit_torch.cli',\n"
+        "        'objcavit_torch.metrics', 'objcavit_torch.metrics.metrics',\n"
+        "        'objcavit_torch.data.preprocess', 'objcavit_torch.data.dataset',\n"
+        "        'objcavit_torch.data.loader', 'objcavit_torch.training.steps',\n"
+        "        'objcavit_torch.training.providers', 'objcavit_torch.training.checkpoint',\n"
+        "        'objcavit_torch.training.loop', 'objcavit_torch.utils.torch_import',\n"
+        "        'objcavit_torch.utils.annotate', 'objcavit_torch.utils.figures'}\n"
         "assert want <= set(names), want - set(names)\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
