@@ -138,6 +138,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    provider runs on the image and re-detects its mirror; (c) ``-i --debug
    --bf16`` on it: prediction_metrics.csv's pinned header and every
    per-image file.
+10. fit: the train entry point (``cli.main(['-c', cfg, '--bf16'])``, a run
+   without -v/-i: ``Trainer.fit``) on a copy of the flagship's params file
+   (its nyu section from basicParams.yaml) over 32 train and 16 eval NYU
+   frames written in the dataset's layout, the clip provider on random
+   towers, warm-started from a .ckpt: (a) 2 epochs of 4 steps (bs 8,
+   416x544, the new sampler's rotation and the card's augmentation, 221
+   slots): one kernel-4 forward and backward a step, one recorded step's
+   against the plain versions; 2 eval steps an epoch (kernel 1's concat
+   form 4 and kernel 2 once each, the first held against the plain
+   versions) and, where TensorBoard imports, the train figure's forward;
+   wall and device ms a step, the idle share, the validation's share; (b)
+   --resume to 3 epochs: the same version dir, step 8 -> 12, the rebuilt
+   schedule's LRs, AdamW's moments; (c) use_swa, 10 epochs of one step: 2
+   averaged, the BN refresh's kernel-4 forward, last.ckpt the refreshed
+   average; (d) -v --bf16 on the run's hparams.yaml: it restores the run's
+   last.ckpt, and its metrics are within phase 9's bound of the last
+   in-fit validation's.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -189,6 +206,7 @@ from objcavit_torch.serving import (
 from objcavit_torch.language.provider import YoloClipObjectProvider
 from objcavit_torch.metrics import METRIC_NAMES
 from objcavit_torch.training.checkpoint import checkpoint_dict
+from objcavit_torch.training.optim import build_optimizer
 from objcavit_torch.training.steps import build_model, make_train_loss_fn
 from objcavit_torch.utils.attention_ab import SERVED_VALID, attention_inputs, bwd_cost
 from objcavit_torch.utils.attention_ab import fwd_bound as attn_fwd_bound
@@ -1764,14 +1782,15 @@ def read_validation_output(path: str) -> dict[str, float]:
     return dict(zip(names, numbers[len(names):]))
 
 
-def run_cli(what: str, argv: list[str], **launches) -> tuple[object, dict]:
-    """One cli.main run on the card with the counters zeroed just before;
-    its launches must be ``launches``."""
+def run_cli(what: str, argv: list[str], basic: str = BASIC_PARAMS,
+            **launches) -> tuple[object, dict]:
+    """One cli.main run on the card (the dataset sections of ``basic``) with
+    the counters zeroed just before; its launches must be ``launches``."""
     torch.cuda.synchronize()
     zero_counters()
     t0 = time.perf_counter()
     with instrumented_eval_steps() as seen:
-        out = cli.main(argv, basic_params_path=BASIC_PARAMS)
+        out = cli.main(argv, basic_params_path=basic)
     torch.cuda.synchronize()
     seen["seconds"] = time.perf_counter() - t0
     seen["launches"] = expect_launches(what, **launches)
@@ -1877,6 +1896,377 @@ def phase_validate() -> dict:
     return {"launches": launches, "latency": latency}
 
 
+# phase 10: fit through the CLI on the flagship's params file (its nyu
+# section from basicParams.yaml), on NYU frames written in the dataset's
+# layout: 32 train and 16 eval frames, 480x640, RGB and uint16 depth in mm
+FIT_TRAIN, FIT_EVAL, FIT_SWA_TRAIN = 32, 16, 8
+FIT_EPOCHS, FIT_RESUME_EPOCHS, FIT_SWA_EPOCHS = 2, 3, 10
+FIT_STEPS = FIT_TRAIN // BATCH  # steps an epoch
+FIT_EVAL_STEPS = FIT_EVAL // BATCH  # in-fit validation steps an epoch (a 2B forward each)
+FIT_TRACED_STEPS = 3
+FIT_LR = 0.000357  # the flagship params file's optimizer.lr
+# (d) holds -v at bs 1 against the last in-fit validation at bs 8 at phase
+# 9's bf16 bound (EVAL_METRIC_RTOL + EVAL_METRIC_ATOL): the same weights
+# and images, but the convolutions' algorithms differ with the batch, and a
+# bf16 rounding that moves an image's bins can move all its pixels at once;
+# across H100 calls the widest gap read 3.5e-5 to 3.6e-4, and once over
+# 1e-3 (sq_rel; PERF.md §6). Which checkpoint -v restored is checked
+# directly, not through the metrics
+
+
+def write_fit_files(tmp: str) -> dict[str, str]:
+    """The frames, the split files, a basicParams.yaml whose nyu section
+    reads them, a warm-start .ckpt (write_eval_files' seeded B5) and the
+    params files of the three fits: 'fit' (2 epochs), 'resume' (the same
+    run to 3), 'swa' (use_swa over 8 train frames, 10 epochs of one step,
+    validated every 5)."""
+    rng = np.random.default_rng(10)
+    data = os.path.join(tmp, "data")
+    from PIL import Image
+
+    splits = {}
+    for split, sub, n in (("train", "sync", FIT_TRAIN), ("eval", "official_splits/test", FIT_EVAL)):
+        lines = []
+        for i in range(n):
+            img, dep = f"scene_{i % 4}/rgb_{i:05d}.png", f"scene_{i % 4}/sync_depth_{i:05d}.png"
+            os.makedirs(os.path.join(data, "nyu", sub, f"scene_{i % 4}"), exist_ok=True)
+            Image.fromarray(rng.integers(0, 256, (*EVAL_DIMS, 3), dtype=np.uint8)).save(
+                os.path.join(data, "nyu", sub, img))
+            # a smooth depth field in 0.5-9.5 m, as mm in 16 bits
+            coarse = torch.as_tensor(rng.uniform(0.5, 9.5, (1, 1, 6, 8)), dtype=torch.float32)
+            depth = F.interpolate(coarse, size=EVAL_DIMS, mode="bilinear", align_corners=True)
+            Image.fromarray((1000 * depth[0, 0].numpy()).astype(np.uint16)).save(
+                os.path.join(data, "nyu", sub, dep))
+            lines.append(f"/{img} /{dep} 518.8579")
+        splits[split] = os.path.join(tmp, f"nyu_{split}.txt")
+        with open(splits[split], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    splits["swa"] = os.path.join(tmp, "nyu_train_swa.txt")
+    with open(splits["train"]) as f, open(splits["swa"], "w") as g:
+        g.writelines(f.readlines()[:FIT_SWA_TRAIN])
+
+    with open(BASIC_PARAMS) as f:
+        basic = yaml.safe_load(f)
+    basic["nyu"].update(filenames_file_train=splits["train"], filenames_file_eval=splits["eval"])
+    paths = {"basic": os.path.join(tmp, "basicParams.yaml")}
+    with open(paths["basic"], "w") as f:
+        yaml.safe_dump(basic, f)
+    cfg_args = cli.load_args(FLAGSHIP_PARAMS)
+    cfg_args.nyu = cli.load_args(paths["basic"]).nyu
+    model = init_weights_(build_model(cfg_args), torch.Generator().manual_seed(0))
+    with torch.no_grad():  # spread the bin logits, as write_eval_files does
+        model.conv_out[0].weight.mul_(EVAL_LOGIT_SCALE)
+    warm = os.path.join(tmp, "warm.ckpt")
+    torch.save(checkpoint_dict(model), warm)
+    del model
+    with open(FLAGSHIP_PARAMS) as f:
+        cfg = yaml.safe_load(f)
+    cfg["nyu"] = basic["nyu"]
+    cfg["paths"] = {"run_dir": os.path.join(tmp, "runs"), "data_dir": data}
+    cfg["allow_random_detector"] = True
+    cfg["basic"].update(name="fit", from_checkpoint=warm)
+    for name, epochs in (("fit", FIT_EPOCHS), ("resume", FIT_RESUME_EPOCHS)):
+        cfg["basic"]["max_epochs"] = epochs
+        paths[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+    cfg["basic"].update(name="swa", max_epochs=FIT_SWA_EPOCHS, validate_every=5)
+    cfg["optimizer"]["use_swa"] = True
+    cfg["nyu"] = {**basic["nyu"], "filenames_file_train": splits["swa"]}
+    paths["swa"] = os.path.join(tmp, "swa.yaml")
+    with open(paths["swa"], "w") as f:
+        yaml.safe_dump(cfg, f)
+    log(f"fit: {FIT_TRAIN} train and {FIT_EVAL} eval NYU frames at {EVAL_DIMS[0]}x{EVAL_DIMS[1]}, "
+        f"configs from {os.path.basename(FLAGSHIP_PARAMS)} (clip provider, random towers)")
+    return paths
+
+
+@contextlib.contextmanager
+def instrumented_fit(record_step: int = 1):
+    """While open, each train step the trainer makes is timed (synchronised
+    before and after: wall ms and the CUDA events' span) with its LR; step
+    ``record_step`` records kernel 4's I/O; the in-fit validation's steps
+    are instrumented as phase 9's (``instrumented_eval_steps``, the last
+    validation's first step recorded). Steps, validations, train figures
+    and checkpoint saves land on a timeline of (kind, start s, end s),
+    synchronised at their ends. Yields a dict: 'times', 'lrs', 'losses',
+    'records', 'spans', 'eval' (instrumented_eval_steps' dict), and 'step'
+    and 'args' of the last step."""
+    seen: dict = {"times": [], "lrs": [], "losses": [], "records": [], "spans": []}
+    patched = []
+
+    def span(owner, name: str, kind: str, before=None) -> None:
+        real = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            if before is not None:
+                before()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen["spans"].append((kind, t0, time.perf_counter()))
+            return out
+
+        patched.append((owner, name, real))
+        setattr(owner, name, timed)
+
+    def make(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed(*step_args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            if len(seen["times"]) == record_step:
+                with record_bins_expectation_io() as records:
+                    loss = step(*step_args)
+                seen["records"] = records
+            else:
+                loss = step(*step_args)
+            end.record()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            seen["spans"].append(("steps", t0, t1))
+            seen["times"].append((1000 * (t1 - t0), start.elapsed_time(end)))
+            seen["lrs"].append(step.last_lr)
+            timed.last_lr = step.last_lr  # what fit logs as lr-AdamW
+            seen["losses"].append(float(loss))
+            seen.update(step=step, args=step_args)
+            return loss
+
+        timed.last_lr = None
+        return timed
+
+    real_make = eval_loop.make_train_step
+    eval_loop.make_train_step = make
+    # the last validation's first step is recorded: the checks after the fit
+    # read the weights it ran on
+    span(eval_loop.Trainer, "_run_eval", "validation",
+         before=lambda: seen["eval"].__setitem__("records", []))
+    span(eval_loop.Trainer, "_log_train_figure", "train figure")
+    span(eval_loop.CheckpointManager, "save", "checkpoint save")
+    try:
+        with instrumented_eval_steps() as evals:
+            seen["eval"] = evals
+            yield seen
+    finally:
+        eval_loop.make_train_step = real_make
+        for owner, name, real in patched:
+            setattr(owner, name, real)
+
+
+def epoch_breakdown(spans: list) -> dict[str, float]:
+    """Seconds of the last epoch (from the previous epoch's checkpoint save
+    to its own) by kind; the rest is the wait for the loader's batches."""
+    saves = [t1 for kind, _, t1 in spans if kind == "checkpoint save"]
+    lo, hi = saves[-2], saves[-1]
+    parts = collections.Counter()
+    for kind, t0, t1 in spans:
+        if lo <= t0 and t1 <= hi:
+            parts[kind] += t1 - t0
+    return {"epoch": hi - lo, **parts, "loader wait and the rest": hi - lo - sum(parts.values())}
+
+
+def run_fit(what: str, argv: list[str], basic: str, **launches) -> tuple[dict, dict]:
+    """One training run of cli.main on the card with the counters zeroed
+    just before; its launches must be ``launches``. -> (the fit's last
+    metrics, the instrumentation's dict)."""
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    with instrumented_fit() as seen:
+        _model, metrics = cli.main(argv, basic_params_path=basic)
+        del _model
+    torch.cuda.synchronize()
+    seen["seconds"] = time.perf_counter() - t0
+    seen["launches"] = expect_launches(what, **launches)
+    losses = seen["losses"]
+    log(f"  {what}: {len(losses)} steps, losses {losses}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(list(metrics.values()))):
+        raise AssertionError(f"{what}: a loss or a metric is not finite")
+    return metrics, seen
+
+
+def onecycle_lrs(total: int) -> list[float]:
+    """The LR of each of ``total`` updates on the port's OneCycle path."""
+    optimizer, scheduler = build_optimizer(torch.nn.ParameterList([torch.nn.Parameter(
+        torch.zeros(1))]), FIT_LR, 0.1, total)
+    lrs = []
+    for _ in range(total):
+        lrs.append(optimizer.param_groups[0]["lr"])
+        optimizer.step()
+        scheduler.step()
+    return lrs
+
+
+def has_tensorboard() -> bool:
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def phase_fit() -> dict:
+    """``python -m objcavit_torch.cli -c <cfg> --bf16`` (Trainer.fit) at the
+    flagship's width: GraphBins-B5, bs 8 at 416x544 with rotation and the
+    card's augmentation, 221 slots from random YOLOv7-seg + CLIP towers,
+    warm-started from a .ckpt. (a) 2 epochs of 4 steps: kernel 4 forward and
+    backward every step, one recorded step held against the plain versions;
+    kernels 1 and 2 in the in-fit validation (2 eval steps an epoch, 16-image
+    flip-TTA forwards), the first held against the plain versions; the
+    train figure's forward where TensorBoard imports; wall and device ms a
+    step and the idle share (a trace of 3 more steps); the last
+    validation's first step held against the plain versions. (b) --resume to 3
+    epochs: the same version_0, step 8 -> 12, the LR of each resumed update
+    the 12-step schedule's, AdamW's moments restored. (c) use_swa over 10
+    epochs of one step: 2 averaged epochs, the BN refresh's kernel-4
+    forward, last.ckpt the average with the refreshed statistics. (d) -v
+    --bf16 on the run's hparams.yaml: it restores the run's last.ckpt (the
+    path, and the model's entries equal to the file's), and its metrics
+    are within phase 9's bf16 bound of the last in-fit validation's."""
+    # TF32 off, as from phase 3 on in a whole run: with it, the clip
+    # provider's random detector gives other slots at bs 1 than at bs 8
+    # (utils/detector_batch.py), and (d) would compare two inputs
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    writer = has_tensorboard()
+    fig = 1 if writer else 0
+    log(f"fit: a TensorBoard writer {'exists' if writer else 'does not import'}: train figures "
+        f"{'on' if writer else 'off'}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfgs = write_fit_files(tmp)
+        run = os.path.join(tmp, "runs", "fit", "version_0")
+
+        def val_launches(epochs: int, validations: int) -> dict:
+            forwards = validations * FIT_EVAL_STEPS + fig * epochs
+            return {"resize": EVAL_RESIZE * forwards, "bins": EVAL_BINS * forwards}
+
+        steps = FIT_EPOCHS * FIT_STEPS
+        metrics, seen = run_fit(f"(a) fit --bf16, {FIT_EPOCHS} epochs of {FIT_STEPS} steps", [
+            "-c", cfgs["fit"], "--bf16"], cfgs["basic"], bins_expectation_fwd=steps,
+            bins_expectation_bwd=steps, **val_launches(FIT_EPOCHS, FIT_EPOCHS))
+        launches = seen["launches"]
+        if len(seen["records"]) != 1 or "dcenters" not in seen["records"][0]:
+            raise AssertionError("(a): no recorded kernel-4 step with its backward")
+        check_train_kernels(seen["records"][0])
+        check_served_kernels(seen["eval"]["model"], seen["eval"]["records"])
+        wall = [t[0] for t in seen["times"][1:]]
+        span = [t[1] for t in seen["times"][1:]]
+        epoch = epoch_breakdown(seen["spans"])
+        # more steps on the last batch, past the schedule's end: without the
+        # scheduler (its host-side step launches nothing)
+        seen["step"].scheduler = None
+        traced = trace(lambda: seen["step"](*seen["args"]), n_req=FIT_TRACED_STEPS)
+        stats = {"wall_p50": statistics.median(wall), "wall_min": min(wall),
+                 "wall_max": max(wall), "event_p50": statistics.median(span),
+                 "busy": traced["device_busy_ms_per_request"], "idle": traced["idle_share"],
+                 "kernels": traced["device_kernels_per_request"],
+                 "val_share": epoch["validation"] / epoch["epoch"], "seconds": seen["seconds"]}
+        log(f"  (a) per step over {len(wall)} steps after the first (bs {BATCH}, "
+            f"{TRAIN_DIMS[0]}x{TRAIN_DIMS[1]}, synchronised): wall p50 {stats['wall_p50']:.3f} ms "
+            f"(min {stats['wall_min']:.3f}, max {stats['wall_max']:.3f}), CUDA-event span p50 "
+            f"{stats['event_p50']:.3f} ms; traced ({FIT_TRACED_STEPS} steps): device busy "
+            f"{stats['busy']:.3f} ms, {stats['kernels']:.0f} kernels, idle share "
+            f"{stats['idle']:.3f}; whole run {seen['seconds']:.2f} s")
+        log("  (a) the second epoch, s: " + ", ".join(f"{k} {v:.3f}" for k, v in epoch.items())
+            + f"; the validation's share {stats['val_share']:.3f}")
+        log("  top device ops of a traced fit step:\n" + traced["top"])
+        del seen
+
+        steps = (FIT_RESUME_EPOCHS - FIT_EPOCHS) * FIT_STEPS
+        resumed, seen = run_fit("(b) fit --resume --bf16 to 3 epochs", [
+            "-c", cfgs["resume"], "--bf16", "--resume"], cfgs["basic"],
+            bins_expectation_fwd=steps, bins_expectation_bwd=steps,
+            **val_launches(FIT_RESUME_EPOCHS - FIT_EPOCHS, FIT_RESUME_EPOCHS - FIT_EPOCHS))
+        versions = sorted(os.listdir(os.path.dirname(run)))
+        ckpt = torch.load(os.path.join(run, "checkpoints", "last.ckpt"), map_location="cpu",
+                          weights_only=False)
+        state = ckpt["optimizer_states"][0]["state"]
+        counts = {float(s["step"]) for s in state.values()}
+        want_lrs = onecycle_lrs(FIT_RESUME_EPOCHS * FIT_STEPS)[FIT_EPOCHS * FIT_STEPS:]
+        log(f"  (b) versions {versions}, step {ckpt['global_step']}, AdamW step counts {counts}, "
+            f"LRs {seen['lrs']} (the 12-step schedule's {want_lrs})")
+        if (versions != ["version_0"] or ckpt["global_step"] != FIT_RESUME_EPOCHS * FIT_STEPS
+                or counts != {float(FIT_RESUME_EPOCHS * FIT_STEPS)}
+                or not sum(float(s["exp_avg_sq"].abs().sum()) for s in state.values()) > 0
+                or any(abs(a - b) > 1e-12 * b for a, b in zip(seen["lrs"], want_lrs))
+                or len(seen["lrs"]) != len(want_lrs)):
+            raise AssertionError("(b): the resumed run did not continue the killed one")
+        del ckpt, state, seen
+
+        refreshed = {}
+        real_refresh = eval_loop.Trainer._refresh_swa_batch_stats
+
+        def refresh(self, *args, **kwargs):
+            refreshed["before"] = {k: v.detach().clone() for k, v in self.model.state_dict().items()
+                                   if k.endswith(("running_mean", "running_var"))}
+            real_refresh(self, *args, **kwargs)
+            refreshed["after"] = {k: v.detach().clone() for k, v in self.model.state_dict().items()
+                                  if k.endswith(("running_mean", "running_var"))}
+
+        eval_loop.Trainer._refresh_swa_batch_stats = refresh
+        try:
+            _, seen = run_fit(f"(c) fit --bf16 use_swa, {FIT_SWA_EPOCHS} epochs of 1 step", [
+                "-c", cfgs["swa"], "--bf16"], cfgs["basic"],
+                bins_expectation_fwd=FIT_SWA_EPOCHS + 1, bins_expectation_bwd=FIT_SWA_EPOCHS,
+                **val_launches(FIT_SWA_EPOCHS, 2))
+        finally:
+            eval_loop.Trainer._refresh_swa_batch_stats = real_refresh
+        swa_dir = os.path.join(tmp, "runs", "swa", "version_0", "checkpoints")
+        with open(os.path.join(swa_dir, "meta.json")) as f:
+            meta = json.load(f)
+        last = torch.load(os.path.join(swa_dir, "last.ckpt"), map_location="cpu",
+                          weights_only=False)["state_dict"]
+        average = torch.load(os.path.join(swa_dir, "swa.ckpt"), map_location="cpu",
+                             weights_only=True)["state_dict"]
+        same_avg = all(torch.equal(last[k], v) for k, v in average.items())
+        same_stats = all(torch.equal(last[f"model.{k}"], v.cpu())
+                         for k, v in refreshed["after"].items())
+        moved = sum(not torch.equal(refreshed["before"][k], v) for k, v in refreshed["after"].items())
+        log(f"  (c) meta {meta}; last.ckpt holds the average: {same_avg}, the refreshed "
+            f"statistics: {same_stats} ({moved} of {len(refreshed['after'])} moved by the refresh)")
+        if meta.get("swa_count") != 2 or not same_avg or not same_stats or not moved:
+            raise AssertionError("(c): the SWA run's checkpoint is not the refreshed average")
+        del last, average, seen
+
+        hparams = os.path.join(run, "hparams.yaml")
+        restored = []
+        real_restore = eval_loop.restore_checkpoint
+
+        def restore(path, model, *args, **kwargs):
+            restored.append(os.path.realpath(path))
+            return real_restore(path, model, *args, **kwargs)
+
+        eval_loop.restore_checkpoint = restore
+        try:
+            validated, seen = run_cli("(d) -v --bf16 on the fit's hparams.yaml", [
+                "-c", hparams, "-v", "--bf16"], cfgs["basic"], resize=FIT_EVAL * EVAL_RESIZE,
+                bins=FIT_EVAL * EVAL_BINS)
+        finally:
+            eval_loop.restore_checkpoint = real_restore
+        check_served_kernels(seen["model"], seen["records"])
+        last_ckpt = os.path.realpath(os.path.join(run, "checkpoints", "last.ckpt"))
+        saved = torch.load(last_ckpt, map_location="cpu", weights_only=False)["state_dict"]
+        held = {k: v for k, v in seen["model"].state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+        same = all(torch.equal(v.cpu(), saved[f"model.{k}"]) for k, v in held.items())
+        log(f"  (d) -v restored {restored}; its model equals last.ckpt's {len(held)} entries: "
+            f"{same}")
+        if restored != [last_ckpt] or not same:
+            raise AssertionError("(d): -v did not validate the fit's last.ckpt")
+        del saved, held, seen
+    rel = {k: abs(validated[k] - resumed[k]) / abs(resumed[k]) for k in METRIC_NAMES}
+    log(f"  (d) -v (bs 1) vs the last in-fit validation (bs 8), relative gap (bound "
+        f"{EVAL_METRIC_RTOL} rel + {EVAL_METRIC_ATOL}): " + ", ".join(
+            f"{k} {validated[k]!r}/{resumed[k]!r} {rel[k]:.3e}" for k in METRIC_NAMES))
+    bad = [k for k in METRIC_NAMES if not abs(validated[k] - resumed[k])
+           <= EVAL_METRIC_ATOL + EVAL_METRIC_RTOL * abs(resumed[k])]
+    if bad:
+        raise AssertionError(f"(d): -v strays from the fit's validation: {bad}")
+    return {"launches": launches, "stats": stats}
+
+
 # the regressor's gradient rel L2 on the seed's weights, kernel 5's route
 # against the plain route, as an H100 read them with the forward's planned
 # key groups and the cluster backward: a gap to watch, not a bound (the
@@ -1920,6 +2310,11 @@ def main() -> None:
     validate = phase_validate()
     log(f"  validate path (-v --bf16, {VALIDATE_IMAGES} images): kernel-1 concat launches "
         f"{validate['launches'][CONCAT_COUNTER]}, kernel-2 launches {validate['launches']['bins']}")
+    fit = phase_fit()["launches"]
+    log(f"  fit path ({FIT_EPOCHS} epochs of {FIT_STEPS} steps): kernel-4 launches "
+        f"{fit['bins_expectation_fwd']} + {fit['bins_expectation_bwd']}, kernel-1 concat "
+        f"{fit[CONCAT_COUNTER]}, kernel-2 {fit['bins']}; the kernels line counts kernel 4 over "
+        f"the train phase and the fit")
 
     def entry(name, source, replaces, launches, key):
         return {"name": name, "route": "cuda", "source": f"objcavit_torch/csrc/{source}",
@@ -1935,9 +2330,9 @@ def main() -> None:
         entry("conv_bins_depth (kernel 2, shared W)", "bins_depth.cu", "pallas_bins.py:163",
               unfactored["bins_shared"], "bins_shared"),
         entry("bins_expectation_fwd", "bins_expectation.cu", "pallas_bins.py:63",
-              train["bins_expectation_fwd"], "bins_expectation_fwd"),
+              train["bins_expectation_fwd"] + fit["bins_expectation_fwd"], "bins_expectation_fwd"),
         entry("bins_expectation_bwd", "bins_expectation.cu", "pallas_bins.py:91",
-              train["bins_expectation_bwd"], "bins_expectation_bwd"),
+              train["bins_expectation_bwd"] + fit["bins_expectation_bwd"], "bins_expectation_bwd"),
         entry("fused_detect_head", "detect_head.cu", "detect_head_pallas.py:65", fused,
               "detect_head"),
         entry("fused_mha_fwd", "attention.cu", "pallas_attention.py:91",

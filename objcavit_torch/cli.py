@@ -1,5 +1,6 @@
 """The port's command line, with the reference main.py's flags.
 
+    python -m objcavit_torch.cli -c params/<cfg>.yaml [--bf16] [--resume|--no-resume]  # train
     python -m objcavit_torch.cli -c params/<cfg>.yaml -v [--bf16] [--debug]   # validate
     python -m objcavit_torch.cli -c params/<cfg>.yaml -i [--bf16] [--debug]   # predict
 
@@ -9,8 +10,8 @@ Port of ``objcavit_tpu/cli.py``: the same flags (``-c -v -i --debug
 The dataset sections come from ``basicParams.yaml`` (misc_utils.py:41-48):
 ``basic_params_path``, else the one beside the config file, else the one in
 ``$OBJCAVIT_PARAMS_DIR``. It runs on the card unless ``device`` says
-otherwise. Without ``-v`` or ``-i`` it trains, which is not ported yet
-(ROADMAP A.3d); nor is a multi-process run (A.5).
+otherwise. Without ``-v`` or ``-i`` it trains (``Trainer.fit``), in one
+process: the multi-process launch is ROADMAP A.5.
 """
 
 from __future__ import annotations
@@ -52,13 +53,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (fp32 is the parity default).")
     parser.add_argument("--resume", action=argparse.BooleanOptionalAction, default=None,
-                        help="Auto-resume training (not ported yet, ROADMAP A.3d).")
+                        help="Auto-resume: continue the newest run with a 'last' checkpoint, "
+                             "restoring the full train state (model, optimizer, step). "
+                             "--no-resume forces a new version dir even when the config "
+                             "sets basic.auto_resume.")
     return parser.parse_args(argv)
 
 
 def main(argv=None, basic_params_path: str | None = None, device="cuda"):
     """Run the command line ``argv`` (``sys.argv[1:]`` when None); returns
-    what ``Trainer.validate`` or ``Trainer.predict`` returns."""
+    what ``Trainer.fit``, ``Trainer.validate`` or ``Trainer.predict`` returns."""
     cl = parse_args(argv)
     args = load_args(cl.config_file, debug=cl.debug, log_debug=cl.log_debug,
                      validate=cl.validate, inference=cl.inference)

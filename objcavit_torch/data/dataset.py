@@ -1,14 +1,18 @@
-"""Split-file NYU/KITTI eval datasets with a synthetic fallback.
+"""Split-file NYU/KITTI datasets with a synthetic fallback.
 
-Port of the eval half of ``objcavit_tpu/data/dataset.py`` (datasets/NYUD2.py,
+Port of ``objcavit_tpu/data/dataset.py`` (datasets/NYUD2.py,
 datasets/KITTI.py and the path handling of datasets/dataloader.py:96-135):
-a split line is ``image_path depth_path focal``, leading slashes are
-stripped, and a KITTI eval sample whose GT file is missing is dropped from
-``filenames`` and the same index read again, so ``len()`` shrinks during an
-epoch. Without the dataset root (no NYU or KITTI data is in the repository)
-``make_dataset`` returns ``SyntheticDepthDataset``, seeded by index, with
-the same sample contract. The train branches come with the train half of
-the data layer.
+a split line is ``image_path depth_path focal`` (a KITTI train line adds the
+right camera's paths at 3 and 4), leading slashes are stripped. A train
+sample runs the old_dl or the new sampler (``basic.use_adabins_dataloader``,
+``preprocess.py``) with the loader's generator, KITTI's ``use_right`` drawn
+first; a train sample without its GT file raises. A KITTI eval sample whose
+GT file is missing is dropped from ``filenames`` and the same index read
+again, so ``len()`` shrinks during an epoch. Without the dataset root (no
+NYU or KITTI data is in the repository) ``make_dataset`` returns
+``SyntheticDepthDataset``, seeded by index, with the same sample contract.
+JAX's batch-level ``get_batch`` (threaded decode, the C++ assembly) is
+ROADMAP A.3c: the loader reads sample by sample.
 """
 
 from __future__ import annotations
@@ -30,17 +34,18 @@ def remove_leading_slash(s: str) -> str:
 
 
 class DepthDataset:
-    """The eval split ('online_eval') of one dataset, from its split file."""
+    """One split ('train' or 'online_eval') of one dataset, from its split file."""
 
     def __init__(self, args: Any, mode: str):
-        if mode != "online_eval":
-            raise NotImplementedError(
-                f"dataset mode {mode!r} is not ported yet (ROADMAP A.3c); ported: online_eval")
+        if mode not in ("train", "online_eval"):
+            raise ValueError(f"dataset mode {mode!r}: want 'train' or 'online_eval'")
         self.args = args
         self.mode = mode
         self.dataset = args.basic.dataset
         self.dcfg = args[self.dataset]
-        split_file = self.dcfg.filenames_file_eval
+        self.use_old_dl = bool(args.basic.get("use_adabins_dataloader"))
+        split_file = (self.dcfg.filenames_file_train if mode == "train"
+                      else self.dcfg.filenames_file_eval)
         if not os.path.isabs(split_file) and not os.path.exists(split_file):
             cand = os.path.join(_REPO_ROOT, split_file)
             if os.path.exists(cand):
@@ -53,32 +58,60 @@ class DepthDataset:
             self.data_path = os.path.join(base, self.dcfg.data_path)
             self.gt_path = os.path.join(base, self.dcfg.gt_path)
         else:
-            self.data_path = os.path.join(base, self.dcfg.eval_path)
+            sub = self.dcfg.train_path if mode == "train" else self.dcfg.eval_path
+            self.data_path = os.path.join(base, sub)
             self.gt_path = self.data_path
+        self.train_dims = tuple(self.dcfg.dimensions_train)
 
     def __len__(self) -> int:
         return len(self.filenames)
 
+    def _paths(self, line: str, rng: np.random.Generator):
+        parts = line.split()
+        # KITTI's right camera: drawn for every train line, used where the
+        # line has its paths
+        use_right = (self.mode == "train" and self.dataset == "kitti"
+                     and self.dcfg.get("use_right") is True and rng.random() > 0.5)
+        i_img, i_dep = (3, 4) if use_right and len(parts) > 4 else (0, 1)
+        image_path = os.path.join(self.data_path, remove_leading_slash(parts[i_img]))
+        depth_path = os.path.join(self.gt_path, remove_leading_slash(parts[i_dep]))
+        return image_path, depth_path, float(parts[2])
+
     def get(self, idx: int, rng: np.random.Generator) -> dict:
-        """{'image' HWC fp32 ImageNet-normalised, 'depth' HW1 fp32 metres,
-        'focal', 'image_path', 'depth_path' (as the split line gives them)}."""
+        """{'image' HWC fp32, 'depth' HW1 fp32 metres, 'focal', 'image_path',
+        'depth_path' (as the split line gives them)}. A train image comes out
+        ready for the card: ImageNet-normalised on the old_dl path, [0, 1]
+        on the new one (the card augments and normalises); an eval image is
+        normalised."""
         from PIL import Image
 
         line = self.filenames[idx % len(self.filenames)]
-        parts = line.split()
-        image_path = os.path.join(self.data_path, remove_leading_slash(parts[0]))
-        depth_path = os.path.join(self.gt_path, remove_leading_slash(parts[1]))
+        image_path, depth_path, focal = self._paths(line, rng)
         image_u8 = np.asarray(Image.open(image_path).convert("RGB"))
         if not os.path.exists(depth_path):
+            if self.mode == "train":
+                raise FileNotFoundError(f"missing train GT: {depth_path}")
             # KITTI's missing-GT convention: drop the sample and read the
             # index again (KITTI.py:81-83, dataloader.py:188-192)
             del self.filenames[idx % len(self.filenames)]
             return self.get(idx, rng)
         depth_raw = np.asarray(Image.open(depth_path), dtype=np.float32)
-        image, depth = pp.eval_sample(image_u8, depth_raw, self.dcfg.do_kb_crop,
-                                      self.dcfg.image_norm_factor, self.dcfg.depth_norm_factor,
-                                      normalize=True)
-        return {"image": image, "depth": depth, "focal": float(parts[2]),
+        dcfg = self.dcfg
+        if self.mode == "train" and self.use_old_dl:
+            image, depth = pp.old_dl_train_sample(
+                image_u8, depth_raw, self.dataset, dcfg.do_kb_crop, dcfg.do_random_rotate,
+                dcfg.degree, self.train_dims, dcfg.depth_norm_factor, rng)
+        elif self.mode == "train":
+            image, depth = pp.new_train_sample(
+                image_u8, depth_raw, self.dataset, dcfg.do_kb_crop, dcfg.do_random_rotate,
+                dcfg.degree, self.train_dims, dcfg.image_norm_factor, dcfg.depth_norm_factor,
+                rng)
+        else:
+            image, depth = pp.eval_sample(image_u8, depth_raw, dcfg.do_kb_crop,
+                                          dcfg.image_norm_factor, dcfg.depth_norm_factor,
+                                          normalize=True)
+        parts = line.split()
+        return {"image": image, "depth": depth, "focal": focal,
                 "image_path": parts[0], "depth_path": parts[1]}
 
 

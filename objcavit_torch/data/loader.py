@@ -1,17 +1,19 @@
 """Host batching with a prefetch thread, for one process on one device.
 
-Port of ``objcavit_tpu/data/loader.py::DeviceLoader`` for the eval path:
-batches of ``batch_size`` samples in order; a short final batch is padded
-with wrapped samples and ``sample_valid`` marks the real ones. ``host_hook(batch_np)`` (the object provider) runs on the
-host batch in the prefetch thread, or inline when ``synchronous``; its
-'_'-prefixed keys (detection annotations) go to the batch's meta, not to the
-device. Host arrays become tensors, pinned when the device is a card, and
-are copied to ``device`` with ``non_blocking=True``. Iterating yields
-``(batch, meta)`` as in the JAX package: ``batch`` holds 'image', 'depth',
-'sample_valid' and the hook's entries (nested dicts of tensors), ``meta``
-the per-sample 'focal', 'image_path' and 'depth_path'. Shuffling, the
-distributed interleave and the native batch assembly come with the train
-half of the data layer.
+Port of ``objcavit_tpu/data/loader.py::DeviceLoader``: batches of
+``batch_size`` samples, in order or (``shuffle``) in an order drawn each
+epoch from ``np.random.default_rng(seed)``, whose one stream also feeds each
+sample's draws, as in the JAX package. A short final batch is padded with
+the epoch's first samples; ``sample_valid`` marks the real ones.
+``host_hook(batch_np)`` (the object provider) runs on the host batch in the
+prefetch thread, or inline when ``synchronous``; its '_'-prefixed keys
+(detection annotations) go to the batch's meta, not to the device. Host
+arrays become tensors, pinned when the device is a card, and are copied to
+``device`` with ``non_blocking=True``. Iterating yields ``(batch, meta)`` as
+in the JAX package: ``batch`` holds 'image', 'depth', 'sample_valid' and the
+hook's entries (nested dicts of tensors), ``meta`` the per-sample 'focal',
+'image_path' and 'depth_path'. The distributed interleave is ROADMAP A.5,
+the native batch assembly A.3c.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from objcavit_torch.utils.device import card_device
 
 PREFETCH = 2  # batches the worker keeps ready
-SEED = 42  # the samples' generator (the eval samples draw nothing from it)
+SEED = 42  # the order's and the samples' generator (the eval samples draw nothing)
 
 
 def to_device(tree, device: torch.device):
@@ -41,21 +43,26 @@ def to_device(tree, device: torch.device):
 
 
 class DeviceLoader:
-    def __init__(self, dataset: Any, batch_size: int, device="cuda", host_hook=None,
-                 synchronous: bool = False):
+    def __init__(self, dataset: Any, batch_size: int, device="cuda", shuffle: bool = False,
+                 seed: int = SEED, host_hook=None, synchronous: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = card_device(device)
+        self.shuffle = shuffle
         self.host_hook = host_hook
         self.synchronous = synchronous
-        self._rng = np.random.default_rng(SEED)
+        self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
-    def _host_batches(self) -> Iterator[tuple[dict, dict]]:
+    def host_batches(self) -> Iterator[tuple[dict, dict]]:
+        """An epoch's host batches before the hook, drawn from the stream:
+        the order, then each batch's samples."""
         n = len(self.dataset)
         order = np.arange(n)
+        if self.shuffle:
+            self._rng.shuffle(order)
         for start in range(0, n, self.batch_size):
             idxs = order[start:start + self.batch_size]
             valid = np.ones(len(idxs), bool)
@@ -82,7 +89,7 @@ class DeviceLoader:
 
     def __iter__(self):
         if self.synchronous:
-            for batch, meta in self._host_batches():
+            for batch, meta in self.host_batches():
                 yield self._ready(batch, meta)
             return
 
@@ -91,7 +98,7 @@ class DeviceLoader:
 
         def worker():
             try:
-                for batch, meta in self._host_batches():
+                for batch, meta in self.host_batches():
                     if done.is_set():
                         return
                     q.put(self._ready(batch, meta))

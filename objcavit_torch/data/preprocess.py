@@ -1,9 +1,24 @@
-"""Host-side eval preprocessing (numpy), the eval half of
-``objcavit_tpu/data/preprocess.py``.
+"""Host-side per-sample preprocessing (numpy, PIL), both reference pipelines.
 
-Both reference pipelines agree at eval time: /255 and depth / its factor,
-the KITTI benchmark crop where configured, ImageNet normalisation. The train
-samplers come with the train half of the data layer.
+Port of ``objcavit_tpu/data/preprocess.py``. Two train pipelines exist in
+the reference, chosen by ``basic.use_adabins_dataloader``:
+
+* "old_dl" (datasets/dataloader.py:116-270, the BTS/AdaBins lineage):
+  kb-crop, the NYU boundary crop (43, 45, 608, 472), a PIL random rotate,
+  /255 and depth / its factor, a random crop, then flip, gamma, brightness,
+  per-channel colour and ImageNet normalisation on the host;
+* "new" (modules/Preprocess.py): /255 and depth / its factor, kb-crop, the
+  NYU crop (45, 43, 427, 565), a random rotate (bilinear image, nearest
+  depth, one angle), a random crop; flip, gamma, planckian and the
+  normalisation run on the card per batch (``augment.py``).
+
+Each draws from the loader's one ``np.random.Generator`` in the JAX
+package's order. Where the JAX package calls its C++ core
+(``objcavit_tpu/data/native.py``), the port runs that module's numpy
+branches, copied here (``rotate_bilinear``, ``rotate_nearest``,
+``augment_normalize``); the C++ core and the threaded batch assembly are
+ROADMAP A.3c. At eval both pipelines agree: /255 and depth / its factor,
+the KITTI benchmark crop where configured, ImageNet normalisation.
 """
 
 from __future__ import annotations
@@ -48,3 +63,133 @@ def eval_sample(image_u8: np.ndarray, depth_raw: np.ndarray | None, do_kb_crop: 
     if normalize:
         image = imagenet_normalize(image)
     return image.astype(np.float32), depth
+
+
+def _pil_rotate(arr: np.ndarray, angle: float, nearest: bool) -> np.ndarray:
+    """PIL's Image.rotate on raw-valued arrays, no value rescaling."""
+    from PIL import Image
+
+    resample = Image.NEAREST if nearest else Image.BILINEAR
+    if arr.ndim == 3 and arr.shape[2] == 1:
+        img = Image.fromarray(arr[:, :, 0].astype(np.float32), mode="F")
+        return np.asarray(img.rotate(angle, resample=resample), dtype=np.float32)[:, :, None]
+    img = Image.fromarray(arr.astype(np.uint8))
+    return np.asarray(img.rotate(angle, resample=resample), dtype=np.float32)
+
+
+def random_crop(image, depth, height, width, rng: np.random.Generator):
+    if image.shape[0] < height or image.shape[1] < width:
+        raise ValueError(f"crop {height}x{width} larger than the image {image.shape[:2]}")
+    x = rng.integers(0, image.shape[1] - width + 1)
+    y = rng.integers(0, image.shape[0] - height + 1)
+    return image[y:y + height, x:x + width], depth[y:y + height, x:x + width]
+
+
+def augment_normalize(img: np.ndarray, flip: bool, do_augment: bool, gamma: float,
+                      brightness: float, color3: np.ndarray) -> np.ndarray:
+    """The legacy pipeline's tail on an (H, W, 3) [0, 1] image: flip, then
+    gamma, brightness and colour clipped to [0, 1], then ImageNet
+    normalisation (``native.augment_normalize``'s numpy branch)."""
+    img = np.ascontiguousarray(img, np.float32).copy()
+    if flip:
+        img = img[:, ::-1].copy()
+    if do_augment:
+        img = np.clip((np.maximum(img, 0) ** gamma) * brightness * color3[None, None, :], 0, 1)
+    return imagenet_normalize(img)
+
+
+def old_dl_train_sample(image_u8: np.ndarray, depth_raw: np.ndarray, dataset: str,
+                        do_kb_crop: bool, do_random_rotate: bool, degree: float,
+                        train_dims: tuple, depth_norm_factor: float,
+                        rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """The legacy AdaBins/BTS train pipeline (dataloader.py:116-270): HWC
+    uint8 image and raw depth -> the ImageNet-normalised image and the depth
+    in metres, HWC fp32 at ``train_dims``. Draws, in the JAX package's
+    order: the angle, crop x, crop y, flip, do_augment, gamma, brightness,
+    colours."""
+    angle = (rng.random() - 0.5) * 2 * degree if do_random_rotate else None
+    image = image_u8
+    depth = depth_raw if depth_raw.ndim == 3 else depth_raw[:, :, None]
+    if do_kb_crop:
+        image, depth = kb_crop(image, depth)
+    if dataset == "nyu":
+        # the blank-boundary crop (dataloader.py:149-151), PIL box (43, 45, 608, 472)
+        image, depth = image[45:472, 43:608], depth[45:472, 43:608]
+    if angle is not None:
+        image = _pil_rotate(image, angle, nearest=False)
+        depth = _pil_rotate(depth, angle, nearest=True)
+    # the reference scales after the PIL ops (dataloader.py:158-165)
+    image, depth = image.astype(np.float32) / 255.0, depth.astype(np.float32) / depth_norm_factor
+    h, w = train_dims
+    x = int(rng.integers(0, image.shape[1] - w + 1))
+    y = int(rng.integers(0, image.shape[0] - h + 1))
+    image, depth = image[y:y + h, x:x + w], depth[y:y + h, x:x + w]
+    flip = rng.random() > 0.5
+    do_augment = rng.random() > 0.5
+    gamma = float(rng.uniform(0.9, 1.1))
+    brightness = float(rng.uniform(0.75, 1.25) if dataset == "nyu" else rng.uniform(0.9, 1.1))
+    colors = rng.uniform(0.9, 1.1, size=3).astype(np.float32)
+    # flip, gamma, brightness, colour, normalise (dataloader.py:239-284)
+    image = augment_normalize(image, flip, do_augment, gamma, brightness, colors)
+    if flip:
+        depth = depth[:, ::-1].copy()
+    return image.astype(np.float32), depth.astype(np.float32)
+
+
+def new_train_sample(image_u8: np.ndarray, depth_raw: np.ndarray, dataset: str,
+                     do_kb_crop: bool, do_random_rotate: bool, degree: float,
+                     train_dims: tuple, image_norm_factor: float, depth_norm_factor: float,
+                     rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """The new pipeline's host part (modules/Preprocess.py, train mode): the
+    [0, 1] image and the depth in metres at ``train_dims``; the card
+    augments and normalises the batch."""
+    image = image_u8.astype(np.float32) / image_norm_factor
+    depth = (depth_raw if depth_raw.ndim == 3 else depth_raw[:, :, None]).astype(
+        np.float32) / depth_norm_factor
+    if do_kb_crop:
+        image, depth = kb_crop(image, depth)
+    if dataset == "nyu":
+        # torchvision crop(top=45, left=43, height=427, width=565)
+        image, depth = image[45:45 + 427, 43:43 + 565], depth[45:45 + 427, 43:43 + 565]
+    if do_random_rotate:
+        angle = rng.uniform(-degree, degree)
+        image = rotate_bilinear(image, angle)
+        depth = rotate_nearest(depth, angle)
+    image, depth = random_crop(image, depth, train_dims[0], train_dims[1], rng)
+    return image.astype(np.float32), depth.astype(np.float32)
+
+
+def _rotation_grid(h: int, w: int, angle_deg: float):
+    """Kornia-style rotation sampling grid about the image centre: output
+    pixel p samples the input at R^-1 (p - c) + c."""
+    a = np.deg2rad(angle_deg)
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    cos_a, sin_a = np.cos(a), np.sin(a)
+    x0, y0 = xs - cx, ys - cy
+    return -sin_a * x0 + cos_a * y0 + cy, cos_a * x0 + sin_a * y0 + cx
+
+
+def rotate_bilinear(img: np.ndarray, angle: float) -> np.ndarray:
+    """(H, W, C) fp32 rotated about its centre, bilinear, zero fill."""
+    h, w = img.shape[:2]
+    sy, sx = _rotation_grid(h, w, angle)
+    y0, x0 = np.floor(sy).astype(np.int64), np.floor(sx).astype(np.int64)
+    fy, fx = (sy - y0)[..., None], (sx - x0)[..., None]
+
+    def tap(yy, xx):
+        inb = ((yy >= 0) & (yy < h) & (xx >= 0) & (xx < w))[..., None]
+        return img[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)] * inb
+
+    out = (tap(y0, x0) * (1 - fy) * (1 - fx) + tap(y0, x0 + 1) * (1 - fy) * fx
+           + tap(y0 + 1, x0) * fy * (1 - fx) + tap(y0 + 1, x0 + 1) * fy * fx)
+    return out.astype(np.float32)
+
+
+def rotate_nearest(img: np.ndarray, angle: float) -> np.ndarray:
+    """(H, W, C) fp32 rotated about its centre, nearest, zero fill."""
+    h, w = img.shape[:2]
+    sy, sx = _rotation_grid(h, w, angle)
+    yy, xx = np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64)
+    inb = ((yy >= 0) & (yy < h) & (xx >= 0) & (xx < w))[..., None]
+    return (img[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)] * inb).astype(np.float32)

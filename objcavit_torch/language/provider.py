@@ -18,9 +18,10 @@ embedding. The flip-TTA pass re-detects the mirrored image
 ``from_args`` builds it from a config tree as the JAX trainer does: a
 missing YOLOv7-seg checkpoint, CLIP checkpoint or BPE merges file raises
 ``MissingAssetError`` unless ``allow_random`` (``--debug`` or
-``allow_random_detector: true``), which builds the towers with random
-weights from a seed instead. Loading the release files themselves is
-ROADMAP A.3a: a configured file that exists raises NotImplementedError.
+``allow_random_detector: true``), which builds a tower whose file is
+missing with random weights from a seed instead. A file that exists loads
+through ``utils/torch_import.py`` (the detector's BN folded and its
+RepConvs merged for inference).
 """
 
 from __future__ import annotations
@@ -43,13 +44,6 @@ logger = logging.getLogger(__name__)
 DETECTOR_SEED, CLIP_SEED = 1, 0
 
 
-def _release_loader_missing(what: str, path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} {path!r} exists, but loading its release weights into the port is not "
-        "ported yet (ROADMAP A.3a); run with --debug or allow_random_detector: true and "
-        "no such file configured to use random towers")
-
-
 class YoloClipObjectProvider(_SlotSizing):
     # the mirror pass re-runs the detector on the flipped image
     recompute_on_mirror = True
@@ -70,36 +64,52 @@ class YoloClipObjectProvider(_SlotSizing):
         ``allow_random`` a missing asset raises, checked in the JAX
         package's order: the CLIP checkpoint, the BPE file, the detector's
         checkpoint."""
-        from objcavit_torch.models.yolov7 import Yolov7SegDetector
+        from objcavit_torch.models.yolov7 import Yolov7Seg, Yolov7SegDetector
         from objcavit_torch.utils.benchkit import build_detector
+        from objcavit_torch.utils.device import card_device
+        from objcavit_torch.utils.fold_bn import fold_batchnorm
+        from objcavit_torch.utils.torch_import import (
+            clip_text_from_state_dict,
+            load_clip_text_weights,
+            load_yolov7_weights,
+        )
 
         mcfg = args[args.model.name]
         ycfg = args.yolov7seg
         clip_ckpt = args.get("clip_checkpoint") or os.environ.get("CLIP_CKPT_PATH")
         bpe_path = args.get("clip_bpe_path") or os.environ.get("CLIP_BPE_PATH")
         yolo_ckpt = mcfg.get("yolov7_chkpt")
-        # (asset, path, where to set it, whether it is a release weights file)
-        assets = (("CLIP checkpoint", clip_ckpt, "clip_checkpoint or CLIP_CKPT_PATH", True),
-                  ("CLIP BPE merges file", bpe_path, "clip_bpe_path or CLIP_BPE_PATH", False),
-                  ("YOLOv7-seg checkpoint", yolo_ckpt, f"{args.model.name}.yolov7_chkpt", True))
-        for what, path, key, _ in assets:
+        for what, path, key in (
+                ("CLIP checkpoint", clip_ckpt, "clip_checkpoint or CLIP_CKPT_PATH"),
+                ("CLIP BPE merges file", bpe_path, "clip_bpe_path or CLIP_BPE_PATH"),
+                ("YOLOv7-seg checkpoint", yolo_ckpt, f"{args.model.name}.yolov7_chkpt")):
             if not allow_random and not (path and os.path.exists(path)):
                 raise MissingAssetError(
                     f"{what} {path!r} not found (set {key}). Random weights give noise "
                     "detections and embeddings; ask for them explicitly with --debug or "
                     "allow_random_detector: true.")
-        for what, path, _, weights in assets:
-            if weights and path and os.path.exists(path):
-                raise _release_loader_missing(what, path)
-        logger.warning("no YOLOv7-seg or CLIP checkpoint: the detector and the text tower run "
-                       "with RANDOM weights from seeds %d and %d (detections and embeddings "
-                       "are noise)", DETECTOR_SEED, CLIP_SEED)
+        if yolo_ckpt and os.path.exists(yolo_ckpt):
+            # as build_detector: eval, BN folded, fp32, channels_last on the device
+            model = load_yolov7_weights(yolo_ckpt, Yolov7Seg()).eval().to(card_device(device))
+            model = fold_batchnorm(model).cast(torch.float32).to(memory_format=torch.channels_last)
+            logger.info("YOLOv7-seg weights loaded from %s", yolo_ckpt)
+        else:
+            logger.warning("no YOLOv7-seg checkpoint (%s): the detector runs with RANDOM "
+                           "weights from seed %d (detections are noise)", yolo_ckpt,
+                           DETECTOR_SEED)
+            model = build_detector(dtype=torch.float32, seed=DETECTOR_SEED, device=device)
+        clip_model = None
+        if clip_ckpt and os.path.exists(clip_ckpt):
+            clip_model = clip_text_from_state_dict(load_clip_text_weights(clip_ckpt))
+            logger.info("CLIP text tower loaded from %s", clip_ckpt)
+        else:
+            logger.warning("no CLIP checkpoint (%s): the text tower runs with RANDOM weights "
+                           "from seed %d (embeddings are noise)", clip_ckpt, CLIP_SEED)
         max_det = int(ycfg.get("max_det", MAX_DET))
         detector = Yolov7SegDetector(
-            build_detector(dtype=torch.float32, seed=DETECTOR_SEED, device=device),
-            conf_thres=ycfg.conf_thres, iou_thres=ycfg.iou_thres, max_det=max_det,
+            model, conf_thres=ycfg.conf_thres, iou_thres=ycfg.iou_thres, max_det=max_det,
             agnostic=bool(ycfg.get("agnostic_nms")), pre_topk=ycfg.get("pre_topk"))
-        embedder = ClipEmbedder(None, bpe_path, device=device, seed=CLIP_SEED)
+        embedder = ClipEmbedder(clip_model, bpe_path, device=device, seed=CLIP_SEED)
         return cls(detector, embedder, mcfg.objcavit.obj_language_strategy, n_max, max_det)
 
     def __call__(self, images_normed: np.ndarray) -> dict:

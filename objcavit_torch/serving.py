@@ -409,8 +409,9 @@ def build_fused_flagship(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int =
     default; GraphBins' attention on the route ``attn_impl``.
     ``pipeline_kwargs`` go to ``FusedDepthPipeline`` (conf_thres, iou_thres,
     det_topk, pre_topk, class_max_head, det_stride, det_scale, n_obj_max).
-    Importing released YOLOv7-seg and CLIP weights into the port is not
-    done yet (ROADMAP A.4)."""
+    Released YOLOv7-seg and CLIP weights load through
+    ``utils/torch_import.py`` (``load_yolov7_weights``,
+    ``load_clip_text_weights``); this function draws random ones."""
     from objcavit_torch.language.embedding import build_class_table, make_embedder
     from objcavit_torch.utils.benchkit import build_detector, build_flagship_model
 

@@ -11,8 +11,11 @@ checkpoint: ``state_dict`` under ``model.`` keys, beside
 reference's ``*last.ckpt`` rule (``config.get_latest_checkpoint``) finds
 them, and the JAX package's ``restore_checkpoint`` reads them too. The best
 metric lives in ``checkpoints/meta.json``, written atomically, so a
-restarted run does not let a worse validation replace ``best.ckpt``. The
-SWA average's save and restore come with ``fit``.
+restarted run does not let a worse validation replace ``best.ckpt``.
+``checkpoints/swa.ckpt`` holds the SWA average of the parameters (the same
+layout, parameters only), and ``meta.json`` its count and the step it was
+taken at, so a resumed run keeps averaging and drops an average recorded
+ahead of the state it resumes (``restore_swa``).
 """
 
 from __future__ import annotations
@@ -83,6 +86,31 @@ class CheckpointManager:
             self.best_metric = float(abs_rel)
             _save_atomic(ckpt, os.path.join(self.ckpt_dir, "best.ckpt"))
             self._write_meta(best_metric=float(abs_rel))
+
+
+    def save_swa(self, swa_params: dict[str, torch.Tensor], swa_count: int, step: int) -> None:
+        """The SWA average (parameter name -> tensor) after ``swa_count``
+        epochs, taken at train step ``step``."""
+        _save_atomic({"state_dict": {MODEL_PREFIX + k: v.detach().cpu()
+                                     for k, v in swa_params.items()}, "global_step": int(step)},
+                     self._swa_path())
+        self._write_meta(swa_count=int(swa_count), swa_step=int(step))
+
+    def restore_swa(self, max_step: int) -> tuple[dict[str, torch.Tensor], int] | None:
+        """(average, count), or None: none saved, or recorded ahead of
+        ``max_step`` (a kill between ``save_swa`` and ``last.ckpt``'s save,
+        whose epochs would be averaged twice)."""
+        meta = self._meta()
+        count = int(meta.get("swa_count", 0))
+        if count <= 0 or not os.path.exists(self._swa_path()):
+            return None
+        if int(meta.get("swa_step", 0)) > int(max_step):
+            return None
+        sd = torch.load(self._swa_path(), map_location="cpu", weights_only=True)["state_dict"]
+        return {k[len(MODEL_PREFIX):]: v for k, v in sd.items()}, count
+
+    def _swa_path(self) -> str:
+        return os.path.join(self.ckpt_dir, "swa.ckpt")
 
 
 def restore_checkpoint(path: str, model: nn.Module, optimizer=None, scheduler=None) -> int:

@@ -1,20 +1,38 @@
-"""Trainer: the validate and predict flows of the reference's main.py.
+"""Trainer: the fit, validate and predict flows of the reference's main.py.
 
-Port of ``objcavit_tpu/training/loop.py``'s eval half:
+Port of ``objcavit_tpu/training/loop.py``:
 
+* ``fit`` (a run without ``-v`` or ``-i``): a new ``{run_dir}/{name}/
+  version_N`` with ``hparams.yaml``, or with ``resume`` (or
+  ``basic.auto_resume``) the newest one holding ``checkpoints/last.ckpt``,
+  whose model, AdamW moments and step come back, the schedule rebuilt for
+  this run's ``max_epochs`` and started at that step; else a warm start
+  from ``basic.from_checkpoint`` (parameters and BN statistics). Each epoch
+  trains on the shuffled train split (seed 42, no mirror pass), averages the
+  weights from epoch ``int(0.8 max_epochs)`` on where ``optimizer.use_swa``
+  (Lightning's SWA, main.py:41-43; the average persisted each epoch), and
+  every ``validate_every`` epochs validates at ``basic.batch_size`` with
+  flip-TTA (the reference's val loaders, GraphBinsLM.py:510-528), saving
+  ``last.ckpt`` and ``best.ckpt`` by abs_rel. After the last epoch an SWA
+  run takes the averaged weights, refreshes the BN statistics on a train
+  epoch (``update_bn``'s semantics) and saves ``last.ckpt``. TensorBoard,
+  where ``torch.utils.tensorboard`` imports: ``train/loss`` and ``lr-AdamW``
+  at step % 50 == 1, ``metrics/*``, ``metrics_ra/*``, and the
+  ``train/samples`` and ``val/samples`` figures, which never stop training;
 * ``validate`` (``-v``): batch size 1, flip-TTA, each half clamped, the
   Garg/Eigen crops, both metric families, ``validation_output.txt`` in the
   reference's format (main.py:81-88);
 * ``predict`` (``-i``): no TTA, per-image metrics (reset each image),
   ``prediction_metrics.csv`` with the reference's columns, and each image's
   files (GraphBinsLM.py:285-428);
-* ``--debug``: one batch.
+* ``--debug``: one epoch of one step, one validation batch.
 
-The checkpoint is ``basic.val_checkpoint`` (a reference ``.ckpt`` or one the
-port saved); without one the model keeps a fresh init from an explicit
-``torch.Generator`` (the JAX package falls back to a fresh init too). The
-object provider runs in the loader's prefetch thread on the host batch.
-``fit`` (training, SWA, resume, TensorBoard) is ROADMAP A.3d and raises.
+Without a checkpoint the model keeps a fresh init from an explicit
+``torch.Generator`` (the JAX package inits from ``PRNGKey(0)``). A resumed
+run restarts its random numbers (the generator, the loader's order), as
+JAX's does; it saves no generator state. The object provider runs in the
+loader's prefetch thread on the host batch. One process: the multi-process
+launch is ROADMAP A.5.
 """
 
 from __future__ import annotations
@@ -23,6 +41,7 @@ import csv
 import itertools
 import logging
 import os
+import time
 
 import numpy as np
 import torch
@@ -30,7 +49,6 @@ import torch
 from objcavit_torch.config import Config
 from objcavit_torch.data.dataset import make_dataset
 from objcavit_torch.data.loader import DeviceLoader
-from objcavit_torch.errors import MissingAssetError
 from objcavit_torch.losses import LossWrapper
 from objcavit_torch.metrics import (
     METRIC_NAMES,
@@ -38,18 +56,59 @@ from objcavit_torch.metrics import (
     metrics_compute,
     metrics_init,
 )
-from objcavit_torch.training.checkpoint import restore_checkpoint
-from objcavit_torch.training.providers import (
-    StubObjectProvider,
-    ZerosObjectProvider,
-    mirror_objects,
+from objcavit_torch.training.checkpoint import CheckpointManager, restore_checkpoint
+from objcavit_torch.training.optim import build_optimizer
+from objcavit_torch.training.providers import ZerosObjectProvider, mirror_objects
+from objcavit_torch.training.steps import (
+    build_model,
+    cumulative_bn_stats,
+    make_bn_refresh_step,
+    make_eval_step,
+    make_train_step,
 )
-from objcavit_torch.training.steps import build_model, make_eval_step
 from objcavit_torch.utils.device import card_device
+from objcavit_torch.utils.torch_import import load_torch_checkpoint
 
 logger = logging.getLogger(__name__)
 
 FRESH_INIT_SEED = 0  # the fresh init's generator when no checkpoint is found
+TRAIN_SEED = 42  # the train loader's order and samples, and the step's generator
+BN_REFRESH_SEED = 77  # the SWA BN refresh's augmentation and dropout
+LOG_EVERY = 50  # train/loss and lr-AdamW at step % LOG_EVERY == 1
+
+
+def _versions(base: str) -> list[int]:
+    return [int(d.split("_")[1]) for d in os.listdir(base)
+            if d.startswith("version_") and d.split("_")[1].isdigit()]
+
+
+def _next_version_dir(base: str) -> str:
+    """A new ``base/version_N``, N one past the largest there."""
+    os.makedirs(base, exist_ok=True)
+    path = os.path.join(base, f"version_{max(_versions(base), default=-1) + 1}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _find_resume_dir(base: str) -> str | None:
+    """The newest ``base/version_N`` holding ``checkpoints/last.ckpt``."""
+    if not os.path.isdir(base):
+        return None
+    for n in sorted(_versions(base), reverse=True):
+        cand = os.path.join(base, f"version_{n}")
+        if os.path.exists(os.path.join(cand, "checkpoints", "last.ckpt")):
+            return cand
+    return None
+
+
+def _tb_writer(run_dir: str):
+    """A TensorBoard writer on ``run_dir``, or None where it does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        logger.warning("no TensorBoard writer (%s): the run logs no scalars or figures", e)
+        return None
+    return SummaryWriter(run_dir)
 
 
 class Trainer:
@@ -63,6 +122,7 @@ class Trainer:
         self.device = card_device(device)
         self.debug = bool(args.get("debug"))
         self.dataset_cfg = args[args.basic.dataset]
+        self.augment_on_device = not bool(args.basic.get("use_adabins_dataloader"))
         self.model = build_model(args, attn_impl=attn_impl).to(
             self.device, memory_format=torch.channels_last)
         self.loss = LossWrapper.from_args(args)
@@ -83,9 +143,10 @@ class Trainer:
 
     def _build_provider(self):
         """The JAX trainer's table: 'control_obj_zeros_512' -> the zeros
-        provider; 'clip' -> YOLOv7-seg + CLIP, which fails fast on missing
-        assets unless --debug or allow_random_detector; any other failure
-        to build it there falls back to stub detections, with a warning."""
+        provider; 'clip' -> YOLOv7-seg + CLIP, whose missing assets raise
+        unless --debug or allow_random_detector asks for random towers. A
+        configured file that fails to load raises too (JAX's trainer falls
+        back to stub detections on any failure: ROADMAP §C)."""
         if not self.model.takes_objects:
             return None
         args = self.args
@@ -97,17 +158,8 @@ class Trainer:
             from objcavit_torch.language.provider import YoloClipObjectProvider
 
             allow_random = self.debug or bool(args.get("allow_random_detector"))
-            try:
-                return YoloClipObjectProvider.from_args(args, self.n_obj_max, allow_random,
-                                                        self.device)
-            except NotImplementedError:
-                raise
-            except Exception as e:
-                if isinstance(e, MissingAssetError) and not allow_random:
-                    raise
-                logger.warning("CLIP/YOLO provider unavailable (%s); using stub detections", e,
-                               exc_info=True)
-                return StubObjectProvider(self.n_obj_max, max_det=max_det)
+            return YoloClipObjectProvider.from_args(args, self.n_obj_max, allow_random,
+                                                    self.device)
         raise ValueError(f"unknown language strategy {strat}")
 
     def _host_hook(self, batch_np: dict, mirror: bool = True) -> dict:
@@ -128,26 +180,215 @@ class Trainer:
             out["_annot"] = annot
         return out
 
+    def _train_hook(self, batch_np: dict) -> dict:
+        return self._host_hook(batch_np, mirror=False)
+
     def _eval_loader(self, mirror: bool) -> DeviceLoader:
-        """The -v/-i protocol's loader: batch size 1 (main.py:58)."""
-        self.args.basic.batch_size = 1
+        """The -v/-i protocol's loader: batch size 1 (main.py:58); the
+        config's batch size stays as it is for a later fit."""
         hook = None
         if self.provider is not None:
-            hook = self._host_hook if mirror else (lambda b: self._host_hook(b, mirror=False))
+            hook = self._host_hook if mirror else self._train_hook
         return DeviceLoader(make_dataset(self.args, "online_eval"), 1, self.device,
                             host_hook=hook, synchronous=self.sync_loading)
 
     def fit(self, resume: bool | None = None):
-        raise NotImplementedError("Trainer.fit (training, SWA, auto-resume, TensorBoard) is not "
-                                  "ported yet (ROADMAP A.3d); the port runs -v and -i")
+        """Train, as the module docstring says; -> (the trained model, the
+        last validation's metrics)."""
+        args = self.args
+        if resume is None:
+            resume = bool(args.basic.get("auto_resume"))
+        run_base = os.path.join(args.paths.run_dir, args.basic.name)
+        resume_dir = _find_resume_dir(run_base) if resume else None
+        run_dir = resume_dir or _next_version_dir(run_base)
+        ckpt = CheckpointManager(run_dir)
+        ckpt.save_hparams(args)
+        logger.info("run dir: %s%s", run_dir, " (resuming)" if resume_dir else "")
 
-    def _run_eval(self, eval_step, loader, limit: int | None = None) -> dict[str, float]:
+        bs = int(args.basic.batch_size)
+        has_objects = self.provider is not None
+        train_loader = DeviceLoader(make_dataset(args, "train"), bs, self.device, shuffle=True,
+                                    seed=TRAIN_SEED,
+                                    host_hook=self._train_hook if has_objects else None,
+                                    synchronous=self.sync_loading)
+        val_loader = DeviceLoader(make_dataset(args, "online_eval"), bs, self.device,
+                                  host_hook=self._host_hook if has_objects else None,
+                                  synchronous=self.sync_loading)
+        max_epochs = 1 if self.debug else int(args.basic.max_epochs)
+        steps_per_epoch = 1 if self.debug else len(train_loader)
+        # use_swa: absent -> OneCycle; True -> OneCycle + SWA; False -> constant LR
+        use_swa = args.optimizer.get("use_swa")
+        use_swa = None if use_swa is None else bool(use_swa)
+        swa_start_epoch = int(0.8 * max_epochs)  # Lightning's swa_epoch_start
+
+        # JAX initialises its model on the first train batch (loop.py:171-187),
+        # an order and a batch drawn from the loader's stream; drawing it here
+        # too (the host hook draws nothing from it) keeps the two runs on the
+        # same batches
+        next(train_loader.host_batches())
+        self._fresh_init()
+        logger.info("model initialised: %.1fM params",
+                    sum(p.numel() for p in self.model.parameters()) / 1e6)
+        step, start_epoch, resumed = 0, 0, None
+        if resume_dir:
+            # the model, its BN statistics and the step now, AdamW's moments
+            # once the optimizer is built at that step
+            resumed = load_torch_checkpoint(
+                os.path.join(resume_dir, "checkpoints", "last.ckpt"), self.model)
+            step = int(resumed["global_step"])
+            start_epoch = min(step // max(steps_per_epoch, 1), max_epochs)
+            logger.info("resumed the full train state at step %d (epoch %d)", step, start_epoch)
+        else:
+            warm = args.basic.get("from_checkpoint")
+            if warm and os.path.exists(warm):  # main.py:26-28: parameters and BN statistics
+                restore_checkpoint(warm, self.model)
+                logger.info("warm-started from %s", warm)
+        optimizer, scheduler = build_optimizer(
+            self.model, float(args.optimizer.lr), float(args.optimizer.wd),
+            max_epochs * steps_per_epoch, float(args.optimizer.get("div_factor", 25)),
+            float(args.optimizer.get("final_div_factor", 100)), use_swa,
+            args[args.model.name].get("slow_encoder"),
+            swa_start_step=swa_start_epoch * steps_per_epoch,
+            swa_anneal_steps=10 * steps_per_epoch,  # Lightning's annealing_epochs=10
+            start_step=step)
+        if resumed is not None:
+            # the moments and step counts; the groups' LR and betas stay this
+            # run's schedule's, as JAX rebuilds its schedule from the config
+            optimizer.load_state_dict({"state": resumed["optimizer_states"][0]["state"],
+                                       "param_groups": optimizer.state_dict()["param_groups"]})
+            del resumed
+        train_step = make_train_step(
+            self.model, optimizer, scheduler, self.loss, self.dataset_cfg.min_depth,
+            self.augment_on_device, float(args.optimizer.get("gradient_clip_val", 0) or 0),
+            self.dtype, torch.Generator(self.device).manual_seed(TRAIN_SEED))
+        eval_step = make_eval_step(self.model, self.loss, self.mp_cfg, flip_tta=True,
+                                   compute_dtype=self.dtype)
+
+        swa_params, swa_count = None, 0
+        if use_swa and resume_dir:
+            restored = ckpt.restore_swa(max_step=step)
+            if restored is not None:
+                swa_params = {k: v.to(self.device) for k, v in restored[0].items()}
+                swa_count = restored[1]
+                logger.info("resumed SWA average (count=%d)", swa_count)
+        writer = _tb_writer(run_dir)
+        last_metrics, last_train_batch = {}, None
+        try:
+            for epoch in range(start_epoch, max_epochs):
+                t0 = time.time()
+                for batch, _meta in itertools.islice(train_loader, steps_per_epoch):
+                    loss = train_step(batch, batch.get("objects"))
+                    step += 1
+                    if step % LOG_EVERY == 1 or self.debug:
+                        value = float(loss)
+                        logger.info("epoch %d step %d loss %.4f", epoch, step, value)
+                        if writer is not None:
+                            writer.add_scalar("train/loss", value, step)
+                            # Lightning's LearningRateMonitor tag (main.py:33)
+                            if train_step.last_lr is not None:
+                                writer.add_scalar("lr-AdamW", train_step.last_lr, step)
+                    last_train_batch = batch
+                if use_swa and epoch >= swa_start_epoch:
+                    swa_count += 1
+                    swa_params = _running_average(swa_params, self.model, swa_count)
+                    # the step lets a resume drop an average ahead of last.ckpt
+                    ckpt.save_swa(swa_params, swa_count, step)
+                if writer is not None and last_train_batch is not None:
+                    self._log_train_figure(writer, last_train_batch, step)
+                if (epoch + 1) % int(args.basic.get("validate_every", 1)) == 0:
+                    last_metrics, last_batch = self._run_eval(
+                        eval_step, val_loader, limit=1 if self.debug else None,
+                        keep_last_batch=True)
+                    logger.info("epoch %d val: abs_rel %.4f rmse %.4f (%.1fs)", epoch,
+                                last_metrics["abs_rel"], last_metrics["rmse"], time.time() - t0)
+                    if writer is not None:
+                        for k, v in last_metrics.items():
+                            writer.add_scalar(f"{'metrics_ra' if k.endswith('_ra') else 'metrics'}"
+                                              f"/{k}", v, step)
+                        self._log_sample_figure(writer, "val/samples", last_batch, step)
+                    ckpt.save(self.model, optimizer, scheduler, step,
+                              abs_rel=last_metrics["abs_rel"])
+            if use_swa and swa_params is not None:
+                with torch.no_grad():
+                    for name, p in self.model.named_parameters():
+                        p.copy_(swa_params[name])
+                self._refresh_swa_batch_stats(train_loader, steps_per_epoch)
+                ckpt.save(self.model, optimizer, scheduler, step, abs_rel=None)
+        finally:
+            if writer is not None:
+                writer.close()
+        self.last_metrics = last_metrics
+        return self.model, last_metrics
+
+    def _refresh_swa_batch_stats(self, loader: DeviceLoader, max_batches: int) -> None:
+        """The BN statistics of the averaged weights: the equal-weight
+        average of each train batch's, over up to ``max_batches``. A padded
+        final batch is skipped, decided on the host from the loader's sizes:
+        its wrapped samples would count twice (BN statistics cannot be
+        masked)."""
+        refresh = make_bn_refresh_step(self.model, self.augment_on_device, self.dtype)
+        generator = torch.Generator(self.device).manual_seed(BN_REFRESH_SEED)
+        full_batches = len(loader.dataset) // loader.batch_size
+        k = 0
+        with cumulative_bn_stats(self.model) as n_bn:
+            if n_bn == 0:
+                return
+            for i, (batch, _meta) in enumerate(itertools.islice(loader, max_batches)):
+                if i >= full_batches:
+                    continue
+                refresh(batch, batch.get("objects"), generator)
+                k += 1
+        logger.info("SWA: refreshed batch_stats over %d train batches", k)
+
+    def _run_eval(self, eval_step, loader, limit: int | None = None,
+                  keep_last_batch: bool = False):
+        """-> the metrics over ``loader`` (up to ``limit`` batches), and with
+        ``keep_last_batch`` also (the last batch, its depth, its meta)."""
         metric_state = metrics_init(self.device)
+        last = None
         # islice stops before the loader makes a batch past the limit
-        for batch, _meta in itertools.islice(loader, limit):
-            metric_state, _loss, _pred = eval_step(batch, batch.get("objects"),
-                                                   batch.get("objects_mirror"), metric_state)
-        return {k: float(v) for k, v in metrics_compute(metric_state).items()}
+        for batch, meta in itertools.islice(loader, limit):
+            metric_state, _loss, pred = eval_step(batch, batch.get("objects"),
+                                                  batch.get("objects_mirror"), metric_state)
+            if keep_last_batch:
+                last = (batch, pred, meta)
+        metrics = {k: float(v) for k, v in metrics_compute(metric_state).items()}
+        return (metrics, last) if keep_last_batch else metrics
+
+    def _log_train_figure(self, writer, batch: dict, step: int) -> None:
+        """The train/samples figure: a forward without TTA in eval mode on the
+        epoch's last train batch (GraphBinsLM.py:149-151)."""
+        try:
+            inputs = (batch["image"],)
+            if self.model.takes_objects:
+                objects = batch["objects"]
+                inputs += (objects["features"], objects["xywh"], objects["valid"])
+            self.model.eval()
+            with torch.inference_mode():
+                out = torch.func.functional_call(self.model, self.model.params_in(self.dtype),
+                                                 inputs)
+            self._log_sample_figure(writer, "train/samples", (batch, out["depth_pred"], None),
+                                    step)
+        except Exception:  # a figure must never stop training
+            logger.warning("train figure logging failed", exc_info=True)
+
+    def _log_sample_figure(self, writer, tag: str, last_batch, step: int) -> None:
+        """The RGB / GT / prediction (+ detections) grid (FigureBuilder.py:64-125)."""
+        if last_batch is None:
+            return
+        try:
+            from objcavit_torch.utils.figures import build_batch_figure
+
+            batch, depth_pred, meta = last_batch
+            dets = self._annotated_images(batch, meta)
+            fig = build_batch_figure(batch["image"].float().cpu().numpy(),
+                                     batch["depth"].float().cpu().numpy(),
+                                     depth_pred.float().cpu().numpy(),
+                                     num_samples=min(4, int(batch["image"].shape[0])),
+                                     detections=dets)
+            writer.add_image(tag, fig, step, dataformats="HWC")
+        except Exception:  # a figure must never stop training
+            logger.warning("figure logging failed", exc_info=True)
 
     def validate(self) -> dict[str, float]:
         """-v: restore the checkpoint, evaluate with flip-TTA, write
@@ -216,11 +457,15 @@ class Trainer:
             restore_checkpoint(path, self.model)
             logger.info("restored checkpoint: %s", path)
             return
-        from objcavit_torch.utils.benchkit import init_weights_
-
         logger.warning("no checkpoint restored (path=%s); using a fresh init from seed %d",
                        path, FRESH_INIT_SEED)
-        # drawn on the CPU, so every device gets the same weights
+        self._fresh_init()
+
+    def _fresh_init(self) -> None:
+        """The model's weights from ``FRESH_INIT_SEED``, drawn on the CPU so
+        every device gets the same ones."""
+        from objcavit_torch.utils.benchkit import init_weights_
+
         init_weights_(self.model.cpu(), torch.Generator().manual_seed(FRESH_INIT_SEED))
         self.model.to(self.device, memory_format=torch.channels_last)
 
@@ -238,6 +483,18 @@ class Trainer:
                            a["classes"], a["valid"], masks=a.get("masks"), names=a.get("names"))
             for i, a in enumerate(annots)
         ])
+
+
+def _running_average(avg: dict[str, torch.Tensor] | None, model: torch.nn.Module,
+                     count: int) -> dict[str, torch.Tensor]:
+    """The parameters' running average after ``count`` epochs (the first
+    its copy): avg + (new - avg) / count."""
+    with torch.no_grad():
+        if avg is None:
+            return {n: p.detach().clone() for n, p in model.named_parameters()}
+        for n, p in model.named_parameters():
+            avg[n].add_((p - avg[n]) / count)
+    return avg
 
 
 def metrics_log_str(m: dict) -> str:

@@ -8,8 +8,8 @@ maps a batch of normalised images (numpy NHWC) to padded slots
 * ``ZerosObjectProvider``: the 'control_obj_zeros_512' ablation without a
   detector: the no-detection sentinel (slot 0 valid, xywh = -1, zero
   features) for every image;
-* ``StubObjectProvider``: deterministic pseudo-detections, for tests and
-  runs without detector weights; the same draws as the JAX package's;
+* ``StubObjectProvider``: deterministic pseudo-detections, for tests; the
+  same draws as the JAX package's;
 * ``mirror_objects``: the slots of the horizontally flipped image, for the
   eval's flip-TTA.
 

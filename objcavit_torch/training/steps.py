@@ -1,8 +1,8 @@
 """The model factory, the train loss and the train step.
 
 Port of ``objcavit_tpu/training/steps.py``: ``build_model`` (GraphBins or
-AdaBins), ``make_train_loss_fn``, ``make_train_step`` and
-``make_eval_step``. AdaBins is called
+AdaBins), ``make_train_loss_fn``, ``make_train_step``,
+``make_bn_refresh_step`` (the SWA BN refresh) and ``make_eval_step``. AdaBins is called
 on the image alone, as JAX's ``is_graphbins=False`` route calls it; its
 steps take ``objects=None``. One step is device-side
 augmentation -> forward in training mode -> loss -> backward -> gradient
@@ -31,6 +31,7 @@ runs.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable
 
 import torch
@@ -103,7 +104,9 @@ class TrainStep:
     """``step(batch, objects) -> loss``: one optimisation step, in place.
 
     ``loss``, ``loss.backward()`` and ``update`` are its three parts, in
-    order.
+    order. ``scheduler`` may be None (the constant-LR path); ``last_lr`` is
+    the LR of the latest update where a scheduler sets it (the reference's
+    ``lr-AdamW`` scalar), else None.
     """
 
     def __init__(self, model: BinsDepthModel, optimizer: torch.optim.Optimizer, scheduler,
@@ -115,6 +118,7 @@ class TrainStep:
         self.loss_fn = loss_fn
         self.gradient_clip_val = gradient_clip_val
         self.generator = generator
+        self.last_lr: float | None = None
 
     def loss(self, batch, objects) -> torch.Tensor:
         self.optimizer.zero_grad(set_to_none=True)
@@ -123,8 +127,11 @@ class TrainStep:
     def update(self) -> None:
         if self.gradient_clip_val > 0:
             torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.gradient_clip_val)
+        if self.scheduler is not None:
+            self.last_lr = float(self.optimizer.param_groups[0]["lr"])
         self.optimizer.step()
-        self.scheduler.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
 
     def __call__(self, batch, objects) -> torch.Tensor:
         loss = self.loss(batch, objects)
@@ -143,6 +150,52 @@ def make_train_step(model: BinsDepthModel, optimizer: torch.optim.Optimizer, sch
     loss_fn = make_train_loss_fn(model, loss_wrapper, min_depth, augment_on_device,
                                  compute_dtype)
     return TrainStep(model, optimizer, scheduler, loss_fn, gradient_clip_val, generator)
+
+
+def make_bn_refresh_step(model: BinsDepthModel, augment_on_device: bool,
+                         compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """fn(batch, objects, generator): one forward of a train step without
+    its gradients, for the SWA BN refresh (``objcavit_tpu/training/
+    steps.py::make_bn_refresh_step``): training mode, the device
+    augmentation and the dropout drawn from ``generator`` as the train step
+    draws them. Inside ``cumulative_bn_stats`` the BatchNorms average each
+    batch's statistics (the unbiased variance, as the train step's) with
+    equal weights, as ``torch.optim.swa_utils.update_bn`` does."""
+
+    @torch.no_grad()
+    def refresh_step(batch, objects, generator=None):
+        model.train()
+        image = batch["image"]
+        if augment_on_device:
+            image, _ = augment_batch(generator, image, batch["depth"])
+        inputs = (image,)
+        if model.takes_objects:
+            inputs += (objects["features"], objects["xywh"], objects["valid"])
+        torch.func.functional_call(model, model.params_in(compute_dtype), inputs,
+                                   {"generator": generator})
+
+    return refresh_step
+
+
+@contextlib.contextmanager
+def cumulative_bn_stats(model: torch.nn.Module):
+    """While open, every BatchNorm of ``model`` keeps the cumulative average
+    of the batches it sees (momentum None and its count zeroed, as
+    ``update_bn`` sets them: the first batch replaces the old statistics);
+    the momenta come back on exit, and so do the statistics' counts of a BN
+    that saw no batch. Yields the number of BatchNorms."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    saved = [(m.momentum, m.num_batches_tracked.clone()) for m in bns]
+    for m in bns:
+        m.num_batches_tracked.zero_()
+        m.momentum = None
+    try:
+        yield len(bns)
+    finally:
+        for m, (momentum, count) in zip(bns, saved):
+            m.momentum = momentum
+            if int(m.num_batches_tracked) == 0:
+                m.num_batches_tracked.copy_(count)
 
 
 def make_eval_step(model: BinsDepthModel, loss_wrapper: LossWrapper,

@@ -235,7 +235,7 @@ def _train_step(model: BinsDepthModel, batch: int, h: int, w: int, seed: int,
     depths made with numpy from ``seed``, and that numpy generator."""
     init_weights_(model, torch.Generator().manual_seed(seed))
     model.to(device, memory_format=torch.channels_last).train()
-    optimizer, scheduler = build_optimizer(model.parameters(), TRAIN_LR, TRAIN_WD,
+    optimizer, scheduler = build_optimizer(model, TRAIN_LR, TRAIN_WD,
                                            TRAIN_TOTAL_STEPS)
     step: TrainStep = make_train_step(
         model, optimizer, scheduler, LossWrapper(*TRAIN_LOSSES), min_depth=model.min_depth,

@@ -9,7 +9,13 @@ written with PIL, which the card's machine has (matplotlib it has not): each
 is the array itself at its own size, without matplotlib's axes and margins,
 the depths colour-mapped with an 'inferno_r' polynomial fit over
 [min_depth, the GT's max], GT pixels below the range (and nan) in white as
-the JAX package draws them. ``build_batch_figure`` comes with ``fit``.
+the JAX package draws them.
+
+``build_batch_figure`` is the TensorBoard grid of ``fit`` (FigureBuilder.py:
+64-125; ``objcavit_tpu/utils/figures.py::build_batch_figure``): a row an
+image of RGB, GT depth, predicted depth (and the detections where a live
+detector kept them), as one uint8 (H, W, 3) array for ``add_image``, each
+panel at the image's size.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ def depth_colors(depth: np.ndarray, vmin: float, vmax: float, under_white: bool)
 def _save_png(path: str, rgb01: np.ndarray) -> None:
     from PIL import Image
 
-    Image.fromarray(np.round(np.clip(rgb01, 0, 1) * 255).astype(np.uint8)).save(path)
+    Image.fromarray(_panel(rgb01, rgb01.shape[:2])).save(path)
 
 
 def save_prediction_images(out_dir: str, idx: int, image_normed: np.ndarray,
@@ -67,3 +73,32 @@ def save_prediction_images(out_dir: str, idx: int, image_normed: np.ndarray,
               depth_colors(depth_pred[..., 0], min_depth, vmax, under_white=False))
     np.save(os.path.join(out_dir, f"{idx}_depth_gt_raw.npy"), depth_gt)
     np.save(os.path.join(out_dir, f"{idx}_depth_pred_raw.npy"), depth_pred)
+
+
+def _panel(rgb01: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    from PIL import Image
+
+    img = Image.fromarray(np.round(np.clip(rgb01, 0, 1) * 255).astype(np.uint8))
+    if img.size != (hw[1], hw[0]):
+        img = img.resize((hw[1], hw[0]), Image.NEAREST)
+    return np.asarray(img)
+
+
+def build_batch_figure(images_normed: np.ndarray, depth_gt: np.ndarray, depth_pred: np.ndarray,
+                       num_samples: int = 4,
+                       detections: np.ndarray | None = None) -> np.ndarray:
+    """images_normed (B, H, W, 3), depth_gt (B, H, W, 1), depth_pred (B, h,
+    w, 1), detections (B, H, W, 3) in [0, 1] or None -> the (n H, cols W, 3)
+    uint8 grid; depths on 'inferno_r' over [0, the image's GT max], as JAX's."""
+    n = min(num_samples, images_normed.shape[0])
+    hw = images_normed.shape[1:3]
+    rows = []
+    for i in range(n):
+        vmax = float(depth_gt[i].max())
+        panels = [np.clip(imagenet_unnormalize(images_normed[i]), 0, 1),
+                  depth_colors(depth_gt[i, ..., 0], 0.0, vmax, under_white=True),
+                  depth_colors(depth_pred[i, ..., 0], 0.0, vmax, under_white=False)]
+        if detections is not None:
+            panels.append(detections[i])
+        rows.append(np.concatenate([_panel(p, hw) for p in panels], axis=1))
+    return np.concatenate(rows, axis=0)

@@ -200,7 +200,7 @@ def _train_runs():
                 {"params": jax.tree.map(np.asarray, state.params)}, ENC)}
 
     model = port_adabins(variables, "kernel", dropout_rate=0.0)
-    optimizer, scheduler = build_optimizer(model.parameters(), LR, WD, TOTAL_STEPS)
+    optimizer, scheduler = build_optimizer(model, LR, WD, TOTAL_STEPS)
     port_step = make_train_step(model, optimizer, scheduler, LossWrapper(*LOSSES), MIN_DEPTH,
                                 augment_on_device=False, gradient_clip_val=CLIP)
     loss = port_step({k: torch.from_numpy(v) for k, v in batch.items()}, None)

@@ -327,7 +327,7 @@ def _train_runs():
                                                 ENC)}
 
     model = _port_graphbins(variables, dropout_rate=0.0)
-    optimizer, scheduler = build_optimizer(model.parameters(), LR, WD, TOTAL_STEPS)
+    optimizer, scheduler = build_optimizer(model, LR, WD, TOTAL_STEPS)
     port_step = make_train_step(model, optimizer, scheduler, LossWrapper(*LOSSES), MIN_DEPTH,
                                 augment_on_device=False, gradient_clip_val=CLIP)
     bwd = kattn.fused_mha_bwd.launches

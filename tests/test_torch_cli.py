@@ -28,7 +28,11 @@ from objcavit_torch.errors import MissingAssetError
 from objcavit_torch.language.provider import YoloClipObjectProvider
 from objcavit_torch.metrics import METRIC_NAMES
 from objcavit_torch.training.loop import Trainer
+from objcavit_torch.utils.torch_import import yolov7_state_dict_from_release
+from tests import test_clip_import as clip_oracle
+from tests import test_yolov7_import as yolo_oracle
 from tests.test_torch_eval import _write_reference_ckpt
+from tests.test_torch_fit import one_torch_thread  # noqa: F401  (a fixture)
 
 # tests/test_eval_protocol.py's pinned column order of prediction_metrics.csv
 CSV_HEADER = (["", "batch_idx", "image_filename", "depth_gt_filename"]
@@ -187,21 +191,59 @@ def test_clip_config_without_assets_fails_fast(tmp_path):
         cli.main(["-c", cfg_path, "-v"], device="cpu")
 
 
-def test_clip_config_with_a_release_file_waits_for_its_loader(tmp_path):
-    """Release files that exist: the port has no loader for them yet and
-    says so, with every asset present, and under --debug with the detector's
-    alone."""
-    assets = {}
-    for key, name in (("clip_checkpoint", "ViT-B-32.pt"), ("clip_bpe_path", "bpe.txt.gz"),
-                      ("graphbins.yolov7_chkpt", "yolov7-seg.pt")):
-        (tmp_path / name).write_bytes(b"")
-        assets[key] = str(tmp_path / name)
-    clip = {"graphbins.objcavit.language_embedding_strategy": "clip"}
-    with pytest.raises(NotImplementedError, match="A.3a"):
-        cli.main(["-c", _config(tmp_path, **clip, **assets), "-v"], device="cpu")
-    yolo_only = {"graphbins.yolov7_chkpt": assets["graphbins.yolov7_chkpt"]}
-    with pytest.raises(NotImplementedError, match="YOLOv7-seg.*A.3a"):
-        cli.main(["-c", _config(tmp_path, **clip, **yolo_only), "-v", "--debug"], device="cpu")
+def test_clip_config_loads_its_release_files(tmp_path, monkeypatch):
+    """Release files that exist load: a YOLOv7-seg .pt in the u7 layout with
+    LVIS's 1203 classes and a CLIP text tower with CLIP's vocabulary and
+    context (one narrow layer), written from the oracles of
+    tests/test_yolov7_import.py and tests/test_clip_import.py. The provider
+    holds their weights (the detector's detect convs with the implicit
+    layers folded in) and -v --debug validates an image with them."""
+    for k, v in (("NC", 1203), ("NM", 32)):
+        monkeypatch.setattr(yolo_oracle, k, v)
+    for k, v in (("VOCAB", 49408), ("CTX", 77), ("WIDTH", 64), ("HEADS", 1), ("LAYERS", 1),
+                 ("EMBED", 512)):
+        monkeypatch.setattr(clip_oracle, k, v)
+    torch.manual_seed(0)
+    yolo = yolo_oracle.TorchYolo().eval()
+    yolo_oracle._randomize(yolo)
+    sd = {k: v.detach().numpy() for k, v in yolo.state_dict().items()}
+    clip = clip_oracle.TorchCLIPText().eval()
+    assets = {"clip_checkpoint": str(tmp_path / "ViT-B-32.pt"),
+              "graphbins.yolov7_chkpt": str(tmp_path / "yolov7-seg.pt")}
+    torch.save({"model": yolo_oracle._Payload(sd)}, assets["graphbins.yolov7_chkpt"])
+    torch.save(clip.state_dict(), assets["clip_checkpoint"])
+    cfg_path = _config(tmp_path, **{"graphbins.objcavit.language_embedding_strategy": "clip"},
+                       **assets)
+    args = cli.check_and_validate_args(cli.load_args(cfg_path, debug=True, validate=True),
+                                       "/nonexistent")
+    trainer = Trainer(args, device="cpu")
+    assert isinstance(trainer.provider, YoloClipObjectProvider)
+    assert torch.equal(trainer.provider.embedder.model.token_embedding.weight,
+                       clip.token_embedding.weight)
+    fused = yolov7_state_dict_from_release(sd)
+    for k in range(3):
+        np.testing.assert_array_equal(
+            getattr(trainer.provider.detector.model, f"detect{k}").weight.detach().numpy(),
+            fused[f"detect{k}.weight"])
+    metrics = trainer.validate()
+    assert all(np.isfinite(v) for v in metrics.values())
+
+
+def test_clip_config_with_a_wrong_class_release_file_raises(tmp_path):
+    """A configured YOLOv7-seg file that exists but holds the oracle's 2
+    classes, not LVIS's 1203: the class-count ValueError reaches the CLI,
+    even under --debug, where a missing file would give random towers (no
+    fall-back to stub detections, ROADMAP §C)."""
+    torch.manual_seed(0)
+    yolo = yolo_oracle.TorchYolo().eval()
+    yolo_oracle._randomize(yolo)
+    path = str(tmp_path / "yolov7-seg.pt")
+    torch.save({"model": yolo_oracle._Payload(
+        {k: v.detach().numpy() for k, v in yolo.state_dict().items()})}, path)
+    cfg_path = _config(tmp_path, **{"graphbins.objcavit.language_embedding_strategy": "clip",
+                                    "graphbins.yolov7_chkpt": path})
+    with pytest.raises(ValueError, match="2 classes"):
+        cli.main(["-c", cfg_path, "-v", "--debug"], device="cpu")
 
 
 def test_clip_config_under_debug_runs_random_towers(tmp_path):
@@ -223,9 +265,16 @@ def test_clip_config_under_debug_runs_random_towers(tmp_path):
     assert len(rows) == 1 and os.path.exists(out / "0_dets.png")
 
 
-def test_a_run_without_v_or_i_reaches_fit_which_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.3d"):
-        cli.main(["-c", _config(tmp_path, ckpt=False)], device="cpu")
+def test_a_run_without_v_or_i_trains(tmp_path):
+    """Neither -v nor -i: cli.main runs Trainer.fit (--debug: one step and
+    one validation batch) and returns the model and its finite metrics; the
+    run dir holds hparams.yaml and last.ckpt at step 1
+    (tests/test_torch_fit.py holds the fit against JAX's)."""
+    model, metrics = cli.main(["-c", _config(tmp_path, ckpt=False), "--debug"], device="cpu")
+    assert isinstance(model, torch.nn.Module) and all(np.isfinite(v) for v in metrics.values())
+    run = tmp_path / "runs" / "tiny" / "version_0"
+    assert (run / "hparams.yaml").exists()
+    assert torch.load(run / "checkpoints" / "last.ckpt", weights_only=False)["global_step"] == 1
 
 
 def test_cli_runs_on_the_card_by_default(tmp_path, monkeypatch):

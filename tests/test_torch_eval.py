@@ -11,6 +11,7 @@ both sides. The JAX eval step is compiled once per model for the file.
 Each test states its tolerance.
 """
 
+import copy
 import functools
 import json
 import os
@@ -401,7 +402,7 @@ def test_checkpoint_manager_round_trips_and_keeps_the_best_across_a_restart(tmp_
     last.ckpt, and JAX restores the port's checkpoint."""
     run = tmp_path / "runs" / "tiny" / "version_0"
     model = port_model("graphbins")
-    optimizer, scheduler = build_optimizer(model.parameters(), 1e-3, 0.1, 10)
+    optimizer, scheduler = build_optimizer(model, 1e-3, 0.1, 10)
     for i, p in enumerate(model.parameters()):
         p.grad = torch.full_like(p, 0.01 * (i % 7 - 3))
     optimizer.step()
@@ -411,7 +412,7 @@ def test_checkpoint_manager_round_trips_and_keeps_the_best_across_a_restart(tmp_
     best_bytes = (run / "checkpoints" / "best.ckpt").read_bytes()
 
     model2 = port_model("graphbins")
-    opt2, sched2 = build_optimizer(model2.parameters(), 1e-3, 0.1, 10)
+    opt2, sched2 = build_optimizer(model2, 1e-3, 0.1, 10)
     assert restore_checkpoint(str(run / "checkpoints" / "last.ckpt"), model2, opt2, sched2) == 7
     for (k, v), v2 in zip(model.state_dict().items(), model2.state_dict().values()):
         assert torch.equal(v, v2), k
@@ -508,8 +509,16 @@ def test_eval_dataset_on_disk_matches_jax(tmp_path, dataset):
         assert s["image"].shape == (*hw, 3) and s["depth"].shape == (*hw, 1)
         for k in s:
             np.testing.assert_array_equal(s[k], w[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="A.3c"):
-        DepthDataset(Config(cfg), "train")
+    # train mode reads the train split from the train path (its samples:
+    # tests/test_torch_train_data.py); a train frame without GT raises
+    train_cfg = copy.deepcopy(cfg)
+    train_cfg[dataset].update(filenames_file_train=cfg[dataset]["filenames_file_eval"],
+                              train_path="test")
+    train = DepthDataset(Config(train_cfg), "train")
+    assert train.filenames == lines and train.data_path == ds.data_path
+    if dataset == "kitti":
+        with pytest.raises(FileNotFoundError, match="missing train GT"):
+            train.get(1, np.random.default_rng(0))
 
 
 def test_synthetic_dataset_matches_jax():

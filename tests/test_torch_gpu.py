@@ -1078,3 +1078,62 @@ def test_bf16_eval_step_launches_kernels_1_and_2_and_fp32_none(cuda):
             _assert_close(depth, plain_depth, BINS_RTOL, BINS_ATOL)
     got, want = depths[torch.bfloat16], depths[torch.float32]
     assert float((got - want).norm() / want.norm()) < 0.02
+
+
+@gpu
+def test_a_tiny_fit_through_the_cli_launches_kernel_4_and_validates_on_1_and_2(cuda, tmp_path):
+    """`cli.main(['-c', cfg, '--bf16', '--debug'])` trains the tiny
+    GraphBins (256 bins, 384x352, the zeros provider) on the card: one step
+    launches kernel 4 forward and backward, its outputs matching the plain
+    versions on its own tensors; the in-fit validation (one batch of 8, a
+    16-image flip-TTA forward) launches kernel 1's concat form 4 times and
+    kernel 2 once, and the train figure as many again where TensorBoard
+    imports; last.ckpt holds step 1."""
+    import yaml
+
+    from objcavit_torch import cli
+
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        figures = 1
+    except ImportError:
+        figures = 0
+    dims = [384, 352]
+    cfg = {
+        "basic": {"dataset": "nyu", "batch_size": 8, "max_epochs": 1, "name": "tiny"},
+        "optimizer": {"lr": 3.57e-4, "wd": 0.1, "gradient_clip_val": 0.1},
+        "model": {"name": "graphbins"},
+        "graphbins": {"n_bins": 256, "encoder_name": "efficientnet-tiny",
+                      "objcavit": {"positional_embedding_strategy": "learned_bbox_wh",
+                                   "embedding_dim": 128, "obj_language_strategy": "none",
+                                   "language_embedding_strategy": "control_obj_zeros_512"}},
+        "loss": {"names": ["silog", "bins_chamfer"], "coeffs": [1, 0.1]},
+        "paths": {"data_dir": str(tmp_path / "no_data"), "run_dir": str(tmp_path / "runs")},
+        "nyu": {"filenames_file_train": "/nonexistent", "filenames_file_eval": "/nonexistent",
+                "base_path": "nyu", "min_depth": 0.001, "max_depth": 10, "eigen_crop": False,
+                "garg_crop": False, "do_kb_crop": False, "dimensions_train": dims,
+                "dimensions_test": dims},
+        "hardware": {"num_workers": 0},
+        "objects_max": 8,
+    }
+    path = tmp_path / "tiny.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    counters = (kexp.bins_expectation_fwd, kexp.bins_expectation_bwd,
+                kresize.resize_bilinear_align_corners, kbins.conv_bins_depth_batched)
+    before = [fn.launches for fn in counters] + [
+        kresize.resize_bilinear_align_corners.concat_launches]
+    with record_bins_expectation_io() as records:
+        model, metrics = cli.main(["-c", str(path), "--bf16", "--debug"],
+                                  basic_params_path="/nonexistent")
+    torch.cuda.synchronize()
+    after = [fn.launches for fn in counters] + [
+        kresize.resize_bilinear_align_corners.concat_launches]
+    n = 1 + figures
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 4 * n, n, 4 * n]
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert len(records) == 1 and "dcenters" in records[0]
+    pairs = bins_expectation_plain_outputs(records[0])
+    _assert_close(*pairs["depth"], EXP_RTOL, EXP_ATOL)
+    ckpt = torch.load(tmp_path / "runs" / "tiny" / "version_0" / "checkpoints" / "last.ckpt",
+                      weights_only=False)
+    assert ckpt["global_step"] == 1

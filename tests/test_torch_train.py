@@ -100,7 +100,7 @@ def _port_step(compute_dtype=torch.float32):
     variables = graphbins_variables(n_bins=N_BINS)
     model = GraphBins(encoder_name=ENC, n_bins=N_BINS, dropout_rate=0.0)
     model.load_state_dict({k: _t(v) for k, v in state_dict_from_variables(variables, ENC).items()})
-    optimizer, scheduler = build_optimizer(model.parameters(), LR, WD, TOTAL_STEPS)
+    optimizer, scheduler = build_optimizer(model, LR, WD, TOTAL_STEPS)
     return make_train_step(model, optimizer, scheduler, LossWrapper(*LOSSES), MIN_DEPTH,
                            augment_on_device=False, gradient_clip_val=CLIP,
                            compute_dtype=compute_dtype)
@@ -540,7 +540,7 @@ def test_lr_and_beta1_schedules_match_jax_over_10_steps():
     """The learning rate and beta1 each update uses, steps 0-9, against the
     JAX package's torch-exact schedules (rel 1e-6, fp32 there)."""
     p = torch.nn.Parameter(torch.zeros(3))
-    optimizer, scheduler = build_optimizer([p], LR, WD, total_steps=20)
+    optimizer, scheduler = build_optimizer(torch.nn.ParameterList([p]), LR, WD, total_steps=20)
     lr_fn, b1_fn = torch_onecycle_schedule(20, LR, final_div_factor=100.0), \
         onecycle_momentum_schedule(20)
     for k in range(10):
