@@ -20,7 +20,10 @@ fp32 and computes in bf16 through ``params_in``, the JAX package's
 ``param.astype(dtype)`` at each op. ``attn_impl`` is ObjCAViT's attention
 route, ``"plain"`` or ``"kernel"`` (kernel 5); ``encoder_impl`` the
 encoder's, ``"plain"`` or ``"kernel"`` (kernels 7 and 8, folded inference
-only). ``BinsDepthModel`` holds what GraphBins and AdaBins share.
+only). ``pos_strategy``, ``no_obj_sa``, ``use_2_saca`` and the
+full-resolution ``dims_train``/``dims_test`` (which size ``grid_random``'s
+table) are ObjCAViT's options. ``BinsDepthModel`` holds what GraphBins and
+AdaBins share.
 """
 
 from __future__ import annotations
@@ -89,7 +92,9 @@ class GraphBins(BinsDepthModel):
     def __init__(self, encoder_name: str = "efficientnet-b5", n_bins: int = 256,
                  min_depth: float = 0.001, max_depth: float = 10.0,
                  embedding_dim: int = 128, obj_feature_dim: int = 512,
-                 pos_strategy: str = "learned_bbox_wh", dropout_rate: float = 0.1,
+                 pos_strategy: str = "learned_bbox_wh", no_obj_sa: bool = False,
+                 use_2_saca: bool = False, dims_train: tuple[int, int] = (416, 544),
+                 dims_test: tuple[int, int] = (480, 640), dropout_rate: float = 0.1,
                  n_queries: int = N_QUERIES, attn_impl: str = "plain",
                  encoder_impl: str = "plain"):
         super().__init__()
@@ -102,8 +107,9 @@ class GraphBins(BinsDepthModel):
         self.objcavit = ObjCAViT(
             im_feature_dim=128, obj_feature_dim=obj_feature_dim,
             n_query_channels=n_queries, patch_size=16, dim_out=n_bins,
-            embed_dim=embedding_dim, pos_strategy=pos_strategy, dropout_rate=dropout_rate,
-            attn_impl=attn_impl,
+            embed_dim=embedding_dim, pos_strategy=pos_strategy, no_obj_sa=no_obj_sa,
+            use_2_saca=use_2_saca, dims_train=dims_train, dims_test=dims_test,
+            dropout_rate=dropout_rate, attn_impl=attn_impl,
         )
         # the reference's Sequential(conv, Softmax); the bins head fuses both
         self.conv_out = nn.Sequential(nn.Conv2d(n_queries, n_bins, 1))

@@ -112,14 +112,15 @@ class DepthPipeline:
 
 def build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,
                             device="cuda", attn_impl: str = "plain",
-                            encoder_impl: str = "plain") -> DepthPipeline:
+                            encoder_impl: str = "plain", **overrides) -> DepthPipeline:
     """Flagship GraphBins-B5 pipeline, BN folded, with random weights from
     ``seed``, its attention on the route ``attn_impl`` and its encoder on
-    the route ``encoder_impl``."""
+    the route ``encoder_impl``; ``overrides`` update the model's arguments
+    (ObjCAViT's options among them, ``benchkit.build_flagship_model``)."""
     from objcavit_torch.utils.benchkit import build_flagship_model
 
     model = build_flagship_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl,
-                                 encoder_impl=encoder_impl)
+                                 encoder_impl=encoder_impl, **overrides)
     return DepthPipeline(model, eval_dims=eval_dims)
 
 

@@ -50,7 +50,9 @@ def build_model(args: Any, attn_impl: str = "plain") -> BinsDepthModel:
     parameters, attention on the route ``attn_impl``. ``conv_out`` reads
     min(128, tokens - 1) queries at the smaller of the train and test
     sizes, the width the JAX package's lazily shaped ``conv_out`` takes
-    there (128 at every params file's size)."""
+    there (128 at every params file's size). GraphBins takes ObjCAViT's
+    options from ``objcavit`` and the dataset's ``dimensions_train`` and
+    ``dimensions_test``, as the JAX package's ``build_model`` does."""
     name = args.model.name
     if name not in ("graphbins", "adabins"):
         raise NotImplementedError(
@@ -67,10 +69,13 @@ def build_model(args: Any, attn_impl: str = "plain") -> BinsDepthModel:
     if name == "adabins":
         return AdaBins(**common)
     ocfg = mcfg.objcavit
-    if ocfg.get("no_obj_sa") or ocfg.get("use_2_saca"):
-        raise NotImplementedError("no_obj_sa and use_2_saca are not ported yet (ROADMAP A.5)")
     return GraphBins(embedding_dim=ocfg.embedding_dim, obj_feature_dim=512,
-                     pos_strategy=ocfg.positional_embedding_strategy, **common)
+                     pos_strategy=ocfg.positional_embedding_strategy,
+                     no_obj_sa=bool(ocfg.get("no_obj_sa")),
+                     use_2_saca=bool(ocfg.get("use_2_saca")),
+                     # the full-resolution sizes, which size grid_random's table
+                     dims_train=tuple(dcfg.dimensions_train),
+                     dims_test=tuple(dcfg.dimensions_test), **common)
 
 
 def make_train_loss_fn(model: BinsDepthModel, loss_wrapper: LossWrapper, min_depth: float,

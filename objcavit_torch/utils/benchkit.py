@@ -27,6 +27,7 @@ from objcavit_torch.losses import LossWrapper
 from objcavit_torch.models.adabins import AdaBins
 from objcavit_torch.models.graphbins import BinsDepthModel, GraphBins
 from objcavit_torch.models.layers import MultiHeadAttention, PatchTransformerEncoder
+from objcavit_torch.models.objcavit import GridRandomPositionalEmbeddings
 from objcavit_torch.training.optim import build_optimizer
 from objcavit_torch.training.steps import TrainStep, make_train_step
 from objcavit_torch.utils.device import card_device
@@ -57,7 +58,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     PyTorch's default distributions (the JAX package's initialisers mirror
     them): conv/linear weights and biases U(+-1/sqrt(fan_in)); attention
     in_proj xavier-uniform with zero biases; norms at identity; miniViT's
-    positional table U[0, 1), as ``torch.rand``.
+    positional table and ObjCAViT's grid table U[0, 1), as ``torch.rand``.
     """
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -75,7 +76,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.in_proj_weight.uniform_(-bound, bound, generator=generator)
             m.in_proj_bias.zero_()
             m.out_proj.bias.zero_()
-        elif isinstance(m, PatchTransformerEncoder):
+        elif isinstance(m, (PatchTransformerEncoder, GridRandomPositionalEmbeddings)):
             m.positional_encodings.uniform_(0.0, 1.0, generator=generator)
     return model
 
@@ -91,8 +92,10 @@ def _eval_model(model: BinsDepthModel, dtype, seed: int, device) -> BinsDepthMod
 def build_flagship_model(dtype=torch.bfloat16, seed: int = 0, device="cuda",
                          attn_impl: str = "plain", encoder_impl: str = "plain",
                          **overrides) -> GraphBins:
-    """Random-weight GraphBins (flagship kwargs, updated by ``overrides``) in
-    eval mode with BN folded, on ``device``."""
+    """Random-weight GraphBins (flagship kwargs, updated by ``overrides``:
+    ObjCAViT's ``pos_strategy``, ``no_obj_sa``, ``use_2_saca``,
+    ``dims_train`` and ``dims_test`` among them) in eval mode with BN
+    folded, on ``device``."""
     device = card_device(device)
     return _eval_model(GraphBins(**{**flagship_kwargs(attn_impl, encoder_impl), **overrides}),
                        dtype, seed, device)

@@ -127,16 +127,26 @@ def _decoder(r: _Reader, fpath: str, tkey: str) -> None:
     r.conv(f"{fpath}/conv3", f"{tkey}.conv3")
 
 
-def _objcavit(r: _Reader, fpath: str, tkey: str) -> None:
-    for i, idx in enumerate((0, 2, 4, 6, 8)):
-        r.linear(f"{fpath}/positional_encoder/fc{i}", f"{tkey}.positional_encoder.{idx}")
+def _saca(r: _Reader, fpath: str, tkey: str, no_obj_sa: bool) -> None:
+    r.transformer(f"{fpath}/image_transformer", f"{tkey}.image_transformer_encoder")
+    if not no_obj_sa:
+        r.transformer(f"{fpath}/obj_transformer", f"{tkey}.obj_transformer_encoder")
+    r.mha(f"{fpath}/cross_attn_obj_im", f"{tkey}.cross_attn_obj_im")
+    r.mha(f"{fpath}/cross_attn_im_obj", f"{tkey}.cross_attn_im_obj")
+
+
+def _objcavit(r: _Reader, fpath: str, tkey: str, pos_strategy: str, no_obj_sa: bool,
+              use_2_saca: bool) -> None:
+    if pos_strategy.startswith("grid_random"):
+        r.put(f"{tkey}.positional_encoder.positional_encodings",
+              r.param(f"{fpath}/positional_encoder/positional_encodings"))
+    else:  # the learned MLPs: Sequential Linear layers at 0,2,4,6,8
+        for i, idx in enumerate((0, 2, 4, 6, 8)):
+            r.linear(f"{fpath}/positional_encoder/fc{i}", f"{tkey}.positional_encoder.{idx}")
     r.conv(f"{fpath}/image_embedding_conv", f"{tkey}.image_embedding_convPxP")
     r.linear(f"{fpath}/obj_embedding_layer", f"{tkey}.obj_embedding_layer")
-    saca_f, saca_t = f"{fpath}/saca_1", f"{tkey}.saca_1"
-    r.transformer(f"{saca_f}/image_transformer", f"{saca_t}.image_transformer_encoder")
-    r.transformer(f"{saca_f}/obj_transformer", f"{saca_t}.obj_transformer_encoder")
-    r.mha(f"{saca_f}/cross_attn_obj_im", f"{saca_t}.cross_attn_obj_im")
-    r.mha(f"{saca_f}/cross_attn_im_obj", f"{saca_t}.cross_attn_im_obj")
+    for saca in ("saca_1", "saca_2") if use_2_saca else ("saca_1",):
+        _saca(r, f"{fpath}/{saca}", f"{tkey}.{saca}", no_obj_sa)
     r.conv(f"{fpath}/conv3x3", f"{tkey}.conv3x3")
     for i, idx in enumerate((0, 2, 4)):
         r.linear(f"{fpath}/regressor/fc{i}", f"{tkey}.regressor.{idx}")
@@ -193,19 +203,19 @@ def clip_text_state_dict_from_params(params) -> dict[str, np.ndarray]:
 
 
 def state_dict_from_variables(
-    variables, encoder_name: str, pos_strategy: str = "learned_bbox_wh"
+    variables, encoder_name: str, pos_strategy: str = "learned_bbox_wh",
+    no_obj_sa: bool = False, use_2_saca: bool = False,
 ) -> dict[str, np.ndarray]:
     """Unfolded JAX GraphBins variables -> the port's GraphBins state dict
-    (parameters only when ``variables`` has no 'batch_stats')."""
-    if pos_strategy != "learned_bbox_wh":
-        raise NotImplementedError(
-            f"pos_strategy {pos_strategy!r} is not ported yet (ROADMAP A.5)"
-        )
+    (parameters only when ``variables`` has no 'batch_stats'), for ObjCAViT's
+    options: the grid strategies' ``positional_encoder.positional_encodings``
+    table or the learned MLP; no ``obj_transformer_encoder`` under
+    ``no_obj_sa``; ``saca_2`` under ``use_2_saca``."""
     r = _Reader(variables)
     _encoder(r, "dense_feature_extractor/encoder",
              "dense_feature_extractor.encoder.original_model", encoder_name)
     _decoder(r, "dense_feature_extractor/decoder", "dense_feature_extractor.decoder")
-    _objcavit(r, "objcavit", "objcavit")
+    _objcavit(r, "objcavit", "objcavit", pos_strategy, no_obj_sa, use_2_saca)
     r.conv("conv_out", "conv_out.0")
     return r.sd
 

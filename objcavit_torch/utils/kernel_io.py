@@ -256,6 +256,37 @@ def attention_plain_outputs(record: dict) -> list[tuple[str, torch.Tensor, torch
     return [(n, record[n], w) for n, w in zip(("dq", "dk", "dv"), want)]
 
 
+# an output of a kernel-5 backward cancels where its largest entry is under
+# one bf16 ulp (2^-8) of the largest term it sums
+ATTN_CANCELS_BELOW = 2.0 ** -8
+
+
+def attention_cancelling_terms(record: dict) -> dict[str, float]:
+    """{name: the largest magnitude of the terms it sums} for the outputs
+    of a kernel-5 backward record that cancel (see ATTN_CANCELS_BELOW),
+    from the plain version's weights P on its tensors: dq = s ds k and
+    dk = s ds^T q with ds = P (dP - D), dP = g v^T and D = rowsum(P dP), so
+    their terms are s P (|dP| + |D|) |k| and s (P (|dP| + |D|))^T |q|;
+    dv = P^T g, so P^T |g|. Where an output cancels (keys or values nearly
+    equal over the rows, so ds ~ 0), its own largest entry is no scale for
+    its rounding; these are."""
+    w, scale = kattn._weights(record["q"], record["k"], record["bias"])
+    q, k, v, g = (record[n].to(w.dtype) for n in ("q", "k", "v", "g"))
+    dw = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    rowsum = (dw * w).sum(-1, keepdim=True)
+    ds, a = w * (dw - rowsum), w * (dw.abs() + rowsum.abs())
+    sums = {"dq": (torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,
+                   torch.einsum("bhqk,bkhd->bqhd", a, k.abs()) * scale),
+            "dk": (torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
+                   torch.einsum("bhqk,bqhd->bkhd", a, q.abs()) * scale),
+            "dv": (torch.einsum("bhqk,bqhd->bkhd", w, g),
+                   torch.einsum("bhqk,bqhd->bkhd", w, g.abs()))}
+    largest = {n: (float(out.abs().max()), float(terms.max()))
+               for n, (out, terms) in sums.items()}
+    return {n: term for n, (entry, term) in largest.items()
+            if entry < ATTN_CANCELS_BELOW * term}
+
+
 @contextlib.contextmanager
 def record_detect_head_io():
     """Yield a list that gets one dict per call of kernel 6 from the

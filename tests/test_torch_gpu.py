@@ -40,6 +40,7 @@ from objcavit_torch.utils.fold_bn import fold_batchnorm
 from objcavit_torch.utils.resize_se_ab import SE_SHAPES
 from objcavit_torch.utils.kernel_io import (
     attention_plain_outputs,
+    attention_cancelling_terms,
     bins_expectation_plain_outputs,
     detect_head_errors,
     mbconv_head_errors,
@@ -64,6 +65,7 @@ DLOGITS_RTOL, DLOGITS_ATOL_PER_G = 2.0 ** -7, 1e-4
 DCENTERS_RTOL, DCENTERS_ATOL_PER_MAX = 1e-4, 1e-5
 DETECT_RTOL, DETECT_ATOL = 2.0 ** -7, 1e-5  # kernel 6: one bf16 ulp; see chip_smoke.py
 ATTN_RTOL, ATTN_ATOL_PER_MAX = 2.0 ** -7, 1e-4  # kernel 5: see chip_smoke.py
+ATTN_TERM_ULPS = 2.0 ** -19  # kernel 5's backward outputs that cancel: see chip_smoke.py
 # kernels 7-10: one bf16 ulp plus the fp32 bounds kernel_io's checks add;
 # the pool's fp32 sums in another order (see chip_smoke.py)
 MB_RTOL, MB_ATOL, POOL_RTOL = 2.0 ** -7, 1e-5, 1e-4
@@ -735,6 +737,58 @@ def test_tiny_graphbins_on_the_kernel_route(cuda):
     assert torch.isfinite(depth).all()
     for rec in records:
         _assert_attn_close(attention_plain_outputs(rec))
+
+
+@gpu
+@pytest.mark.parametrize("options,fwd", [
+    ({"pos_strategy": "learned"}, 10), ({"pos_strategy": "grid_random"}, 10),
+    ({"pos_strategy": "grid_random_roi_align"}, 10), ({"no_obj_sa": True}, 6),
+    ({"use_2_saca": True}, 20), ({"no_obj_sa": True, "use_2_saca": True}, 12),
+], ids=["learned", "grid_random", "grid_random_roi_align", "no_obj_sa", "use_2_saca", "both"])
+def test_tiny_graphbins_options_on_the_kernel_route(cuda, options, fwd):
+    """ObjCAViT's options on the tiny GraphBins (chip_smoke.py's phase 11):
+    a bf16 forward launches kernel 5 for every attention (the grids' fp32
+    embeddings reach the projections in bf16, so none falls to the plain
+    version), and a train step runs every backward but the last SACA's
+    object cross-attention's, on the cluster route, with kernel 4 once;
+    each output matches its plain version on its own tensors."""
+    model = build_flagship_model(device="cuda", encoder_name="efficientnet-tiny",
+                                 attn_impl="kernel", **options)
+    gen = torch.Generator().manual_seed(1)
+    inputs = (torch.randn((2, 384, 352, 3), generator=gen), 0.05 * torch.randn((2, 6, 512)),
+              300 * torch.rand((2, 6, 4)), torch.tensor([[True] * 3 + [False] * 3,
+                                                          [True] + [False] * 5]))
+    inputs[2][1, 0] = -1.0  # the sentinel
+    f0 = kattn.fused_mha_fwd.launches
+    with torch.no_grad(), record_attention_io() as records:
+        depth = model(*(t.cuda() for t in inputs))["depth_pred"]
+    torch.cuda.synchronize()
+    assert kattn.fused_mha_fwd.launches == f0 + fwd and len(records) == fwd
+    assert torch.isfinite(depth).all()
+    step, batch, objects = build_flagship_train(batch=2, h=384, w=352, n_obj=132, device="cuda",
+                                                encoder_name="efficientnet-tiny",
+                                                attn_impl="kernel", **options)
+    f0, b0 = kattn.fused_mha_fwd.launches, kattn.fused_mha_bwd.launches
+    c0, e0 = kattn.fused_mha_bwd.cluster_launches, kexp.bins_expectation_bwd.launches
+    with record_attention_io() as train_records:
+        loss = step(batch, objects)
+    torch.cuda.synchronize()
+    bwd = kattn.fused_mha_bwd.launches - b0
+    assert kattn.fused_mha_fwd.launches == f0 + fwd and torch.isfinite(loss)
+    assert bwd == fwd - 1 and kattn.fused_mha_bwd.cluster_launches - c0 == bwd
+    assert kexp.bins_expectation_bwd.launches == e0 + 1
+    _assert_attn_close([p for rec in records for p in attention_plain_outputs(rec)])
+    for rec in train_records:
+        # a backward output that cancels has an atol of at least 16 fp32
+        # ulps of the terms it sums: use_2_saca's second SACA reads the
+        # first one's cross-attention averages, nearly equal over the rows
+        # at random weights, so its layer 0's whole dq cancels (chip_smoke.py
+        # phase 11); every other output keeps the check of the other tests
+        terms = attention_cancelling_terms(rec) if rec["kind"] == "bwd" else {}
+        for name, got, want in attention_plain_outputs(rec):
+            _assert_close(got, want, ATTN_RTOL, max(
+                ATTN_ATOL_PER_MAX * float(want.float().abs().max()),
+                ATTN_TERM_ULPS * terms.get(name, 0.0)))
 
 
 @gpu

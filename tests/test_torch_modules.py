@@ -28,6 +28,7 @@ from objcavit_tpu.ops.attention import mha_core as jax_mha_core
 from objcavit_tpu.ops.bins import bin_edges_centers as jax_bin_edges_centers
 from objcavit_tpu.utils.torch_import import convert_state_dict
 
+from objcavit_torch.models.adabins import AdaBins
 from objcavit_torch.models.common import Conv2dSame
 from objcavit_torch.models.decoder import DenseFeatureExtractor
 from objcavit_torch.models.graphbins import GraphBins
@@ -274,11 +275,12 @@ def test_state_dict_round_trips_through_convert_state_dict():
 
 
 @pytest.mark.parametrize(
-    "kwargs", [{"pos_strategy": "grid_random"}, {"encoder_name": "efficientnet-v2-s"}]
+    "model, kwargs", [(AdaBins, {"do_final_upscale": True}),
+                      (GraphBins, {"encoder_name": "efficientnet-v2-s"})]
 )
-def test_unported_options_raise(kwargs):
+def test_unported_options_raise(model, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        GraphBins(**{"encoder_name": ENC, **kwargs})
+        model(**{"encoder_name": ENC, **kwargs})
 
 
 def test_port_imports_no_jax():

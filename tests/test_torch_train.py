@@ -618,6 +618,8 @@ def test_build_model_from_a_reference_config_matches_jax():
     assert model.conv_out[0].out_channels == jmodel.n_bins == 256
     assert all(p.dtype == torch.float32 for p in model.parameters())
     args.graphbins.objcavit.use_2_saca = True
+    assert build_model(args).objcavit.use_2_saca and jax_build_model(args).use_2_saca
+    args.graphbins.do_final_upscale = True
     with pytest.raises(NotImplementedError, match="A.5"):
         build_model(args)
 
