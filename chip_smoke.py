@@ -50,7 +50,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    function, logged), kernel 7 (the SE-gate
    project) at the seven shapes of its route and stage 6's 3072 -> 512;
    each held against its plain version by ``kernel_io``'s checks, timed as
-   CUDA-graph replays, kernel 7 beside one ``torch.baddbmm``;
+   CUDA-graph replays, kernel 7 beside one ``torch.baddbmm``; and kernel 7
+   at the six shapes of EfficientNet-V2-M's MBConv blocks that those lack
+   (``V2M_SE_SHAPES``), checked and timed the same way and summed with two
+   of those over a V2-M forward's 44 launches;
 4. slice: the flagship server (GraphBins-B5, bf16, BN folded, 480x640, 300
    object slots, random weights from seed 0) answers requests of 8 uint8
    frames, with detector-style object slots and with the no-detection
@@ -173,6 +176,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    params files (random towers, the synthetic NYU images), each writing
    validation_output.txt; and a KITTI grid_random_roi_align model built
    (on the meta device) with its 1872-row table.
+12. V2 encoders: GraphBins on EfficientNet-V2-M
+   (``params/nyu_graphbins_enet-v2-m_ocv_pos_learned_emb_128_1.yaml``'s
+   model: ``learned``, embedding 128) on kernel 5's route: (a) the bf16
+   server (BN folded, 480x640, 300 slots) on each encoder route answers 4
+   requests of 8 frames: 44 kernel-7 launches a forward on
+   ``encoder_impl="kernel"`` (one per MBConv block) and none on the plain
+   route, never a kernel-8 launch, 4 kernel-1 concat, 1 kernel-2 and 10
+   kernel-5 launches a forward; each kernel's output against its plain
+   version on its own tensors, depth finite and in range, the encoder's
+   five outputs within phase 5b's rel L2 bound of an fp32 plain run; the
+   served rate, p50, peak memory and the encoder's stage time on each
+   route; (b) one train step at bs 8, 416x544, 221 slots: 10 + 9 kernel-5
+   and 1 + 1 kernel-4 launches, each against its plain version, a finite
+   loss; (c) -v --debug --bf16 through ``cli.main`` on copies of that
+   params file and of AdaBins-V2-S's
+   (``params/nyu_efficientnet-v2-s_clip_0.1_lossfixed.yaml``), each
+   writing validation_output.txt.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -401,6 +421,17 @@ MB_RTOL, MB_ATOL, POOL_RTOL = 2.0 ** -7, 1e-5, 1e-4
 # 39 blocks (the bf16 plain route is logged beside it)
 ENCODER_REL_BOUND = 0.03
 MBCONV_PER_FORWARD, SE_PROJECT_PER_FORWARD = 32, 7
+# kernel 7 at EfficientNet-V2-M's MBConv shapes that SE_SHAPES lacks, at
+# 480x640: (H, W, M, O, skip, launches in a V2-M forward): stage 3's first
+# block (80 -> 160, stride 2) and its six others (160 -> 160, the skip),
+# stage 4's first (160 -> 176) and its 13 others (176 -> 176), stage 5's 17
+# after its first (304 -> 304) and stage 6's first (304 -> 512). With
+# SE_SHAPES' 1056 -> 304 (stage 5's first) once and 3072 -> 512 (stage 6's
+# others) four times they are V2-M's 44 launches
+V2M_SE_SHAPES = [(30, 40, 320, 160, False, 1), (30, 40, 640, 160, True, 6),
+                 (30, 40, 960, 176, False, 1), (30, 40, 1056, 176, True, 13),
+                 (15, 20, 1824, 304, True, 17), (15, 20, 1824, 512, False, 1)]
+V2M_FROM_SE_SHAPES = {(15, 20, 1056, 304, False): 1, (15, 20, 3072, 512, True): 4}
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/ms, and dense
 # operations/ms on the tensor cores in bf16 and on the CUDA cores in fp32
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -961,45 +992,71 @@ def check_encoder_kernels(gen) -> dict:
         errs_dw = max(errs_dw, errs["y"])
         del x, y, pool
 
-    se, errs_se = [], 0.0
+    se, v2, errs_se = [], [], 0.0
     for h, w, m, o, with_skip, launches in SE_SHAPES:
-        dw_out = torch.randn((BATCH, h, w, m), generator=gen, device="cuda").to(torch.bfloat16)
-        gate = torch.rand((BATCH, m), generator=gen, device="cuda").to(torch.bfloat16)
-        kern = (torch.randn((m, o), generator=gen, device="cuda") / m ** 0.5).to(torch.bfloat16)
-        bias = 0.1 * torch.randn(o, generator=gen, device="cuda")
-        skip = (torch.randn((BATCH, h, w, o), generator=gen, device="cuda").to(torch.bfloat16)
-                if with_skip else None)
-        out = kse.se_gate_project(dw_out, gate, kern, bias, skip)
-        torch.cuda.synchronize()
-        errs = check_se_project(f"kernel 7 {(h, w, m, o, with_skip)}", dw_out, gate, kern, bias,
-                                skip, out)
-        ms, plain_ms = graph_times(lambda: kse.se_gate_project(dw_out, gate, kern, bias, skip),
-                                   lambda: kse.se_gate_project_plain(dw_out, gate, kern, bias, skip))
-        # the yardstick: one cuBLAS call on operands made beforehand, never
-        # called by the port
-        lib_in = (bias.to(torch.bfloat16) + skip.reshape(BATCH, h * w, o) if with_skip
-                  else bias.to(torch.bfloat16))
-        lib_w = gate[:, :, None] * kern
-        lib_a = dw_out.reshape(BATCH, h * w, m)
-        lib_ms = library_time(lambda: torch.baddbmm(lib_in, lib_a, lib_w), iters=20)
-        n = BATCH * h * w
-        part = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                **bound(2 * n * m + 2 * BATCH * m + 2 * m * o + 4 * o + 2 * n * o * (1 + with_skip),
-                        bf16=2 * n * m * o)}
-        log(f"kernel se project ({BATCH},{h},{w},{m}) -> O {o} skip {with_skip} (x{launches} a "
-            f"forward): max_abs_err {errs['out']}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"baddbmm {lib_ms:.4f} ms, bound {part['bound_ms']:.4f} ms ({part['bound_by']})")
+        part, err = time_se_project(gen, h, w, m, o, with_skip, launches)
         se.append((launches, part))
-        errs_se = max(errs_se, errs["out"])
-        del dw_out, gate, kern, skip, out, lib_in, lib_w, lib_a
+        if (h, w, m, o, with_skip) in V2M_FROM_SE_SHAPES:
+            v2.append((V2M_FROM_SE_SHAPES[h, w, m, o, with_skip], part))
+        errs_se = max(errs_se, err)
+    errs_v2 = errs_se
+    for h, w, m, o, with_skip, launches in V2M_SE_SHAPES:
+        part, err = time_se_project(gen, h, w, m, o, with_skip, launches, "V2-M")
+        v2.append((launches, part))
+        errs_v2 = max(errs_v2, err)
+    assert sum(n for n, _ in v2) == V2M_SE_PROJECT, "V2-M's kernel-7 shapes miss launches"
     out = {"mbconv_head": total_of(mb, errs_mb), "mbconv_bs": total_of(bs, errs_bs),
            "dw_conv": total_of(dw, errs_dw), "se_project": total_of(se, errs_se)}
-    mb, se = out["mbconv_head"], out["se_project"]
+    v2_eager = sum(n * part["eager_ms"] for n, part in v2)
+    mb, se, v2 = out["mbconv_head"], out["se_project"], total_of(v2, errs_v2)
     log(f"kernel 8 a forward (32 launches): {mb['ms']:.4f} ms, plain {mb['plain_ms']:.4f} ms, "
         f"bound {mb['bound_ms']:.4f} ms ({mb['bound_by']}); kernel 7 a forward (7 launches): "
         f"{se['ms']:.4f} ms, plain {se['plain_ms']:.4f} ms, baddbmm {se['library_ms']:.4f} ms, "
-        f"bound {se['bound_ms']:.4f} ms ({se['bound_by']})")
+        f"bound {se['bound_ms']:.4f} ms ({se['bound_by']}); kernel 7 a V2-M forward (its eight "
+        f"shapes, 44 launches): {v2['ms']:.4f} ms, plain {v2['plain_ms']:.4f} ms, "
+        f"baddbmm {v2['library_ms']:.4f} ms, bound {v2['bound_ms']:.4f} ms ({v2['bound_by']}), "
+        f"eager calls {v2_eager:.4f} ms")
     return out
+
+
+def time_se_project(gen, h: int, w: int, m: int, o: int, with_skip: bool, launches: int,
+                    model: str = "B5") -> tuple[dict, float]:
+    """Kernel 7 at one shape, batch 8: checked against its plain version,
+    timed beside it as CUDA-graph replays and beside one ``torch.baddbmm``;
+    returns its times and bound, and its max abs error."""
+    dw_out = torch.randn((BATCH, h, w, m), generator=gen, device="cuda").to(torch.bfloat16)
+    gate = torch.rand((BATCH, m), generator=gen, device="cuda").to(torch.bfloat16)
+    kern = (torch.randn((m, o), generator=gen, device="cuda") / m ** 0.5).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(o, generator=gen, device="cuda")
+    skip = (torch.randn((BATCH, h, w, o), generator=gen, device="cuda").to(torch.bfloat16)
+            if with_skip else None)
+    out = kse.se_gate_project(dw_out, gate, kern, bias, skip)
+    torch.cuda.synchronize()
+    errs = check_se_project(f"kernel 7 {(h, w, m, o, with_skip)}", dw_out, gate, kern, bias,
+                            skip, out)
+    ms, plain_ms = graph_times(lambda: kse.se_gate_project(dw_out, gate, kern, bias, skip),
+                               lambda: kse.se_gate_project_plain(dw_out, gate, kern, bias, skip))
+    # the yardstick: one cuBLAS call on operands made beforehand, never
+    # called by the port
+    lib_in = (bias.to(torch.bfloat16) + skip.reshape(BATCH, h * w, o) if with_skip
+              else bias.to(torch.bfloat16))
+    lib_w = gate[:, :, None] * kern
+    lib_a = dw_out.reshape(BATCH, h * w, m)
+    library = lambda: torch.baddbmm(lib_in, lib_a, lib_w)  # noqa: E731
+    lib_ms = library_time(library, iters=20)
+    # eager calls one after another: where a call's host work outlasts its
+    # device time, these time the host's rate, the wrapper's included
+    eager_ms, eager_lib_ms = compare_times(
+        lambda: kse.se_gate_project(dw_out, gate, kern, bias, skip), library, iters=50, rounds=2)
+    n = BATCH * h * w
+    part = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "eager_ms": eager_ms,
+            **bound(2 * n * m + 2 * BATCH * m + 2 * m * o + 4 * o + 2 * n * o * (1 + with_skip),
+                    bf16=2 * n * m * o)}
+    log(f"kernel se project ({BATCH},{h},{w},{m}) -> O {o} skip {with_skip} (x{launches} a "
+        f"{model} forward): max_abs_err {errs['out']}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, baddbmm {lib_ms:.4f} ms, bound {part['bound_ms']:.4f} ms ({part['bound_by']}); "
+        f"eager calls {eager_ms:.4f} ms a call, baddbmm's {eager_lib_ms:.4f}")
+    return part, errs["out"]
 
 
 def check_detect_head_outputs(name: str, flat, packed, out) -> dict:
@@ -1407,18 +1464,19 @@ def check_encoder_records(what: str, records: list[dict]) -> None:
         + f"; {flips} band values within the expand's bound of a rounding boundary")
 
 
-def check_encoder_against_fp32(model) -> None:
+def check_encoder_against_fp32(model, **overrides) -> None:
     """The encoder's five outputs on the bf16 kernel route against the same
     weights in fp32 on the plain route (cuDNN without TF32), on 2x384x352;
-    the bf16 plain route is logged beside them."""
+    the bf16 plain route is logged beside them. ``overrides`` are the
+    flagship builder's, as the model was built with them."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     image = torch.randn((2, 384, 352, 3), generator=gen, device="cuda")
     enc = lambda m: m.dense_feature_extractor.encoder["original_model"]  # noqa: E731
     rels = {}
     with torch.inference_mode():
-        ref = enc(build_flagship_pipeline(dtype=torch.float32, seed=0).model)(image)
+        ref = enc(build_flagship_pipeline(dtype=torch.float32, seed=0, **overrides).model)(image)
         for route in ("kernel", "plain"):
-            m = model if route == "kernel" else build_flagship_pipeline(seed=0).model
+            m = model if route == "kernel" else build_flagship_pipeline(seed=0, **overrides).model
             rels[route] = [rel_l2(g, w) for g, w in zip(enc(m)(image.bfloat16()), ref)]
     log("  encoder outputs, bf16 vs fp32 plain route, 2x384x352, rel L2 by level: kernel route "
         + ", ".join(f"{v:.5f}" for v in rels["kernel"]) + "; bf16 plain route "
@@ -1816,9 +1874,11 @@ def write_eval_files(tmp: str) -> dict[str, str]:
 
 def read_validation_output(path: str) -> dict[str, float]:
     """The 16 metrics of validation_output.txt's log block (each also in
-    the dict before it: 32 numbers, all finite)."""
+    the dict before it: 32 numbers, all finite). The run's name comes
+    first, and may hold numbers of its own ('clip_0.1')."""
     with open(path) as f:
-        numbers = [float(x) for x in NUMBER.findall(f.read())]
+        text = f.read()
+    numbers = [float(x) for x in NUMBER.findall(text[text.index("[{"):])]
     names = list(METRIC_NAMES) + [f"{k}_ra" for k in METRIC_NAMES]
     if len(numbers) != 2 * len(names) or not all(np.isfinite(numbers)):
         raise AssertionError(f"{path}: want 32 finite numbers, read {numbers}")
@@ -2408,15 +2468,21 @@ def train_option(label: str, options: dict) -> dict:
     return launches
 
 
-def write_option_files(tmp: str) -> dict[str, str]:
-    """Copies of OPTION_PARAMS that validate a seeded random model of each
-    (its conv_out spread as phase 9's) on the 16 synthetic NYU images, with
-    random YOLOv7-seg and CLIP towers where the file asks for clip."""
+def write_option_files(tmp: str, names=OPTION_PARAMS) -> dict[str, str]:
+    """Copies of the params files ``names`` that validate a seeded random
+    model of each (its conv_out spread as phase 9's) on the 16 synthetic
+    NYU images, with random YOLOv7-seg and CLIP towers where the file asks
+    for clip. A GraphBins file that names no language strategy (the V2-M
+    one predates the language keys, which neither CLI runs without) gets
+    the zeros provider, which needs no other key."""
     paths = {}
-    for name in OPTION_PARAMS:
+    for name in names:
         src = os.path.join(REPO, "params", name)
         with open(src) as f:
             cfg = yaml.safe_load(f)
+        if cfg["model"]["name"] == "graphbins":
+            cfg["graphbins"]["objcavit"].setdefault("language_embedding_strategy",
+                                                    "control_obj_zeros_512")
         args = cli.load_args(src)
         args.nyu = cli.load_args(BASIC_PARAMS).nyu  # the sections -v reads
         model = init_weights_(build_model(args), torch.Generator().manual_seed(0))
@@ -2467,6 +2533,99 @@ def phase_options() -> dict:
         raise AssertionError(f"KITTI's grid table has {rows} rows, want {KITTI_GRID_ROWS}")
     log(f"options: {time.perf_counter() - t0:.1f} s")
     return {"served": dict(served), "trained": dict(trained)}
+
+
+# phase 12: GraphBins on EfficientNet-V2-M, the model of V2M_PARAMS, on
+# kernel 5's route; its kernel-7 launches a forward (one per MBConv block:
+# 7 + 14 + 18 + 5; its 13 FusedMBConv blocks stay cuDNN convs)
+V2M_PARAMS = "nyu_graphbins_enet-v2-m_ocv_pos_learned_emb_128_1.yaml"
+V2M = {"encoder_name": "efficientnet-v2-m", "pos_strategy": "learned"}
+V2M_SE_PROJECT, V2M_FUSED = 44, 13
+# (c): the CLI's -v on copies of these params files (AdaBins-V2-S's too)
+V2_PARAMS = (V2M_PARAMS, "nyu_efficientnet-v2-s_clip_0.1_lossfixed.yaml")
+
+
+def serve_v2(impl: str, frames: list) -> tuple[DepthPipeline, dict]:
+    """(a) on the encoder route ``impl``: the V2-M server answers
+    ``frames``; each forward's launches, its kernels against their plain
+    versions on their own tensors, depth; then the served rate."""
+    t0 = time.perf_counter()
+    pipe = build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0,
+                                   attn_impl="kernel", encoder_impl=impl, **V2M)
+    model = pipe.model
+    routes = collections.Counter(
+        model.dense_feature_extractor.encoder["original_model"].block_routes())
+    want = ({"se_project": V2M_SE_PROJECT, "plain": V2M_FUSED} if impl == "kernel"
+            else {"plain": V2M_SE_PROJECT + V2M_FUSED})
+    pipe(frames[0])  # warm-up
+    torch.cuda.synchronize()
+    log(f"V2 encoders: GraphBins-V2-M bf16 folded, kernel attention, encoder_impl {impl}, "
+        f"{pipe.n_obj_max} slots, block routes {dict(routes)}; built and warmed up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if routes != want or pipe.n_obj_max != 300:
+        raise AssertionError(f"V2-M's block routes {dict(routes)}, want {want}; "
+                             f"{pipe.n_obj_max} slots")
+    zero_counters()
+    with record_kernel_io(model) as records, record_encoder_kernel_io() as enc_records, \
+            record_attention_io() as attn_records:
+        depths = [pipe(f) for f in frames]
+    torch.cuda.synchronize()
+    n = len(frames)
+    launches = expect_launches(f"V2-M, {impl} encoder, {n} requests of {BATCH} frames",
+                               resize=4 * n, bins=n, attention_fwd=10 * n,
+                               se_project=V2M_SE_PROJECT * n if impl == "kernel" else 0)
+    for i, depth in enumerate(depths):
+        check_depth(f"request {i}", depth, model.min_depth, model.max_depth)
+    check_served_kernels(model, records)
+    check_attention_records("V2-M requests", attn_records, residual=False)
+    if impl == "kernel":
+        check_encoder_records("V2-M requests", enc_records)
+        check_encoder_against_fp32(model, attn_impl="kernel", **V2M)
+    del records, enc_records, attn_records, depths
+    r = served_rate(pipe, frames[:2], n_req=10, n_lat=5)
+    t = trace(lambda: pipe(frames[1]), n_req=3)
+    log(f"  {impl} encoder: served {r['img_per_s']:.2f} img/s over 10 requests of {BATCH}; p50 "
+        f"{r['p50_ms']:.2f} ms of 5 requests; peak memory {r['peak_gib']:.3f} GiB; traced (3 "
+        f"requests): {t['window_ms_per_request']:.3f} ms a request, device busy "
+        f"{t['device_busy_ms_per_request']:.3f} ms, {t['device_kernels_per_request']:.0f} kernels, "
+        f"idle share {t['idle_share']:.3f}; device ms by kind: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in t["device_ms_per_request_by_kind"].items()))
+    return pipe, launches
+
+
+def phase_v2() -> dict:
+    """The V2 encoders: (a) the GraphBins-V2-M server on both encoder
+    routes and their stage splits, (b) its train step, (c) -v --debug --bf16
+    through the CLI on the GraphBins-V2-M and AdaBins-V2-S params files.
+    Returns the kernel launches of (a) and (b), summed."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1357)
+    frames = [rng.integers(0, 256, (BATCH, *EVAL_DIMS, 3), dtype=np.uint8) for _ in range(4)]
+    launches = collections.Counter()
+    pipes = {}
+    for impl in ("plain", "kernel"):
+        pipes[impl], served = serve_v2(impl, frames)
+        launches.update(served)
+    splits = route_split(pipes, frames[1], "encoder_impl", iters=8, warmup=2)
+    for route, split in splits.items():
+        log(f"  stage split, V2-M, {route} encoder, ms (CUDA events, mean of two medians of 6): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    del pipes
+    torch.cuda.empty_cache()
+    launches.update(train_option("V2-M", V2M))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, cfg in write_option_files(tmp, V2_PARAMS).items():
+            metrics, _ = run_cli(f"(c) -v --debug --bf16, {name}", ["-c", cfg, "-v", "--debug",
+                                                                   "--bf16"],
+                                 resize=EVAL_RESIZE, bins=EVAL_BINS)
+            written = read_validation_output(os.path.join(tmp, name[:-5], "validation_output.txt"))
+            if any(abs(written[k] - metrics[k]) > 1e-6 * abs(metrics[k]) for k in metrics):
+                raise AssertionError(f"{name}: validation_output.txt disagrees with the metrics")
+            log(f"  {name}: validation_output.txt written; abs_rel {metrics['abs_rel']:.5f}")
+    log(f"V2 encoders: {time.perf_counter() - t0:.1f} s")
+    return dict(launches)
 
 
 # the regressor's gradient rel L2 on the seed's weights, kernel 5's route
@@ -2521,6 +2680,9 @@ def main() -> None:
     served, trained = options["served"], options["trained"]
     log(f"  options paths ({len(OPTIONS)} options): served {served}, trained {trained}; the "
         f"kernels line adds them to kernels 1, 2, 4 and 5's counts")
+    v2 = phase_v2()
+    log(f"  V2 encoder paths: {v2}; the kernels line adds them to kernels 1, 2, 4, 5 and 7's "
+        f"counts")
 
     def entry(name, source, replaces, launches, key):
         return {"name": name, "route": "cuda", "source": f"objcavit_torch/csrc/{source}",
@@ -2529,28 +2691,31 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("resize_bilinear_align_corners_into_concat (kernel 1's concat form)",
               "resize_bilinear.cu", "resize_pallas.py:104",
-              serving["resize"] + served[CONCAT_COUNTER], "resize_concat"),
+              serving["resize"] + served[CONCAT_COUNTER] + v2[CONCAT_COUNTER], "resize_concat"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form, a function path)",
               "resize_bilinear.cu", "resize_pallas.py:104", serving["resize_bare"], "resize"),
         entry("conv_bins_depth_batched", "bins_depth.cu", "pallas_bins.py:214",
-              serving["bins"] + served["bins"], "bins"),
+              serving["bins"] + served["bins"] + v2["bins"], "bins"),
         entry("conv_bins_depth (kernel 2, shared W)", "bins_depth.cu", "pallas_bins.py:163",
               unfactored["bins_shared"], "bins_shared"),
         entry("bins_expectation_fwd", "bins_expectation.cu", "pallas_bins.py:63",
               train["bins_expectation_fwd"] + fit["bins_expectation_fwd"]
-              + trained["bins_expectation_fwd"], "bins_expectation_fwd"),
+              + trained["bins_expectation_fwd"] + v2["bins_expectation_fwd"],
+              "bins_expectation_fwd"),
         entry("bins_expectation_bwd", "bins_expectation.cu", "pallas_bins.py:91",
               train["bins_expectation_bwd"] + fit["bins_expectation_bwd"]
-              + trained["bins_expectation_bwd"], "bins_expectation_bwd"),
+              + trained["bins_expectation_bwd"] + v2["bins_expectation_bwd"],
+              "bins_expectation_bwd"),
         entry("fused_detect_head", "detect_head.cu", "detect_head_pallas.py:65", fused,
               "detect_head"),
         entry("fused_mha_fwd", "attention.cu", "pallas_attention.py:91",
-              attn_serving["attention_fwd"] + served["attention_fwd"] + trained["attention_fwd"],
-              "attention_fwd"),
+              attn_serving["attention_fwd"] + served["attention_fwd"] + trained["attention_fwd"]
+              + v2["attention_fwd"], "attention_fwd"),
         entry("fused_mha_bwd", "attention.cu", "pallas_attention.py:108",
-              attn_train["attention_bwd"] + trained["attention_bwd"], "attention_bwd"),
+              attn_train["attention_bwd"] + trained["attention_bwd"] + v2["attention_bwd"],
+              "attention_bwd"),
         entry("se_gate_project", "se_project.cu", "se_project_pallas.py:80",
-              encoder_serving["se_project"], "se_project"),
+              encoder_serving["se_project"] + v2["se_project"], "se_project"),
         entry("mbconv_expand_dw_pool", "mbconv_head.cu", "mbconv_pallas.py:153",
               encoder_serving["mbconv_head"], "mbconv_head"),
         entry("mbconv_bs_expand_dw_pool (kernel 8 on an (H, W, B, C) tensor map)", "mbconv_head.cu",

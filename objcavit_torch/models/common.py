@@ -1,12 +1,18 @@
 """Shared building blocks: TF-SAME conv, conv/BN/act, SE, MBConv family.
 
-Port of ``objcavit_tpu/models/common.py``. Attribute names are the reference
-gen-efficientnet names (``conv_pw``, ``bn1``, ``conv_dw``, ``se.conv_reduce``,
-...), so a reference state dict loads with a plain ``load_state_dict``.
+Port of ``objcavit_tpu/models/common.py``. The B-series blocks
+(``DepthwiseSeparable``, ``MBConv``) take the reference gen-efficientnet
+names (``conv_pw``, ``bn1``, ``conv_dw``, ``se.conv_reduce``, ...) and
+TF-SAME padding (``Conv2dSame``); the EfficientNet-V2 blocks
+(``FusedMBConv``, ``MBConvV2``) take torchvision's (``block.{i}.{0,1}``,
+``block.2.fc1``) and its symmetric ``k // 2`` padding (JAX's
+``pad_style="torch"``, ``conv_padding``), which differs from TF SAME at
+stride 2 on an even input. So a reference state dict of either family
+loads with a plain ``load_state_dict``.
 These blocks run inside the encoder on NCHW tensors in
 ``torch.channels_last`` memory (the memory of the NHWC tensors the public
-modules take). BN eps is 1e-3 and the activation SiLU, as in the
-``tf_efficientnet_*`` encoders. In training mode each ``nn.BatchNorm2d``
+modules take). BN eps is 1e-3 and the activation SiLU, as in both
+families. In training mode each ``nn.BatchNorm2d``
 normalises with the batch statistics and updates its running mean and its
 unbiased running variance with momentum 0.1, which is what the JAX
 package's ``_TorchBN`` copies (``objcavit_tpu/models/common.py:165-213``).
@@ -17,13 +23,18 @@ block constructor arguments that the encoder passes (``fused_mbconv_head``,
 387-428, 474-525, 565-570``). A block takes one only when its BNs are
 folded and it is not training (``route``):
 
-* ``"mbconv_head"``: an MBConv with ``fused_mbconv_head``, an expansion and
-  SE, stride 1 and widths the kernel takes runs expand, SiLU, depthwise,
-  SiLU and the SE pool as kernel 8 (``kernels/mbconv.py``); the SE block
-  takes the pool (``pooled``), and the project stays a cuDNN conv;
-* ``"se_project"``: any other MBConv, or a DepthwiseSeparable, with
-  ``se_project`` runs the SE gate multiply, the project conv, its bias and
-  the skip as kernel 7 (``kernels/se_project.py``) on the SE block's gate.
+* ``"mbconv_head"``: a B-series MBConv with ``fused_mbconv_head``, an
+  expansion and SE, stride 1 and widths the kernel takes runs expand, SiLU,
+  depthwise, SiLU and the SE pool as kernel 8 (``kernels/mbconv.py``); the
+  SE block takes the pool (``pooled``), and the project stays a cuDNN conv.
+  JAX takes it only under TF padding, so a V2 block never does;
+* ``"se_project"``: any other MBConv (a V2 one included), or a
+  DepthwiseSeparable, with ``se_project`` runs the SE gate multiply, the
+  project conv, its bias and the skip as kernel 7 (``kernels/se_project.py``)
+  on the SE block's gate.
+
+A ``FusedMBConv`` has no SE and no fused route: its convs stay cuDNN convs,
+as they are plain convs in JAX.
 
 An fp32 block takes the kernels' plain versions, the reference route; any
 other dtype calls the kernels' wrappers, which launch on bf16 CUDA tensors,
@@ -33,8 +44,7 @@ a block on one raises. The kernels' weight layouts are made once per set of
 weights (``FusedRoutes``).
 
 Not ported: ``SpaceToDepthConv`` (an exact rewrite of the stride-2 stem for
-the TPU's layout; the plain strided conv with the same weights stands here),
-and ``FusedMBConv`` (EfficientNet-V2, ROADMAP A.5).
+the TPU's layout; the plain strided conv with the same weights stands here).
 """
 
 from __future__ import annotations
@@ -116,8 +126,35 @@ class SqueezeExcite(nn.Module):
         return gate if gate_only else x * gate
 
 
+class ConvNormAct(nn.Sequential):
+    """torchvision's Conv2dNormActivation, JAX's ``ConvBnAct`` under
+    ``pad_style="torch"``: ``0`` a conv without bias and with symmetric
+    ``k // 2`` padding, ``1`` a BN, ``2`` a SiLU where ``act``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 groups: int = 1, act: bool = True):
+        layers = [nn.Conv2d(in_ch, out_ch, kernel_size, stride, kernel_size // 2, groups=groups,
+                            bias=False),
+                  nn.BatchNorm2d(out_ch, eps=BN_EPS)]
+        super().__init__(*layers, *([nn.SiLU()] if act else []))
+
+
+class SqueezeExcitation(nn.Module):
+    """torchvision's SE (``fc1``, ``fc2``): ``SqueezeExcite``'s function
+    under V2's names."""
+
+    def __init__(self, channels: int, se_channels: int):
+        super().__init__()
+        self.fc1 = nn.Conv2d(channels, se_channels, 1)
+        self.fc2 = nn.Conv2d(se_channels, channels, 1)
+
+    def forward(self, x: torch.Tensor, gate_only: bool = False) -> torch.Tensor:
+        gate = torch.sigmoid(self.fc2(F.silu(self.fc1(x.mean((2, 3), keepdim=True)))))
+        return gate if gate_only else x * gate
+
+
 class FusedRoutes:
-    """What MBConv and DepthwiseSeparable share for the fused routes: the
+    """What the MBConvs and DepthwiseSeparable share for the fused routes: the
     route of the moment, and the weights in a kernel's layout (``packed``),
     made once per set of weights: rebuilt when a tensor is replaced, moved,
     cast or changed in place."""
@@ -135,7 +172,7 @@ class FusedRoutes:
         """The route this block takes now: ``fused_route`` (chosen from the
         switches and the widths when the block was built) when its BNs are
         folded and it is not training, else 'plain'."""
-        if self.training or not all(type(self._modules[bn]) is FoldedBatchNorm
+        if self.training or not all(type(self.get_submodule(bn)) is FoldedBatchNorm
                                     for _, bn in self.bn_folds):
             return "plain"
         return self.fused_route
@@ -147,12 +184,12 @@ class FusedRoutes:
             check_no_grad(f"{type(self).__name__}'s fused route", x, *self.parameters())
 
 
-def se_project_epilogue(block, h: torch.Tensor, skip: torch.Tensor | None,
+def se_project_epilogue(block, se: nn.Module, h: torch.Tensor, skip: torch.Tensor | None,
                         conv: nn.Conv2d) -> torch.Tensor:
-    """Kernel 7's route: the SE block's gate, then (h * gate) @ W + b (+ skip)
-    in one pass; NCHW channels_last in and out."""
+    """Kernel 7's route: the SE block ``se``'s gate, then (h * gate) @ W + b
+    (+ skip) in one pass; NCHW channels_last in and out."""
     block.check_fused_route(h)
-    gate = block.se(h, gate_only=True).reshape(h.shape[0], h.shape[1])
+    gate = se(h, gate_only=True).reshape(h.shape[0], h.shape[1])
     kernel, bias = block.packed("project", pack_project, conv.weight, conv.bias)
     fn = se_gate_project_plain if h.dtype == torch.float32 else se_gate_project
     nhwc = (lambda t: None if t is None else t.permute(0, 2, 3, 1))  # noqa: E731
@@ -181,7 +218,8 @@ class DepthwiseSeparable(FusedRoutes, nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = conv_bn_act(self.conv_dw, self.bn1, x)
         if self.route() == "se_project":
-            return se_project_epilogue(self, h, x if self.has_residual else None, self.conv_pw)
+            return se_project_epilogue(self, self.se, h, x if self.has_residual else None,
+                                       self.conv_pw)
         h = self.se(h)
         h = conv_bn_act(self.conv_pw, self.bn2, h, act=False)
         return h + x if self.has_residual else h
@@ -235,8 +273,70 @@ class MBConv(FusedRoutes, nn.Module):
             h = conv_bn_act(self.conv_pw, self.bn1, x)
             h = conv_bn_act(self.conv_dw, self.bn2, h)
             if route == "se_project":
-                return se_project_epilogue(self, h, x if self.has_residual else None,
+                return se_project_epilogue(self, self.se, h, x if self.has_residual else None,
                                            self.conv_pwl)
             h = self.se(h)
         h = conv_bn_act(self.conv_pwl, self.bn3, h, act=False)
+        return h + x if self.has_residual else h
+
+
+class FusedMBConv(nn.Module):
+    """EfficientNet-V2 fused block, JAX's ``FusedMBConv``: a k x k expand
+    CNA (``block.0``) then a 1x1 project conv and BN without activation
+    (``block.1``); at expand 1 the k x k CNA alone, its SiLU kept (+x at
+    stride 1 and in == out). No SE, no fused route: JAX runs it as plain
+    convs."""
+
+    def __init__(self, in_ch: int, out_ch: int, expand_ratio: float, kernel_size: int,
+                 stride: int):
+        super().__init__()
+        if expand_ratio != 1:
+            mid = int(in_ch * expand_ratio)
+            self.block = nn.Sequential(ConvNormAct(in_ch, mid, kernel_size, stride),
+                                       ConvNormAct(mid, out_ch, 1, act=False))
+        else:
+            self.block = nn.Sequential(ConvNormAct(in_ch, out_ch, kernel_size, stride))
+        self.bn_folds = tuple((f"block.{i}.0", f"block.{i}.1") for i in range(len(self.block)))
+        self.has_residual = stride == 1 and in_ch == out_ch
+
+    def route(self) -> str:
+        return "plain"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.block(x)
+        return h + x if self.has_residual else h
+
+
+class MBConvV2(FusedRoutes, nn.Module):
+    """EfficientNet-V2 inverted residual in torchvision's layout: ``block.0``
+    1x1 expand CNA, ``block.1`` depthwise CNA, ``block.2`` SE (squeeze
+    ``max(1, in_ch // 4)``), ``block.3`` 1x1 project conv and BN (+x at
+    stride 1 and in == out). Every V2 MBConv stage expands.
+
+    ``se_project``: kernel 7's route (see the module note); there is no
+    kernel-8 route, as in JAX under torch padding."""
+
+    bn_folds = (("block.0.0", "block.0.1"), ("block.1.0", "block.1.1"),
+                ("block.3.0", "block.3.1"))
+
+    def __init__(self, in_ch: int, out_ch: int, expand_ratio: float, kernel_size: int,
+                 stride: int, se_ratio: float = 0.25, se_project: bool = False):
+        super().__init__()
+        mid = int(in_ch * expand_ratio)
+        self.block = nn.Sequential(
+            ConvNormAct(in_ch, mid, 1),
+            ConvNormAct(mid, mid, kernel_size, stride, groups=mid),
+            SqueezeExcitation(mid, max(1, int(in_ch * se_ratio))),
+            ConvNormAct(mid, out_ch, 1, act=False),
+        )
+        self.has_residual = stride == 1 and in_ch == out_ch
+        self.fused_route = ("se_project" if se_project and se_project_eligible(mid, out_ch)
+                            else "plain")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        expand, dw, se, project = self.block
+        h = dw(expand(x))
+        if self.route() == "se_project":
+            return se_project_epilogue(self, se, h, x if self.has_residual else None, project[0])
+        h = project(se(h))
         return h + x if self.has_residual else h

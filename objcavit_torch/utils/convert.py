@@ -6,7 +6,9 @@ package's unfolded ``{'params', 'batch_stats'}`` tree of a GraphBins model
 and writes the reference Lightning state-dict keys without their ``model.``
 prefix, which are the port's parameter names. So JAX weights load into the
 port with ``load_state_dict``, and so does a released reference ``.ckpt``
-once its ``model.`` prefix is stripped.
+once its ``model.`` prefix is stripped. The encoder's keys follow its
+family: gen-efficientnet's for the B-series, torchvision's ``features.*``
+for V2 (the inverse of ``torch_import.py::_convert_efficientnet_v2``).
 
 ``adabins_state_dict_from_variables`` does the same for an AdaBins model
 (the inverse of ``torch_import.py::_convert_minivit`` for its miniViT):
@@ -92,9 +94,13 @@ class _Reader:
 
 
 def _encoder(r: _Reader, fpath: str, tkey: str, encoder_name: str) -> None:
+    spec = encoder_spec(encoder_name)
+    if spec.pad_style == "torch":
+        _encoder_v2(r, fpath, tkey, spec)
+        return
     r.conv(f"{fpath}/stem/conv", f"{tkey}.conv_stem", bias=False)
     r.bn(f"{fpath}/stem/bn", f"{tkey}.bn1")
-    for si, (btype, _out, depth, _k, _s, _e) in enumerate(encoder_spec(encoder_name).stages):
+    for si, (btype, _out, depth, _k, _s, _e) in enumerate(spec.stages):
         for bi in range(depth):
             f, t = f"{fpath}/stage{si}_block{bi}", f"{tkey}.blocks.{si}.{bi}"
             if btype == "ds":
@@ -114,6 +120,35 @@ def _encoder(r: _Reader, fpath: str, tkey: str, encoder_name: str) -> None:
                 r.conv(f"{f}/project/conv", f"{t}.conv_pwl", bias=False)
                 r.bn(f"{f}/project/bn", f"{t}.bn3")
     r.conv(f"{fpath}/conv_head", f"{tkey}.conv_head", bias=False)
+
+
+def _encoder_v2(r: _Reader, fpath: str, tkey: str, spec) -> None:
+    """The inverse of ``torch_import.py::_convert_efficientnet_v2``: JAX's
+    V2 tree -> torchvision's ``features.*`` keys."""
+    feats = f"{tkey}.features"
+
+    def cna(f: str, t: str) -> None:  # a ConvBnAct -> a Conv2dNormActivation
+        r.conv(f"{f}/conv", f"{t}.0", bias=False)
+        r.bn(f"{f}/bn", f"{t}.1")
+
+    cna(f"{fpath}/stem", f"{feats}.0")
+    for si, (btype, _out, depth, _k, _s, expand) in enumerate(spec.stages):
+        for bi in range(depth):
+            f, t = f"{fpath}/stage{si}_block{bi}", f"{feats}.{si + 1}.{bi}.block"
+            if btype == "fused":
+                if expand != 1:
+                    cna(f"{f}/expand", f"{t}.0")
+                    cna(f"{f}/project", f"{t}.1")
+                else:
+                    cna(f"{f}/project", f"{t}.0")
+                continue
+            cna(f"{f}/expand", f"{t}.0")
+            r.conv(f"{f}/dw_conv", f"{t}.1.0", bias=False)
+            r.bn(f"{f}/dw_bn", f"{t}.1.1")
+            r.conv(f"{f}/se/reduce", f"{t}.2.fc1")
+            r.conv(f"{f}/se/expand", f"{t}.2.fc2")
+            cna(f"{f}/project", f"{t}.3")
+    cna(f"{fpath}/conv_head", f"{feats}.{len(spec.stages) + 1}")
 
 
 def _decoder(r: _Reader, fpath: str, tkey: str) -> None:

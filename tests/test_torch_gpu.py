@@ -1088,6 +1088,41 @@ def test_tiny_graphbins_on_the_encoder_kernel_route(cuda):
 
 
 @gpu
+def test_tiny_graphbins_v2_on_both_encoder_routes(cuda):
+    """GraphBins on ``efficientnet-v2-tiny`` in bf16: on
+    ``encoder_impl="kernel"`` 4 kernel-7 launches a forward (its four MBConv
+    blocks) and no kernel-8 launch (a V2 block never takes it), on the plain
+    route neither; on both, 4 kernel-1 concat launches and 1 kernel-2
+    launch; each kernel's output within its check on its own tensors."""
+    gen = torch.Generator().manual_seed(5)
+    inputs = (torch.randn((2, 384, 352, 3), generator=gen), 0.05 * torch.randn((2, 6, 512)),
+              300 * torch.rand((2, 6, 4)), torch.tensor([[True] * 3 + [False] * 3,
+                                                          [True] + [False] * 5]))
+    fns = (kmb.mbconv_expand_dw_pool, kse.se_gate_project, kresize.resize_bilinear_align_corners,
+           kbins.conv_bins_depth_batched)
+    for impl, want in (("plain", (0, 0, 4, 1)), ("kernel", (0, 4, 4, 1))):
+        model = build_flagship_model(device="cuda", encoder_name="efficientnet-v2-tiny",
+                                     pos_strategy="learned", encoder_impl=impl)
+        before = tuple(fn.launches for fn in fns)
+        concat = kresize.resize_bilinear_align_corners.concat_launches
+        with torch.no_grad(), record_encoder_kernel_io() as records, \
+                record_kernel_io(model) as served:
+            depth = model(*(t.cuda() for t in inputs))["depth_pred"]
+        torch.cuda.synchronize()
+        assert tuple(fn.launches - b for fn, b in zip(fns, before)) == want
+        assert kresize.resize_bilinear_align_corners.concat_launches == concat + 4
+        assert torch.isfinite(depth).all() and len(records) == want[1]
+        for rec in records:
+            errs = se_project_errors(*rec["args"], rec["out"], MB_RTOL, MB_ATOL)
+            assert rec["kind"] == "se_project" and errs["bad"] == 0, errs
+        resize, (got, plain_depth) = plain_outputs(model, served[0])
+        for y, ref in resize:
+            _assert_close(y, ref, RESIZE_RTOL, RESIZE_ATOL)
+        assert skip_mismatches(served[0]) == 0
+        _assert_close(got, plain_depth, BINS_RTOL, BINS_ATOL)
+
+
+@gpu
 def test_bf16_eval_step_launches_kernels_1_and_2_and_fp32_none(cuda):
     """The flip-TTA eval step (batch 1, so a 2-image forward) on the tiny
     GraphBins with BN unfolded, as validate runs it: in bf16, 4 concat-form

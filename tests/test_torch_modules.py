@@ -279,6 +279,17 @@ def test_state_dict_round_trips_through_convert_state_dict():
                       (GraphBins, {"encoder_name": "efficientnet-v2-s"})]
 )
 def test_unported_options_raise(model, kwargs):
+    """do_final_upscale still raises; the V2-S encoder, ported since, builds
+    with its widths (skips 24, 48, 64, 160 and a 1280-channel head)."""
+    if kwargs.get("encoder_name") == "efficientnet-v2-s":
+        with torch.device("meta"):
+            dfe = model(**{"encoder_name": ENC, **kwargs}).dense_feature_extractor
+        assert dfe.encoder["original_model"].pad_style == "torch"
+        assert dfe.decoder.conv2.in_channels == 1280
+        assert [up._net[0].in_channels for up in (dfe.decoder.up1, dfe.decoder.up2,
+                                                  dfe.decoder.up3, dfe.decoder.up4)] == [
+            1280 + 160, 640 + 64, 320 + 48, 160 + 24]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         model(**{"encoder_name": ENC, **kwargs})
 

@@ -31,18 +31,21 @@ import yaml
 from objcavit_tpu.config import Config as JaxConfig
 from objcavit_tpu.config import load_args as jax_load_args
 from objcavit_tpu.losses import LossWrapper as JaxLossWrapper
+from objcavit_tpu.models.efficientnet import ENCODER_SPECS as JAX_ENCODER_SPECS
+from objcavit_tpu.models.efficientnet import EfficientNetEncoder as JaxEncoder
 from objcavit_tpu.models.objcavit import GridRandomPositionalEmbeddings as JaxGridPos
 from objcavit_tpu.models.objcavit import ObjCAViT as JaxObjCAViT
 from objcavit_tpu.ops.grid_sample import grid_sample_bilinear as jax_grid_sample_bilinear
 from objcavit_tpu.ops.roi_align import ps_roi_align_1x1 as jax_ps_roi_align_1x1
 from objcavit_tpu.training.steps import build_model as jax_build_model
 from objcavit_tpu.training.steps import make_train_loss_fn as jax_make_train_loss_fn
-from objcavit_tpu.utils.torch_import import convert_state_dict
+from objcavit_tpu.utils.torch_import import TreeBuilder, _convert_efficientnet_v2, convert_state_dict
 from objcavit_tpu.utils.torch_import import load_torch_checkpoint as jax_load_torch_checkpoint
 
 from objcavit_torch import cli
 from objcavit_torch.config import Config, load_args
 from objcavit_torch.losses import LossWrapper
+from objcavit_torch.models.efficientnet import EfficientNetEncoder
 from objcavit_torch.models.graphbins import GraphBins
 from objcavit_torch.models.objcavit import POS_STRATEGIES, GridRandomPositionalEmbeddings
 from objcavit_torch.ops.grid_sample import grid_sample_bilinear
@@ -367,24 +370,20 @@ def test_no_obj_sa_grid_roi_align_ckpt_loads_as_jax_loads_it(tmp_path, caplog):
 PARAMS_FILES = sorted(os.path.basename(p) for p in glob.glob(os.path.join(REPO, "params", "*.yaml")))
 # the one params file neither package parses (a stray line at 76)
 UNPARSEABLE = "kitti_graphbins_enet-b5_ocv_pos_grid_random_emb_128_lang_none_control_obj_zeros_512_old_dl_1.yaml"
-# files whose encoder or do_final_upscale waits for a later slice
+# files whose do_final_upscale waits for a later slice
 UNPORTED = {
     "nyu_efficientnet-b5_final_upscale_1.yaml": "do_final_upscale",
-    "nyu_efficientnet-v2-m_clip_0.1.yaml": "efficientnet-v2-m",
-    "nyu_efficientnet-v2-m_clip_0.1_lossfixed.yaml": "efficientnet-v2-m",
-    "nyu_efficientnet-v2-m_swa.yaml": "efficientnet-v2-m",
-    "nyu_efficientnet-v2-s_clip_0.1_lossfixed.yaml": "efficientnet-v2-s",
-    "nyu_graphbins_enet-v2-m_ocv_pos_learned_emb_128_1.yaml": "efficientnet-v2-m",
 }
 
 
 @pytest.mark.parametrize("name", PARAMS_FILES)
 def test_build_model_on_every_params_file(name):
     """build_model on each params file, built on the meta device at its
-    real widths: every parseable file builds but the six that need a V2
-    encoder or do_final_upscale, which raise naming it. A GraphBins has
-    the options JAX's build_model gives its module (and a grid table of one
-    row per patch of the larger full-resolution size)."""
+    real widths: every parseable file builds (the five with a V2 encoder
+    among them) but the one that needs do_final_upscale, which raises
+    naming it. Each is JAX's build_model's class with its bins and encoder;
+    a GraphBins has the options JAX's build_model gives its module (and a
+    grid table of one row per patch of the larger full-resolution size)."""
     path = os.path.join(REPO, "params", name)
     if name == UNPARSEABLE:
         with pytest.raises(yaml.YAMLError):
@@ -406,6 +405,11 @@ def test_build_model_on_every_params_file(name):
     jmodel = jax_build_model(jargs)
     assert type(model).__name__ == type(jmodel).__name__
     assert model.conv_out[0].out_channels == jmodel.n_bins
+    spec = JAX_ENCODER_SPECS[jmodel.encoder_name]
+    assert model.dense_feature_extractor.encoder["original_model"].pad_style == spec.pad_style
+    # the port keeps the head's BN and SiLU where pad_style is "torch"
+    assert spec.head_bn_act == (spec.pad_style == "torch")
+    assert model.dense_feature_extractor.decoder.conv2.in_channels == spec.head_channels
     if args.model.name != "graphbins":
         return
     objcavit = model.objcavit
@@ -416,6 +420,33 @@ def test_build_model_on_every_params_file(name):
         rows = max(math.ceil(h / 16) * math.ceil(w / 16)
                    for h, w in (jmodel.dims_train, jmodel.dims_test))
         assert objcavit.positional_encoder.positional_encodings.shape[0] == rows
+
+
+@pytest.mark.parametrize("encoder_name", ["efficientnet-v2-s", "efficientnet-v2-m"])
+def test_v2_full_width_keys_are_the_keys_jax_reads(encoder_name):
+    """The port's V2-S and V2-M encoders at full width, on the meta device:
+    their state-dict keys (less BN's ``num_batches_tracked``, which JAX has
+    no counterpart of) are exactly the keys JAX's
+    ``_convert_efficientnet_v2`` reads, and what it makes of them at their
+    shapes is the tree of JAX's own init (``jax.eval_shape``)."""
+    with torch.device("meta"):
+        enc = EfficientNetEncoder(encoder_name)
+    shapes = {f"enc.{k}": tuple(v.shape) for k, v in enc.state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+    read = set()
+
+    class Reading(dict):
+        def __getitem__(self, key):
+            read.add(key)
+            return np.zeros(shapes[key], np.float32)
+
+    tb = TreeBuilder()
+    _convert_efficientnet_v2(tb, Reading(), "enc", "encoder", encoder_name)
+    assert read == set(shapes)
+    want = jax.eval_shape(JaxEncoder(encoder_name).init, jax.random.PRNGKey(0),
+                          jnp.zeros((1, 64, 64, 3)))
+    got = {"params": tb.params["encoder"], "batch_stats": tb.batch_stats["encoder"]}
+    assert jax.tree.map(lambda a: a.shape, want) == jax.tree.map(np.shape, got)
 
 
 @pytest.mark.parametrize("missing", ["dimensions_train", "dimensions_test"])
