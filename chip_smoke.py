@@ -29,7 +29,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    backward on the route its shape takes (one cluster launch up to 512
    keys and queries: every case but S = 1200), both timed at S = 300 and
    at the train step's S = 221 (the forward as a served call, without the
-   residual, and as a train step's). Each
+   residual, and as a train step's); and the shapes ``do_final_upscale``
+   gives kernels 1, 2, 4 and 5 (phase 13's paths): kernel 1's bare form at
+   the fifth upsample, (8, 240, 320, 128) -> 480x640 (with that stage's
+   route, the bare form then ``torch.cat`` with the 3-channel image,
+   logged), kernel 2 at (8, 480, 640, 128), kernel 4 at (8, 226304, 256),
+   kernel 5 at 1200 queries against 1000 masked keys (checked with the
+   cases above) and timed at S 1200 (the streaming forward) and S 884
+   (the two-kernel backward). Each
    kernel's bound (the larger of its bytes over 3.35 TB/s and its
    operations over the card's peak for their type; tensor-core and
    CUDA-core operations run at once, so the larger of their two times) is
@@ -193,6 +200,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    params file and of AdaBins-V2-S's
    (``params/nyu_efficientnet-v2-s_clip_0.1_lossfixed.yaml``), each
    writing validation_output.txt.
+13. final upscale and drop path: (a) AdaBins-B5 with ``do_final_upscale``
+   (``params/nyu_efficientnet-b5_final_upscale_1.yaml``'s model: bf16, BN
+   folded, 480x640, full-resolution depth, miniViT over 1200 tokens of a
+   1200-row table) on each attention route answers 2 requests of 8 frames:
+   per forward kernel 1's concat form 4 times and its bare form once (the
+   fifth upsample, whose skip is the image), kernel 2 once, kernel 5's
+   forward 4 times on its route (the streaming kernel) and none on the
+   plain one; each output against its plain version on its own tensors;
+   the served rate, p50, peak memory and a trace's device time and idle
+   share; (b) its train step at bs 8, 416x544 on kernel 5's route: 1 + 1
+   kernel-4 and 4 + 4 kernel-5 launches, every backward on the two-kernel
+   route (S 884), each against its plain version, a finite loss; (c) -v
+   --debug --bf16 through ``cli.main`` on a copy of that params file; (d)
+   GraphBins-B5 with ``do_final_upscale`` on kernel 5's route at 1000
+   slots (a sentinel request and one with detector-style slots: kernel
+   5's masked streaming forward against its plain version) and its train
+   step at 884 slots (10 + 9 launches); (e) GraphBins-B5 with
+   ``drop_path_rate`` 0.2: train-mode losses on one batch (dropout 0, no
+   augmentation) equal for one generator seed, another for another seed,
+   and equal for both at rate 0; one full train step; the server on
+   ``encoder_impl="kernel"`` launches kernels 8 and 7 32 + 7 times a
+   forward and gives the depth of the same weights at rate 0 bit for bit.
+   Alone: ``import chip_smoke as cs; cs.phase_device(); cs.phase_build();
+   cs.phase_final_upscale()``.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -203,6 +234,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import csv
+import itertools
 import json
 import os
 import re
@@ -398,8 +430,21 @@ ATTN_CASES = [("flagship 480x640", BATCH, 300, 300, "served"),
               ("train 416x544", BATCH, 221, 221, "served"),
               ("S 1200", 2, 1200, 1200, "none"),
               ("Sq != Sk", BATCH, 300, 77, "served"),
-              ("fully masked rows", BATCH, 300, 300, "full")]
+              ("fully masked rows", BATCH, 300, 300, "full"),
+              # ObjCAViT under do_final_upscale: 1200 image tokens against
+              # 1000 masked object slots (the streaming forward, the
+              # two-kernel backward)
+              ("final upscale 1200x1000", BATCH, 1200, 1000, "served")]
 GRAPH_CALLS = 20  # kernel 5's calls in one timed CUDA graph
+# phase 13, do_final_upscale: the fifth upsample's input (B, Hi, Wi, C) and
+# output size, whose skip is the 3-channel image (kernel 1's bare form, then
+# torch.cat); kernel 2 at full resolution; kernel 4 at the full-resolution
+# train step; kernel 5 at miniViT's tokens, served (S 1200, the streaming
+# forward) and trained (S 884, the two-kernel backward)
+FU_RESIZE = (BATCH, 240, 320, 128, *EVAL_DIMS)
+FU_BINS_SHAPE = (BATCH, *EVAL_DIMS, 128)
+FU_EXP_SHAPE = (BATCH, TRAIN_DIMS[0] * TRAIN_DIMS[1], 256)
+FU_TOKENS, FU_TRAIN_TOKENS = 1200, 884
 # kernel 8 at B5's stride-1 MBConv blocks at 480x640 (MBCONV_SHAPES: H, W,
 # k, Cin, M, blocks of that shape in a forward; 32 blocks) and its bound
 # (mbconv_bound) come from the kernel's profiler, utils/mbconv_ab.py
@@ -516,7 +561,7 @@ def read_counters() -> dict:
 def expect_launches(what: str, **want: int) -> dict:
     got = read_counters()
     want = {**{name: want.get(name, 0) for name in COUNTERS},
-            CLUSTER_COUNTER: want.get("attention_bwd", 0),
+            CLUSTER_COUNTER: want.get(CLUSTER_COUNTER, want.get("attention_bwd", 0)),
             CONCAT_COUNTER: want.get(CONCAT_COUNTER, want.get("resize", 0))}
     log(f"  {what}: launches {got}")
     if got != want:
@@ -753,6 +798,64 @@ def phase_kernels() -> dict:
     out["detect_head"] = check_detect_head(g, dev)
     out.update(check_attention(g, dev))
     out.update(check_encoder_kernels(g))
+    out.update(check_final_upscale_kernels(g, dev, out.pop("attention_long")))
+    return out
+
+
+def check_final_upscale_kernels(gen: torch.Generator, dev, long_errs: dict) -> dict:
+    """Kernels 1, 2, 4 and 5 at the shapes do_final_upscale gives them
+    (``FU_*``), each against its plain version, timed beside it, with its
+    bound: kernel 1's bare form at the fifth upsample (and that stage's
+    route, the bare form then ``torch.cat`` with the image, logged), kernel
+    2 on full-resolution features, kernel 4 at the full-resolution train
+    step, kernel 5's forward at miniViT's served S 1200 and its backward at
+    the train step's S 884; ``long_errs`` are kernel 5's largest errors
+    over ``ATTN_CASES`` beyond 512 keys, on those routes."""
+    b, hi, wi, c, ho, wo = FU_RESIZE
+    x = torch.randn((b, hi, wi, c), generator=gen, device=dev).to(torch.bfloat16)
+    image = torch.randn((b, ho, wo, 3), generator=gen, device=dev).to(torch.bfloat16)
+    kernel = lambda: kresize.resize_bilinear_align_corners(x, ho, wo)  # noqa: E731
+    plain = lambda: kresize.resize_bilinear_align_corners_plain(x, ho, wo)  # noqa: E731
+    err = check_close(f"resize {FU_RESIZE}", kernel(), plain(), RESIZE_RTOL, RESIZE_ATOL)
+    ms, plain_ms = graph_times(kernel, plain)
+    lib_ms = library_time(lambda: F.interpolate(x.permute(0, 3, 1, 2), size=(ho, wo),
+                                                mode="bilinear", align_corners=True))
+    stage = captured(lambda: torch.cat([kernel(), image], -1), GRAPH_CALLS)
+    stage_ms = library_time(stage.replay, iters=3) / GRAPH_CALLS
+    del stage
+    out = {"resize_final": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": lib_ms,
+                            **bound(2 * b * c * (hi * wi + ho * wo), fp32=6 * b * c * ho * wo)}}
+    log(f"kernel resize, the final upsample ({b},{hi},{wi},{c})->({ho},{wo}): max_abs_err {err} "
+        f"(rtol 2^-7, atol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA-graph "
+        f"replays), F.interpolate {lib_ms:.4f} ms, bound {out['resize_final']['bound_ms']:.4f} ms; "
+        f"the stage's route (bare form + torch.cat with the 3-channel image) {stage_ms:.4f} ms")
+    del x, image
+
+    b, h, w, c = FU_BINS_SHAPE
+    x = torch.randn((b, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
+    wts = (0.1 * torch.randn((b, c, 256), generator=gen, device=dev)).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(256, generator=gen, device=dev)
+    centers = torch.sort(0.001 + 10 * torch.rand((b, 256), generator=gen, device=dev), dim=1).values
+    kernel = lambda: kbins.conv_bins_depth_batched(x, wts, bias, centers)  # noqa: E731
+    plain = lambda: kbins.conv_bins_depth_batched_plain(x, wts, bias, centers)  # noqa: E731
+    err = check_close(f"bins {FU_BINS_SHAPE}", kernel(), plain(), BINS_RTOL, BINS_ATOL)
+    ms, plain_ms = graph_times(kernel, plain)
+    cost = bins_cost(b, h * w, c, shared_w=False)
+    out["bins_final"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                         **bound(cost["bytes"], bf16=cost["flops"])}
+    log(f"kernel bins at full resolution {FU_BINS_SHAPE}: max_abs_err {err} (rtol 1e-5, atol "
+        f"1e-5); kernel {ms:.5f} ms, plain {plain_ms:.4f} ms (CUDA-graph replays), bound "
+        f"{out['bins_final']['bound_ms']:.5f} ms ({out['bins_final']['bound_by']})")
+    del x, wts
+
+    exp = check_bins_expectation(gen, dev, FU_EXP_SHAPE)
+    out["bins_expectation_fwd_final"] = exp["bins_expectation_fwd"]
+    out["bins_expectation_bwd_final"] = exp["bins_expectation_bwd"]
+    fwd = time_attention(gen, BATCH, FU_TOKENS, FU_TOKENS, "none")["fwd"]
+    bwd = time_attention(gen, BATCH, FU_TRAIN_TOKENS, FU_TRAIN_TOKENS, "none")["bwd"]
+    out["attention_fwd_final"] = {"max_abs_err": long_errs["fwd"], **fwd}
+    out["attention_bwd_final"] = {"max_abs_err": long_errs["bwd"], **bwd}
     return out
 
 
@@ -770,14 +873,16 @@ def check_attention(gen: torch.Generator, dev) -> dict:
     """Kernel 5 forward and backward against the plain versions at every
     ``ATTN_CASES`` case, each backward on the route its shape takes (the
     cluster route at every case up to 512 keys and queries); a fully masked
-    row must be uniform over its keys. Then times at the flagship's served
+    row must be uniform over its keys. The largest errors of the cases
+    beyond 512 keys (the streaming forward, the two-kernel backward) are
+    returned apart too ('attention_long'). Then times at the flagship's served
     case and the train step's: the forward against the plain forward and
     SDPA with the same additive mask, the backward against the plain
     backward formula and SDPA's backward (autograd of one SDPA call); each
     as eager calls and replayed from CUDA graphs. The summary takes the
     forward at the served S 300 and the backward at the train step's S 221,
     the shapes the main paths launch them at."""
-    errs = {"fwd": 0.0, "bwd": 0.0}
+    errs, long_errs = {"fwd": 0.0, "bwd": 0.0}, {"fwd": 0.0, "bwd": 0.0}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for label, b, sq, sk, mask_kind in ATTN_CASES:
         q, k, v, g, mask = attention_inputs(gen, b, sq, sk, mask_kind)
@@ -805,12 +910,15 @@ def check_attention(gen: torch.Generator, dev) -> dict:
             f"plan {kattn.fwd_plan(b * ATTN_HEADS, sq, sk, n_sm)}, backward route {route}")
         del served
         errs["fwd"], errs["bwd"] = max(errs["fwd"], err_f), max(errs["bwd"], err_b)
+        if max(sq, sk) > kattn.RESIDENT_MAX_KEYS:
+            long_errs["fwd"], long_errs["bwd"] = (max(long_errs["fwd"], err_f),
+                                                  max(long_errs["bwd"], err_b))
         del q, k, v, g, out, stats, grads
     timed = {label: time_attention(gen, b, sq, sk, mask_kind)
              for label, b, sq, sk, mask_kind in ATTN_CASES[:2]}
     fwd, bwd = timed[ATTN_CASES[0][0]]["fwd"], timed[ATTN_CASES[1][0]]["bwd"]
     return {"attention_fwd": {"max_abs_err": errs["fwd"], **fwd},
-            "attention_bwd": {"max_abs_err": errs["bwd"], **bwd}}
+            "attention_bwd": {"max_abs_err": errs["bwd"], **bwd}, "attention_long": long_errs}
 
 
 def time_attention(gen: torch.Generator, b: int, sq: int, sk: int, mask_kind: str) -> dict:
@@ -822,7 +930,7 @@ def time_attention(gen: torch.Generator, b: int, sq: int, sk: int, mask_kind: st
     # SDPA takes (B, H, S, D) and the additive mask in q's dtype; never
     # called by the port
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    sdpa_mask = bias.to(torch.bfloat16)[:, None, None, :]
+    sdpa_mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
     gs = g.transpose(1, 2)
 
     def sdpa():
@@ -1145,13 +1253,13 @@ def close_backward(name: str, dlogits, dcenters, want_dl, want_dc, g) -> tuple[f
     return err_dl, err_dc
 
 
-def check_bins_expectation(gen: torch.Generator, dev) -> dict:
-    """Kernel 4 at the train step's shape: forward against the plain
-    forward, backward against the plain backward formula; times against the
-    plain forward, and against autograd's backward of it (softmax and matmul
-    keeping fp32 probabilities), which is what PyTorch runs without the
-    kernel."""
-    b, s, k = EXP_SHAPE
+def check_bins_expectation(gen: torch.Generator, dev, shape=EXP_SHAPE) -> dict:
+    """Kernel 4 at a train step's ``shape`` (B, pixels, bins): forward
+    against the plain forward, backward against the plain backward formula;
+    times against the plain forward, and against autograd's backward of it
+    (softmax and matmul keeping fp32 probabilities), which is what PyTorch
+    runs without the kernel."""
+    b, s, k = shape
     logits = (2.0 * torch.randn((b, s, k), generator=gen, device=dev)).to(torch.bfloat16)
     centers = torch.sort(0.001 + 10 * torch.rand((b, k), generator=gen, device=dev), dim=1).values
     g = torch.randn((b, s), generator=gen, device=dev)
@@ -1163,7 +1271,7 @@ def check_bins_expectation(gen: torch.Generator, dev) -> dict:
     # ~4 fp32 operations on the CUDA cores. No one PyTorch call computes a
     # softmax and its expectation: library_ms null
     fwd_bound = bound(2 * b * s * k + 4 * b * k + 4 * b * s, fp32=5 * b * s * k)
-    log(f"kernel bins expectation forward {EXP_SHAPE}: max_abs_err {err} (rtol 1e-5, atol "
+    log(f"kernel bins expectation forward {shape}: max_abs_err {err} (rtol 1e-5, atol "
         f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{fwd_bound['bound_ms']:.4f} ms")
     fwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **fwd_bound}
@@ -1179,7 +1287,7 @@ def check_bins_expectation(gen: torch.Generator, dev) -> dict:
     ms, plain_ms = compare_times(kernel, plain, iters=10)
     # logits and g read once, dlogits and dcenters written once
     bwd_bound = bound(4 * b * s * k + 4 * b * k + 4 * b * s + 4 * b * k, fp32=8 * b * s * k)
-    log(f"kernel bins expectation backward {EXP_SHAPE}: max_abs_err dlogits {err_dl} (rtol "
+    log(f"kernel bins expectation backward {shape}: max_abs_err dlogits {err_dl} (rtol "
         f"2^-7, atol 1e-4 max|g|), dcenters {err_dc} (rtol 1e-4, atol 1e-5 max|dcenters|); "
         f"kernel {ms:.4f} ms, plain (autograd of the plain forward) {plain_ms:.4f} ms, bound "
         f"{bwd_bound['bound_ms']:.4f} ms")
@@ -1210,8 +1318,10 @@ def make_provider(rng: np.random.Generator, n_obj: int):
 
 
 def check_depth(name: str, depth: torch.Tensor, lo: float, hi: float, batch: int = BATCH,
-                dims: tuple[int, int] = EVAL_DIMS) -> None:
-    shape = (batch, dims[0] // 2, dims[1] // 2, 1)
+                dims: tuple[int, int] = EVAL_DIMS, full_res: bool = False) -> None:
+    """Finite fp32 depth within [lo, hi] at half the frames' size, or at
+    their size (``full_res``: do_final_upscale)."""
+    shape = (batch, *(dims if full_res else (dims[0] // 2, dims[1] // 2)), 1)
     if tuple(depth.shape) != shape or depth.dtype != torch.float32:
         raise AssertionError(f"{name}: depth {depth.dtype} {tuple(depth.shape)}, want fp32 {shape}")
     if not torch.isfinite(depth).all():
@@ -2628,6 +2738,236 @@ def phase_v2() -> dict:
     return dict(launches)
 
 
+# phase 13: do_final_upscale (the one params file that sets it: AdaBins-B5)
+# and drop_path_rate
+FINAL_UPSCALE_PARAMS = "nyu_efficientnet-b5_final_upscale_1.yaml"
+FU = {"do_final_upscale": True}
+FU_SLOTS = 1000  # min(max_det 1000, the 1200 full-resolution tokens at 480x640)
+# kernel 1 a final-upscale forward: the concat form at up1..up4, the bare
+# form at the fifth stage (its skip, the image, has 3 channels)
+FU_CONCAT, FU_BARE = 4, 1
+DROP_PATH_RATE = 0.2
+
+
+def log_served(what: str, pipe, frames: list) -> None:
+    """The served rate, p50 and peak memory of ``pipe`` over ``frames``, and
+    one trace's device time and idle share."""
+    r = served_rate(pipe, frames, n_req=6, n_lat=5)
+    t = trace(lambda: pipe(frames[0]), n_req=3)
+    log(f"  {what}: served {r['img_per_s']:.2f} img/s over 6 requests of {BATCH}; p50 "
+        f"{r['p50_ms']:.2f} ms of 5 requests; peak memory {r['peak_gib']:.3f} GiB; traced (3 "
+        f"requests): {t['window_ms_per_request']:.3f} ms a request, device busy "
+        f"{t['device_busy_ms_per_request']:.3f} ms, {t['device_kernels_per_request']:.0f} kernels, "
+        f"idle share {t['idle_share']:.3f}; device ms by kind: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in t["device_ms_per_request_by_kind"].items()))
+
+
+def serve_final_upscale(what: str, pipe, frames: list, served=None) -> dict:
+    """Requests of ``frames`` (after a warm-up on the first) through a
+    do_final_upscale server ``pipe`` (``served`` with objects, if given,
+    for the even requests): each forward's launches (kernel 1's concat form
+    4 and bare form 1, kernel 2 once, kernel 5's forward as the model's
+    route gives it), full-resolution depth, each kernel's output against its
+    plain version on its own tensors; then the served rate and a trace."""
+    model = pipe.model
+    heads = model.transformer_head
+    attn = 0 if model.attn_impl != "kernel" else (10 if model.takes_objects else 4)
+    servers = [served if served is not None and i % 2 == 0 else pipe for i in range(len(frames))]
+    pipe(frames[0])  # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    with record_kernel_io(model) as records, record_attention_io() as attn_records:
+        depths = [server(f) for server, f in zip(servers[1:], frames[1:])]
+    torch.cuda.synchronize()
+    n = len(depths)
+    launches = expect_launches(f"{what}, {n} requests of {BATCH} frames",
+                               resize=(FU_CONCAT + FU_BARE) * n, resize_concat=FU_CONCAT * n,
+                               bins=n, attention_fwd=attn * n)
+    for i, depth in enumerate(depths):
+        check_depth(f"{what} request {i}", depth, model.min_depth, model.max_depth,
+                    len(frames[0]), full_res=True)
+    if len(records[0]["resize"]) != FU_CONCAT + FU_BARE:
+        raise AssertionError(f"{what}: recorded {len(records[0]['resize'])} upsamples")
+    check_served_kernels(model, records)
+    if attn:
+        check_attention_records(f"{what} requests", attn_records, residual=False)
+    log(f"  {what}: {type(heads).__name__} over {FU_TOKENS} tokens, {pipe.n_obj_max} slots")
+    del records, attn_records, depths
+    log_served(what, pipe, frames[1:])
+    return launches
+
+
+def train_final_upscale(what: str, step, batch, objects) -> dict:
+    """One train step of a do_final_upscale model on kernel 5's route at bs
+    8, 416x544: kernel 4 once forward and once backward, kernel 5's forward
+    and backward as the model gives them, every backward on the two-kernel
+    route (S 884); each launch against its plain version, a finite loss."""
+    model = step.model
+    fwd = 10 if model.takes_objects else 4
+    bwd = ATTN_BWD_PER_STEP if model.takes_objects else 4
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    with record_bins_expectation_io() as records, record_attention_io() as attn_records:
+        loss = float(step(batch, objects))
+    torch.cuda.synchronize()
+    launches = expect_launches(f"{what} train step", bins_expectation_fwd=1,
+                               bins_expectation_bwd=1, attention_fwd=fwd, attention_bwd=bwd,
+                               attention_bwd_cluster=0)
+    log(f"  {what} train step (the first), bs {BATCH} at {TRAIN_DIMS[0]}x{TRAIN_DIMS[1]}, "
+        f"{FU_TRAIN_TOKENS} tokens: loss {loss:.6f}, {1000 * (time.perf_counter() - t0):.1f} ms; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not np.isfinite(loss):
+        raise AssertionError(f"{what}: the train loss is not finite")
+    check_train_kernels(records[0])
+    check_attention_records(f"{what} step", attn_records, residual=True)
+    return launches
+
+
+def swap_drop_path_rates(model, rates) -> list[float]:
+    """Give the encoder's blocks the drop_path_rates ``rates`` (an iterable,
+    one a block, in order); returns the rates they had."""
+    enc = model.dense_feature_extractor.encoder["original_model"]
+    blocks = [blk for stage in enc.stages() for blk in stage]
+    old = [blk.drop_path_rate for blk in blocks]
+    for blk, rate in zip(blocks, rates):
+        blk.drop_path_rate = rate
+    return old
+
+
+def phase_drop_path() -> dict:
+    """(e) GraphBins-B5 with drop_path_rate 0.2: in training, forward losses
+    on one batch (dropout 0, no augmentation, so stochastic depth draws
+    alone) equal for one generator seed and differ for another, and equal
+    for both seeds at rate 0; one full train step; at inference the server
+    on ``encoder_impl="kernel"`` launches kernels 8 and 7 32 + 7 times a
+    forward and gives the depth of the same weights at rate 0 bit for bit.
+    cuDNN runs deterministic algorithms throughout, so equal draws give
+    equal sums."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return drop_path_checks()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def drop_path_checks() -> dict:
+    step, batch, objects = build_flagship_train(batch=BATCH, h=TRAIN_DIMS[0], w=TRAIN_DIMS[1],
+                                                n_obj=TRAIN_SLOTS, seed=0, dropout_rate=0.0,
+                                                drop_path_rate=DROP_PATH_RATE)
+    model = step.model
+    loss_fn = make_train_loss_fn(model, LossWrapper(*TRAIN_LOSSES), model.min_depth,
+                                 augment_on_device=False, compute_dtype=torch.bfloat16)
+
+    def loss(seed):
+        with torch.no_grad():
+            return float(loss_fn(batch, objects, torch.Generator(device="cuda").manual_seed(seed)))
+
+    drawn = [loss(7), loss(7), loss(8)]
+    saved = swap_drop_path_rates(model, itertools.repeat(0.0))
+    at_zero = [loss(7), loss(8)]
+    swap_drop_path_rates(model, saved)
+    log(f"drop path: GraphBins-B5, drop_path_rate {DROP_PATH_RATE} (block rates "
+        f"{min(r for r in saved if r > 0):.5f}..{max(saved):.5f}), train-mode losses, seeds 7, "
+        f"7, 8: {drawn}; at rate 0, seeds 7, 8: {at_zero}")
+    if drawn[0] != drawn[1] or drawn[0] == drawn[2] or at_zero[0] != at_zero[1]:
+        raise AssertionError("drop path: the losses do not follow the generator's seed")
+    zero_counters()
+    full = float(step(batch, objects))
+    torch.cuda.synchronize()
+    launches = collections.Counter(expect_launches("drop path train step",
+                                                   bins_expectation_fwd=1, bins_expectation_bwd=1))
+    log(f"  one train step with drop path, augmentation and the generator: loss {full:.6f}")
+    if not np.isfinite(full):
+        raise AssertionError("drop path: the train loss is not finite")
+    del step, batch, objects, model
+
+    pipe = build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0,
+                                   encoder_impl="kernel", drop_path_rate=DROP_PATH_RATE)
+    frames = np.random.default_rng(97).integers(0, 256, (BATCH, *EVAL_DIMS, 3), dtype=np.uint8)
+    pipe(frames)  # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    depth = pipe(frames)
+    torch.cuda.synchronize()
+    launches.update(expect_launches("drop path server, encoder_impl kernel", resize=4, bins=1,
+                                    mbconv_head=MBCONV_PER_FORWARD,
+                                    se_project=SE_PROJECT_PER_FORWARD))
+    saved = swap_drop_path_rates(pipe.model, itertools.repeat(0.0))
+    at_zero = pipe(frames)
+    swap_drop_path_rates(pipe.model, saved)
+    if not torch.equal(depth, at_zero):
+        raise AssertionError("drop path: the eval forward differs from the same weights at rate 0")
+    log("  eval forward on the encoder's kernel route: 32 + 7 kernel-8 and kernel-7 launches, "
+        "the depth of the same weights at rate 0 bit for bit")
+    return dict(launches)
+
+
+def phase_final_upscale() -> dict:
+    """Phase 13: (a) AdaBins-B5 with do_final_upscale served on both
+    attention routes, (b) its train step, (c) -v --debug --bf16 on its
+    params file, (d) GraphBins-B5 with do_final_upscale served at 1000
+    slots and one train step, (e) drop_path_rate (``phase_drop_path``).
+    Returns the kernel launches of (a)-(d) ('final': kernels 1, 2, 4 and 5
+    at the full-resolution shapes; kernel 1's concat form at the four
+    flagship upsamples) and of (e) ('drop_path', at the flagship's
+    shapes)."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4321)
+    frames = [rng.integers(0, 256, (BATCH, *EVAL_DIMS, 3), dtype=np.uint8) for _ in range(3)]
+    final = collections.Counter()
+    for impl in ("kernel", "plain"):
+        pipe = build_adabins_pipeline(dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0,
+                                      attn_impl=impl, **FU)
+        rows = pipe.model.adaptive_bins_layer.patch_transformer.positional_encodings.shape[0]
+        if rows != FU_TOKENS or pipe.n_obj_max != FU_SLOTS:
+            raise AssertionError(f"AdaBins-B5 final upscale: {rows} table rows, "
+                                 f"{pipe.n_obj_max} slots")
+        final.update(serve_final_upscale(f"(a) AdaBins-B5 final upscale, {impl} attention", pipe,
+                                         frames))
+        del pipe
+    torch.cuda.empty_cache()
+    step, batch = build_adabins_train(batch=BATCH, h=TRAIN_DIMS[0], w=TRAIN_DIMS[1], seed=0,
+                                      attn_impl="kernel", **FU)
+    final.update(train_final_upscale("(b) AdaBins-B5 final upscale", step, batch, None))
+    del step, batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, cfg in write_option_files(tmp, (FINAL_UPSCALE_PARAMS,)).items():
+            metrics, seen = run_cli(f"(c) -v --debug --bf16, {name}",
+                                    ["-c", cfg, "-v", "--debug", "--bf16"],
+                                    resize=EVAL_RESIZE + FU_BARE, resize_concat=EVAL_RESIZE,
+                                    bins=EVAL_BINS)
+            written = read_validation_output(os.path.join(tmp, name[:-5], "validation_output.txt"))
+            if any(abs(written[k] - metrics[k]) > 1e-6 * abs(metrics[k]) for k in metrics):
+                raise AssertionError(f"{name}: validation_output.txt disagrees with the metrics")
+            log(f"  {name}: validation_output.txt written; abs_rel {metrics['abs_rel']:.5f}")
+            final.update(seen["launches"])
+    pipe = build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0,
+                                   attn_impl="kernel", **FU)
+    if pipe.n_obj_max != FU_SLOTS:
+        raise AssertionError(f"GraphBins-B5 final upscale: {pipe.n_obj_max} slots")
+    with_objects = DepthPipeline(pipe.model, eval_dims=EVAL_DIMS,
+                                 provider=make_provider(rng, FU_SLOTS))
+    final.update(serve_final_upscale("(d) GraphBins-B5 final upscale, kernel attention", pipe,
+                                     frames, with_objects))
+    del pipe, with_objects
+    torch.cuda.empty_cache()
+    step, batch, objects = build_flagship_train(batch=BATCH, h=TRAIN_DIMS[0], w=TRAIN_DIMS[1],
+                                                seed=0, attn_impl="kernel", **FU)
+    if objects["valid"].shape[1] != FU_TRAIN_TOKENS:
+        raise AssertionError(f"GraphBins-B5 final upscale: {objects['valid'].shape[1]} train slots")
+    final.update(train_final_upscale("(d) GraphBins-B5 final upscale", step, batch, objects))
+    del step, batch, objects
+    torch.cuda.empty_cache()
+    drop = phase_drop_path()
+    torch.cuda.empty_cache()
+    log(f"final upscale and drop path: {time.perf_counter() - t0:.1f} s")
+    return {"final": dict(final), "drop_path": drop}
+
+
 # the regressor's gradient rel L2 on the seed's weights, kernel 5's route
 # against the plain route, as an H100 read them with the forward's planned
 # key groups and the cluster backward: a gap to watch, not a bound (the
@@ -2683,6 +3023,11 @@ def main() -> None:
     v2 = phase_v2()
     log(f"  V2 encoder paths: {v2}; the kernels line adds them to kernels 1, 2, 4, 5 and 7's "
         f"counts")
+    final_upscale = phase_final_upscale()
+    fu, dp = final_upscale["final"], final_upscale["drop_path"]
+    log(f"  final-upscale paths: {fu}; the kernels line counts them in kernel 1's concat form "
+        f"and in the final-upscale entries of kernels 1, 2, 4 and 5; drop-path paths: {dp}, "
+        f"counted in kernels 1, 2, 4, 7 and 8's entries")
 
     def entry(name, source, replaces, launches, key):
         return {"name": name, "route": "cuda", "source": f"objcavit_torch/csrc/{source}",
@@ -2691,21 +3036,32 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("resize_bilinear_align_corners_into_concat (kernel 1's concat form)",
               "resize_bilinear.cu", "resize_pallas.py:104",
-              serving["resize"] + served[CONCAT_COUNTER] + v2[CONCAT_COUNTER], "resize_concat"),
+              serving["resize"] + served[CONCAT_COUNTER] + v2[CONCAT_COUNTER] + fu[CONCAT_COUNTER]
+              + dp[CONCAT_COUNTER], "resize_concat"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form, a function path)",
               "resize_bilinear.cu", "resize_pallas.py:104", serving["resize_bare"], "resize"),
+        entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form at the final "
+              "upsample, (8, 240, 320, 128) -> 480x640, then torch.cat with the image)",
+              "resize_bilinear.cu", "resize_pallas.py:104", fu["resize"] - fu[CONCAT_COUNTER],
+              "resize_final"),
         entry("conv_bins_depth_batched", "bins_depth.cu", "pallas_bins.py:214",
-              serving["bins"] + served["bins"] + v2["bins"], "bins"),
+              serving["bins"] + served["bins"] + v2["bins"] + dp["bins"], "bins"),
+        entry("conv_bins_depth_batched (full resolution, (8, 480, 640, 128))", "bins_depth.cu",
+              "pallas_bins.py:214", fu["bins"], "bins_final"),
         entry("conv_bins_depth (kernel 2, shared W)", "bins_depth.cu", "pallas_bins.py:163",
               unfactored["bins_shared"], "bins_shared"),
         entry("bins_expectation_fwd", "bins_expectation.cu", "pallas_bins.py:63",
               train["bins_expectation_fwd"] + fit["bins_expectation_fwd"]
-              + trained["bins_expectation_fwd"] + v2["bins_expectation_fwd"],
-              "bins_expectation_fwd"),
+              + trained["bins_expectation_fwd"] + v2["bins_expectation_fwd"]
+              + dp["bins_expectation_fwd"], "bins_expectation_fwd"),
         entry("bins_expectation_bwd", "bins_expectation.cu", "pallas_bins.py:91",
               train["bins_expectation_bwd"] + fit["bins_expectation_bwd"]
-              + trained["bins_expectation_bwd"] + v2["bins_expectation_bwd"],
-              "bins_expectation_bwd"),
+              + trained["bins_expectation_bwd"] + v2["bins_expectation_bwd"]
+              + dp["bins_expectation_bwd"], "bins_expectation_bwd"),
+        entry("bins_expectation_fwd (full resolution, (8, 226304, 256))", "bins_expectation.cu",
+              "pallas_bins.py:63", fu["bins_expectation_fwd"], "bins_expectation_fwd_final"),
+        entry("bins_expectation_bwd (full resolution, (8, 226304, 256))", "bins_expectation.cu",
+              "pallas_bins.py:91", fu["bins_expectation_bwd"], "bins_expectation_bwd_final"),
         entry("fused_detect_head", "detect_head.cu", "detect_head_pallas.py:65", fused,
               "detect_head"),
         entry("fused_mha_fwd", "attention.cu", "pallas_attention.py:91",
@@ -2714,10 +3070,16 @@ def main() -> None:
         entry("fused_mha_bwd", "attention.cu", "pallas_attention.py:108",
               attn_train["attention_bwd"] + trained["attention_bwd"] + v2["attention_bwd"],
               "attention_bwd"),
+        entry("fused_mha_fwd (beyond 512 keys, the streaming kernel: final upscale, timed at "
+              "S 1200)", "attention.cu", "pallas_attention.py:91", fu["attention_fwd"],
+              "attention_fwd_final"),
+        entry("fused_mha_bwd (beyond 512 keys, the two-kernel route: final upscale, timed at "
+              "S 884)", "attention.cu", "pallas_attention.py:108", fu["attention_bwd"],
+              "attention_bwd_final"),
         entry("se_gate_project", "se_project.cu", "se_project_pallas.py:80",
-              encoder_serving["se_project"] + v2["se_project"], "se_project"),
+              encoder_serving["se_project"] + v2["se_project"] + dp["se_project"], "se_project"),
         entry("mbconv_expand_dw_pool", "mbconv_head.cu", "mbconv_pallas.py:153",
-              encoder_serving["mbconv_head"], "mbconv_head"),
+              encoder_serving["mbconv_head"] + dp["mbconv_head"], "mbconv_head"),
         entry("mbconv_bs_expand_dw_pool (kernel 8 on an (H, W, B, C) tensor map)", "mbconv_head.cu",
               "mbconv_bs.py:180", encoder_functions["mbconv_bs"], "mbconv_bs"),
         entry("dw_conv_silu_pool (a ring of input rows by TMA, rolling tap rows; a function path)",

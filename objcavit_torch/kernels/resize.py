@@ -117,6 +117,14 @@ def check_resize_inputs(x: torch.Tensor, out_h: int, out_w: int) -> None:
         raise ValueError("resize kernel needs a 16-byte aligned tensor")
 
 
+def concat_takes_skip(cs: int) -> bool:
+    """Whether the concat form takes a skip of ``cs`` channels: a whole
+    number of 16-byte bf16 vectors, so each pixel's record stays aligned.
+    The decoder's final upsample, whose skip is the 3-channel image, takes
+    the bare form and ``torch.cat``."""
+    return cs > 0 and cs % 8 == 0
+
+
 def check_concat_inputs(x: torch.Tensor, skip: torch.Tensor) -> None:
     """Raise ValueError unless the concat form takes x and skip."""
     if skip.dim() != 4:
@@ -127,7 +135,7 @@ def check_concat_inputs(x: torch.Tensor, skip: torch.Tensor) -> None:
         raise ValueError(f"resize kernel takes a bfloat16 skip, got {skip.dtype}")
     if skip.shape[0] != x.shape[0]:
         raise ValueError(f"skip has batch {skip.shape[0]}, x has {x.shape[0]}")
-    if skip.shape[3] % 8 or skip.shape[3] == 0:
+    if not concat_takes_skip(skip.shape[3]):
         raise ValueError(f"resize kernel needs Cs % 8 == 0 and Cs > 0, got Cs={skip.shape[3]}")
     if skip.device != x.device:
         raise ValueError(f"x on {x.device}, skip on {skip.device}")

@@ -50,8 +50,8 @@ class YoloClipObjectProvider(_SlotSizing):
 
     def __init__(self, detector, embedder, strategy: str = "synset_def_wn",
                  n_max: int | None = None, max_det: int = MAX_DET,
-                 keep_annotations: bool = False):
-        super().__init__(n_max, OBJ_FEATURE_DIM, max_det)
+                 keep_annotations: bool = False, final_upscale: bool = False):
+        super().__init__(n_max, OBJ_FEATURE_DIM, max_det, final_upscale)
         self.detector = detector
         self.embedder = embedder
         self.strategy = ObjectLanguageStrategy(strategy)
@@ -110,7 +110,8 @@ class YoloClipObjectProvider(_SlotSizing):
             model, conf_thres=ycfg.conf_thres, iou_thres=ycfg.iou_thres, max_det=max_det,
             agnostic=bool(ycfg.get("agnostic_nms")), pre_topk=ycfg.get("pre_topk"))
         embedder = ClipEmbedder(clip_model, bpe_path, device=device, seed=CLIP_SEED)
-        return cls(detector, embedder, mcfg.objcavit.obj_language_strategy, n_max, max_det)
+        return cls(detector, embedder, mcfg.objcavit.obj_language_strategy, n_max, max_det,
+                   final_upscale=bool(mcfg.get("do_final_upscale")))
 
     def __call__(self, images_normed: np.ndarray) -> dict:
         b = images_normed.shape[0]

@@ -43,6 +43,14 @@ routes have no backward: under autograd
 a block on one raises. The kernels' weight layouts are made once per set of
 weights (``FusedRoutes``).
 
+Stochastic depth (``drop_path``, JAX's ``drop_path``): in training mode
+a block that adds its skip (stride 1 and in == out) scales its residual
+branch by a per-sample Bernoulli keep mask over the keep rate, drawn from
+the generator the forward is given (the train step's, which also feeds the
+dropout). The encoder sets each block's rate (``drop_path_rate``). A block
+in eval mode, or at rate 0, draws nothing, so the fused routes (eval only)
+are untouched.
+
 Not ported: ``SpaceToDepthConv`` (an exact rewrite of the stride-2 stem for
 the TPU's layout; the plain strided conv with the same weights stands here).
 """
@@ -71,6 +79,28 @@ from objcavit_torch.kernels.se_project import (
 from objcavit_torch.utils.fold_bn import FoldedBatchNorm
 
 BN_EPS = 1e-3
+
+
+def keep_mask(x: torch.Tensor, keep: float, generator: torch.Generator | None) -> torch.Tensor:
+    """(B, 1, ..., 1) in x's dtype: 1 where a sample keeps its residual
+    branch, with probability ``keep`` (``jax.random.bernoulli``'s rule,
+    uniform < keep), drawn from ``generator`` (the default one if None)."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    return (torch.rand(shape, generator=generator, device=x.device) < keep).to(x.dtype)
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              mask_or_generator: torch.Tensor | torch.Generator | None = None) -> torch.Tensor:
+    """Stochastic depth on a residual branch, JAX's arithmetic: x * mask /
+    keep with a per-sample keep mask in x's dtype, given or drawn from the
+    generator (``keep_mask``), and keep rounded to x's dtype as JAX's weak
+    type is. The identity outside training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = (mask_or_generator.to(x.dtype) if isinstance(mask_or_generator, torch.Tensor)
+            else keep_mask(x, keep, mask_or_generator))
+    return x * mask / torch.tensor(keep, dtype=x.dtype, device=x.device)
 
 
 class Conv2dSame(nn.Conv2d):
@@ -153,7 +183,18 @@ class SqueezeExcitation(nn.Module):
         return gate if gate_only else x * gate
 
 
-class FusedRoutes:
+class Residual:
+    """What every block with a skip shares: the skip added at stride 1 and
+    in == out (``has_residual``), behind stochastic depth at the block's
+    ``drop_path_rate`` in training mode."""
+
+    def add_skip(self, h: torch.Tensor, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if not self.has_residual:
+            return h
+        return drop_path(h, self.drop_path_rate, self.training, generator) + x
+
+
+class FusedRoutes(Residual):
     """What the MBConvs and DepthwiseSeparable share for the fused routes: the
     route of the moment, and the weights in a kernel's layout (``packed``),
     made once per set of weights: rebuilt when a tensor is replaced, moved,
@@ -204,8 +245,9 @@ class DepthwiseSeparable(FusedRoutes, nn.Module):
     bn_folds = (("conv_dw", "bn1"), ("conv_pw", "bn2"))
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int,
-                 se_ratio: float = 0.25, se_project: bool = False):
+                 se_ratio: float = 0.25, se_project: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.conv_dw = Conv2dSame(in_ch, in_ch, kernel_size, stride, groups=in_ch, bias=False)
         self.bn1 = nn.BatchNorm2d(in_ch, eps=BN_EPS)
         self.se = SqueezeExcite(in_ch, max(1, int(in_ch * se_ratio)))
@@ -215,14 +257,13 @@ class DepthwiseSeparable(FusedRoutes, nn.Module):
         self.fused_route = ("se_project" if se_project and se_project_eligible(in_ch, out_ch)
                             else "plain")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         h = conv_bn_act(self.conv_dw, self.bn1, x)
         if self.route() == "se_project":
             return se_project_epilogue(self, self.se, h, x if self.has_residual else None,
                                        self.conv_pw)
         h = self.se(h)
-        h = conv_bn_act(self.conv_pw, self.bn2, h, act=False)
-        return h + x if self.has_residual else h
+        return self.add_skip(conv_bn_act(self.conv_pw, self.bn2, h, act=False), x, generator)
 
 
 class MBConv(FusedRoutes, nn.Module):
@@ -235,8 +276,10 @@ class MBConv(FusedRoutes, nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, expand_ratio: float,
                  kernel_size: int, stride: int, se_ratio: float = 0.25,
-                 fused_mbconv_head: bool = False, se_project: bool = False):
+                 fused_mbconv_head: bool = False, se_project: bool = False,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         mid = int(in_ch * expand_ratio)
         self.conv_pw = nn.Conv2d(in_ch, mid, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(mid, eps=BN_EPS)
@@ -263,7 +306,7 @@ class MBConv(FusedRoutes, nn.Module):
         y, pool = fn(x.permute(0, 2, 3, 1), p.we, p.be, p.wd, p.bd, p.ksize)
         return y.permute(0, 3, 1, 2), pool
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         route = self.route()
         if route == "mbconv_head":
             h, pool = self.expand_dw_pool(x)
@@ -276,11 +319,10 @@ class MBConv(FusedRoutes, nn.Module):
                 return se_project_epilogue(self, self.se, h, x if self.has_residual else None,
                                            self.conv_pwl)
             h = self.se(h)
-        h = conv_bn_act(self.conv_pwl, self.bn3, h, act=False)
-        return h + x if self.has_residual else h
+        return self.add_skip(conv_bn_act(self.conv_pwl, self.bn3, h, act=False), x, generator)
 
 
-class FusedMBConv(nn.Module):
+class FusedMBConv(Residual, nn.Module):
     """EfficientNet-V2 fused block, JAX's ``FusedMBConv``: a k x k expand
     CNA (``block.0``) then a 1x1 project conv and BN without activation
     (``block.1``); at expand 1 the k x k CNA alone, its SiLU kept (+x at
@@ -288,8 +330,9 @@ class FusedMBConv(nn.Module):
     convs."""
 
     def __init__(self, in_ch: int, out_ch: int, expand_ratio: float, kernel_size: int,
-                 stride: int):
+                 stride: int, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         if expand_ratio != 1:
             mid = int(in_ch * expand_ratio)
             self.block = nn.Sequential(ConvNormAct(in_ch, mid, kernel_size, stride),
@@ -302,9 +345,8 @@ class FusedMBConv(nn.Module):
     def route(self) -> str:
         return "plain"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.block(x)
-        return h + x if self.has_residual else h
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return self.add_skip(self.block(x), x, generator)
 
 
 class MBConvV2(FusedRoutes, nn.Module):
@@ -320,8 +362,10 @@ class MBConvV2(FusedRoutes, nn.Module):
                 ("block.3.0", "block.3.1"))
 
     def __init__(self, in_ch: int, out_ch: int, expand_ratio: float, kernel_size: int,
-                 stride: int, se_ratio: float = 0.25, se_project: bool = False):
+                 stride: int, se_ratio: float = 0.25, se_project: bool = False,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         mid = int(in_ch * expand_ratio)
         self.block = nn.Sequential(
             ConvNormAct(in_ch, mid, 1),
@@ -333,10 +377,9 @@ class MBConvV2(FusedRoutes, nn.Module):
         self.fused_route = ("se_project" if se_project and se_project_eligible(mid, out_ch)
                             else "plain")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         expand, dw, se, project = self.block
         h = dw(expand(x))
         if self.route() == "se_project":
             return se_project_epilogue(self, se, h, x if self.has_residual else None, project[0])
-        h = project(se(h))
-        return h + x if self.has_residual else h
+        return self.add_skip(project(se(h)), x, generator)

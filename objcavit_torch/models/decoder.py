@@ -9,6 +9,9 @@ names (``conv2``, ``up1..up4._net.{0,1,3,4}``, ``conv3``):
   the skip, then runs 2x [3x3 conv -> BN (eps 1e-5) -> LeakyReLU(0.01)]. The
   JAX package split that conv along its input channels to keep the concat out
   of TPU memory; here it is the concat and one conv.
+* ``do_final_upscale`` adds a fifth stage, ``final_upscale``, whose skip is
+  the input image itself (3 channels), so the features come out at the
+  image's full resolution instead of half of it.
 * In bf16, outside training, the upsample and the concat are one launch of
   CUDA kernel 1's concat form (``kernels/resize.py::
   resize_bilinear_align_corners_into_concat``): it writes the upsample and
@@ -20,7 +23,13 @@ names (``conv2``, ``up1..up4._net.{0,1,3,4}``, ``conv3``):
   package gates its Pallas resize on ``not train``
   (``objcavit_tpu/models/decoder.py:91-98``). An fp32 model takes the plain
   route on any device, as the JAX package gates that kernel on bf16: on the
-  card that is the reference route, which launches no kernel.
+  card that is the reference route, which launches no kernel. The concat
+  form takes a skip of a multiple of 8 channels only
+  (``kernels/resize.py::concat_takes_skip``); the final upsample's skip is
+  the 3-channel image, so there kernel 1's bare form writes the upsample
+  and ``torch.cat`` appends the image, where the JAX package runs its
+  Pallas resize too (C = 128 passes its ``resize_eligible``) before its
+  split conv.
 
 Modules take and return NHWC tensors; inside, they are NCHW views in
 ``torch.channels_last`` memory, which is the same memory.
@@ -31,7 +40,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from objcavit_torch.kernels.resize import resize_bilinear_align_corners_into_concat
+from objcavit_torch.kernels.resize import (
+    concat_takes_skip,
+    resize_bilinear_align_corners,
+    resize_bilinear_align_corners_into_concat,
+)
 from objcavit_torch.models.efficientnet import EfficientNetEncoder, encoder_spec
 from objcavit_torch.ops.resize import resize_bilinear
 
@@ -42,10 +55,14 @@ ENCODER_IMPLS = ("plain", "kernel")
 def upsample_concat(x: torch.Tensor, skip: torch.Tensor, train: bool) -> torch.Tensor:
     """NCHW channels_last x and skip -> cat([x upsampled to skip's size with
     align_corners=True, skip], channels), NCHW channels_last."""
-    x_nhwc, skip_nhwc = x.permute(0, 2, 3, 1), skip.permute(0, 2, 3, 1)
+    x_nhwc, (ho, wo) = x.permute(0, 2, 3, 1), skip.shape[2:]
     if x.dtype == torch.bfloat16 and not train:
-        return resize_bilinear_align_corners_into_concat(x_nhwc, skip_nhwc).permute(0, 3, 1, 2)
-    up = resize_bilinear(x_nhwc, skip.shape[2], skip.shape[3], align_corners=True)
+        if concat_takes_skip(skip.shape[1]):
+            return resize_bilinear_align_corners_into_concat(
+                x_nhwc, skip.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        up = resize_bilinear_align_corners(x_nhwc, ho, wo)
+    else:
+        up = resize_bilinear(x_nhwc, ho, wo, align_corners=True)
     return torch.cat([up.permute(0, 3, 1, 2), skip], dim=1)
 
 
@@ -69,10 +86,12 @@ class UpSampleWithSkip(nn.Module):
 
 
 class Decoder(nn.Module):
-    """[skip0 .. skip3, bottleneck] (NHWC) -> (B, H/2, W/2, 128) features."""
+    """[skip0 .. skip3, bottleneck] (NHWC) and the image -> (B, H/2, W/2,
+    128) features, or (B, H, W, 128) with ``do_final_upscale``."""
 
-    def __init__(self, encoder_name: str, num_classes: int = 128):
+    def __init__(self, encoder_name: str, num_classes: int = 128, do_final_upscale: bool = False):
         super().__init__()
+        self.do_final_upscale = do_final_upscale
         spec = encoder_spec(encoder_name)
         f = spec.head_channels
         s0, s1, s2, s3, _ = spec.skip_channels
@@ -81,34 +100,52 @@ class Decoder(nn.Module):
         self.up2 = UpSampleWithSkip(f // 2 + s2, f // 4)
         self.up3 = UpSampleWithSkip(f // 4 + s1, f // 8)
         self.up4 = UpSampleWithSkip(f // 8 + s0, f // 16)
+        if do_final_upscale:  # its skip is the RGB image
+            self.final_upscale = UpSampleWithSkip(f // 16 + 3, f // 16)
         self.conv3 = nn.Conv2d(f // 16, num_classes, 3, 1, 1)
 
-    def forward(self, features: list[torch.Tensor]) -> torch.Tensor:
-        skip0, skip1, skip2, skip3, bottleneck = (t.permute(0, 3, 1, 2) for t in features)
-        x = self.conv2(bottleneck)
-        x = self.up1(x, skip3)
-        x = self.up2(x, skip2)
-        x = self.up3(x, skip1)
-        x = self.up4(x, skip0)
+    def stages(self) -> list[UpSampleWithSkip]:
+        """The up-stages in order: up1..up4, then final_upscale if built."""
+        names = ["up1", "up2", "up3", "up4"] + ["final_upscale"] * self.do_final_upscale
+        return [getattr(self, n) for n in names]
+
+    def forward(self, features: list[torch.Tensor],
+                image: torch.Tensor | None = None) -> torch.Tensor:
+        """``image`` (B, H, W, 3) NHWC is the final upsample's skip; only a
+        decoder with ``do_final_upscale`` needs it."""
+        skips = list(features[3::-1])
+        if self.do_final_upscale:
+            if image is None:
+                raise ValueError("a decoder with do_final_upscale takes the image as its last skip")
+            skips.append(image)
+        skips = [t.permute(0, 3, 1, 2) for t in skips]
+        x = self.conv2(features[4].permute(0, 3, 1, 2))
+        for stage, skip in zip(self.stages(), skips):
+            x = stage(x, skip)
         return self.conv3(x).permute(0, 2, 3, 1)
 
 
 class DenseFeatureExtractor(nn.Module):
-    """Encoder + U-Net decoder: (B, H, W, 3) -> (B, H/2, W/2, 128), NHWC.
+    """Encoder + U-Net decoder: (B, H, W, 3) -> (B, H/2, W/2, 128), NHWC,
+    or (B, H, W, 128) with ``do_final_upscale``.
 
     The encoder sits at ``encoder.original_model`` as in the reference, which
     wraps a timm model there. ``encoder_impl`` is its route: ``"plain"`` or
-    ``"kernel"`` (both of the encoder's fused routes, kernels 7 and 8).
+    ``"kernel"`` (both of the encoder's fused routes, kernels 7 and 8);
+    ``drop_path_rate`` its stochastic depth.
     """
 
-    def __init__(self, encoder_name: str, encoder_impl: str = "plain"):
+    def __init__(self, encoder_name: str, encoder_impl: str = "plain",
+                 do_final_upscale: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         if encoder_impl not in ENCODER_IMPLS:
             raise ValueError(f"encoder_impl must be one of {ENCODER_IMPLS}, got {encoder_impl!r}")
         fused = encoder_impl == "kernel"
         self.encoder = nn.ModuleDict({"original_model": EfficientNetEncoder(
-            encoder_name, fused_mbconv_head=fused, se_project=fused)})
-        self.decoder = Decoder(encoder_name)
+            encoder_name, fused_mbconv_head=fused, se_project=fused,
+            drop_path_rate=drop_path_rate)})
+        self.decoder = Decoder(encoder_name, do_final_upscale=do_final_upscale)
 
-    def forward(self, image: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.encoder["original_model"](image))
+    def forward(self, image: torch.Tensor, generator=None) -> torch.Tensor:
+        """``generator`` feeds the encoder's stochastic depth in training mode."""
+        return self.decoder(self.encoder["original_model"](image, generator), image)

@@ -29,6 +29,11 @@ three DepthwiseSeparable blocks and four stride-2 first blocks take kernel
 takes kernel 8 (JAX takes it under TF padding only): every MBConv block
 takes kernel 7 (44 at v2-m, 30 at v2-s) and every FusedMBConv block stays
 plain convs.
+
+``drop_path_rate`` is stochastic depth, as in JAX: block i of n (counted
+over every stage) gets the rate ``drop_path_rate * i / n`` and, in training
+mode, scales its residual branch by a keep mask drawn from the generator
+the forward is given (``models/common.py::drop_path``).
 """
 
 from __future__ import annotations
@@ -184,30 +189,35 @@ class EfficientNetEncoder(nn.Module):
     the module note)."""
 
     def __init__(self, encoder_name: str, fused_mbconv_head: bool = False,
-                 se_project: bool = False):
+                 se_project: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         spec = encoder_spec(encoder_name)
         self.skip_stages = spec.skip_stages
         self.pad_style = spec.pad_style
         stages = []
         in_ch = spec.stem_channels
+        total_blocks = sum(stage[2] for stage in spec.stages)
+        block_idx = 0
         for btype, out_ch, depth, kernel, stride, expand in spec.stages:
             blocks = []
             for bi in range(depth):
                 s = stride if bi == 0 else 1
+                dpr = drop_path_rate * block_idx / max(total_blocks, 1)
                 if btype == "ds":
                     blocks.append(DepthwiseSeparable(in_ch, out_ch, kernel, s,
-                                                     se_project=se_project))
+                                                     se_project=se_project, drop_path_rate=dpr))
                 elif btype == "fused":
-                    blocks.append(FusedMBConv(in_ch, out_ch, expand, kernel, s))
+                    blocks.append(FusedMBConv(in_ch, out_ch, expand, kernel, s,
+                                              drop_path_rate=dpr))
                 elif spec.pad_style == "torch":
                     blocks.append(MBConvV2(in_ch, out_ch, expand, kernel, s,
-                                           se_project=se_project))
+                                           se_project=se_project, drop_path_rate=dpr))
                 else:
                     blocks.append(MBConv(in_ch, out_ch, expand, kernel, s,
                                          fused_mbconv_head=fused_mbconv_head,
-                                         se_project=se_project))
+                                         se_project=se_project, drop_path_rate=dpr))
                 in_ch = out_ch
+                block_idx += 1
             stages.append(nn.Sequential(*blocks))
         if self.pad_style == "torch":
             n = len(stages)
@@ -230,7 +240,8 @@ class EfficientNetEncoder(nn.Module):
         'se_project' (kernel 7)."""
         return [block.route() for stage in self.stages() for block in stage]
 
-    def forward(self, image: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, image: torch.Tensor, generator=None) -> list[torch.Tensor]:
+        """``generator`` feeds the blocks' stochastic depth in training mode."""
         x = image.permute(0, 3, 1, 2)
         if self.pad_style == "torch":
             x, head = self.features[0](x), self.features[-1]
@@ -238,7 +249,8 @@ class EfficientNetEncoder(nn.Module):
             x, head = conv_bn_act(self.conv_stem, self.bn1, x), self.conv_head
         skips = []
         for si, stage in enumerate(self.stages()):
-            x = stage(x)
+            for block in stage:
+                x = block(x, generator)
             if si in self.skip_stages:
                 skips.append(x.permute(0, 2, 3, 1))
         return skips + [head(x).permute(0, 2, 3, 1)]

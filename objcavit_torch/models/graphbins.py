@@ -22,8 +22,11 @@ route, ``"plain"`` or ``"kernel"`` (kernel 5); ``encoder_impl`` the
 encoder's, ``"plain"`` or ``"kernel"`` (kernels 7 and 8, folded inference
 only). ``pos_strategy``, ``no_obj_sa``, ``use_2_saca`` and the
 full-resolution ``dims_train``/``dims_test`` (which size ``grid_random``'s
-table) are ObjCAViT's options. ``BinsDepthModel`` holds what GraphBins and
-AdaBins share.
+table) are ObjCAViT's options. ``do_final_upscale`` gives ObjCAViT dense
+features at the image's full resolution (the decoder's fifth upsample), so
+four times the image tokens; ObjCAViT still places the objects on them with
+a feature stride of 2, as JAX does. ``drop_path_rate`` is the encoder's
+stochastic depth. ``BinsDepthModel`` holds what GraphBins and AdaBins share.
 """
 
 from __future__ import annotations
@@ -46,9 +49,11 @@ class BinsDepthModel(nn.Module):
     ``encoder_impl`` (the encoder's route), and name their
     ``transformer_head``, the module between the decoder and the bins head.
     ``takes_objects`` says whether the forward takes the object slots after
-    the image (GraphBins) or the image alone (AdaBins)."""
+    the image (GraphBins) or the image alone (AdaBins). ``do_final_upscale``
+    says whether the dense features are at the image's full resolution."""
 
     takes_objects = False
+    do_final_upscale = False
 
     @property
     def transformer_head(self) -> nn.Module:
@@ -94,16 +99,19 @@ class GraphBins(BinsDepthModel):
                  embedding_dim: int = 128, obj_feature_dim: int = 512,
                  pos_strategy: str = "learned_bbox_wh", no_obj_sa: bool = False,
                  use_2_saca: bool = False, dims_train: tuple[int, int] = (416, 544),
-                 dims_test: tuple[int, int] = (480, 640), dropout_rate: float = 0.1,
+                 dims_test: tuple[int, int] = (480, 640), do_final_upscale: bool = False,
+                 drop_path_rate: float = 0.0, dropout_rate: float = 0.1,
                  n_queries: int = N_QUERIES, attn_impl: str = "plain",
                  encoder_impl: str = "plain"):
         super().__init__()
+        self.do_final_upscale = do_final_upscale
         self.min_depth = min_depth
         self.max_depth = max_depth
         self.attn_impl = attn_impl
         self.encoder_impl = encoder_impl
         self.obj_feature_dim = obj_feature_dim
-        self.dense_feature_extractor = DenseFeatureExtractor(encoder_name, encoder_impl)
+        self.dense_feature_extractor = DenseFeatureExtractor(
+            encoder_name, encoder_impl, do_final_upscale, drop_path_rate)
         self.objcavit = ObjCAViT(
             im_feature_dim=128, obj_feature_dim=obj_feature_dim,
             n_query_channels=n_queries, patch_size=16, dim_out=n_bins,
@@ -121,8 +129,8 @@ class GraphBins(BinsDepthModel):
     def forward(self, image, object_features, object_xywh, object_valid, generator=None):
         """image (B, H, W, 3) ImageNet-normalised NHWC; objects as padded
         slots (B, N, F), (B, N, 4), (B, N) bool; ``generator`` feeds the
-        dropout in training mode."""
-        dense = self.dense_feature_extractor(image.to(self.dtype))
+        dropout and the stochastic depth in training mode."""
+        dense = self.dense_feature_extractor(image.to(self.dtype), generator)
         widths, feat, queries = self.objcavit(
             dense, object_features, object_xywh, object_valid, generator
         )

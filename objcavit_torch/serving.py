@@ -5,7 +5,8 @@ the model's device:
 
     uint8 (B, H, W, 3) -> /255 -> resize to the eval size if it differs
     (bilinear, half-pixel) -> ImageNet normalise -> GraphBins or AdaBins ->
-    depth (B, h/2, w/2, 1) in metres -> optionally resized back to (H, W)
+    depth (B, h/2, w/2, 1) in metres ((B, h, w, 1) with do_final_upscale)
+    -> optionally resized back to (H, W)
 
 AdaBins takes the image alone. For GraphBins, objects come from
 ``provider`` (called with the normalised eval-size images as numpy,
@@ -39,10 +40,19 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 MAX_DET = 1000  # yolov7seg.max_det of the reference's params files
 
 
-def image_seq_len(h: int, w: int, patch: int = 16) -> int:
-    """ObjCAViT's image-token count for an (h, w) input: half-resolution
-    dense features cut into 16-pixel patches (objcavit_tpu/training/steps.py)."""
-    return math.ceil(math.ceil(h / 2) / patch) * math.ceil(math.ceil(w / 2) / patch)
+def image_seq_len(h: int, w: int, do_final_upscale: bool = False, patch: int = 16) -> int:
+    """ObjCAViT's image-token count for an (h, w) input: dense features at
+    half resolution (full with ``do_final_upscale``) cut into 16-pixel
+    patches (objcavit_tpu/training/steps.py)."""
+    fh, fw = (h, w) if do_final_upscale else (math.ceil(h / 2), math.ceil(w / 2))
+    return math.ceil(fh / patch) * math.ceil(fw / patch)
+
+
+def default_capacity(model, eval_dims) -> int:
+    """The object-slot count a server gives ``model`` at ``eval_dims``:
+    min(max_det, image tokens), 300 at 480x640, or 1000 for a model with
+    ``do_final_upscale`` (1200 tokens)."""
+    return min(MAX_DET, image_seq_len(*eval_dims, model.do_final_upscale))
 
 
 class DepthPipeline:
@@ -54,10 +64,9 @@ class DepthPipeline:
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.eval_dims = tuple(eval_dims)
-        # detection capacity: min(max_det, image sequence length), 300 at 480x640
-        self.n_obj_max = (
-            min(MAX_DET, image_seq_len(*self.eval_dims)) if n_obj_max is None else n_obj_max
-        )
+        # detection capacity: min(max_det, image sequence length), 300 at
+        # 480x640 (1000 with do_final_upscale)
+        self.n_obj_max = default_capacity(model, self.eval_dims) if n_obj_max is None else n_obj_max
         self.output_at_input_res = output_at_input_res
         self.provider = provider
         self.mean = torch.tensor(IMAGENET_MEAN, device=self.device)
@@ -125,13 +134,16 @@ def build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: in
 
 
 def build_adabins_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,
-                           device="cuda", attn_impl: str = "plain") -> DepthPipeline:
+                           device="cuda", attn_impl: str = "plain", **overrides) -> DepthPipeline:
     """AdaBins-B5 pipeline (``params/nyu_adabins_enet-b5.yaml``), BN folded,
     with random weights from ``seed``, its attention on the route
-    ``attn_impl``."""
+    ``attn_impl``; ``overrides`` update the model's arguments
+    (``do_final_upscale=True`` is ``params/nyu_efficientnet-b5_final_upscale_1.yaml``'s
+    model)."""
     from objcavit_torch.utils.benchkit import build_adabins_model
 
-    model = build_adabins_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl)
+    model = build_adabins_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl,
+                                **overrides)
     return DepthPipeline(model, eval_dims=eval_dims)
 
 
@@ -259,9 +271,7 @@ class FusedDepthPipeline:
                 f"{detector.num_classes + 1} rows"
             )
         self.eval_dims = tuple(eval_dims)
-        self.n_obj_max = (
-            min(MAX_DET, image_seq_len(*self.eval_dims)) if n_obj_max is None else n_obj_max
-        )
+        self.n_obj_max = default_capacity(model, self.eval_dims) if n_obj_max is None else n_obj_max
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
         if class_max_head and det_topk is not None:

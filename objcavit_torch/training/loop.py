@@ -153,7 +153,8 @@ class Trainer:
         strat = args[args.model.name].objcavit.language_embedding_strategy
         max_det = int(args.yolov7seg.get("max_det", 1000)) if "yolov7seg" in args else 1000
         if strat == "control_obj_zeros_512":
-            return ZerosObjectProvider(self.n_obj_max, max_det=max_det)
+            return ZerosObjectProvider(self.n_obj_max, max_det=max_det,
+                                       final_upscale=self.model.do_final_upscale)
         if strat == "clip":
             from objcavit_torch.language.provider import YoloClipObjectProvider
 

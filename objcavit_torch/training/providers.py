@@ -14,8 +14,9 @@ maps a batch of normalised images (numpy NHWC) to padded slots
   eval's flip-TTA.
 
 The slot count is ``n_max`` or, when None, min(max_det, the image sequence
-length of the batch's own size). A detector behind the zeros provider and
-``final_upscale`` wait for later slices (ROADMAP A.4, A.5).
+length of the batch's own size), at full resolution for a model with
+``do_final_upscale`` (``final_upscale``: 1000 slots at 480x640, 884 at
+416x544). The zeros provider runs without a detector.
 """
 
 from __future__ import annotations
@@ -26,23 +27,26 @@ from objcavit_torch.serving import MAX_DET, image_seq_len
 
 
 class _SlotSizing:
-    def __init__(self, n_max: int | None, obj_dim: int, max_det: int):
+    def __init__(self, n_max: int | None, obj_dim: int, max_det: int,
+                 final_upscale: bool = False):
         self.n_max = n_max
         self.obj_dim = obj_dim
         self.max_det = int(max_det)
+        self.final_upscale = bool(final_upscale)
 
     def slots(self, images: np.ndarray) -> int:
         if self.n_max is not None:
             return int(self.n_max)
         h, w = images.shape[1:3]
-        return min(self.max_det, image_seq_len(h, w))
+        return min(self.max_det, image_seq_len(h, w, self.final_upscale))
 
 
 class ZerosObjectProvider(_SlotSizing):
     """Zero language features and the sentinel box in every image."""
 
-    def __init__(self, n_max: int | None = 32, obj_dim: int = 512, max_det: int = MAX_DET):
-        super().__init__(n_max, obj_dim, max_det)
+    def __init__(self, n_max: int | None = 32, obj_dim: int = 512, max_det: int = MAX_DET,
+                 final_upscale: bool = False):
+        super().__init__(n_max, obj_dim, max_det, final_upscale)
 
     def __call__(self, images_normed: np.ndarray) -> dict:
         b = images_normed.shape[0]
@@ -60,8 +64,8 @@ class StubObjectProvider(_SlotSizing):
     """Deterministic pseudo-detections: call i draws from seed + i."""
 
     def __init__(self, n_max: int | None = 32, obj_dim: int = 512, seed: int = 0,
-                 max_det: int = MAX_DET):
-        super().__init__(n_max, obj_dim, max_det)
+                 max_det: int = MAX_DET, final_upscale: bool = False):
+        super().__init__(n_max, obj_dim, max_det, final_upscale)
         self.seed = seed
         self._count = 0
 

@@ -52,20 +52,23 @@ def build_model(args: Any, attn_impl: str = "plain") -> BinsDepthModel:
     sizes, the width the JAX package's lazily shaped ``conv_out`` takes
     there (128 at every params file's size). GraphBins takes ObjCAViT's
     options from ``objcavit`` and the dataset's ``dimensions_train`` and
-    ``dimensions_test``, as the JAX package's ``build_model`` does."""
+    ``dimensions_test``, as the JAX package's ``build_model`` does. Both
+    take ``do_final_upscale`` (whose tokens, at full resolution, size
+    ``conv_out``'s queries) and ``drop_path_rate`` (0 where absent, the
+    value the JAX package's ``build_model`` always leaves; no params file
+    sets it). Another model name raises ``ValueError``, as in JAX."""
     name = args.model.name
     if name not in ("graphbins", "adabins"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP A.5); ported: graphbins, adabins")
+        raise ValueError(f"unrecognised model: {name}")
     mcfg = args[name]
     dcfg = args[args.basic.dataset]
-    if mcfg.get("do_final_upscale"):
-        raise NotImplementedError("do_final_upscale is not ported yet (ROADMAP A.5)")
-    n_queries = min([N_QUERIES] + [image_seq_len(*dcfg[k]) - 1
+    final_upscale = bool(mcfg.get("do_final_upscale"))
+    n_queries = min([N_QUERIES] + [image_seq_len(*dcfg[k], final_upscale) - 1
                                    for k in ("dimensions_train", "dimensions_test") if k in dcfg])
     common = dict(encoder_name=mcfg.encoder_name, n_bins=mcfg.n_bins,
                   min_depth=dcfg.min_depth, max_depth=dcfg.max_depth, n_queries=n_queries,
-                  attn_impl=attn_impl)
+                  do_final_upscale=final_upscale,
+                  drop_path_rate=float(mcfg.get("drop_path_rate") or 0.0), attn_impl=attn_impl)
     if name == "adabins":
         return AdaBins(**common)
     ocfg = mcfg.objcavit

@@ -12,7 +12,11 @@ then folded in fp32 and the model cast and moved. Every builder takes
 ``attn_impl`` ("plain" or "kernel", kernel 5) where the model has
 attention, and builds on the card unless given another ``device``; the
 flagship's eval builder takes ``encoder_impl`` ("plain" or "kernel",
-kernels 7 and 8 in the encoder).
+kernels 7 and 8 in the encoder). Each builder's ``overrides`` take the
+models' other options: ``do_final_upscale=True`` builds the final-upscale
+models (AdaBins-B5's is ``params/nyu_efficientnet-b5_final_upscale_1.yaml``'s;
+its servers hold 1000 slots at 480x640, its GraphBins train step 884 at
+416x544) and ``drop_path_rate`` the encoder's stochastic depth.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from objcavit_torch.models.adabins import AdaBins
 from objcavit_torch.models.graphbins import BinsDepthModel, GraphBins
 from objcavit_torch.models.layers import MultiHeadAttention, PatchTransformerEncoder
 from objcavit_torch.models.objcavit import GridRandomPositionalEmbeddings
+from objcavit_torch.serving import default_capacity
 from objcavit_torch.training.optim import build_optimizer
 from objcavit_torch.training.steps import TrainStep, make_train_step
 from objcavit_torch.utils.device import card_device
@@ -193,7 +198,7 @@ def build_flagship(batch: int, h: int = 480, w: int = 640, n_obj: int = 300,
     return model, tuple(torch.as_tensor(a, device=dev) for a in inputs)
 
 
-def build_flagship_train(batch: int = 8, h: int = 416, w: int = 544, n_obj: int = 221,
+def build_flagship_train(batch: int = 8, h: int = 416, w: int = 544, n_obj: int | None = None,
                          seed: int = 0, device="cuda", attn_impl: str = "plain", **overrides):
     """The flagship train step of ``bench.py``, with a batch and objects made
     with numpy from ``seed``.
@@ -202,14 +207,17 @@ def build_flagship_train(batch: int = 8, h: int = 416, w: int = 544, n_obj: int 
     parameters, BN unfolded and in training mode, transformer dropout 0.1;
     bf16 compute; device-side augmentation; silog + 0.1 bins chamfer; AdamW
     at lr 3.57e-4 and wd 0.1 under the per-step OneCycle schedule over 100
-    steps; gradients clipped at 0.1. At 416x544 the
-    image has 221 tokens, so 221 slots is min(max_det 1000, 221).
+    steps; gradients clipped at 0.1. ``n_obj`` slots, by default
+    min(max_det 1000, the image's tokens): 221 at 416x544, 884 with
+    ``do_final_upscale``.
 
     Returns (step, batch, objects): ``step(batch, objects)`` runs one step
     and returns its loss.
     """
     device = card_device(device)
     model = GraphBins(**{**flagship_kwargs(attn_impl), **overrides})
+    if n_obj is None:
+        n_obj = default_capacity(model, (h, w))
     step, batch_t, rng = _train_step(model, batch, h, w, seed, device)
     objects_np = {
         "features": (0.02 * rng.standard_normal((batch, n_obj, 512))).astype(np.float32),

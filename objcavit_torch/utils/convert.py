@@ -151,10 +151,14 @@ def _encoder_v2(r: _Reader, fpath: str, tkey: str, spec) -> None:
     cna(f"{fpath}/conv_head", f"{feats}.{len(spec.stages) + 1}")
 
 
-def _decoder(r: _Reader, fpath: str, tkey: str) -> None:
+def _decoder(r: _Reader, fpath: str, tkey: str, do_final_upscale: bool = False) -> None:
+    """The decoder's up-stages (``final_upscale`` too with
+    ``do_final_upscale``): each ``conv0`` kernel, which JAX's
+    ``ConcatSplitConv`` applies split along its input channels, is one
+    (3, 3, C + Cs, O) parameter, the concatenated conv's weight."""
     r.conv(f"{fpath}/conv2", f"{tkey}.conv2", bias=False)
     r.put(f"{tkey}.conv2.bias", r.param(f"{fpath}/conv2_bias"))
-    for up in ("up1", "up2", "up3", "up4"):
+    for up in ("up1", "up2", "up3", "up4") + (("final_upscale",) if do_final_upscale else ()):
         r.conv(f"{fpath}/{up}/conv0", f"{tkey}.{up}._net.0")
         r.bn(f"{fpath}/{up}/bn0", f"{tkey}.{up}._net.1")
         r.conv(f"{fpath}/{up}/conv1", f"{tkey}.{up}._net.3")
@@ -239,29 +243,35 @@ def clip_text_state_dict_from_params(params) -> dict[str, np.ndarray]:
 
 def state_dict_from_variables(
     variables, encoder_name: str, pos_strategy: str = "learned_bbox_wh",
-    no_obj_sa: bool = False, use_2_saca: bool = False,
+    no_obj_sa: bool = False, use_2_saca: bool = False, do_final_upscale: bool = False,
 ) -> dict[str, np.ndarray]:
     """Unfolded JAX GraphBins variables -> the port's GraphBins state dict
     (parameters only when ``variables`` has no 'batch_stats'), for ObjCAViT's
     options: the grid strategies' ``positional_encoder.positional_encodings``
     table or the learned MLP; no ``obj_transformer_encoder`` under
-    ``no_obj_sa``; ``saca_2`` under ``use_2_saca``."""
+    ``no_obj_sa``; ``saca_2`` under ``use_2_saca``; the decoder's
+    ``final_upscale`` under ``do_final_upscale``."""
     r = _Reader(variables)
     _encoder(r, "dense_feature_extractor/encoder",
              "dense_feature_extractor.encoder.original_model", encoder_name)
-    _decoder(r, "dense_feature_extractor/decoder", "dense_feature_extractor.decoder")
+    _decoder(r, "dense_feature_extractor/decoder", "dense_feature_extractor.decoder",
+             do_final_upscale)
     _objcavit(r, "objcavit", "objcavit", pos_strategy, no_obj_sa, use_2_saca)
     r.conv("conv_out", "conv_out.0")
     return r.sd
 
 
-def adabins_state_dict_from_variables(variables, encoder_name: str) -> dict[str, np.ndarray]:
+def adabins_state_dict_from_variables(variables, encoder_name: str,
+                                      do_final_upscale: bool = False) -> dict[str, np.ndarray]:
     """Unfolded JAX AdaBins variables -> the port's AdaBins state dict
-    (parameters only when ``variables`` has no 'batch_stats')."""
+    (parameters only when ``variables`` has no 'batch_stats'); the decoder's
+    ``final_upscale`` and a 1200-row positional table under
+    ``do_final_upscale``."""
     r = _Reader(variables)
     _encoder(r, "dense_feature_extractor/encoder",
              "dense_feature_extractor.encoder.original_model", encoder_name)
-    _decoder(r, "dense_feature_extractor/decoder", "dense_feature_extractor.decoder")
+    _decoder(r, "dense_feature_extractor/decoder", "dense_feature_extractor.decoder",
+             do_final_upscale)
     _minivit(r, "adaptive_bins_layer", "adaptive_bins_layer")
     r.conv("conv_out", "conv_out.0")
     return r.sd

@@ -1,7 +1,8 @@
 """What GraphBins hands its kernels, and what they give back.
 
 Serving: ``record_kernel_io`` hooks a model (GraphBins or AdaBins) so that
-each forward leaves a record of the four decoder upsamples (the input and
+each forward leaves a record of the decoder's upsamples (four, or five with
+``do_final_upscale``: the input and
 the skip, and the two channel slices of the concat buffer the stage's conv
 read: the upsample and the skip, NHWC) and of the bins head (ObjCAViT's or
 miniViT's outputs, which are its inputs, and the depth it returned).
@@ -71,8 +72,8 @@ from objcavit_torch.ops.bins import bins_head_operands
 @contextlib.contextmanager
 def record_kernel_io(model):
     """Yield a list that gets one dict per forward of ``model`` (a GraphBins
-    or an AdaBins): ``resize`` [(x, y)] for up1..up4, ``skips`` [(skip, the
-    concat buffer's skip slice)] for the same stages, ``bins_inputs``
+    or an AdaBins): ``resize`` [(x, y)] for up1..up4 (and final_upscale),
+    ``skips`` [(skip, the concat buffer's skip slice)] for the same stages, ``bins_inputs``
     (widths, feat, queries: ObjCAViT's or miniViT's outputs) and ``depth``."""
     records: list[dict] = []
     current: dict = {"resize": [], "skips": []}
@@ -98,7 +99,7 @@ def record_kernel_io(model):
         current.update(resize=[], skips=[])
 
     decoder = model.dense_feature_extractor.decoder
-    stages = [getattr(decoder, f"up{i}") for i in range(1, 5)]
+    stages = decoder.stages()
     handles = [s.register_forward_pre_hook(on_upsample) for s in stages]
     handles += [s._net.register_forward_pre_hook(on_concat) for s in stages]
     handles.append(model.transformer_head.register_forward_hook(on_head))

@@ -5,6 +5,7 @@
     python -m objcavit_torch.utils.profile_stages --fused  # the fused server
     python -m objcavit_torch.utils.profile_stages --attn   # both attention routes
     python -m objcavit_torch.utils.profile_stages --encoder  # both encoder routes
+    python -m objcavit_torch.utils.profile_stages --final-upscale  # do_final_upscale
 
 Server: three measurements of ``build_flagship_pipeline()`` (GraphBins-B5, bf16, BN
 folded, 480x640, 300 slots, random weights, sentinel objects):
@@ -49,6 +50,12 @@ route and on kernels 7 and 8's (``encoder_impl``), two servers of one seed:
 the stage split in turns, as ``--attn``, and one trace of 5 requests per
 route, read as the server's is.
 
+Final upscale (``--final-upscale``): AdaBins-B5 and GraphBins-B5 with
+``do_final_upscale`` (full-resolution features; 1000 slots) on kernel 5's
+route: each server's stage split and one trace of 5 requests, read as the
+server's is, then AdaBins-B5's full-resolution train step's split and
+trace, read as ``--train``'s.
+
 Each line names the card (``nvidia-smi``) at the start and at the end.
 """
 
@@ -67,7 +74,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from objcavit_torch.serving import build_adabins_pipeline, build_flagship_pipeline
-from objcavit_torch.utils.benchkit import build_flagship_train
+from objcavit_torch.utils.benchkit import build_adabins_train, build_flagship_train
 
 SMI = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
        "--format=csv,noheader"]
@@ -408,6 +415,25 @@ def profile_train() -> None:
     print(f"train peak {torch.cuda.max_memory_allocated() / 2**30:.4f} GiB", flush=True)
 
 
+def profile_final_upscale() -> None:
+    frames = np.random.default_rng(0).integers(0, 256, (8, 480, 640, 3), dtype=np.uint8)
+    for name, build in (("adabins", build_adabins_pipeline), ("graphbins", build_flagship_pipeline)):
+        pipe = build(attn_impl="kernel", do_final_upscale=True)
+        print(f"stage_ms_median ({name}, final upscale, {pipe.n_obj_max} slots)",
+              json.dumps(stage_split(pipe, frames)), flush=True)
+        t = trace(lambda: pipe(frames))
+        print(t.pop("top"), flush=True)
+        print(f"trace ({name}, final upscale)", json.dumps(t), flush=True)
+        del pipe
+        torch.cuda.empty_cache()
+    step, batch = build_adabins_train(attn_impl="kernel", do_final_upscale=True)
+    print("train_stage_ms_median (adabins, final upscale)",
+          json.dumps(train_stage_split(step, batch, None)), flush=True)
+    t = trace(lambda: step(batch, None), n_req=3)
+    print(t.pop("top"), flush=True)
+    print("train trace (adabins, final upscale)", json.dumps(t), flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--train", action="store_true", help="profile the train step")
@@ -416,13 +442,16 @@ def main() -> None:
                         help="stage splits of the flagship and AdaBins on each attention route")
     parser.add_argument("--encoder", action="store_true",
                         help="stage splits and traces of the flagship on each encoder route")
+    parser.add_argument("--final-upscale", action="store_true",
+                        help="stage splits and traces of the do_final_upscale servers and step")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_stages: needs a CUDA card")
     print(smi(), flush=True)
     other = (profile_train if args.train else profile_fused if args.fused
              else profile_attention_routes if args.attn
-             else profile_encoder_routes if args.encoder else None)
+             else profile_encoder_routes if args.encoder
+             else profile_final_upscale if args.final_upscale else None)
     if other is not None:
         other()
         print(smi(), flush=True)

@@ -7,9 +7,12 @@ port keeps the reference's state-dict names, so a reference ``.ckpt``
 GraphBinsLM.py:79-85) loads with ``load_state_dict`` and no conversion
 tree. The frozen detector and CLIP weights the reference stores beside the
 depth model (``model.detector.*``, ``model.language_model.*``) are skipped,
-as the JAX package skips them. Options the port lacks raise where the model
-is built (``training/steps.py::build_model``); a checkpoint of another
-architecture fails the load, naming its missing keys.
+as the JAX package skips them. The model built from the same params file
+(``training/steps.py::build_model``) has every module the checkpoint's
+options need (a ``do_final_upscale`` model's
+``dense_feature_extractor.decoder.final_upscale._net.{0,1,3,4}`` among
+them); a checkpoint of another architecture fails the load, naming its
+missing keys.
 
 ``load_yolov7_weights``: the LVIS YOLOv7-seg release ``.pt`` (u7 branch,
 Yolov7Wrapper.py:37) into the port's ``Yolov7Seg``. Its EMA weights come

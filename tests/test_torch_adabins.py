@@ -279,9 +279,17 @@ def test_minivit_norms_match_jax(norm):
     np.testing.assert_allclose(got[0].sum(1).numpy(), 1.0, rtol=1e-5)
 
 
-def test_adabins_final_upscale_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        AdaBins(encoder_name=ENC, do_final_upscale=True)
+def test_adabins_final_upscale_state_dict_has_the_reference_keys():
+    """With do_final_upscale the port's AdaBins has the reference's
+    ``decoder.final_upscale._net.{0,1,3,4}`` and a 1200-row positional
+    table (JAX's ``max_seq_len`` under the option), and no other new key."""
+    plain = AdaBins(encoder_name=ENC, n_bins=N_BINS).state_dict()
+    final = AdaBins(encoder_name=ENC, n_bins=N_BINS, do_final_upscale=True).state_dict()
+    prefix = "dense_feature_extractor.decoder.final_upscale._net."
+    extra = set(final) - set(plain)
+    assert set(plain) <= set(final) and extra and all(k.startswith(prefix) for k in extra)
+    assert {k[len(prefix):].split(".")[0] for k in extra} == {"0", "1", "3", "4"}
+    assert final["adaptive_bins_layer.patch_transformer.positional_encodings"].shape == (1200, 128)
 
 
 def test_adabins_train_builder_steps_on_the_cpu():

@@ -278,9 +278,19 @@ def test_state_dict_round_trips_through_convert_state_dict():
     "model, kwargs", [(AdaBins, {"do_final_upscale": True}),
                       (GraphBins, {"encoder_name": "efficientnet-v2-s"})]
 )
-def test_unported_options_raise(model, kwargs):
-    """do_final_upscale still raises; the V2-S encoder, ported since, builds
-    with its widths (skips 24, 48, 64, 160 and a 1280-channel head)."""
+def test_options_once_unported_build(model, kwargs):
+    """Both options that once raised build: do_final_upscale with the
+    decoder's fifth stage (the image's 3 channels as its skip) and
+    miniViT's 1200-row table; the V2-S encoder with its widths (skips 24,
+    48, 64, 160 and a 1280-channel head)."""
+    if kwargs.get("do_final_upscale"):
+        with torch.device("meta"):
+            built = model(**{"encoder_name": ENC, **kwargs})
+        stage = built.dense_feature_extractor.decoder.final_upscale._net[0]
+        assert (stage.in_channels, stage.out_channels) == (64 // 16 + 3, 64 // 16)
+        table = built.adaptive_bins_layer.patch_transformer.positional_encodings
+        assert tuple(table.shape) == (1200, 128)
+        return
     if kwargs.get("encoder_name") == "efficientnet-v2-s":
         with torch.device("meta"):
             dfe = model(**{"encoder_name": ENC, **kwargs}).dense_feature_extractor
@@ -290,8 +300,7 @@ def test_unported_options_raise(model, kwargs):
                                                   dfe.decoder.up3, dfe.decoder.up4)] == [
             1280 + 160, 640 + 64, 320 + 48, 160 + 24]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        model(**{"encoder_name": ENC, **kwargs})
+    raise AssertionError(f"no case for {kwargs}")
 
 
 def test_port_imports_no_jax():

@@ -370,18 +370,17 @@ def test_no_obj_sa_grid_roi_align_ckpt_loads_as_jax_loads_it(tmp_path, caplog):
 PARAMS_FILES = sorted(os.path.basename(p) for p in glob.glob(os.path.join(REPO, "params", "*.yaml")))
 # the one params file neither package parses (a stray line at 76)
 UNPARSEABLE = "kitti_graphbins_enet-b5_ocv_pos_grid_random_emb_128_lang_none_control_obj_zeros_512_old_dl_1.yaml"
-# files whose do_final_upscale waits for a later slice
-UNPORTED = {
-    "nyu_efficientnet-b5_final_upscale_1.yaml": "do_final_upscale",
-}
+# the one params file with do_final_upscale (AdaBins-B5)
+FINAL_UPSCALE = "nyu_efficientnet-b5_final_upscale_1.yaml"
 
 
 @pytest.mark.parametrize("name", PARAMS_FILES)
 def test_build_model_on_every_params_file(name):
     """build_model on each params file, built on the meta device at its
     real widths: every parseable file builds (the five with a V2 encoder
-    among them) but the one that needs do_final_upscale, which raises
-    naming it. Each is JAX's build_model's class with its bins and encoder;
+    among them, and the one with do_final_upscale, whose decoder has its
+    fifth stage and whose miniViT a 1200-row table, as JAX's). Each is JAX's
+    build_model's class with its bins, encoder and do_final_upscale;
     a GraphBins has the options JAX's build_model gives its module (and a
     grid table of one row per patch of the larger full-resolution size)."""
     path = os.path.join(REPO, "params", name)
@@ -397,14 +396,17 @@ def test_build_model_on_every_params_file(name):
         basic = os.path.join(REPO, "params", "basicParams.yaml")
         args[dataset], jargs[dataset] = load_args(basic)[dataset], jax_load_args(basic)[dataset]
     with torch.device("meta"):
-        if name in UNPORTED:
-            with pytest.raises(NotImplementedError, match=UNPORTED[name]):
-                build_model(args)
-            return
         model = build_model(args)
     jmodel = jax_build_model(jargs)
     assert type(model).__name__ == type(jmodel).__name__
     assert model.conv_out[0].out_channels == jmodel.n_bins
+    assert model.do_final_upscale == jmodel.do_final_upscale == (name == FINAL_UPSCALE)
+    if model.do_final_upscale:
+        head = model.dense_feature_extractor.decoder.conv2.in_channels
+        stage = model.dense_feature_extractor.decoder.final_upscale._net[0]
+        assert (stage.in_channels, stage.out_channels) == (head // 16 + 3, head // 16)
+        table = model.adaptive_bins_layer.patch_transformer.positional_encodings
+        assert tuple(table.shape) == (1200, 128)
     spec = JAX_ENCODER_SPECS[jmodel.encoder_name]
     assert model.dense_feature_extractor.encoder["original_model"].pad_style == spec.pad_style
     # the port keeps the head's BN and SiLU where pad_style is "torch"

@@ -620,8 +620,10 @@ def test_build_model_from_a_reference_config_matches_jax():
     args.graphbins.objcavit.use_2_saca = True
     assert build_model(args).objcavit.use_2_saca and jax_build_model(args).use_2_saca
     args.graphbins.do_final_upscale = True
-    with pytest.raises(NotImplementedError, match="A.5"):
-        build_model(args)
+    model, jmodel = build_model(args), jax_build_model(args)
+    assert model.do_final_upscale and jmodel.do_final_upscale
+    assert model.dense_feature_extractor.decoder.final_upscale._net[0].in_channels == 64 // 16 + 3
+    assert model.conv_out[0].in_channels == 128  # min(128, 884 - 1) full-resolution queries
 
 
 def test_build_flagship_train_steps_on_the_cpu():
