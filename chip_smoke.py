@@ -224,6 +224,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    forward and gives the depth of the same weights at rate 0 bit for bit.
    Alone: ``import chip_smoke as cs; cs.phase_device(); cs.phase_build();
    cs.phase_final_upscale()``.
+14. the host core and profiling: (a) ``objcavit_torch/csrc/preprocess.cpp``,
+   which g++ built at first use (phase 10's loader), built again into a scratch
+   directory and timed, with the host's CPU; each entry point of
+   ``data/native.py`` against its plain numpy version at full sizes (the
+   rotations at NYU's 427x565 and KITTI's 352x1216, the augment at
+   416x544, ``hflip``, ``assemble_batch`` of 8 at 416x544 and KITTI's
+   352x704, bit for bit the core's per-sample path), both timed on the
+   host; (b) host ms a batch of 8 from NYU 480x640 and KITTI 375x1242
+   frames: the old_dl sampler per sample, ``get_batch`` on one decode
+   thread and on one a core (each batch first held bit for bit against the
+   per-sample one), the new sampler per sample on the core's rotations and
+   on the plain numpy ones; (c) phase 10 (a)'s fit on the flagship's
+   old_dl twin (``..._clip_old_dl_1.yaml``): every train batch from
+   ``get_batch`` (counted), 8 + 8 kernel-4 launches and kernels 1 and 2 as
+   in phase 10, kernel 4's recorded step and the first eval step against
+   their plain versions, the step times, the idle share and the second
+   epoch's breakdown beside phase 10 (a)'s; (d) ``profiling.trace``
+   around 3 of its steps writes a trace holding an ``annotate`` range and
+   kernel 4's kernels, and ``device_memory_stats()``'s peak is
+   ``torch.cuda.max_memory_allocated``. Alone (after the build):
+   ``cs.phase_host_core(cs.phase_fit()["stats"]["epoch"])``.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -273,6 +294,8 @@ from objcavit_torch.serving import (
     build_fused_flagship,
     image_seq_len,
 )
+from objcavit_torch.data import native
+from objcavit_torch.data import preprocess as pp
 from objcavit_torch.language.provider import YoloClipObjectProvider
 from objcavit_torch.metrics import METRIC_NAMES
 from objcavit_torch.training.checkpoint import checkpoint_dict
@@ -306,6 +329,7 @@ from objcavit_torch.utils.kernel_io import (
     share_edge_grids,
     skip_mismatches,
 )
+from objcavit_torch.utils import profiling
 from objcavit_torch.utils.profile_stages import (
     fused_stage_split,
     route_split,
@@ -2127,29 +2151,37 @@ FIT_LR = 0.000357  # the flagship params file's optimizer.lr
 # directly, not through the metrics
 
 
-def write_fit_files(tmp: str) -> dict[str, str]:
+def write_frame(image_path: str, depth_path: str, dims: tuple[int, int],
+                rng: np.random.Generator, depth_scale: float) -> None:
+    """A random uint8 RGB frame and a smooth depth field in 0.5-9.5 m, in
+    ``depth_scale`` units a metre in 16 bits, as the datasets store them."""
+    from PIL import Image
+
+    for path in (image_path, depth_path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    Image.fromarray(rng.integers(0, 256, (*dims, 3), dtype=np.uint8)).save(image_path)
+    coarse = torch.as_tensor(rng.uniform(0.5, 9.5, (1, 1, 6, 8)), dtype=torch.float32)
+    depth = F.interpolate(coarse, size=dims, mode="bilinear", align_corners=True)
+    Image.fromarray((depth_scale * depth[0, 0].numpy()).astype(np.uint16)).save(depth_path)
+
+
+def write_fit_files(tmp: str, params: str = FLAGSHIP_PARAMS) -> dict[str, str]:
     """The frames, the split files, a basicParams.yaml whose nyu section
     reads them, a warm-start .ckpt (write_eval_files' seeded B5) and the
-    params files of the three fits: 'fit' (2 epochs), 'resume' (the same
-    run to 3), 'swa' (use_swa over 8 train frames, 10 epochs of one step,
-    validated every 5)."""
+    params files of the three fits, copies of ``params``: 'fit' (2 epochs),
+    'resume' (the same run to 3), 'swa' (use_swa over 8 train frames, 10
+    epochs of one step, validated every 5)."""
     rng = np.random.default_rng(10)
     data = os.path.join(tmp, "data")
-    from PIL import Image
 
     splits = {}
     for split, sub, n in (("train", "sync", FIT_TRAIN), ("eval", "official_splits/test", FIT_EVAL)):
         lines = []
         for i in range(n):
             img, dep = f"scene_{i % 4}/rgb_{i:05d}.png", f"scene_{i % 4}/sync_depth_{i:05d}.png"
-            os.makedirs(os.path.join(data, "nyu", sub, f"scene_{i % 4}"), exist_ok=True)
-            Image.fromarray(rng.integers(0, 256, (*EVAL_DIMS, 3), dtype=np.uint8)).save(
-                os.path.join(data, "nyu", sub, img))
-            # a smooth depth field in 0.5-9.5 m, as mm in 16 bits
-            coarse = torch.as_tensor(rng.uniform(0.5, 9.5, (1, 1, 6, 8)), dtype=torch.float32)
-            depth = F.interpolate(coarse, size=EVAL_DIMS, mode="bilinear", align_corners=True)
-            Image.fromarray((1000 * depth[0, 0].numpy()).astype(np.uint16)).save(
-                os.path.join(data, "nyu", sub, dep))
+            # depth in mm
+            write_frame(os.path.join(data, "nyu", sub, img), os.path.join(data, "nyu", sub, dep),
+                        EVAL_DIMS, rng, 1000.0)
             lines.append(f"/{img} /{dep} 518.8579")
         splits[split] = os.path.join(tmp, f"nyu_{split}.txt")
         with open(splits[split], "w") as f:
@@ -2164,7 +2196,7 @@ def write_fit_files(tmp: str) -> dict[str, str]:
     paths = {"basic": os.path.join(tmp, "basicParams.yaml")}
     with open(paths["basic"], "w") as f:
         yaml.safe_dump(basic, f)
-    cfg_args = cli.load_args(FLAGSHIP_PARAMS)
+    cfg_args = cli.load_args(params)
     cfg_args.nyu = cli.load_args(paths["basic"]).nyu
     model = init_weights_(build_model(cfg_args), torch.Generator().manual_seed(0))
     with torch.no_grad():  # spread the bin logits, as write_eval_files does
@@ -2172,7 +2204,7 @@ def write_fit_files(tmp: str) -> dict[str, str]:
     warm = os.path.join(tmp, "warm.ckpt")
     torch.save(checkpoint_dict(model), warm)
     del model
-    with open(FLAGSHIP_PARAMS) as f:
+    with open(params) as f:
         cfg = yaml.safe_load(f)
     cfg["nyu"] = basic["nyu"]
     cfg["paths"] = {"run_dir": os.path.join(tmp, "runs"), "data_dir": data}
@@ -2190,7 +2222,7 @@ def write_fit_files(tmp: str) -> dict[str, str]:
     with open(paths["swa"], "w") as f:
         yaml.safe_dump(cfg, f)
     log(f"fit: {FIT_TRAIN} train and {FIT_EVAL} eval NYU frames at {EVAL_DIMS[0]}x{EVAL_DIMS[1]}, "
-        f"configs from {os.path.basename(FLAGSHIP_PARAMS)} (clip provider, random towers)")
+        f"configs from {os.path.basename(params)} (clip provider, random towers)")
     return paths
 
 
@@ -2321,6 +2353,14 @@ def has_tensorboard() -> bool:
     return True
 
 
+def fit_eval_launches(epochs: int, validations: int, figures: int) -> dict:
+    """Kernels 1 and 2's launches in a fit: each validation's eval steps
+    and, where TensorBoard imports (``figures`` 1), each epoch's train
+    figure, a forward each."""
+    forwards = validations * FIT_EVAL_STEPS + figures * epochs
+    return {"resize": EVAL_RESIZE * forwards, "bins": EVAL_BINS * forwards}
+
+
 def phase_fit() -> dict:
     """``python -m objcavit_torch.cli -c <cfg> --bf16`` (Trainer.fit) at the
     flagship's width: GraphBins-B5, bs 8 at 416x544 with rotation and the
@@ -2352,8 +2392,7 @@ def phase_fit() -> dict:
         run = os.path.join(tmp, "runs", "fit", "version_0")
 
         def val_launches(epochs: int, validations: int) -> dict:
-            forwards = validations * FIT_EVAL_STEPS + fig * epochs
-            return {"resize": EVAL_RESIZE * forwards, "bins": EVAL_BINS * forwards}
+            return fit_eval_launches(epochs, validations, fig)
 
         steps = FIT_EPOCHS * FIT_STEPS
         metrics, seen = run_fit(f"(a) fit --bf16, {FIT_EPOCHS} epochs of {FIT_STEPS} steps", [
@@ -2375,7 +2414,8 @@ def phase_fit() -> dict:
                  "wall_max": max(wall), "event_p50": statistics.median(span),
                  "busy": traced["device_busy_ms_per_request"], "idle": traced["idle_share"],
                  "kernels": traced["device_kernels_per_request"],
-                 "val_share": epoch["validation"] / epoch["epoch"], "seconds": seen["seconds"]}
+                 "val_share": epoch["validation"] / epoch["epoch"], "seconds": seen["seconds"],
+                 "epoch": epoch}
         log(f"  (a) per step over {len(wall)} steps after the first (bs {BATCH}, "
             f"{TRAIN_DIMS[0]}x{TRAIN_DIMS[1]}, synchronised): wall p50 {stats['wall_p50']:.3f} ms "
             f"(min {stats['wall_min']:.3f}, max {stats['wall_max']:.3f}), CUDA-event span p50 "
@@ -2968,6 +3008,333 @@ def phase_final_upscale() -> dict:
     return {"final": dict(final), "drop_path": drop}
 
 
+# phase 14: the host core (csrc/preprocess.cpp, built by g++ at first use,
+# through data/native.py) and profiling; the fit is phase 10 (a)'s on the
+# flagship's old_dl twin, whose train batches DepthDataset.get_batch reads
+OLD_DL_PARAMS = os.path.join(
+    REPO, "params", "nyu_graphbins_enet-b5_ocv_pos_learned_bbox_wh_emb_128_lang_name_synset_def_"
+    "wn_rel_sz_clip_old_dl_1.yaml")
+HOST_REPEATS = 5  # a host time is the median of this many calls or batches
+NYU_STAGE_A = (427, 565)  # NYU's boundary crop of a 480x640 frame
+# a KITTI frame, and its dimensions_train; the kb crop is KITTI_DIMS
+KITTI_FRAME, KITTI_TRAIN_DIMS = (375, 1242), (352, 704)
+# tests/test_native.py's bounds of the core against its numpy versions: the
+# bilinear rotate 1e-4 and the augment 1e-5 on [0, 1] values (5e-5 once
+# ImageNet-normalised, ~4.4x); the nearest rotate may move 1e-3 of the
+# pixels (a sample point within rounding of a pixel boundary)
+CORE_ROTATE_ATOL, CORE_AUGMENT_ATOL, CORE_NORMALISED_ATOL = 1e-4, 1e-5, 5e-5
+CORE_NEAREST_MISMATCH = 1e-3
+PROFILED_STEPS = 3
+
+
+def host_ms(fn, repeats: int = HOST_REPEATS) -> float:
+    """Median wall ms of ``repeats`` calls of ``fn()`` after one more."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1000 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def check_core(name: str, core, plain, check) -> dict:
+    """One entry point of the core against its plain version on the same
+    inputs (``check(core_out, plain_out)`` raises or returns its error),
+    both timed on the host."""
+    err = check(core(), plain())
+    row = {"name": name, "core_ms": host_ms(core), "plain_ms": host_ms(plain), "err": err}
+    log(f"  (a) {name}: core {row['core_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms "
+        f"({row['plain_ms'] / row['core_ms']:.2f}x); {err}")
+    return row
+
+
+def within(atol: float):
+    def check(got, want):
+        got, want = (np.asarray(a) for a in (got, want))
+        err = float(np.abs(got - want).max())
+        if got.shape != want.shape or not err <= atol:
+            raise AssertionError(f"shapes {got.shape}, {want.shape}; max abs err {err} > {atol}")
+        return f"max abs err {err:.3g} (bound {atol})"
+    return check
+
+
+def nearest_check(got, want):
+    moved = float(np.mean(got != want))
+    if got.shape != want.shape or not moved <= CORE_NEAREST_MISMATCH:
+        raise AssertionError(f"shapes {got.shape}, {want.shape}; {moved} of the pixels moved")
+    return f"{moved:.2e} of the pixels moved (bound {CORE_NEAREST_MISMATCH})"
+
+
+def batches_check(atol: float):
+    """A batch pass's (images, depths) against another's: images within
+    ``atol`` (0: bit for bit), depths bit for bit."""
+    def check(got, want):
+        err = within(atol)(got[0], want[0])
+        if not np.array_equal(got[1], want[1]):
+            raise AssertionError("the depths differ")
+        return err + "; depths bit for bit"
+    return check
+
+
+def check_core_entry_points() -> list[dict]:
+    """(a) Each entry point of the core against its plain numpy version at
+    the pipelines' full sizes: the rotations at NYU's and KITTI's stage-A
+    shapes, the augment at NYU's crop, ``hflip``, and ``assemble_batch`` of
+    8 at NYU's and KITTI's crops, which must also equal the core's
+    per-sample path bit for bit."""
+    rng = np.random.default_rng(14)
+    rows = []
+    for label, (h, w) in (("NYU", NYU_STAGE_A), ("KITTI", KITTI_DIMS)):
+        img = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+        dep = rng.uniform(0.5, 9.5, (h, w, 1)).astype(np.float32)
+        rows.append(check_core(f"rotate_bilinear {label} {h}x{w}x3, 1.7 deg",
+                               lambda: native.rotate_bilinear(img, 1.7),
+                               lambda: pp.rotate_bilinear(img, 1.7), within(CORE_ROTATE_ATOL)))
+        rows.append(check_core(f"rotate_nearest {label} {h}x{w}x1, 1.7 deg",
+                               lambda: native.rotate_nearest(dep, 1.7),
+                               lambda: pp.rotate_nearest(dep, 1.7), nearest_check))
+    crop = rng.uniform(0, 1, (*TRAIN_DIMS, 3)).astype(np.float32)
+    c3 = np.array([0.93, 1.02, 1.07], np.float32)
+    for normalise, atol in ((False, CORE_AUGMENT_ATOL), (True, CORE_NORMALISED_ATOL)):
+        args = (crop, True, True, 1.05, 1.1, c3, normalise)
+        rows.append(check_core(f"augment_normalize {TRAIN_DIMS[0]}x{TRAIN_DIMS[1]}x3, "
+                               f"{'normalised' if normalise else '[0, 1]'}",
+                               lambda: native.augment_normalize(*args),
+                               lambda: pp.augment_normalize(*args), within(atol)))
+    depth = rng.uniform(0.5, 9.5, (*TRAIN_DIMS, 1)).astype(np.float32)
+    rows.append(check_core(f"hflip {TRAIN_DIMS[0]}x{TRAIN_DIMS[1]}x1", lambda: native.hflip(depth),
+                           lambda: depth[:, ::-1].copy(), within(0.0)))
+    for label, (h, w), (oh, ow) in (("NYU", NYU_STAGE_A, TRAIN_DIMS),
+                                    ("KITTI", KITTI_DIMS, KITTI_TRAIN_DIMS)):
+        images = [rng.uniform(0, 1, (h, w, 3)).astype(np.float32) for _ in range(BATCH)]
+        depths = [rng.uniform(0.5, 9.5, (h, w, 1)).astype(np.float32) for _ in range(BATCH)]
+        crops = np.stack([rng.integers(0, (h - oh + 1, w - ow + 1)) for _ in range(BATCH)])
+        draws = (rng.random(BATCH) > 0.5, rng.random(BATCH) > 0.5,
+                 rng.uniform(0.9, 1.1, BATCH), rng.uniform(0.75, 1.25, BATCH),
+                 rng.uniform(0.9, 1.1, (BATCH, 3)))
+        core = native.assemble_batch(images, depths, crops, *draws, oh, ow)
+        per_sample = (np.stack([native.augment_normalize(
+            images[i][y:y + oh, x:x + ow], draws[0][i], draws[1][i], draws[2][i], draws[3][i],
+            draws[4][i]) for i, (y, x) in enumerate(crops)]),
+            np.stack([native.hflip(depths[i][y:y + oh, x:x + ow]) if draws[0][i]
+                      else depths[i][y:y + oh, x:x + ow] for i, (y, x) in enumerate(crops)]))
+        log(f"  (a) assemble_batch {label}: the core's per-sample path, "
+            f"{batches_check(0.0)(core, per_sample)}")
+        rows.append(check_core(
+            f"assemble_batch {label} {BATCH}x{oh}x{ow} from {h}x{w}",
+            lambda: native.assemble_batch(images, depths, crops, *draws, oh, ow),
+            lambda: pp.assemble_batch(images, depths, crops, *draws, oh, ow),
+            batches_check(CORE_NORMALISED_ATOL)))
+    return rows
+
+
+@contextlib.contextmanager
+def plain_rotates():
+    """The new sampler on the plain numpy rotations while open: the port's
+    host path before its core."""
+    real = native.rotate_bilinear, native.rotate_nearest
+    native.rotate_bilinear, native.rotate_nearest = pp.rotate_bilinear, pp.rotate_nearest
+    try:
+        yield
+    finally:
+        native.rotate_bilinear, native.rotate_nearest = real
+
+
+def write_host_frames(tmp: str) -> dict[str, dict]:
+    """BATCH NYU (480x640) and KITTI (375x1242) train frames written as
+    write_fit_files writes them, and each dataset's config (basicParams.yaml's
+    section over them) for each sampler: {'nyu old_dl': cfg, ...}."""
+    rng = np.random.default_rng(1400)
+    with open(BASIC_PARAMS) as f:
+        basic = yaml.safe_load(f)
+    data = os.path.join(tmp, "data")
+    cfgs = {}
+    for name, dims, scale, focal in (("nyu", EVAL_DIMS, 1000.0, 518.8579),
+                                     ("kitti", KITTI_FRAME, 256.0, 721.5377)):
+        section = basic[name]
+        lines = []
+        for i in range(BATCH):
+            img, dep = f"scene/{i:05d}_rgb.png", f"scene/{i:05d}_depth.png"
+            image_root = section.get("data_path", section.get("train_path"))
+            depth_root = section.get("gt_path", section.get("train_path"))
+            write_frame(os.path.join(data, section["base_path"], image_root, img),
+                        os.path.join(data, section["base_path"], depth_root, dep), dims, rng,
+                        scale)
+            lines.append(f"{img} {dep} {focal}")
+        split = os.path.join(tmp, f"{name}_train.txt")
+        with open(split, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        for old_dl in (True, False):
+            cfgs[f"{name} {'old_dl' if old_dl else 'new'}"] = {
+                "basic": {"dataset": name, "use_adabins_dataloader": old_dl},
+                "paths": {"data_dir": data},
+                name: {**section, "filenames_file_train": split}}
+    return cfgs
+
+
+def time_host_batches() -> dict[str, float]:
+    """(b) Host ms a batch of BATCH (median of HOST_REPEATS; the frames'
+    reads warm) on NYU and KITTI frames: old_dl per-sample ``get``,
+    ``get_batch`` on one decode thread and on one a core (both first held
+    bit for bit against the per-sample batch), the new sampler per sample
+    on the core and on the plain numpy rotations (the port before its
+    core)."""
+    from objcavit_torch.config import Config
+    from objcavit_torch.data.dataset import DepthDataset
+
+    idxs = np.arange(BATCH)
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, cfg in write_host_frames(tmp).items():
+            ds = DepthDataset(Config(cfg), "train")
+
+            def per_sample(seed: int = 0):
+                rng = np.random.default_rng(seed)
+                samples = [ds.get(int(i), rng) for i in idxs]
+                return tuple(np.stack([s[k] for s in samples]) for k in ("image", "depth"))
+
+            def whole(seed: int = 0):
+                batch, _ = ds.get_batch(idxs, np.random.default_rng(seed))
+                return batch["image"], batch["depth"]
+
+            if label.endswith("new"):
+                times[f"{label}, per-sample get, core rotations"] = host_ms(per_sample)
+                with plain_rotates():
+                    times[f"{label}, per-sample get, numpy rotations"] = host_ms(per_sample)
+                continue
+            times[f"{label}, per-sample get"] = host_ms(per_sample)
+            want = per_sample(7)
+            for threads in (1, None):
+                ds.decode_threads = threads
+                what = f"{label}, get_batch, {threads or os.cpu_count()} decode threads"
+                log(f"  (b) {what} against per-sample get: {batches_check(0.0)(whole(7), want)}")
+                times[what] = host_ms(whole)
+    for what, ms in times.items():
+        log(f"  (b) {what}: {ms:.3f} ms a batch of {BATCH}")
+    return times
+
+
+def read_trace_file(logdir: str) -> str:
+    files = os.listdir(logdir)
+    if len(files) != 1:
+        raise AssertionError(f"(d): the trace directory holds {files}")
+    with open(os.path.join(logdir, files[0])) as f:
+        return f.read()
+
+
+def phase_host_core(flagship_epoch: dict) -> dict:
+    """Phase 14: (a) the core's build (g++, timed into a scratch directory)
+    and each entry point against its plain version at full sizes; (b) host
+    ms a batch on each sampler and batch path; (c) phase 10 (a)'s fit on the
+    flagship's old_dl twin, whose every train batch must come from
+    ``get_batch``, with its launches, kernel 4's recorded step, the eval
+    records, the step times, the idle share and the second epoch's
+    breakdown beside ``flagship_epoch`` (phase 10 (a)'s); (d)
+    ``profiling.trace`` around 3 of its steps writes a trace holding an
+    ``annotate`` range and kernel 4's kernels, and ``device_memory_stats``
+    reads the allocator's peak. Returns the fit's launches."""
+    from objcavit_torch.data.dataset import DepthDataset
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    info = build.cpu_info()
+    cpu = ", ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model", "model name")
+                    if k in info)
+    log(f"host core: CPU {cpu or build.host_cpu()}, {os.cpu_count()} cores; the library in "
+        f"{build.HOST_LIB_PATH.parent.name}/ was built at first use: "
+        f"{build.HOST_LIB_PATH.is_file()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        line = build.build_host(os.path.join(tmp, build.HOST_LIB_PATH.name))
+        log(f"  (a) build, again into a scratch directory: {time.perf_counter() - t1:.2f} s: "
+            f"{line}")
+    check_core_entry_points()
+    time_host_batches()
+
+    writer = has_tensorboard()
+    fig = 1 if writer else 0
+    served = collections.Counter()
+    real_get_batch, real_get = DepthDataset.get_batch, DepthDataset.get
+
+    def get_batch(self, idxs, rng):
+        out = real_get_batch(self, idxs, rng)
+        served["get_batch" if out is not None else "get_batch None"] += 1
+        return out
+
+    def get(self, idx, rng):
+        served[f"get, {self.mode}"] += 1
+        return real_get(self, idx, rng)
+
+    DepthDataset.get_batch, DepthDataset.get = get_batch, get
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfgs = write_fit_files(tmp, OLD_DL_PARAMS)
+            steps = FIT_EPOCHS * FIT_STEPS
+            _metrics, seen = run_fit(
+                f"(c) fit --bf16 on the old_dl twin, {FIT_EPOCHS} epochs of {FIT_STEPS} steps",
+                ["-c", cfgs["fit"], "--bf16"], cfgs["basic"], bins_expectation_fwd=steps,
+                bins_expectation_bwd=steps, **fit_eval_launches(FIT_EPOCHS, FIT_EPOCHS, fig))
+    finally:
+        DepthDataset.get_batch, DepthDataset.get = real_get_batch, real_get
+    # the fit draws one train batch to initialise (JAX's order), then its
+    # steps'; the eval split's get_batch gives None, and its frames are read
+    # one by one
+    want = {"get_batch": steps + 1, "get_batch None": FIT_EPOCHS * FIT_EVAL_STEPS,
+            "get, online_eval": FIT_EPOCHS * FIT_EVAL}
+    log(f"  (c) train batches from get_batch: {served['get_batch']}; reads {dict(served)}")
+    if dict(served) != want:
+        raise AssertionError(f"(c): want the dataset's reads {want}, got {dict(served)}")
+    if len(seen["records"]) != 1 or "dcenters" not in seen["records"][0]:
+        raise AssertionError("(c): no recorded kernel-4 step with its backward")
+    check_train_kernels(seen["records"][0])
+    check_served_kernels(seen["eval"]["model"], seen["eval"]["records"])
+    wall = [t[0] for t in seen["times"][1:]]
+    epoch = epoch_breakdown(seen["spans"])
+    seen["step"].scheduler = None  # steps past the schedule's end
+    traced = trace(lambda: seen["step"](*seen["args"]), n_req=FIT_TRACED_STEPS)
+    log(f"  (c) per step over {len(wall)} steps after the first: wall p50 "
+        f"{statistics.median(wall):.3f} ms (min {min(wall):.3f}, max {max(wall):.3f}); traced "
+        f"({FIT_TRACED_STEPS} steps): device busy {traced['device_busy_ms_per_request']:.3f} ms, "
+        f"idle share {traced['idle_share']:.3f}; whole run {seen['seconds']:.2f} s")
+    for what, parts in (("old_dl twin (get_batch, the core's assembly)", epoch),
+                        ("flagship, phase 10 (a) (new sampler, the core's rotations)",
+                         flagship_epoch)):
+        log(f"  (c) the second epoch, {what}, s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as logdir:
+        zero_counters()
+        with profiling.trace(logdir):
+            for i in range(PROFILED_STEPS):
+                with profiling.annotate(f"old_dl fit step {i}"):
+                    seen["step"](*seen["args"])
+            torch.cuda.synchronize()
+        profiled = read_counters()
+        text = read_trace_file(logdir)
+    names = ["old_dl fit step 0", "bins_expectation_fwd_kernel", "bins_expectation_bwd_kernel"]
+    missing = [n for n in names if n not in text]
+    log(f"  (d) profiling.trace of {PROFILED_STEPS} steps: {len(text) / 2**20:.1f} MiB, holds "
+        f"{[n for n in names if n in text]}; kernel-4 launches "
+        f"{profiled['bins_expectation_fwd']} + {profiled['bins_expectation_bwd']}")
+    if missing or not (profiled["bins_expectation_fwd"] == profiled["bins_expectation_bwd"]
+                       == PROFILED_STEPS):
+        raise AssertionError(f"(d): the trace lacks {missing}, or kernel 4 did not run")
+    stats = profiling.device_memory_stats()["cuda:0"]
+    peak = torch.cuda.max_memory_allocated(0)
+    log(f"  (d) device_memory_stats: {stats}; max_memory_allocated {peak}")
+    in_use = torch.cuda.memory_allocated(0)
+    if (stats["peak_bytes_in_use"] != peak or stats["bytes_in_use"] != in_use
+            or not in_use <= peak <= stats["bytes_limit"]):
+        raise AssertionError("(d): device_memory_stats disagrees with torch.cuda's counters")
+    launches = seen["launches"]
+    del seen
+    torch.cuda.empty_cache()
+    log(f"host core: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # the regressor's gradient rel L2 on the seed's weights, kernel 5's route
 # against the plain route, as an H100 read them with the forward's planned
 # key groups and the cluster backward: a gap to watch, not a bound (the
@@ -3011,7 +3378,8 @@ def main() -> None:
     validate = phase_validate()
     log(f"  validate path (-v --bf16, {VALIDATE_IMAGES} images): kernel-1 concat launches "
         f"{validate['launches'][CONCAT_COUNTER]}, kernel-2 launches {validate['launches']['bins']}")
-    fit = phase_fit()["launches"]
+    fit_phase = phase_fit()
+    fit = fit_phase["launches"]
     log(f"  fit path ({FIT_EPOCHS} epochs of {FIT_STEPS} steps): kernel-4 launches "
         f"{fit['bins_expectation_fwd']} + {fit['bins_expectation_bwd']}, kernel-1 concat "
         f"{fit[CONCAT_COUNTER]}, kernel-2 {fit['bins']}; the kernels line counts kernel 4 over "
@@ -3028,6 +3396,11 @@ def main() -> None:
     log(f"  final-upscale paths: {fu}; the kernels line counts them in kernel 1's concat form "
         f"and in the final-upscale entries of kernels 1, 2, 4 and 5; drop-path paths: {dp}, "
         f"counted in kernels 1, 2, 4, 7 and 8's entries")
+    host = phase_host_core(fit_phase["stats"]["epoch"])
+    log(f"  old_dl fit path ({FIT_EPOCHS} epochs of {FIT_STEPS} steps): kernel-4 launches "
+        f"{host['bins_expectation_fwd']} + {host['bins_expectation_bwd']}, kernel-1 concat "
+        f"{host[CONCAT_COUNTER]}, kernel-2 {host['bins']}; the kernels line adds them to "
+        f"kernels 1, 2 and 4's counts")
 
     def entry(name, source, replaces, launches, key):
         return {"name": name, "route": "cuda", "source": f"objcavit_torch/csrc/{source}",
@@ -3037,7 +3410,7 @@ def main() -> None:
         entry("resize_bilinear_align_corners_into_concat (kernel 1's concat form)",
               "resize_bilinear.cu", "resize_pallas.py:104",
               serving["resize"] + served[CONCAT_COUNTER] + v2[CONCAT_COUNTER] + fu[CONCAT_COUNTER]
-              + dp[CONCAT_COUNTER], "resize_concat"),
+              + dp[CONCAT_COUNTER] + host[CONCAT_COUNTER], "resize_concat"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form, a function path)",
               "resize_bilinear.cu", "resize_pallas.py:104", serving["resize_bare"], "resize"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form at the final "
@@ -3045,7 +3418,7 @@ def main() -> None:
               "resize_bilinear.cu", "resize_pallas.py:104", fu["resize"] - fu[CONCAT_COUNTER],
               "resize_final"),
         entry("conv_bins_depth_batched", "bins_depth.cu", "pallas_bins.py:214",
-              serving["bins"] + served["bins"] + v2["bins"] + dp["bins"], "bins"),
+              serving["bins"] + served["bins"] + v2["bins"] + dp["bins"] + host["bins"], "bins"),
         entry("conv_bins_depth_batched (full resolution, (8, 480, 640, 128))", "bins_depth.cu",
               "pallas_bins.py:214", fu["bins"], "bins_final"),
         entry("conv_bins_depth (kernel 2, shared W)", "bins_depth.cu", "pallas_bins.py:163",
@@ -3053,11 +3426,11 @@ def main() -> None:
         entry("bins_expectation_fwd", "bins_expectation.cu", "pallas_bins.py:63",
               train["bins_expectation_fwd"] + fit["bins_expectation_fwd"]
               + trained["bins_expectation_fwd"] + v2["bins_expectation_fwd"]
-              + dp["bins_expectation_fwd"], "bins_expectation_fwd"),
+              + dp["bins_expectation_fwd"] + host["bins_expectation_fwd"], "bins_expectation_fwd"),
         entry("bins_expectation_bwd", "bins_expectation.cu", "pallas_bins.py:91",
               train["bins_expectation_bwd"] + fit["bins_expectation_bwd"]
               + trained["bins_expectation_bwd"] + v2["bins_expectation_bwd"]
-              + dp["bins_expectation_bwd"], "bins_expectation_bwd"),
+              + dp["bins_expectation_bwd"] + host["bins_expectation_bwd"], "bins_expectation_bwd"),
         entry("bins_expectation_fwd (full resolution, (8, 226304, 256))", "bins_expectation.cu",
               "pallas_bins.py:63", fu["bins_expectation_fwd"], "bins_expectation_fwd_final"),
         entry("bins_expectation_bwd (full resolution, (8, 226304, 256))", "bins_expectation.cu",

@@ -1,2 +1,2 @@
 """The port's data layer (objcavit_tpu.data): device-side augmentation, the
-eval datasets and the loader."""
+datasets with their samplers, the host core's binding and the loader."""

@@ -11,17 +11,23 @@ GT file is missing is dropped from ``filenames`` and the same index read
 again, so ``len()`` shrinks during an epoch. Without the dataset root (no
 NYU or KITTI data is in the repository) ``make_dataset`` returns
 ``SyntheticDepthDataset``, seeded by index, with the same sample contract.
-JAX's batch-level ``get_batch`` (threaded decode, the C++ assembly) is
-ROADMAP A.3c: the loader reads sample by sample.
+On the old_dl train path the loader reads whole batches
+(``DepthDataset.get_batch``, JAX's): every draw first, in the per-sample
+order, then decode and stage A in ``decode_threads`` threads, then the
+host core's one threaded pass for the crops, the tail and the stack; the
+batch is that of repeated ``get`` calls bit for bit. Elsewhere it reads
+sample by sample.
 """
 
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
 
+from objcavit_torch.data import native
 from objcavit_torch.data import preprocess as pp
 
 # the vendored split files are resolved against the repository root when the
@@ -62,6 +68,9 @@ class DepthDataset:
             self.data_path = os.path.join(base, sub)
             self.gt_path = self.data_path
         self.train_dims = tuple(self.dcfg.dimensions_train)
+        # get_batch's decode and stage-A threads; None: one a host core (PNG
+        # decode is most of the host's cost a batch)
+        self.decode_threads: int | None = None
 
     def __len__(self) -> int:
         return len(self.filenames)
@@ -113,6 +122,93 @@ class DepthDataset:
         parts = line.split()
         return {"image": image, "depth": depth, "focal": focal,
                 "image_path": parts[0], "depth_path": parts[1]}
+
+    def _read_train_frame(self, image_path: str, depth_path: str):
+        """A train frame's uint8 image and raw depth; no GT file raises, as
+        ``get`` does."""
+        from PIL import Image
+
+        image_u8 = np.asarray(Image.open(image_path).convert("RGB"))
+        if not os.path.exists(depth_path):
+            raise FileNotFoundError(f"missing train GT: {depth_path}")
+        return image_u8, np.asarray(Image.open(depth_path), dtype=np.float32)
+
+    def get_batch(self, idxs, rng: np.random.Generator):
+        """The old_dl train path's batch of ``idxs`` -> ``(batch, meta)``
+        ('image', 'depth' stacked; 'focal', 'image_path', 'depth_path'
+        lists), or None elsewhere (the loader then calls ``get``). Stage A
+        runs per sample, then one pass of the host core crops, augments,
+        normalises and stacks (``native.assemble_batch``). The draws keep
+        the order of repeated ``get`` calls, so the batch is theirs bit for
+        bit. Where stage A's shape does not depend on the frame (NYU, the kb
+        crop) and ``decode_threads`` allows more than one, every draw is
+        made first and decode and stage A run in a thread pool
+        (``_get_batch_parallel``)."""
+        if not (self.mode == "train" and self.use_old_dl):
+            return None
+        n_threads = self.decode_threads or (os.cpu_count() or 1)
+        shape_a = pp.old_dl_stage_a_static_shape(self.dataset, self.dcfg.do_kb_crop)
+        if n_threads > 1 and len(idxs) > 1 and shape_a is not None:
+            return self._get_batch_parallel(idxs, rng, shape_a, n_threads)
+        dcfg = self.dcfg
+        images, depths, augs, metas = [], [], [], []
+        for idx in idxs:
+            line = self.filenames[int(idx) % len(self.filenames)]
+            image_path, depth_path, focal = self._paths(line, rng)
+            image_u8, depth_raw = self._read_train_frame(image_path, depth_path)
+            img, dep = pp.old_dl_stage_a(image_u8, depth_raw, self.dataset, dcfg.do_kb_crop,
+                                         dcfg.do_random_rotate, dcfg.degree,
+                                         dcfg.depth_norm_factor, rng)
+            augs.append(pp.old_dl_draw_aug(self.dataset, img.shape, self.train_dims, rng))
+            images.append(img)
+            depths.append(dep)
+            metas.append((focal, *line.split()[:2]))
+        return self._assemble(images, depths, augs, metas)
+
+    def _get_batch_parallel(self, idxs, rng: np.random.Generator, shape_a: tuple[int, int],
+                            n_threads: int):
+        """One serial pass of the draws (each sample's path, angle and
+        stage-B draws, in ``get``'s order), then decode and stage A in
+        ``n_threads`` threads: PIL's decode and rotate and numpy's casts
+        release the GIL. A frame whose stage-A shape is not ``shape_a``
+        raises ValueError: its crop was drawn for that shape."""
+        dcfg = self.dcfg
+        specs, augs, metas = [], [], []
+        for idx in idxs:
+            line = self.filenames[int(idx) % len(self.filenames)]
+            image_path, depth_path, focal = self._paths(line, rng)
+            # the draw old_dl_stage_a makes
+            angle = (rng.random() - 0.5) * 2 * dcfg.degree if dcfg.do_random_rotate else None
+            augs.append(pp.old_dl_draw_aug(self.dataset, shape_a, self.train_dims, rng))
+            specs.append((image_path, depth_path, angle))
+            metas.append((focal, *line.split()[:2]))
+
+        def load(spec):
+            image_path, depth_path, angle = spec
+            image_u8, depth_raw = self._read_train_frame(image_path, depth_path)
+            img, dep = pp.old_dl_stage_a_apply(image_u8, depth_raw, self.dataset,
+                                               dcfg.do_kb_crop, angle, dcfg.depth_norm_factor)
+            if img.shape[:2] != shape_a:
+                raise ValueError(
+                    f"{image_path}: stage A gives {img.shape[:2]}, not {shape_a}: a "
+                    f"non-standard source resolution; set the dataset's decode_threads to 1")
+            return img, dep
+
+        with ThreadPoolExecutor(n_threads) as ex:
+            loaded = list(ex.map(load, specs))
+        return self._assemble([a for a, _ in loaded], [d for _, d in loaded], augs, metas)
+
+    def _assemble(self, images: list, depths: list, augs: list, metas: list):
+        h, w = self.train_dims
+        out_imgs, out_deps = native.assemble_batch(
+            images, depths, np.asarray([a["crop_yx"] for a in augs], np.int32),
+            np.asarray([a["flip"] for a in augs]), np.asarray([a["do_augment"] for a in augs]),
+            np.asarray([a["gamma"] for a in augs], np.float32),
+            np.asarray([a["brightness"] for a in augs], np.float32),
+            np.stack([a["colors"] for a in augs]), h, w)
+        meta = {k: [m[i] for m in metas]
+                for i, k in enumerate(("focal", "image_path", "depth_path"))}
+        return {"image": out_imgs, "depth": out_deps}, meta
 
 
 class SyntheticDepthDataset:

@@ -12,8 +12,10 @@ arrays become tensors, pinned when the device is a card, and are copied to
 ``device`` with ``non_blocking=True``. Iterating yields ``(batch, meta)`` as
 in the JAX package: ``batch`` holds 'image', 'depth', 'sample_valid' and the
 hook's entries (nested dicts of tensors), ``meta`` the per-sample 'focal',
-'image_path' and 'depth_path'. The distributed interleave is ROADMAP A.5,
-the native batch assembly A.3c.
+'image_path' and 'depth_path'. A dataset whose ``get_batch`` returns a
+batch (``DepthDataset``'s old_dl train path: threaded decode and the host
+core's assembly) gives it whole; else the loader reads sample by sample.
+The distributed interleave is ROADMAP A.5.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ class DeviceLoader:
 
     def host_batches(self) -> Iterator[tuple[dict, dict]]:
         """An epoch's host batches before the hook, drawn from the stream:
-        the order, then each batch's samples."""
+        the order, then each batch's samples (``dataset.get_batch`` where it
+        gives the batch, else ``dataset.get`` a sample)."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
@@ -70,6 +73,13 @@ class DeviceLoader:
                 pad = order[:self.batch_size - len(idxs)]
                 valid = np.concatenate([valid, np.zeros(len(pad), bool)])
                 idxs = np.concatenate([idxs, pad])
+            get_batch = getattr(self.dataset, "get_batch", None)
+            whole = None if get_batch is None else get_batch(idxs, self._rng)
+            if whole is not None:
+                batch, meta = whole
+                batch["sample_valid"] = valid
+                yield batch, meta
+                continue
             samples = [self.dataset.get(int(i), self._rng) for i in idxs]
             batch = {
                 "image": np.stack([s["image"] for s in samples]),

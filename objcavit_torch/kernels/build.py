@@ -1,4 +1,5 @@
-"""Build the package's CUDA kernels with nvcc and bind them with ctypes.
+"""Build the package's CUDA kernels with nvcc and its host core with g++,
+and bind them with ctypes.
 
 Every ``objcavit_torch/csrc/*.cu`` file exports plain C entry points (device
 pointers and the stream as ``void*``); ``csrc/*.cuh`` holds device helpers
@@ -9,6 +10,14 @@ together, and the objects are linked into one shared library under
 sources, headers and flags is stored beside the library, so an edited
 source rebuilds and an unchanged one loads at once. Building takes
 seconds: no source includes PyTorch's headers.
+
+The host core, ``csrc/preprocess.cpp`` (the data loader's rotations,
+augmentation and batch assembly; ``data/native.py`` binds it), is built the
+same way by ``build_host`` with the C++ compiler (``$CXX``, else g++) and
+the JAX package's ``csrc/Makefile`` flags, into
+``_build/libobjcavit_preprocess.so``. ``-march=native`` ties that library
+to the CPU it was built on, so its stamp also names the CPU: a tree carried
+to another machine rebuilds instead of dying on an illegal instruction.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +37,13 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_PATH = BUILD_DIR / "libobjcavit_kernels.so"
 STAMP_PATH = BUILD_DIR / "libobjcavit_kernels.sha256"
+
+HOST_SOURCE = CSRC_DIR / "preprocess.cpp"
+HOST_LIB_PATH = BUILD_DIR / "libobjcavit_preprocess.so"
+# csrc/Makefile's flags: with the same compiler, the port's core computes the
+# JAX package's bits
+HOST_CXX_FLAGS = ("-O3", "-march=native", "-ffast-math", "-fPIC", "-shared", "-std=c++17",
+                  "-pthread")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,6 +84,73 @@ SIGNATURES = {
 
 def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def cpu_info() -> dict[str, str]:
+    """The first core's fields of /proc/cpuinfo ({} where there is none)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().split("\n\n")[0].splitlines()
+    except OSError:
+        return {}
+    return dict((k.strip(), v.strip()) for k, v in (line.split(":", 1) for line in lines
+                                                    if ":" in line))
+
+
+# the /proc/cpuinfo fields that name a CPU and its features (x86's, then
+# Arm's); a virtual machine may give "unknown" for the model name
+CPU_FIELDS = ("vendor_id", "cpu family", "model", "model name", "flags", "CPU implementer",
+              "CPU architecture", "CPU variant", "CPU part", "Features")
+
+
+def host_cpu() -> str:
+    """The CPU that ``-march=native`` builds for: the machine's architecture
+    and the first core's ``CPU_FIELDS``, or the platform's name for it
+    where there is no /proc/cpuinfo."""
+    info = cpu_info()
+    if not info:
+        return platform.processor() or platform.machine()
+    return "; ".join([platform.machine()] + [f"{k}: {info[k]}" for k in CPU_FIELDS if k in info])
+
+
+def host_command(lib_path: Path) -> list[str]:
+    """The compiler line that builds the host core into ``lib_path``."""
+    return [os.environ.get("CXX") or "g++", *HOST_CXX_FLAGS, "-o", str(lib_path),
+            str(HOST_SOURCE)]
+
+
+def build_host(lib_path: Path | None = None) -> str:
+    """Compile ``csrc/preprocess.cpp`` into ``lib_path`` (default
+    ``HOST_LIB_PATH``) unless the stamp beside it (a hash of the compiler
+    line, the source and ``host_cpu()``) matches. Returns the compiler line
+    ('' when nothing was rebuilt). Builds in a temporary directory and
+    renames the result into place, so two processes that build at once each
+    see a whole library. Raises RuntimeError with the compiler's output if
+    it fails or cannot be run."""
+    lib_path = Path(HOST_LIB_PATH if lib_path is None else lib_path)
+    stamp = lib_path.with_suffix(".sha256")
+    cmd = host_command(lib_path)
+    h = hashlib.sha256(" ".join(cmd).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    h.update(host_cpu().encode())
+    digest = h.hexdigest()
+    if lib_path.is_file() and stamp.is_file() and stamp.read_text() == digest:
+        return ""
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=lib_path.parent) as tmp:
+        tmp_lib = Path(tmp) / lib_path.name
+        run = host_command(tmp_lib)
+        try:
+            proc = subprocess.run(run, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"the host core's compiler did not run: {' '.join(run)}\n{e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"the host core's compiler failed ({proc.returncode}):\n"
+                               f"{' '.join(run)}\n{proc.stdout}{proc.stderr}")
+        (Path(tmp) / stamp.name).write_text(digest)
+        os.replace(tmp_lib, lib_path)
+        os.replace(Path(tmp) / stamp.name, stamp)
+    return " ".join(cmd)
 
 
 def sources_hash() -> str:

@@ -71,9 +71,8 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
-
 from objcavit_torch.serving import build_adabins_pipeline, build_flagship_pipeline
+from objcavit_torch.utils import profiling
 from objcavit_torch.utils.benchkit import build_adabins_train, build_flagship_train
 
 SMI = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
@@ -344,8 +343,8 @@ def trace(run, n_req: int = 5) -> dict:
     """One ``torch.profiler`` trace of ``n_req`` calls of ``run()``, per call."""
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("requests"):
+    with profiling.trace() as prof:
+        with profiling.annotate("requests"):
             for _ in range(n_req):
                 run()
             torch.cuda.synchronize()

@@ -305,8 +305,8 @@ def test_options_once_unported_build(model, kwargs):
 
 def test_port_imports_no_jax():
     """Every objcavit_torch module (walked with pkgutil, the language modules,
-    kernels 5, 7 and 8's and the eval protocol's among them) imports without
-    jax, flax or objcavit_tpu."""
+    kernels 5, 7 and 8's, the eval protocol's, the host core's binding and
+    profiling among them) imports without jax, flax or objcavit_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import objcavit_torch\n"
@@ -324,7 +324,9 @@ def test_port_imports_no_jax():
         "        'objcavit_torch.data.loader', 'objcavit_torch.training.steps',\n"
         "        'objcavit_torch.training.providers', 'objcavit_torch.training.checkpoint',\n"
         "        'objcavit_torch.training.loop', 'objcavit_torch.utils.torch_import',\n"
-        "        'objcavit_torch.utils.annotate', 'objcavit_torch.utils.figures'}\n"
+        "        'objcavit_torch.utils.annotate', 'objcavit_torch.utils.figures',\n"
+        "        'objcavit_torch.data.native', 'objcavit_torch.kernels.build',\n"
+        "        'objcavit_torch.utils.profiling'}\n"
         "assert want <= set(names), want - set(names)\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -4,11 +4,12 @@ train mode and the loader's shuffle against objcavit_tpu's on the CPU.
 The tests write NYU (480x640) and KITTI (375x1242, with the right camera's
 paths) frames in the datasets' on-disk layout: random uint8 images and
 16-bit depth PNGs. Both packages read them with the same
-``np.random.default_rng`` streams, which must stay in step. The JAX package
-runs its C++ host core where ``csrc/libobjcavit_preprocess.so`` builds
-(``native_available()``; else its numpy branches), the port its copies of
-those numpy branches, so each test states the native-vs-numpy tolerance of
-tests/test_native.py that applies.
+``np.random.default_rng`` streams, which must stay in step. The port's
+samplers run its copy of the C++ host core (``objcavit_torch/data/native.py``),
+the JAX package its own where ``csrc/libobjcavit_preprocess.so`` builds
+(``native_available()``), so there the samples are equal; where JAX runs
+its numpy branches, the native-vs-numpy tolerances of tests/test_native.py
+apply, and the tests that hold the port's plain numpy versions state them.
 """
 
 import numpy as np
@@ -100,17 +101,23 @@ def test_train_samples_match_jax(tmp_path, dataset, old_dl):
     agree within the native-vs-numpy bound (old_dl: the fused augment,
     AUGMENT_ATOL; new: the bilinear rotate, ROTATE_ATOL); the depths exactly
     (old_dl: PIL's rotate on both sides) or but NEAREST_MISMATCH of them
-    (new: the nearest rotate); the paths exactly; the streams end in step."""
+    (new: the nearest rotate); the paths exactly; the streams end in step.
+    Where JAX runs its C++ core (``native_available()``), the port's runs
+    the same code: images and depths equal bit for bit."""
     cfg = train_args(tmp_path, dataset, old_dl)
     ds, jds = DepthDataset(Config(cfg), "train"), JaxDepthDataset(JaxConfig(cfg), "train")
     assert isinstance(make_dataset(Config(cfg), "train"), DepthDataset)
     rng, jrng = np.random.default_rng(11), np.random.default_rng(11)
     atol = AUGMENT_ATOL if old_dl else ROTATE_ATOL
+    same_core = native.native_available()
     for idx in (0, 1, 2, 0, 1, 2):
         s, w = ds.get(idx, rng), jds.get(idx, jrng)
         assert s["image"].shape == (*TRAIN_DIMS, 3) and s["depth"].shape == (*TRAIN_DIMS, 1)
-        np.testing.assert_allclose(s["image"], w["image"], atol=atol, rtol=0)
-        if old_dl:
+        if same_core:
+            np.testing.assert_array_equal(s["image"], w["image"])
+        else:
+            np.testing.assert_allclose(s["image"], w["image"], atol=atol, rtol=0)
+        if old_dl or same_core:
             np.testing.assert_array_equal(s["depth"], w["depth"])
         else:
             assert_nearest_close(s["depth"], w["depth"])
