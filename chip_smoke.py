@@ -35,8 +35,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    route, the bare form then ``torch.cat`` with the 3-channel image,
    logged), kernel 2 at (8, 480, 640, 128), kernel 4 at (8, 226304, 256),
    kernel 5 at 1200 queries against 1000 masked keys (checked with the
-   cases above) and timed at S 1200 (the streaming forward) and S 884
-   (the two-kernel backward). Each
+   cases above) and timed at S 1200 and S 884 on its long routes (the
+   forward and the backward past 512 keys: wgmma warpgroups fed by TMA),
+   with each one's exps and their time on the SFU alone logged beside its
+   bound. Each
    kernel's bound (the larger of its bytes over 3.35 TB/s and its
    operations over the card's peak for their type; tensor-core and
    CUDA-core operations run at once, so the larger of their two times) is
@@ -206,16 +208,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    1200-row table) on each attention route answers 2 requests of 8 frames:
    per forward kernel 1's concat form 4 times and its bare form once (the
    fifth upsample, whose skip is the image), kernel 2 once, kernel 5's
-   forward 4 times on its route (the streaming kernel) and none on the
+   forward 4 times on its route (the long forward) and none on the
    plain one; each output against its plain version on its own tensors;
    the served rate, p50, peak memory and a trace's device time and idle
    share; (b) its train step at bs 8, 416x544 on kernel 5's route: 1 + 1
-   kernel-4 and 4 + 4 kernel-5 launches, every backward on the two-kernel
+   kernel-4 and 4 + 4 kernel-5 launches, every backward on the long
    route (S 884), each against its plain version, a finite loss; (c) -v
    --debug --bf16 through ``cli.main`` on a copy of that params file; (d)
    GraphBins-B5 with ``do_final_upscale`` on kernel 5's route at 1000
    slots (a sentinel request and one with detector-style slots: kernel
-   5's masked streaming forward against its plain version) and its train
+   5's masked long forward against its plain version) and its train
    step at 884 slots (10 + 9 launches); (e) GraphBins-B5 with
    ``drop_path_rate`` 0.2: train-mode losses on one batch (dropout 0, no
    augmentation) equal for one generator seed, another for another seed,
@@ -456,15 +458,14 @@ ATTN_CASES = [("flagship 480x640", BATCH, 300, 300, "served"),
               ("Sq != Sk", BATCH, 300, 77, "served"),
               ("fully masked rows", BATCH, 300, 300, "full"),
               # ObjCAViT under do_final_upscale: 1200 image tokens against
-              # 1000 masked object slots (the streaming forward, the
-              # two-kernel backward)
+              # 1000 masked object slots (the long forward and backward)
               ("final upscale 1200x1000", BATCH, 1200, 1000, "served")]
 GRAPH_CALLS = 20  # kernel 5's calls in one timed CUDA graph
 # phase 13, do_final_upscale: the fifth upsample's input (B, Hi, Wi, C) and
 # output size, whose skip is the 3-channel image (kernel 1's bare form, then
 # torch.cat); kernel 2 at full resolution; kernel 4 at the full-resolution
-# train step; kernel 5 at miniViT's tokens, served (S 1200, the streaming
-# forward) and trained (S 884, the two-kernel backward)
+# train step; kernel 5 at miniViT's tokens, served (S 1200) and trained
+# (S 884), both on its long routes
 FU_RESIZE = (BATCH, 240, 320, 128, *EVAL_DIMS)
 FU_BINS_SHAPE = (BATCH, *EVAL_DIMS, 128)
 FU_EXP_SHAPE = (BATCH, TRAIN_DIMS[0] * TRAIN_DIMS[1], 256)
@@ -561,7 +562,7 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float, a
 
 
 # the backward's launches on its cluster route (one launch a call; longer
-# sequences take the two-kernel route): every backward on the main paths
+# sequences take the long route): every backward on the main paths
 # (S 132 to 300) must take it
 CLUSTER_COUNTER = "attention_bwd_cluster"
 # kernel 1's launches in its concat form: every served upsample takes it
@@ -643,8 +644,10 @@ def phase_build() -> None:
 # label, the mangled name's pattern and how its template arguments read
 PTXAS_KERNELS = (("kernel 1", r"resize_kernelILi(\d+)E", "CV {}"),
                  ("kernel 2", r"conv_bins_depth_kernelILi(\d+)E", "KSTEPS {}"),
-                 ("kernel 5 forward", r"attn_fwd_(resident_|)kernelE",
-                  "attn_fwd_{}kernel"),
+                 ("kernel 5 forward", r"attn_fwd_resident_kernelE", "resident"),
+                 ("kernel 5 cluster backward", r"attn_bwd_cluster_kernelE", "cluster"),
+                 ("kernel 5 long forward", r"attn_fwd_long_kernelE", "long"),
+                 ("kernel 5 long backward", r"attn_bwd_(long|rowsum)_kernelE", "{}"),
                  ("kernel 7", r"se_project_kernelILi(\d+)ELi(\d+)E", "MT {} NT {}"),
                  ("kernel 8", r"mbconv_kernelILi(\d)ELi(\d)E", "k{} row tiles {}"),
                  ("kernel 10", r"dw_silu_pool_kernelILi(\d)E", "k{}"))
@@ -880,6 +883,17 @@ def check_final_upscale_kernels(gen: torch.Generator, dev, long_errs: dict) -> d
     bwd = time_attention(gen, BATCH, FU_TRAIN_TOKENS, FU_TRAIN_TOKENS, "none")["bwd"]
     out["attention_fwd_final"] = {"max_abs_err": long_errs["fwd"], **fwd}
     out["attention_bwd_final"] = {"max_abs_err": long_errs["bwd"], **bwd}
+    # the long routes' exps beside their bound: one a score each time a
+    # route computes P (the forward once; the backward's row sum, key-tile
+    # and query-tile blocks once each), with their time on the SFU alone
+    n_sm, mhz = torch.cuda.get_device_properties(0).multi_processor_count, max_sm_mhz()
+    for name, entry, s, per_score in (("forward", fwd, FU_TOKENS, 1),
+                                      ("backward", bwd, FU_TRAIN_TOKENS, 3)):
+        exps = per_score * BATCH * ATTN_HEADS * s * s
+        log(f"kernel attention's long {name} (S {s}): {entry['ms']:.5f} ms, bound "
+            f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}); {exps} exps ({per_score} a "
+            f"score), {sfu_ms(exps, n_sm, mhz):.5f} ms on the SFU alone (16 ex2 a clock an SM "
+            f"at {mhz:.0f} MHz); SDPA {entry['library_ms']:.5f} ms")
     return out
 
 
@@ -898,7 +912,7 @@ def check_attention(gen: torch.Generator, dev) -> dict:
     ``ATTN_CASES`` case, each backward on the route its shape takes (the
     cluster route at every case up to 512 keys and queries); a fully masked
     row must be uniform over its keys. The largest errors of the cases
-    beyond 512 keys (the streaming forward, the two-kernel backward) are
+    beyond 512 keys (the long forward and backward) are
     returned apart too ('attention_long'). Then times at the flagship's served
     case and the train step's: the forward against the plain forward and
     SDPA with the same additive mask, the backward against the plain
@@ -918,7 +932,7 @@ def check_attention(gen: torch.Generator, dev) -> dict:
         torch.cuda.synchronize()
         if none is not None or not torch.equal(served, out):
             raise AssertionError(f"attention {label}: the forward without a residual differs")
-        route = "cluster" if kattn.fused_mha_bwd.cluster_launches > c0 else "two_kernel"
+        route = "cluster" if kattn.fused_mha_bwd.cluster_launches > c0 else "long"
         if route != kattn.bwd_route(sq, sk):
             raise AssertionError(f"attention {label}: the backward took the {route} route")
         err_f = check_attention_pairs(f"attention {label}", [
@@ -2840,7 +2854,7 @@ def serve_final_upscale(what: str, pipe, frames: list, served=None) -> dict:
 def train_final_upscale(what: str, step, batch, objects) -> dict:
     """One train step of a do_final_upscale model on kernel 5's route at bs
     8, 416x544: kernel 4 once forward and once backward, kernel 5's forward
-    and backward as the model gives them, every backward on the two-kernel
+    and backward as the model gives them, every backward on the long
     route (S 884); each launch against its plain version, a finite loss."""
     model = step.model
     fwd = 10 if model.takes_objects else 4
@@ -3443,10 +3457,10 @@ def main() -> None:
         entry("fused_mha_bwd", "attention.cu", "pallas_attention.py:108",
               attn_train["attention_bwd"] + trained["attention_bwd"] + v2["attention_bwd"],
               "attention_bwd"),
-        entry("fused_mha_fwd (beyond 512 keys, the streaming kernel: final upscale, timed at "
+        entry("fused_mha_fwd (beyond 512 keys, the long route: final upscale, timed at "
               "S 1200)", "attention.cu", "pallas_attention.py:91", fu["attention_fwd"],
               "attention_fwd_final"),
-        entry("fused_mha_bwd (beyond 512 keys, the two-kernel route: final upscale, timed at "
+        entry("fused_mha_bwd (beyond 512 keys, the long route: final upscale, timed at "
               "S 884)", "attention.cu", "pallas_attention.py:108", fu["attention_bwd"],
               "attention_bwd_final"),
         entry("se_gate_project", "se_project.cu", "se_project_pallas.py:80",

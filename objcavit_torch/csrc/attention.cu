@@ -25,14 +25,23 @@
 // and writes dq, dk, dv, 4.39 MB, and does five such products (1.31 us and
 // 0.93 us).
 //
+// At the long routes' shapes (B*H = 32, S 1200 served, S 884 trained) the
+// bound is operations, and not the tensor cores': the forward's 46.08 M
+// scores at S 1200 are 46.08 M exps, 0.011 ms on the SFU alone (16 ex2 a
+// clock an SM at 1.98 GHz), against 0.006 ms of products at 989 TFLOP/s,
+// and each score also costs some six fp32 instructions (scale, max,
+// subtract, sum, the hi/lo split). The backward's 25.0 M scores at S 884 are
+// exps and elementwise work once for every time a route computes P.
+//
 // Design. The TPU kernel keeps a whole (Sq, Sk) score tile of one (b, h) in
 // VMEM; here the scores never leave registers. Flash-style, in tiles of 64
-// keys: both products run on the tensor cores, mma.sync m16n8k16 bf16 with
-// fp32 accumulators; the softmax is online in fp32 (running row max and
-// sum). The weights enter the w v product split in two bf16 terms, hi =
-// bf16(w) and lo = bf16(w - hi), so they keep ~16 bits, not 8: the TPU
-// kernel multiplies fp32 weights. The same split carries ds and w into the
-// backward's products.
+// keys, products on the tensor cores in bf16 with fp32 accumulators; the
+// softmax is online in fp32 (running row max and sum). The weights enter
+// the w v product split in two bf16 terms, hi = bf16(w) and lo = bf16(w -
+// hi), so they keep ~16 bits, not 8: the TPU kernel multiplies fp32
+// weights. The same split carries ds and w into the backward's products.
+// Up to 512 keys and queries the products are mma.sync m16n8k16; beyond,
+// wgmma (the long routes, below).
 //
 // Forward, up to 512 keys (every model shape): a block takes R m-tiles of
 // 16 query rows of one (b, h) and holds the head's whole K, V and bias in
@@ -48,9 +57,7 @@
 // 64-row blocks made 160, 28 SMs ran two) and G as 16 warps allow
 // (kernels/attention.py::fwd_plan, passed in by the wrapper). Where no
 // backward reads the residual (the wrapper passes a null stats pointer: no
-// grad, or no input needing it), it is not written. Beyond 512 keys a
-// block of 4 warps takes 64 rows and streams K and V through two cp.async
-// stages.
+// grad, or no input needing it), it is not written.
 //
 // Hazards. Keys past Sk in the last tile get -inf, so they weigh exactly 0;
 // a masked key gets -1e30, so a row whose keys are all masked is uniform
@@ -60,9 +67,8 @@
 // and would lose the 1/Sk.
 //
 // Backward, no atomics, so the result does not depend on timing. D is the
-// row term rowsum(dP * P) (dP = g v^T; the TPU kernel's rowsum(dw * w), not
-// rowsum(g * o) of the rounded output). Two routes, chosen by shape in the
-// entry point:
+// row term rowsum(dP * P) (dP = g v^T; the TPU kernel's rowsum(dw * w)). Two
+// routes, chosen by shape in the entry point:
 //
 // Cluster route (Sq <= 512 and Sk <= 512; the models' shapes). One launch,
 // one thread-block cluster per (b, h) of n = ceil(Sk / 64) <= 8 blocks (the
@@ -87,12 +93,65 @@
 // an SM, each computing P and dP of its 19 m-tiles twice: 4 score-sized
 // products where the two-kernel route takes 6, and no grid-wide dependency.
 //
-// Two-kernel route (Sq or Sk above 512: more than 8 key tiles exceed the
-// portable cluster size): one kernel per (query tile, b*h) first sums D over all key tiles,
-// writes it, then takes a second pass over the key tiles to accumulate dq.
-// A second kernel per (key tile, b*h), launched after it, loops over the
-// query tiles to accumulate dk and dv, reading m, L and D. Both recompute P
-// from q, k and the residual.
+// Long routes (Sq or Sk above 512, up to 8192: under do_final_upscale every
+// attention, S 1200 served against up to 1000 object slots, S 884 trained).
+// The first versions lost to SDPA (0.0645 ms against 0.0462 forward at
+// S 1200, 0.153 against 0.059 backward at S 884 on the H100): one warp
+// walked all 19 key tiles of its 16 rows in series, every tile cost two
+// block-wide barriers on a two-stage cp.async ring, mma.sync fed each
+// product from shared memory by per-thread loads, and the backward
+// computed every score's P three times (a pass for D, one for dq, one for
+// dk and dv) in two launches in series. Now:
+//
+// * Warpgroups on wgmma. Every product is wgmma with the A operand in
+//   registers and B a 64 x 32 tile in shared memory in the 64-byte swizzle,
+//   the layout one TMA box of a head's 64 rows writes: S = Q K^T and dP =
+//   G V^T (and their transposes in the key-tile blocks) as m64n64k16 with
+//   Q, G, K or V fragments loaded once, the tile read as B^T; O += P V, dv
+//   += P^T g, dk += dS^T q and dq += dS k as m64n32k16 with P or dS as hi
+//   and lo terms straight from the score accumulators, the tile read as B
+//   (MN-major). Unswizzled tiles (four 8-column boxes) ran 1.5x slower, the
+//   32-column products on mma.sync 6-10% slower (PERF.md §6).
+// * A ring instead of block barriers. Each warpgroup streams its tiles by
+//   TMA (4-D tensor maps encoded on the host each call, on the strided
+//   views as they are; rows past S zero-filled) through a ring of 4 stages
+//   on mbarriers, which its first warp refills once the warpgroup's four
+//   warps have passed a named barrier after their last product on a stage.
+//   No block-wide barrier runs per tile. The wrapper's input check (16-byte
+//   aligned, unit stride in D, every other stride a multiple of 8 elements)
+//   makes every map encodable; where one still fails to encode, the launch
+//   returns cudaErrorInvalidValue, as kernels 2, 6 and 7 do, and never
+//   falls back to another route or copy path.
+// * One FFMA a score before the exp: x = s scale log2(e) + bias log2(e),
+//   then ex2(x - m); with no bias on a tile (S 1200 served has no mask) the
+//   max is taken on s and the scale folds into the exp's FFMA. The hi/lo
+//   split of P and dS truncates hi (a byte permute) and rounds lo: one
+//   conversion a pair, ~16 bits (split2_trunc).
+// * Forward: a block is G warpgroups (key groups, as the resident forward's)
+//   over the same 64 query rows, each over ceil(n / G) key tiles, merged
+//   through shared memory at the end. long_fwd_plan picks G from the SM's
+//   occupancy (four one-group blocks, two of two, one of three at 128
+//   registers) so the waves fill 132 SMs: G = 2 at S 1200, 1 at S 884.
+// * Backward: D = rowsum(dP * P) summed over the key tiles by a launch of
+//   query-tile blocks (the TPU kernel's row term). Then one launch of two
+//   kinds of one-warpgroup blocks, the key tiles' first: a key tile's block
+//   keeps dk and dv in registers over every query tile; a query tile's
+//   block keeps dq over every key tile. Each score's P and dP are computed
+//   three times, as in the first versions; each block sums in a fixed order and
+//   no block waits on another. D = rowsum(g o) from an fp32 output kept in
+//   the residual saved the first launch but missed the checks where dq
+//   cancels as a whole (GraphBins' final-upscale step: PERF.md §6).
+//
+// What bounds them now: neither the exps nor the tensor cores alone. Taking
+// out the exps, the P V products or the hi/lo split each saved 10-20% of
+// the forward's time on the H100; issuing the next tile's S ahead of the
+// softmax cost a warpgroup of occupancy and ran slower. The backward's N =
+// 32 products, with their split, take two thirds of its main launch: it
+// does 12 score-sized products a score where the bound counts 5.
+//
+// The residual of the long routes is the max and log-sum in log2 units: a
+// fully masked row's max rounds the same way in both directions, so its x
+// - m is 0 there and P is 1 / Sk.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -100,23 +159,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"  // smem_addr, the mbarrier and TMA helpers, the tensor-map encoder
+
 namespace {
 
 namespace cg = cooperative_groups;
 
 constexpr int kD = 32;       // head dimension
 constexpr int kTile = 64;    // rows of a block's tile: queries, or keys
-constexpr int kWarps = 4;    // 16 rows a warp
-constexpr int kThreads = kWarps * 32;
 constexpr int kLd = kD + 8;  // shared row stride (bf16): 80 bytes, conflict-free fragments
 
 struct Strides {
   long long b, s, h;  // element strides of a (B, S, H, D) view; D is unit-stride
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared; zero-filled when !valid (src is then not read)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -236,12 +291,6 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-// a 64-row tile by a block of kThreads threads
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long row_stride, int row0, int n_rows) {
-  load_rows<kThreads>(dst, base, row_stride, row0, kTile, n_rows);
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -322,67 +371,6 @@ struct Args {
   int h, s_q, s_k;
   float scale;
 };
-
-// grid (ceil(Sq / 64), B * H)
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(Args a, __nv_bfloat16* __restrict__ o, float* __restrict__ stats) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kTile * kLd];
-  __shared__ float bias_s[2][kTile];
-
-  const int bh = blockIdx.y, b = bh / a.h, hh = bh % a.h;
-  const int q0 = blockIdx.x * kTile;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = a.q + b * a.sq.b + hh * a.sq.h;
-  const __nv_bfloat16* kb = a.k + b * a.sk.b + hh * a.sk.h;
-  const __nv_bfloat16* vb = a.v + b * a.sv.b + hh * a.sv.h;
-  const float* biasb = a.bias ? a.bias + (size_t)b * a.s_k : nullptr;
-
-  auto load_kv = [&](int stage, int kt) {
-    load_tile(k_s[stage], kb, a.sk.s, kt * kTile, a.s_k);
-    load_tile(v_s[stage], vb, a.sv.s, kt * kTile, a.s_k);
-    if (threadIdx.x < kTile) {
-      const int key = kt * kTile + threadIdx.x;
-      bias_s[stage][threadIdx.x] = key < a.s_k ? (biasb ? biasb[key] : 0.f) : -INFINITY;
-    }
-  };
-
-  load_tile(q_s, qb, a.sq.s, q0, a.s_q);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  uint32_t qa[2][4];
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  float acc[4][4];
-#pragma unroll
-  for (int nd = 0; nd < 4; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
-  const int n_kt = (a.s_k + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_kt) load_kv(st ^ 1, kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (kt == 0) load_a(qa, q_s, warp * 16, g, t);
-
-    fwd_tile(qa, k_s[st], v_s[st], bias_s[st], a.scale, m_run, l_run, acc, lane, g, t);
-    __syncthreads();  // stage st is refilled in the next iteration
-  }
-
-  const int row = q0 + warp * 16 + g;
-  const float l0 = quad_sum(l_run[0]), l1 = quad_sum(l_run[1]);
-  const long long ld_o = (long long)a.h * kD;
-  store_rows(o + ((size_t)b * a.s_q * a.h + hh) * kD, ld_o, acc, row, a.s_q, 1.f / l0, 1.f / l1,
-             t);
-  if (t == 0 && stats) {
-    const size_t n = (size_t)gridDim.y * a.s_q;
-    float* m_out = stats + (size_t)bh * a.s_q;
-    if (row < a.s_q) m_out[row] = m_run[0], m_out[n + row] = logf(l0);
-    if (row + 8 < a.s_q) m_out[row + 8] = m_run[1], m_out[n + row + 8] = logf(l1);
-  }
-}
 
 // ---------------------------------------------- forward, keys resident
 
@@ -574,210 +562,6 @@ attn_fwd_resident_kernel(Args a, FwdPlan plan, __nv_bfloat16* __restrict__ o,
     if (row < a.s_q) m_out[row] = m_run[0], m_out[n + row] = logf(l0);
     if (row + 8 < a.s_q) m_out[row + 8] = m_run[1], m_out[n + row + 8] = logf(l1);
   }
-}
-
-// P of a 16 x 64 score fragment in place, from the residual of its rows:
-// x = s * scale + bias, P = exp((x - m) - L)
-__device__ __forceinline__ void probs_rows(float (&s)[8][4], const float* bias_tile,
-                                           const float (&m)[2], const float (&lsum)[2],
-                                           float scale, int t) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float x = s[nt][j] * scale + bias_tile[nt * 8 + 2 * t + (j & 1)];
-      s[nt][j] = __expf((x - m[j >> 1]) - lsum[j >> 1]);
-    }
-}
-
-// grid (ceil(Sq / 64), B * H): D = rowsum(dP * P) into drow, then dq
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(Args a, const __nv_bfloat16* __restrict__ gout,
-                   const float* __restrict__ stats, __nv_bfloat16* __restrict__ dq,
-                   float* __restrict__ drow) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 g_s[kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kTile * kLd];
-  __shared__ float bias_s[2][kTile];
-
-  const int bh = blockIdx.y, b = bh / a.h, hh = bh % a.h;
-  const int q0 = blockIdx.x * kTile;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const long long ld = (long long)a.h * kD;  // token stride of g and dq
-  const __nv_bfloat16* qb = a.q + b * a.sq.b + hh * a.sq.h;
-  const __nv_bfloat16* kb = a.k + b * a.sk.b + hh * a.sk.h;
-  const __nv_bfloat16* vb = a.v + b * a.sv.b + hh * a.sv.h;
-  const __nv_bfloat16* gb = gout + ((size_t)b * a.s_q * a.h + hh) * kD;
-  const float* biasb = a.bias ? a.bias + (size_t)b * a.s_k : nullptr;
-
-  auto load_kv = [&](int stage, int kt) {
-    load_tile(k_s[stage], kb, a.sk.s, kt * kTile, a.s_k);
-    load_tile(v_s[stage], vb, a.sv.s, kt * kTile, a.s_k);
-    if (threadIdx.x < kTile) {
-      const int key = kt * kTile + threadIdx.x;
-      bias_s[stage][threadIdx.x] = key < a.s_k ? (biasb ? biasb[key] : 0.f) : -INFINITY;
-    }
-  };
-
-  const int row = q0 + warp * 16 + g;
-  const size_t n_rows_all = (size_t)gridDim.y * a.s_q;
-  const float* m_in = stats + (size_t)bh * a.s_q;
-  float m[2], lsum[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = row + 8 * r;
-    m[r] = rr < a.s_q ? m_in[rr] : 0.f;
-    lsum[r] = rr < a.s_q ? m_in[n_rows_all + rr] : 0.f;
-  }
-
-  load_tile(q_s, qb, a.sq.s, q0, a.s_q);
-  load_tile(g_s, gb, ld, q0, a.s_q);
-  uint32_t qa[2][4], ga[2][4];
-  const int n_kt = (a.s_k + kTile - 1) / kTile;
-  float dsum[2] = {0.f, 0.f};
-  float d[2];
-  float acc[4][4];
-#pragma unroll
-  for (int nd = 0; nd < 4; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
-  // pass 0 sums the row term, pass 1 accumulates dq
-  for (int pass = 0; pass < 2; ++pass) {
-    load_kv(0, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int st = kt & 1;
-      if (kt + 1 < n_kt) load_kv(st ^ 1, kt + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      if (pass == 0 && kt == 0) {
-        load_a(qa, q_s, warp * 16, g, t);
-        load_a(ga, g_s, warp * 16, g, t);
-      }
-      float p[8][4], dp[8][4];
-      mma_by_tile_t(p, qa, k_s[st], g, t);
-      probs_rows(p, bias_s[st], m, lsum, a.scale, t);
-      mma_by_tile_t(dp, ga, v_s[st], g, t);
-      if (pass == 0) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dsum[j >> 1] += p[nt][j] * dp[nt][j];
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) p[nt][j] *= dp[nt][j] - d[j >> 1];
-        mma_split_by_tile(acc, p, k_s[st], lane);
-      }
-      __syncthreads();
-    }
-    cp_async_wait<0>();
-    if (pass == 0) {
-      d[0] = quad_sum(dsum[0]);
-      d[1] = quad_sum(dsum[1]);
-      if (t == 0) {
-        if (row < a.s_q) drow[(size_t)bh * a.s_q + row] = d[0];
-        if (row + 8 < a.s_q) drow[(size_t)bh * a.s_q + row + 8] = d[1];
-      }
-    }
-  }
-  store_rows(dq + ((size_t)b * a.s_q * a.h + hh) * kD, ld, acc, row, a.s_q, a.scale, a.scale, t);
-}
-
-// grid (ceil(Sk / 64), B * H): dk and dv of a tile of 64 keys, over every query tile
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_kernel(Args a, const __nv_bfloat16* __restrict__ gout,
-                     const float* __restrict__ stats, const float* __restrict__ drow,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 q_s[2][kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 g_s[2][kTile * kLd];
-  __shared__ float m_s[2][kTile], l_s[2][kTile], d_s[2][kTile];
-
-  const int bh = blockIdx.y, b = bh / a.h, hh = bh % a.h;
-  const int k0 = blockIdx.x * kTile;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const long long ld = (long long)a.h * kD;  // token stride of g, dk and dv
-  const __nv_bfloat16* qb = a.q + b * a.sq.b + hh * a.sq.h;
-  const __nv_bfloat16* kb = a.k + b * a.sk.b + hh * a.sk.h;
-  const __nv_bfloat16* vb = a.v + b * a.sv.b + hh * a.sv.h;
-  const __nv_bfloat16* gb = gout + ((size_t)b * a.s_q * a.h + hh) * kD;
-  const size_t n_rows_all = (size_t)gridDim.y * a.s_q;
-  const float* m_in = stats + (size_t)bh * a.s_q;
-  const float* d_in = drow + (size_t)bh * a.s_q;
-
-  auto load_q = [&](int stage, int qt) {
-    load_tile(q_s[stage], qb, a.sq.s, qt * kTile, a.s_q);
-    load_tile(g_s[stage], gb, ld, qt * kTile, a.s_q);
-    if (threadIdx.x < kTile) {
-      const int qi = qt * kTile + threadIdx.x;
-      const bool valid = qi < a.s_q;
-      // an m of +inf makes P = 0 for the rows past Sq
-      m_s[stage][threadIdx.x] = valid ? m_in[qi] : INFINITY;
-      l_s[stage][threadIdx.x] = valid ? m_in[n_rows_all + qi] : 0.f;
-      d_s[stage][threadIdx.x] = valid ? d_in[qi] : 0.f;
-    }
-  };
-
-  // this thread's two keys (rows of P^T) and their bias
-  const int key = k0 + warp * 16 + g;
-  float bias_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kr = key + 8 * r;
-    bias_r[r] = (a.bias && kr < a.s_k) ? a.bias[(size_t)b * a.s_k + kr] : 0.f;
-  }
-
-  load_tile(k_s, kb, a.sk.s, k0, a.s_k);
-  load_tile(v_s, vb, a.sv.s, k0, a.s_k);
-  load_q(0, 0);
-  cp_async_commit();
-
-  uint32_t ka[2][4], va[2][4];
-  float dk_acc[4][4], dv_acc[4][4];
-#pragma unroll
-  for (int nd = 0; nd < 4; ++nd)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[nd][j] = dv_acc[nd][j] = 0.f;
-
-  const int n_qt = (a.s_q + kTile - 1) / kTile;
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int st = qt & 1;
-    if (qt + 1 < n_qt) load_q(st ^ 1, qt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (qt == 0) {
-      load_a(ka, k_s, warp * 16, g, t);
-      load_a(va, v_s, warp * 16, g, t);
-    }
-    // P^T (16 keys x 64 queries) and dP^T = v g^T
-    float p[8][4], dp[8][4];
-    mma_by_tile_t(p, ka, q_s[st], g, t);
-    mma_by_tile_t(dp, va, g_s[st], g, t);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = nt * 8 + 2 * t + (j & 1);
-        const float x = p[nt][j] * a.scale + bias_r[j >> 1];
-        p[nt][j] = __expf((x - m_s[st][qc]) - l_s[st][qc]);
-      }
-    mma_split_by_tile(dv_acc, p, g_s[st], lane);  // dv += P^T g
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p[nt][j] *= dp[nt][j] - d_s[st][nt * 8 + 2 * t + (j & 1)];
-    mma_split_by_tile(dk_acc, p, q_s[st], lane);  // dk += dS^T q
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  const size_t head = ((size_t)b * a.s_k * a.h + hh) * kD;
-  store_rows(dk + head, ld, dk_acc, key, a.s_k, a.scale, a.scale, t);
-  store_rows(dv + head, ld, dv_acc, key, a.s_k, 1.f, 1.f, t);
 }
 
 // ------------------------------------------------------------ cluster route
@@ -1101,6 +885,603 @@ attn_bwd_cluster_kernel(Args a, const __nv_bfloat16* __restrict__ gout,
   cluster_wait();
 }
 
+// ------------------------------------------------ long routes: Sq or Sk above 512
+
+constexpr int kLongMaxS = 8192;  // queries and keys of a long launch: their rows sit in shared memory
+constexpr int kWg = 128;         // threads of a warpgroup
+constexpr int kStages = 4;       // a warpgroup's ring of stages
+constexpr int kTileBytes = kTile * kD * 2;   // a 64 x 32 bf16 tile: 64-byte rows
+constexpr int kStageBytes = 2 * kTileBytes;  // a stage: K and V, or Q and G, tiles
+constexpr int kMaxLongGroups = 3;            // key groups (warpgroups) of a forward block
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 64 x 32 tile in shared memory has rows of 64 bytes in the 64-byte
+// swizzle: the 16-byte chunk c of row r sits at 64 r + 16 (c ^ (r / 2 % 4)),
+// what a TMA box of one head's 64 rows writes with CU_TENSOR_MAP_SWIZZLE_64B;
+// tiles start 1024-byte aligned. Its wgmma descriptor: 8-row groups 512
+// bytes apart, layout type 2 (64-byte swizzle)
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
+}
+// the tile as B^T of a product (N = its rows, K = its columns, K-major),
+// k-step ks taking columns 16 ks .. 16 ks + 15
+__device__ __forceinline__ uint64_t desc_rows(uint32_t tile, int ks) {
+  return sw64_desc(tile + 32 * ks);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator accesses across the async products
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
+}
+
+// d (64 x 64) (+)= A (64 x 16: this warp's 16 rows in registers, mma.sync's
+// A layout) B, B from a K-major descriptor. d[nt][j] is mma.sync's
+// accumulator layout of n-tile nt: row g (+8 for j >= 2), column 8 nt + 2 t + (j & 1)
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %37, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(accumulate), "l"(db));
+}
+
+// (x0, x1) -> hi = x truncated to bf16 (its top 16 bits, a byte permute),
+// lo = bf16(x - hi), packed low half first: one conversion a pair where
+// split2 takes two and unpacks hi. |x - hi| < one bf16 ulp of x, so hi + lo
+// keeps ~16 bits (an error under 2^-16 of x; split2's, 2^-17)
+__device__ __forceinline__ void split2_trunc(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  hi = __byte_perm(u0, u1, 0x7632);
+  lo = bits(__floats2bfloat162_rn(x0 - __uint_as_float(u0 & 0xffff0000u),
+                                  x1 - __uint_as_float(u1 & 0xffff0000u)));
+}
+
+// the tile as B (K = its rows, N = its columns: MN-major, wgmma's
+// transposed B), k-step kk taking rows 16 kk .. 16 kk + 15
+__device__ __forceinline__ uint64_t desc_cols(uint32_t tile, int kk) {
+  return sw64_desc(tile + 1024 * kk);
+}
+
+// d (64 x 32) += A (64 x 16 in registers) B, B from an MN-major descriptor
+__device__ __forceinline__ void wgmma_n32t(float (&d)[4][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// acc (64 x 32) += X (64 x 64 fp32 in the accumulator layout, as hi + lo
+// bf16 terms: split2_trunc) Y, Y a 64 x 32 tile taken as B (K = its rows):
+// wgmma m64n32k16 with the terms as register A operands, then waits for
+// them. The weights keep ~16 bits.
+__device__ __forceinline__ void wgmma_split(float (&acc)[4][4], const float (&x)[8][4],
+                                            uint32_t y) {
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    split2_trunc(x[2 * kk][0], x[2 * kk][1], hi[kk][0], lo[kk][0]);
+    split2_trunc(x[2 * kk][2], x[2 * kk][3], hi[kk][1], lo[kk][1]);
+    split2_trunc(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[kk][2], lo[kk][2]);
+    split2_trunc(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[kk][3], lo[kk][3]);
+  }
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_n32t(acc, hi[kk], desc_cols(y, kk));
+    wgmma_n32t(acc, lo[kk], desc_cols(y, kk));
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(acc);
+}
+
+// A fragments of rows row0 .. row0 + 15 of a (B, S, H, 32) head (head
+// points at its row 0), read from global memory; rows past n_rows are zeros
+__device__ __forceinline__ void load_a_global(uint32_t (&a)[2][4], const __nv_bfloat16* head,
+                                              long long row_stride, int row0, int n_rows, int g,
+                                              int t) {
+  const bool v0 = row0 + g < n_rows, v1 = row0 + g + 8 < n_rows;
+  const __nv_bfloat16* p0 = head + (long long)(row0 + g) * row_stride + 2 * t;
+  const __nv_bfloat16* p1 = p0 + 8 * row_stride;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    a[ks][0] = v0 ? lds32(p0 + 16 * ks) : 0u;
+    a[ks][1] = v1 ? lds32(p1 + 16 * ks) : 0u;
+    a[ks][2] = v0 ? lds32(p0 + 16 * ks + 8) : 0u;
+    a[ks][3] = v1 ? lds32(p1 + 16 * ks + 8) : 0u;
+  }
+}
+
+// one tensor that a ring streams: its tensor map and the head it reads
+struct TileSrc {
+  const CUtensorMap* map;
+  int b, h;
+};
+
+// rows [row0, row0 + 64) of x and y into a stage, rows past S zero-filled
+// by the maps: lane 0 arms the stage's barrier for its bytes and issues
+// one TMA box a tensor, completing on it
+__device__ __forceinline__ void fill_stage(uint32_t stage, uint32_t bar, const TileSrc& x,
+                                           const TileSrc& y, int row0, int lane) {
+  if (lane != 0) return;
+  mbar_expect_tx(bar, kStageBytes);
+  tma_load_4d(stage, x.map, bar, 0, x.h, row0, x.b);
+  tma_load_4d(stage + kTileBytes, y.map, bar, 0, y.h, row0, y.b);
+}
+
+// a ring's full barriers, one arrival each (the TMA's expect_tx)
+__device__ __forceinline__ void init_ring(uint32_t bars) {
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// wait until the j-th tile of a ring has landed
+__device__ __forceinline__ void wait_stage(uint32_t bars, int j) {
+  mbar_wait(bars + 8 * (j % kStages), (j / kStages) & 1);
+}
+
+// the warpgroup's four warps (named barrier `id`): all of them are done
+// reading a stage before it is refilled
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kWg) : "memory");
+}
+
+// Byte offsets of a long forward block's shared memory, from its first
+// 1024-byte boundary: each warpgroup's ring, every key's bias (log2 units),
+// key groups 1..'s states for the merge, the rings' barriers
+struct LongFwdSmem {
+  int bias, merge, bars, total;
+};
+
+__host__ __device__ inline LongFwdSmem long_fwd_smem(int n_kt, int groups) {
+  LongFwdSmem s;
+  s.bias = groups * kStages * kStageBytes;
+  s.merge = s.bias + n_kt * kTile * 4;
+  s.bars = s.merge + (groups - 1) * kMergeVals * kWg * 4;
+  s.total = s.bars + groups * kStages * 8 + 1024;  // and the alignment
+  return s;
+}
+
+// grid (ceil(Sq / 64), B * H) of `groups` warpgroups (the wrapper's
+// long_fwd_plan). A block takes 64 query rows of one (b, h); warpgroup k
+// takes them over key group k's tiles (group_first_tile), streamed by TMA
+// through its own ring of kStages stages, and holds Q in registers: S = Q
+// K^T and O += P V run on wgmma, the softmax in log2 units (x = s scale
+// log2 e + bias log2 e, then ex2). Groups 1.. hand their max, sums and
+// accumulators to group 0 through shared memory at the end, which writes o
+// and, where stats is not null, the residual: each row's max and log-sum
+// in log2 units.
+__global__ void __launch_bounds__(kMaxLongGroups * kWg, 1)
+attn_fwd_long_kernel(const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, Args a,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char lsm[];
+  const int groups = blockDim.x / kWg;
+  const int n_kt = (a.s_k + kTile - 1) / kTile;
+  const LongFwdSmem off = long_fwd_smem(n_kt, groups);
+  const uint32_t raw = smem_addr(lsm), base = (raw + 1023) & ~1023u;
+  float* bias_s = reinterpret_cast<float*>(lsm + (base - raw) + off.bias);
+  float* merge_s = reinterpret_cast<float*>(lsm + (base - raw) + off.merge);
+
+  const int wg = threadIdx.x / kWg, wt = threadIdx.x % kWg;
+  const int lane = threadIdx.x & 31, wq = wt >> 5, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / a.h, hh = bh % a.h;
+  const int q0 = blockIdx.x * kTile;
+  const int t0 = group_first_tile(wg, n_kt, groups);
+  const int n = group_first_tile(wg + 1, n_kt, groups) - t0;  // this group's tiles
+  const uint32_t ring = base + wg * kStages * kStageBytes;
+  const uint32_t bars = base + off.bars + wg * kStages * 8;
+  const TileSrc ks = {&tm_k, b, hh}, vs = {&tm_v, b, hh};
+
+  if (wt == 0) init_ring(bars);
+  const float* biasb = a.bias ? a.bias + (size_t)b * a.s_k : nullptr;
+  for (int i = threadIdx.x; i < n_kt * kTile; i += blockDim.x)
+    bias_s[i] = i < a.s_k ? (biasb ? biasb[i] * kLog2e : 0.f) : -INFINITY;
+  __syncthreads();  // the barriers set up, the bias whole
+  if (wq == 0)
+    for (int j = 0; j < n && j < kStages; ++j)
+      fill_stage(ring + j * kStageBytes, bars + 8 * j, ks, vs, (t0 + j) * kTile, lane);
+
+  uint32_t qa[2][4];
+  load_a_global(qa, a.q + b * a.sq.b + hh * a.sq.h, a.sq.s, q0 + 16 * wq, a.s_q, g, t);
+  const float c = a.scale * kLog2e;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float acc[4][4], sc[8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+
+  // Tile by tile: S = Q K^T on wgmma, then the softmax and O += P V. Issuing
+  // the next tile's S before this tile's softmax (two score buffers) cost
+  // 153 registers and a warpgroup of occupancy, and ran slower (PERF.md
+  // §6): the SM's other warpgroups cover the wait
+  for (int j = 0; j < n; ++j) {
+    const int kt = t0 + j;
+    const uint32_t stage = ring + (j % kStages) * kStageBytes;
+    wait_stage(bars, j);
+    wgmma_fence();
+    wgmma_n64(sc, qa[0], desc_rows(stage, 0), 0);
+    wgmma_n64(sc, qa[1], desc_rows(stage, 1), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(sc);
+    // x = s c + bias log2(e), then p = ex2(x - m): one FFMA and the exp a
+    // score. Where no key of the tile has a bias (no mask, no key past Sk)
+    // the scores stay s, the max is taken on them and c folds into the
+    // exp's FFMA (cc = c), else cc = 1
+    const bool biased = a.bias || (kt + 1) * kTile > a.s_k;
+    if (biased) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 bb = *reinterpret_cast<const float2*>(bias_s + kt * kTile + nt * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = fmaf(sc[nt][e], c, (e & 1) ? bb.y : bb.x);
+      }
+    }
+    const float cc = biased ? 1.f : c;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // every tile holds a real key, so the new max is finite
+      const float m_new = fmaxf(m_run[r], quad_max(mx[r]) * cc);
+      alpha[r] = ex2(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd) {
+      acc[nd][0] *= alpha[0];
+      acc[nd][1] *= alpha[0];
+      acc[nd][2] *= alpha[1];
+      acc[nd][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(sc[nt][e], cc, -m_run[e >> 1]));
+        sc[nt][e] = p;
+        l_run[e >> 1] += p;
+      }
+    wgmma_split(acc, sc, stage + kTileBytes);  // acc += P V
+    wg_sync(1 + wg);  // every warp's products are done with the stage
+    if (wq == 0 && j + kStages < n)
+      fill_stage(stage, bars + 8 * (j % kStages), ks, vs, (kt + kStages) * kTile, lane);
+  }
+
+  // groups 1..'s states (a max of -inf and zero sums where a group took no tile)
+  if (wg > 0) {
+    float* mine = merge_s + (wg - 1) * kMergeVals * kWg + wt;
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(nd * 4 + e) * kWg] = acc[nd][e];
+    mine[16 * kWg] = m_run[0];
+    mine[17 * kWg] = m_run[1];
+    mine[18 * kWg] = l_run[0];
+    mine[19 * kWg] = l_run[1];
+  }
+  __syncthreads();
+  if (wg > 0) return;
+  for (int other_g = 1; other_g < groups; ++other_g) {
+    const float* other = merge_s + (other_g - 1) * kMergeVals * kWg + wt;
+    float alpha[2], beta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mb = other[(16 + r) * kWg];
+      const float m = fmaxf(m_run[r], mb);  // group 0's max is finite: tile 0 holds key 0
+      alpha[r] = ex2(m_run[r] - m);
+      beta[r] = ex2(mb - m);
+      l_run[r] = l_run[r] * alpha[r] + other[(18 + r) * kWg] * beta[r];
+      m_run[r] = m;
+    }
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[nd][e] = acc[nd][e] * alpha[e >> 1] + other[(nd * 4 + e) * kWg] * beta[e >> 1];
+  }
+
+  const int row = q0 + 16 * wq + g;
+  const float l0 = quad_sum(l_run[0]), l1 = quad_sum(l_run[1]);
+  store_rows(o + ((size_t)b * a.s_q * a.h + hh) * kD, (long long)a.h * kD, acc, row, a.s_q,
+             1.f / l0, 1.f / l1, t);
+  if (t == 0 && stats) {
+    const size_t n_all = (size_t)gridDim.y * a.s_q;
+    float* m_out = stats + (size_t)bh * a.s_q;
+    if (row < a.s_q) m_out[row] = m_run[0], m_out[n_all + row] = log2f(l0);
+    if (row + 8 < a.s_q) m_out[row + 8] = m_run[1], m_out[n_all + row + 8] = log2f(l1);
+  }
+}
+
+// Byte offsets of a long backward block's shared memory, from its first
+// 1024-byte boundary: the ring, the per-row arrays (a key tile's block: m,
+// L and D of every query; a query tile's block: every key's bias), the
+// ring's barriers
+struct LongBwdSmem {
+  int rows, bars, total;
+};
+
+__host__ __device__ inline LongBwdSmem long_bwd_smem(int sq_p, int sk_p) {
+  LongBwdSmem s;
+  s.rows = kStages * kStageBytes;
+  s.bars = s.rows + (3 * sq_p > sk_p ? 3 * sq_p : sk_p) * 4;
+  s.total = s.bars + kStages * 8 + 1024;  // and the alignment
+  return s;
+}
+
+// The block of query tile qt of head bh in the long backward, one
+// warpgroup: Q and G in registers as the A operands, every key tile's K and
+// V streamed through its ring, S = Q K^T and dP = G V^T on wgmma and P =
+// exp2(S c + bias - m - L). With kRowsum (the first launch) it sums D =
+// rowsum(dP * P) of its rows, each thread over its keys in tile order, then
+// the quad in order, into drow; else (the main launch) it forms dS = P (dP
+// - D) with drow's D and sums dq += dS k over the key tiles in order.
+template <bool kRowsum>
+__device__ __forceinline__ void query_tile_block(const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                                 const Args& a, int qt, int bh,
+                                                 const __nv_bfloat16* gout, const float* stats,
+                                                 float* drow, __nv_bfloat16* dq,
+                                                 unsigned char* lsm) {
+  const int n_kt = (a.s_k + kTile - 1) / kTile, n_qt = (a.s_q + kTile - 1) / kTile;
+  const LongBwdSmem off = long_bwd_smem(n_qt * kTile, n_kt * kTile);
+  const uint32_t raw = smem_addr(lsm), base = (raw + 1023) & ~1023u;
+  float* bias_s = reinterpret_cast<float*>(lsm + (base - raw) + off.rows);
+  const uint32_t bars = base + off.bars;
+  const int lane = threadIdx.x & 31, wq = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int b = bh / a.h, hh = bh % a.h;
+  const long long ld = (long long)a.h * kD;  // token stride of g and dq
+  const size_t n_all = (size_t)gridDim.x * a.s_q;
+  const float c = a.scale * kLog2e;
+  const __nv_bfloat16* gb = gout + ((size_t)b * a.s_q * a.h + hh) * kD;
+  const float* m_in = stats + (size_t)bh * a.s_q;  // the max, then (n_all on) the log-sum
+  const int q0 = qt * kTile;
+
+  if (threadIdx.x == 0) init_ring(bars);
+  const float* biasb = a.bias ? a.bias + (size_t)b * a.s_k : nullptr;
+  for (int i = threadIdx.x; i < n_kt * kTile; i += kWg)
+    bias_s[i] = i < a.s_k ? (biasb ? biasb[i] * kLog2e : 0.f) : -INFINITY;
+  __syncthreads();  // the barriers set up, the bias whole
+  const TileSrc ks = {tm_k, b, hh}, vs = {tm_v, b, hh};
+  if (wq == 0)
+    for (int j = 0; j < n_kt && j < kStages; ++j)
+      fill_stage(base + j * kStageBytes, bars + 8 * j, ks, vs, j * kTile, lane);
+
+  uint32_t qa[2][4], ga[2][4];
+  load_a_global(qa, a.q + b * a.sq.b + hh * a.sq.h, a.sq.s, q0 + 16 * wq, a.s_q, g, t);
+  load_a_global(ga, gb, ld, q0 + 16 * wq, a.s_q, g, t);
+  const int row = q0 + 16 * wq + g;
+  float m[2], l[2], d[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool valid = row + 8 * r < a.s_q;
+    // an m of +inf makes P = 0 for the rows past Sq
+    m[r] = valid ? m_in[row + 8 * r] : INFINITY;
+    l[r] = valid ? m_in[n_all + row + 8 * r] : 0.f;
+    d[r] = valid && !kRowsum ? drow[(size_t)bh * a.s_q + row + 8 * r] : 0.f;
+  }
+  float dq_acc[4][4], s[8][4], dp[8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const uint32_t stage = base + (j % kStages) * kStageBytes;
+    wait_stage(bars, j);
+    wgmma_fence();
+    wgmma_n64(s, qa[0], desc_rows(stage, 0), 0);  // S = Q K^T
+    wgmma_n64(s, qa[1], desc_rows(stage, 1), 1);
+    wgmma_n64(dp, ga[0], desc_rows(stage + kTileBytes, 0), 0);  // dP = G V^T
+    wgmma_n64(dp, ga[1], desc_rows(stage + kTileBytes, 1), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(s);
+    fence_acc(dp);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias_s + j * kTile + nt * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = ex2((fmaf(s[nt][e], c, (e & 1) ? bb.y : bb.x) - m[r]) - l[r]);
+        if (kRowsum)
+          d[r] = fmaf(p, dp[nt][e], d[r]);
+        else
+          dp[nt][e] = p * (dp[nt][e] - d[r]);
+      }
+    }
+    if (!kRowsum) wgmma_split(dq_acc, dp, stage);  // dq += dS k
+    wg_sync(1);  // every warp's products are done with the stage
+    if (wq == 0 && j + kStages < n_kt)
+      fill_stage(stage, bars + 8 * (j % kStages), ks, vs, (j + kStages) * kTile, lane);
+  }
+  if (kRowsum) {
+    const float d0 = quad_sum(d[0]), d1 = quad_sum(d[1]);
+    if (t == 0) {
+      if (row < a.s_q) drow[(size_t)bh * a.s_q + row] = d0;
+      if (row + 8 < a.s_q) drow[(size_t)bh * a.s_q + row + 8] = d1;
+    }
+  } else {
+    store_rows(dq + ((size_t)b * a.s_q * a.h + hh) * kD, ld, dq_acc, row, a.s_q, a.scale,
+               a.scale, t);
+  }
+}
+
+// grid (B * H, ceil(Sq / 64)) of one warpgroup: D = rowsum(dP * P) of every
+// query row into drow (query_tile_block<true>), which the long backward
+// reads: the TPU kernel's row term, from the same recomputed P and dP as
+// the main launch's, so dS sums to zero over the keys up to its rounding.
+__global__ void __launch_bounds__(kWg, 4)
+attn_bwd_rowsum_kernel(const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, Args a,
+                       const __nv_bfloat16* __restrict__ gout, const float* __restrict__ stats,
+                       float* __restrict__ drow) {
+  extern __shared__ __align__(16) unsigned char lsm[];
+  query_tile_block<true>(&tm_k, &tm_v, a, blockIdx.y, blockIdx.x, gout, stats, drow, nullptr,
+                         lsm);
+}
+
+// grid (B * H, ceil(Sk / 64) + ceil(Sq / 64)) of one warpgroup, so every
+// head's key-tile blocks, the longer ones, are dispatched before any
+// query-tile block. Block y < ceil(Sk / 64) owns key tile y: K and V in
+// registers as the A operands, it streams every query tile's Q and G
+// through its ring and computes P^T = exp2(K Q^T c + bias - m - L) and dP^T
+// = V G^T, dS^T = P^T (dP^T - D), then dv += P^T g and dk += dS^T q, summed
+// over the query tiles in order and written once. The other blocks own a
+// query tile (query_tile_block<false>): dq += dS k over the key tiles in
+// order. No block waits on another, no atomics: two calls give the same
+// bits. D comes from attn_bwd_rowsum_kernel, launched first.
+__global__ void __launch_bounds__(kWg, 3)
+attn_bwd_long_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_g, Args a,
+                     const __nv_bfloat16* __restrict__ gout, const float* __restrict__ stats,
+                     float* __restrict__ drow, __nv_bfloat16* __restrict__ dq,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
+  extern __shared__ __align__(16) unsigned char lsm[];
+  const int n_kt = (a.s_k + kTile - 1) / kTile, n_qt = (a.s_q + kTile - 1) / kTile;
+  if (blockIdx.y >= n_kt) {
+    query_tile_block<false>(&tm_k, &tm_v, a, blockIdx.y - n_kt, blockIdx.x, gout, stats, drow,
+                            dq, lsm);
+    return;
+  }
+  // ----------------------------------------------- key tile: dk and dv
+  const LongBwdSmem off = long_bwd_smem(n_qt * kTile, n_kt * kTile);
+  const uint32_t raw = smem_addr(lsm), base = (raw + 1023) & ~1023u;
+  float* rows_s = reinterpret_cast<float*>(lsm + (base - raw) + off.rows);
+  const uint32_t bars = base + off.bars;
+  const int lane = threadIdx.x & 31, wq = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / a.h, hh = bh % a.h;
+  const long long ld = (long long)a.h * kD;  // token stride of g, dk and dv
+  const size_t n_all = (size_t)gridDim.x * a.s_q;
+  const float c = a.scale * kLog2e;
+  const __nv_bfloat16* kb = a.k + b * a.sk.b + hh * a.sk.h;
+  const __nv_bfloat16* vb = a.v + b * a.sv.b + hh * a.sv.h;
+  const float* m_in = stats + (size_t)bh * a.s_q;  // the max, then (n_all on) the log-sum
+  const float* d_in = drow + (size_t)bh * a.s_q;
+  if (threadIdx.x == 0) init_ring(bars);
+  const int k0 = blockIdx.y * kTile, sq_p = n_qt * kTile;
+  float* m_s = rows_s;
+  float* l_s = rows_s + sq_p;
+  float* d_s = rows_s + 2 * sq_p;
+  for (int i = threadIdx.x; i < sq_p; i += kWg) {
+    const bool valid = i < a.s_q;
+    // an m of +inf makes P = 0 for the queries past Sq
+    m_s[i] = valid ? m_in[i] : INFINITY;
+    l_s[i] = valid ? m_in[n_all + i] : 0.f;
+    d_s[i] = valid ? d_in[i] : 0.f;
+  }
+  __syncthreads();  // the barriers set up, the rows whole
+  const TileSrc qs = {&tm_q, b, hh}, gs = {&tm_g, b, hh};
+  if (wq == 0)
+    for (int j = 0; j < n_qt && j < kStages; ++j)
+      fill_stage(base + j * kStageBytes, bars + 8 * j, qs, gs, j * kTile, lane);
+
+  uint32_t ka[2][4], va[2][4];
+  load_a_global(ka, kb, a.sk.s, k0 + 16 * wq, a.s_k, g, t);
+  load_a_global(va, vb, a.sv.s, k0 + 16 * wq, a.s_k, g, t);
+  float bias_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + 16 * wq + g + 8 * r;
+    bias_r[r] = key < a.s_k ? (a.bias ? a.bias[(size_t)b * a.s_k + key] * kLog2e : 0.f)
+                            : -INFINITY;
+  }
+  float dk_acc[4][4], dv_acc[4][4], st[8][4], dpt[8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.f;
+
+  for (int j = 0; j < n_qt; ++j) {
+    const uint32_t stage = base + (j % kStages) * kStageBytes;
+    wait_stage(bars, j);
+    wgmma_fence();
+    wgmma_n64(st, ka[0], desc_rows(stage, 0), 0);  // S^T = K Q^T
+    wgmma_n64(st, ka[1], desc_rows(stage, 1), 1);
+    wgmma_n64(dpt, va[0], desc_rows(stage + kTileBytes, 0), 0);  // dP^T = V G^T
+    wgmma_n64(dpt, va[1], desc_rows(stage + kTileBytes, 1), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(st);
+    fence_acc(dpt);
+    // row: a key (bias_r); column: query 64 j + 8 nt + 2 t + (e & 1)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int qc = j * kTile + nt * 8 + 2 * t;
+      const float2 mm = *reinterpret_cast<const float2*>(m_s + qc);
+      const float2 ll = *reinterpret_cast<const float2*>(l_s + qc);
+      const float2 dd = *reinterpret_cast<const float2*>(d_s + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = fmaf(st[nt][e], c, bias_r[e >> 1]);
+        const float p = ex2((x - ((e & 1) ? mm.y : mm.x)) - ((e & 1) ? ll.y : ll.x));
+        st[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - ((e & 1) ? dd.y : dd.x));
+      }
+    }
+    wgmma_split(dv_acc, st, stage + kTileBytes);  // dv += P^T g
+    wgmma_split(dk_acc, dpt, stage);              // dk += dS^T q
+    wg_sync(1);  // every warp's products are done with the stage
+    if (wq == 0 && j + kStages < n_qt)
+      fill_stage(stage, bars + 8 * (j % kStages), qs, gs, (j + kStages) * kTile, lane);
+  }
+  const size_t head = ((size_t)b * a.s_k * a.h + hh) * kD;
+  const int key = k0 + 16 * wq + g;
+  store_rows(dk + head, ld, dk_acc, key, a.s_k, a.scale, a.scale, t);
+  store_rows(dv + head, ld, dv_acc, key, a.s_k, 1.f, 1.f, t);
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* bias,
                const long long* strides, int h, int s_q, int s_k, float scale) {
   Args a;
@@ -1163,20 +1544,75 @@ cudaLaunchConfig_t cluster_config(int b, int h, int s_q, int s_k, void* stream,
   return cfg;
 }
 
+// the long kernels' shared memory limits, set once: they hold for the process
+cudaError_t configure_long_kernels() {
+  static bool configured = false;
+  if (configured) return cudaSuccess;
+  const int fwd = long_fwd_smem(kLongMaxS / kTile, kMaxLongGroups).total;
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_long_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, fwd);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               long_bwd_smem(kLongMaxS, kLongMaxS).total);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_rowsum_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               long_bwd_smem(kLongMaxS, kLongMaxS).total);
+  configured = err == cudaSuccess;
+  return err;
+}
+
+// the tensor map of one (B, S, H, 32) bf16 tensor with element strides st:
+// boxes of 64 rows of one head in the 64-byte swizzle, rows past S zero-filled
+bool head_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int b, int s, int h,
+              const Strides& st) {
+  const cuuint64_t dims[4] = {kD, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {kD, 1, kTile, 1}, unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor maps of n tensors; false where the encoder is missing or any map
+// fails to encode
+bool head_maps(CUtensorMap* maps, const void* const* ptrs, const Strides* st, const int* rows,
+               int n, int b, int h) {
+  const EncodeTiled encode = encode_fn();
+  bool ok = encode != nullptr;
+  for (int i = 0; i < n && ok; ++i) ok = head_map(encode, &maps[i], ptrs[i], b, rows[i], h, st[i]);
+  return ok;
+}
+
 }  // namespace
+
+// How many blocks of the long forward (`groups` warpgroups, Sk keys) one
+// SM holds at once, into *blocks: kernels/attention.py::long_fwd_plan reads it.
+extern "C" int objcavit_attention_long_fwd_blocks(int groups, int s_k, int* blocks) {
+  *blocks = 0;
+  if (groups < 1 || groups > kMaxLongGroups || s_k < 1 || s_k > kLongMaxS)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = configure_long_kernels();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, attn_fwd_long_kernel, kWg * groups,
+      long_fwd_smem((s_k + kTile - 1) / kTile, groups).total);
+}
 
 // q (B, Sq, H, 32), k and v (B, Sk, H, 32) bf16, unit-stride in the head
 // dimension, 16-byte aligned, every stride a multiple of 8 elements; strides
 // = the (batch, token, head) element strides of q, then k, then v. bias
 // (B, Sk) fp32 contiguous or null. o (B, Sq, H, 32) bf16 contiguous; stats
-// (2, B * H, Sq) fp32: each row's max, then its log-sum; or null where no
-// backward reads them. Up to 512 keys the head's keys are resident (one
-// block holds its whole K, V and bias); beyond, they stream through two
-// stages. plan_rows and plan_groups are the resident kernel's plan
-// (kernels/attention.py::fwd_plan: 1 <= rows <= 8, 1 <= groups <= min(4,
-// key tiles), rows * groups <= 16), both 0 beyond 512 keys. Returns
+// (2, B * H, Sq) fp32, or null where no backward reads it: each row's max,
+// then its log-sum (in log2 units on the long routes). Up to 512 keys and queries the head's keys are resident (one
+// block holds its whole K, V and bias) and plan_rows, plan_groups are that
+// kernel's plan (kernels/attention.py::fwd_plan: 1 <= rows <= 8, 1 <=
+// groups <= min(4, key tiles), rows * groups <= 16); beyond, plan_rows is
+// 0 and plan_groups the long kernel's warpgroups (long_fwd_plan: 1 <= groups
+// <= min(3, key tiles)), and Sq, Sk are at most 8192. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a plan
-// the kernel does not take.
+// or a length the kernels do not take.
 extern "C" int objcavit_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* bias, void* o, void* stats,
                                       const long long* strides, int b, int h, int s_q, int s_k,
@@ -1185,7 +1621,7 @@ extern "C" int objcavit_attention_fwd(const void* q, const void* k, const void* 
   if (s_k == 0) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, bias, strides, h, s_q, s_k, scale);
   const int n_kt = (s_k + kTile - 1) / kTile;
-  if (n_kt <= kResMaxTiles) {
+  if (s_q <= kClusterMaxS && s_k <= kClusterMaxS) {
     const FwdPlan plan = {plan_rows, plan_groups};
     if (plan.rows < 1 || plan.rows > 8 || plan.groups < 1 || plan.groups > kMaxKeyGroups ||
         plan.groups > n_kt || plan.rows * plan.groups > kMaxFWarps)
@@ -1197,10 +1633,20 @@ extern "C" int objcavit_attention_fwd(const void* q, const void* k, const void* 
                                fwd_smem(n_kt, plan.rows, plan.groups).total,
                                (cudaStream_t)stream>>>(a, plan, (__nv_bfloat16*)o, (float*)stats);
   } else {
-    if (plan_rows != 0 || plan_groups != 0) return (int)cudaErrorInvalidValue;
+    if (plan_rows != 0 || plan_groups < 1 || plan_groups > kMaxLongGroups || plan_groups > n_kt ||
+        s_q > kLongMaxS || s_k > kLongMaxS)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t err = configure_long_kernels();
+    if (err != cudaSuccess) return (int)err;
+    CUtensorMap maps[2] = {};
+    const void* ptrs[2] = {k, v};
+    const Strides st[2] = {a.sk, a.sv};
+    const int rows[2] = {s_k, s_k};
+    if (!head_maps(maps, ptrs, st, rows, 2, b, h)) return (int)cudaErrorInvalidValue;
     const dim3 grid((s_q + kTile - 1) / kTile, b * h);
-    attn_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a, (__nv_bfloat16*)o,
-                                                                 (float*)stats);
+    const int smem = long_fwd_smem(n_kt, plan_groups).total;
+    attn_fwd_long_kernel<<<grid, kWg * plan_groups, smem, (cudaStream_t)stream>>>(
+        maps[0], maps[1], a, (__nv_bfloat16*)o, (float*)stats);
   }
   return (int)cudaGetLastError();
 }
@@ -1218,10 +1664,10 @@ extern "C" int objcavit_attention_bwd_clusters(int b, int h, int s_q, int s_k, i
 
 // As the forward, plus g (B, Sq, H, 32) bf16 contiguous (the gradient of o),
 // stats from the forward, dq (B, Sq, H, 32), dk and dv (B, Sk, H, 32) bf16
-// contiguous, and drow (B * H, Sq) fp32 scratch for the row term of the
-// two-kernel route. With Sq and Sk at most 512 it launches the cluster
-// kernel and sets *route to 1; otherwise the dq kernel, then the dk/dv
-// kernel, on the stream, and *route to 2.
+// contiguous, and drow (B * H, Sq) fp32 scratch for the long route's row
+// term. With Sq and Sk at most 512 it launches the cluster kernel and sets
+// *route to 1; otherwise the row-sum kernel, then the long backward, on
+// the stream, and *route to 2.
 extern "C" int objcavit_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* bias, const void* g, const void* stats,
                                       void* dq, void* dk, void* dv, void* drow,
@@ -1242,14 +1688,23 @@ extern "C" int objcavit_attention_bwd(const void* q, const void* k, const void* 
     return (int)(launch != cudaSuccess ? launch : cudaGetLastError());
   }
   *route = 2;
-  attn_bwd_dq_kernel<<<dim3((s_q + kTile - 1) / kTile, b * h), kThreads, 0,
-                       (cudaStream_t)stream>>>(a, (const __nv_bfloat16*)g, (const float*)stats,
-                                               (__nv_bfloat16*)dq, (float*)drow);
-  const cudaError_t err = cudaGetLastError();
+  if (s_q > kLongMaxS || s_k > kLongMaxS) return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure_long_kernels();
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkdv_kernel<<<dim3((s_k + kTile - 1) / kTile, b * h), kThreads, 0,
-                         (cudaStream_t)stream>>>(a, (const __nv_bfloat16*)g, (const float*)stats,
-                                                 (const float*)drow, (__nv_bfloat16*)dk,
-                                                 (__nv_bfloat16*)dv);
+  const Strides sg = {(long long)s_q * h * kD, (long long)h * kD, kD};
+  const Strides st[4] = {a.sq, a.sk, a.sv, sg};
+  const void* ptrs[4] = {q, k, v, g};
+  const int rows[4] = {s_q, s_k, s_k, s_q};
+  CUtensorMap maps[4] = {};
+  if (!head_maps(maps, ptrs, st, rows, 4, b, h)) return (int)cudaErrorInvalidValue;
+  const int n_kt = (s_k + kTile - 1) / kTile, n_qt = (s_q + kTile - 1) / kTile;
+  const int smem = long_bwd_smem(n_qt * kTile, n_kt * kTile).total;
+  attn_bwd_rowsum_kernel<<<dim3(b * h, n_qt), kWg, smem, (cudaStream_t)stream>>>(
+      maps[1], maps[2], a, (const __nv_bfloat16*)g, (const float*)stats, (float*)drow);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_long_kernel<<<dim3(b * h, n_kt + n_qt), kWg, smem, (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a, (const __nv_bfloat16*)g, (const float*)stats,
+      (float*)drow, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // Device helpers that kernels 8-10 (csrc/mbconv_head.cu, csrc/dw_silu_pool.cu)
-// share: the SiLU and the pool's second launch that both compute, mbarrier
-// waits that trap instead of hanging, 4-D TMA loads and the tensor-map
-// encoder found through the runtime. Each source includes this once, and
-// everything here has internal linkage, as it had in each source.
+// and kernel 5's long routes (csrc/attention.cu) share: the SiLU and the
+// pool's second launch that kernels 8 and 10 compute, mbarrier waits that
+// trap instead of hanging, 4-D TMA loads and the tensor-map encoder found
+// through the runtime. Each source includes this once, and everything here
+// has internal linkage, as it had in each source.
 
 #pragma once
 

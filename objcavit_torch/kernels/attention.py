@@ -13,13 +13,19 @@ recomputes the weights and returns ``dv = w^T g``, ``ds = w (g v^T -
 rowsum(g v^T w))``, ``dq = ds k / sqrt(D)``, ``dk = ds^T q / sqrt(D)``, each
 in its input's dtype, and no gradient for the mask.
 
-The backward takes one of two CUDA routes, chosen by shape in the C entry
-point (``bwd_route`` is its rule): one launch of a thread-block cluster per
-(b, h) for Sq and Sk up to ``CLUSTER_MAX_S``, each block of the cluster one
-tile of ``KEY_TILE`` keys (``mha_bwd_by_key_tiles`` is that decomposition's
-arithmetic in PyTorch), or two kernels in series beyond.
-``fused_mha_bwd.launches`` counts both routes, and
-``fused_mha_bwd.cluster_launches`` the cluster route's.
+Both directions take one of two CUDA routes, chosen by shape in the C entry
+points. With Sq and Sk up to ``CLUSTER_MAX_S`` (every model shape without
+do_final_upscale) the forward holds a head's keys resident (``fwd_plan``)
+and the backward is one launch of a thread-block cluster per (b, h), each
+block one tile of ``KEY_TILE`` keys (``mha_bwd_by_key_tiles`` is that
+decomposition's arithmetic in PyTorch). Beyond, up to ``LONG_MAX_S``, the
+long route (``long_route``): the forward streams key tiles by TMA through
+warpgroups (``long_fwd_plan``); the backward sums D over the key tiles in
+one launch of query-tile blocks, then runs key-tile blocks for dk, dv and
+query-tile blocks for dq in another (``mha_bwd_long_tiles`` is its
+arithmetic). ``bwd_route`` names the route;
+``fused_mha_bwd.launches`` counts both, ``fused_mha_bwd.cluster_launches``
+the cluster route's.
 
 ``FusedMHA`` is the counterpart of the JAX package's custom-VJP function: a
 ``torch.autograd.Function`` whose forward calls ``fused_mha_fwd`` and whose
@@ -36,6 +42,7 @@ under autograd there (the reference route) and launches no kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -115,21 +122,64 @@ def mha_bwd_by_key_tiles(q, k, v, bias, g, key_tile: int = KEY_TILE):
             torch.cat(dvs, 1).to(v.dtype))
 
 
+def mha_bwd_long_tiles(q, k, v, bias, g, tile: int = KEY_TILE):
+    """The long route's backward in PyTorch: a first pass sums each row's
+    D = rowsum(P dP) over the key tiles in order; block r of the key tiles
+    sums dv_r = P_r^T g and dk_r = dS_r^T q over the query tiles in order;
+    block j of the query tiles sums dq_j = dS_j k over the key tiles in
+    order, then scales. Same signature and outputs as
+    ``mha_fused_bwd_plain``."""
+    w, scale = _weights(q, k, bias)
+    gf, qf, kf, vf = (t.to(w.dtype) for t in (g, q, k, v))
+    dw = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    q_tiles = [slice(s, s + tile) for s in range(0, q.shape[1], tile)]
+    k_tiles = [slice(s, s + tile) for s in range(0, k.shape[1], tile)]
+    d = torch.zeros_like(w[..., 0])
+    for r in k_tiles:
+        d = d + (w[..., r] * dw[..., r]).sum(-1)
+    ds = w * (dw - d[..., None])
+    dks, dvs = [], []
+    for r in k_tiles:
+        dk_r, dv_r = torch.zeros_like(kf[:, r]), torch.zeros_like(vf[:, r])
+        for j in q_tiles:
+            dv_r = dv_r + torch.einsum("bhqk,bqhd->bkhd", w[..., j, r], gf[:, j])
+            dk_r = dk_r + torch.einsum("bhqk,bqhd->bkhd", ds[..., j, r], qf[:, j])
+        dks.append(dk_r * scale)
+        dvs.append(dv_r)
+    dqs = []
+    for j in q_tiles:
+        dq_j = torch.zeros_like(qf[:, j])
+        for r in k_tiles:
+            dq_j = dq_j + torch.einsum("bhqk,bkhd->bqhd", ds[..., j, r], kf[:, r])
+        dqs.append(dq_j * scale)
+    return (torch.cat(dqs, 1).to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
 RESIDENT_MAX_KEYS = 8 * KEY_TILE  # keys the forward holds in shared memory
 MAX_KEY_GROUPS = 4  # the C entry point's kMaxKeyGroups
+LONG_MAX_S = 8192  # queries and keys of a long-route launch (the C entry's kLongMaxS)
+MAX_LONG_GROUPS = 3  # warpgroups of a long forward block (kMaxLongGroups)
+LONG_SATURATING_WGS = 4  # warpgroups an SM needs to hide their latencies (PERF.md §6)
+
+
+def long_route(s_q: int, s_k: int) -> bool:
+    """Whether kernel 5 takes its long routes at these lengths: Sq or Sk
+    above ``CLUSTER_MAX_S`` (the C entry points' rule, both directions)."""
+    return max(s_q, s_k) > CLUSTER_MAX_S
 
 
 def fwd_plan(bh: int, s_q: int, s_k: int, n_sm: int) -> tuple[int, int] | None:
     """The forward's launch plan, which the wrapper passes to the C entry
     point: (m-tiles of 16 query rows a block, key groups) for the kernel
-    that holds a head's keys resident, or None beyond ``RESIDENT_MAX_KEYS``
-    keys (the streaming kernel). The m-tiles make the B*H heads' blocks fill
+    that holds a head's keys resident, or None on the long route
+    (``long_fwd_plan``). The m-tiles make the B*H heads' blocks fill
     the ``n_sm`` SMs once (at most 8 a block), the key groups as many as 16
     warps, the key tiles and ``MAX_KEY_GROUPS`` allow. More than one key
     group changes the fp32 rounding of the sums against the first port's
     order, not their accuracy (PERF.md §6)."""
     n_kt = -(-s_k // KEY_TILE)
-    if n_kt > RESIDENT_MAX_KEYS // KEY_TILE:
+    if long_route(s_q, s_k):
         return None
     m_tiles = -(-s_q // 16)
     per_head = max(1, n_sm // bh)  # blocks a head may take
@@ -137,10 +187,53 @@ def fwd_plan(bh: int, s_q: int, s_k: int, n_sm: int) -> tuple[int, int] | None:
     return rows, min(16 // rows, MAX_KEY_GROUPS, n_kt)
 
 
+def key_group_tiles(n_kt: int, groups: int) -> list[range]:
+    """Key group k's tiles of ``n_kt`` among ``groups``, the C kernels'
+    group_first_tile: group 0 holds tile 0, none more than ceil(n / G)."""
+    first = [(n_kt * k + groups - 1) // groups for k in range(groups + 1)]
+    return [range(first[k], first[k + 1]) for k in range(groups)]
+
+
+def long_fwd_plan(bh: int, s_q: int, s_k: int, n_sm: int, per_sm: dict[int, int]) -> int:
+    """The long forward's warpgroups a block, each a key group over the
+    block's 64 query rows. ``per_sm`` maps a count to the blocks of that
+    size an SM holds at once (``long_fwd_occupancy``). A count's cost is its
+    waves of blocks times its longest key group's tiles times the
+    warpgroups that share an SM, at least ``LONG_SATURATING_WGS`` (with
+    fewer an SM's warpgroups cover each other's latencies less, and each
+    runs no faster); the least cost wins, and of equal costs the fewest
+    groups (less merging)."""
+    n_kt = -(-s_k // KEY_TILE)
+    blocks = -(-s_q // KEY_TILE) * bh
+    best = None
+    for groups in range(1, min(MAX_LONG_GROUPS, n_kt) + 1):
+        resident = max(1, per_sm[groups])
+        waves = -(-blocks // (n_sm * resident))
+        cost = waves * -(-n_kt // groups) * max(resident * groups, LONG_SATURATING_WGS)
+        if best is None or cost < best[0]:
+            best = (cost, groups)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def long_fwd_occupancy(device: int, s_k: int) -> dict[int, int]:
+    """{warpgroups a block: blocks an SM of the card holds at once} for the
+    long forward at Sk keys (its shared memory holds their bias)."""
+    lib, blocks = load_library(), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        out = {}
+        for groups in range(1, MAX_LONG_GROUPS + 1):
+            check_launch("objcavit_attention_long_fwd_blocks",
+                         lib.objcavit_attention_long_fwd_blocks(groups, s_k, ctypes.byref(blocks)))
+            out[groups] = blocks.value
+    return out
+
+
 def bwd_route(s_q: int, s_k: int) -> str:
     """The backward's CUDA route at these lengths, the C entry point's rule:
-    'cluster' (one launch) or 'two_kernel'."""
-    return "cluster" if max(s_q, s_k) <= CLUSTER_MAX_S else "two_kernel"
+    'cluster' (one launch) or 'long' (a launch that sums the row term, then
+    one of key-tile and query-tile blocks)."""
+    return "long" if long_route(s_q, s_k) else "cluster"
 
 
 def bwd_clusters_resident(b: int, h: int, s_q: int, s_k: int) -> int:
@@ -182,6 +275,9 @@ def check_attention_inputs(q, k, v, bias) -> None:
     devices = {t.device for t in (q, k, v) + (() if bias is None else (bias,))}
     if len(devices) != 1:
         raise ValueError(f"attention kernel inputs lie on several devices: {devices}")
+    if max(q.shape[1], k.shape[1]) > LONG_MAX_S:
+        raise ValueError(f"attention kernel takes at most {LONG_MAX_S} queries and keys, got "
+                         f"Sq {q.shape[1]}, Sk {k.shape[1]}")
     if bias is not None and (bias.dtype != torch.float32 or bias.shape != (b, k.shape[1])
                              or not bias.is_contiguous()):
         raise ValueError(f"attention kernel takes the bias as contiguous fp32 (B, Sk), got "
@@ -203,21 +299,26 @@ def residual_needed(*tensors: torch.Tensor) -> bool:
 def fused_mha_fwd(q, k, v, bias=None,
                   residual: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
     """-> (o (B, Sq, H, D) in q's dtype, the residual for the backward: each
-    row's max and log-sum, (2, B * H, Sq) fp32; None on the CPU, or with
-    ``residual=False``, where the kernel writes none)."""
+    row's max and log-sum, (2, B * H, Sq) fp32 (log2 units on the long
+    route); None on the CPU, or with ``residual=False``, where the kernel
+    writes none)."""
     if not _device_checked(q):
         return mha_fused_plain(q, k, v, bias), None
     check_attention_inputs(q, k, v, bias)
     b, sq, h, d = q.shape
+    sk = k.shape[1]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     stats = (torch.empty((2, b * h, sq), dtype=torch.float32, device=q.device) if residual
              else None)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = fwd_plan(b * h, sq, k.shape[1], n_sm) or (0, 0)
+    plan = fwd_plan(b * h, sq, sk, n_sm)
+    if plan is None:
+        per_sm = long_fwd_occupancy(q.device.index or 0, sk)
+        plan = (0, long_fwd_plan(b * h, sq, sk, n_sm, per_sm))
     rc = getattr(load_library(), _FWD)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
         o.data_ptr(), None if stats is None else stats.data_ptr(), _strides(q, k, v), b, h, sq,
-        k.shape[1], 1.0 / math.sqrt(d), *plan, torch.cuda.current_stream(q.device).cuda_stream,
+        sk, 1.0 / math.sqrt(d), *plan, torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(_FWD, rc)
     fused_mha_fwd.launches += 1
@@ -240,7 +341,7 @@ def fused_mha_bwd(q, k, v, bias, g, stats) -> tuple[torch.Tensor, torch.Tensor, 
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
-    drow = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)  # two-kernel route
+    drow = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)  # the long route's D
     route = ctypes.c_int(0)
     rc = getattr(load_library(), _BWD)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),

@@ -73,6 +73,7 @@ SIGNATURES = {
     "objcavit_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F,
                                _IP, _P),
     "objcavit_attention_bwd_clusters": (_I, _I, _I, _I, _IP),
+    "objcavit_attention_long_fwd_blocks": (_I, _I, _IP),
     "objcavit_mbconv_head": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _LL, _P),
     "objcavit_dw_silu_pool": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

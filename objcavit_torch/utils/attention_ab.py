@@ -2,6 +2,7 @@
 
     python -m objcavit_torch.utils.attention_ab --old OLD.cu [--alt ALT.cu ...] [--rounds 8]
     python -m objcavit_torch.utils.attention_ab --fwd --old OLD.cu [--rounds 8]
+    python -m objcavit_torch.utils.attention_ab --long --old OLD.cu [--rounds 8]
 
 ``OLD.cu`` is an earlier ``csrc/attention.cu`` with the two-kernel
 backward's C interface (``git show 7e28ee7:objcavit_torch/csrc/attention.cu``):
@@ -39,6 +40,18 @@ printed for each count of key groups at the plan's rows, and whether one
 key group gives the old forward's bits (``fwd_precision``). The bound is q,
 k, v and the bias read and o written once (the residual too for the
 training call) over 3.35 TB/s, or the two products over 989 TFLOP/s.
+
+With ``--long`` it takes the long routes (Sq or Sk above 512) at
+``LONG_SHAPES``: the served S 1200 without a mask, 1200 queries against
+1000 object slots with the served objects' masks, and the train step's S
+884. ``OLD.cu`` is then an earlier source with the current C interface
+(``git show 938326d:objcavit_torch/csrc/attention.cu``: the streaming
+forward and two-kernel backward that these routes replaced). The current forward (served and
+training calls) and backward, and the old ones (each backward on its own
+forward's residual), are held against the plain versions, then timed in
+turns beside SDPA's forward and backward; each row also gives the bound,
+the exps (one a score for each time a route computes P: 1 forward, 3 in
+either backward) and their time on the SFU alone (``bins_ab.sfu_ms``).
 """
 
 from __future__ import annotations
@@ -56,10 +69,15 @@ import torch.nn.functional as F
 
 from objcavit_torch.kernels import attention as kattn
 from objcavit_torch.kernels import build
+from objcavit_torch.utils.bins_ab import max_sm_mhz, sfu_ms
 from objcavit_torch.utils.detect_head_ab import CALLS, captured, replay_ms
 
 HEADS, HEAD_DIM = 4, kattn.HEAD_DIM
 SHAPES = [("flagship 480x640", 8, 300, 300), ("train 416x544", 8, 221, 221)]
+# (label, B, Sq, Sk, mask) of the long routes under do_final_upscale
+LONG_SHAPES = [("served S 1200", 8, 1200, 1200, "none"),
+               ("served 1200x1000", 8, 1200, 1000, "served"),
+               ("train S 884", 8, 884, 884, "none")]
 SERVED_VALID = [3, 17, 40, 1, 120, 300, 64, 8]  # valid object slots per served image
 RTOL, ATOL_PER_MAX = 2.0 ** -7, 1e-4  # chip_smoke.py's ATTN_RTOL, ATTN_ATOL_PER_MAX
 HBM_BYTES_PER_MS, BF16_PER_MS = 3.35e12 / 1e3, 989e12 / 1e3
@@ -121,7 +139,8 @@ def load_entry(source: Path, name: str, argtypes: tuple, entry: str = "objcavit_
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"libattention_{name}.so"
-    cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib_path), str(source)]
+    cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR), "-shared", "-o",
+           str(lib_path), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
@@ -131,18 +150,21 @@ def load_entry(source: Path, name: str, argtypes: tuple, entry: str = "objcavit_
     return fn
 
 
-def old_fwd(fn, q, k, v, bias, plan=None):
-    """An earlier forward, called as its wrapper called it (with a residual);
-    a variant of the current source with ``plan`` (its plan arguments)."""
+def old_fwd(fn, q, k, v, bias, plan=None, residual=True):
+    """An earlier forward, called as its wrapper called it, with a residual
+    of two rows unless ``residual`` is False; a variant of the current source
+    with ``plan`` (its plan arguments). -> (o, the residual or None)."""
     b, sq, h, d = q.shape
     o = torch.empty_like(q)
-    stats = torch.empty((2, b * h, sq), dtype=torch.float32, device=q.device)
+    stats = (torch.empty((2, b * h, sq), dtype=torch.float32, device=q.device) if residual
+             else None)
     strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in t.stride()[:3]))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-            o.data_ptr(), stats.data_ptr(), strides, b, h, sq, k.shape[1], 1.0 / math.sqrt(d),
-            *(() if plan is None else plan), torch.cuda.current_stream().cuda_stream)
+            o.data_ptr(), None if stats is None else stats.data_ptr(), strides, b, h, sq,
+            k.shape[1], 1.0 / math.sqrt(d), *(() if plan is None else plan),
+            torch.cuda.current_stream().cuda_stream)
     build.check_launch("old objcavit_attention_fwd", rc)
-    return o
+    return o, stats
 
 
 def fwd_precision(q, k, v, bias, rows: int, old) -> dict:
@@ -167,11 +189,11 @@ def fwd_precision(q, k, v, bias, rows: int, old) -> dict:
     n_kt = -(-k.shape[1] // kattn.KEY_TILE)
     out, one = {}, None
     for groups in range(1, min(kattn.MAX_KEY_GROUPS, 16 // rows, n_kt) + 1):
-        got = old_fwd(entry, q, k, v, bias, (rows, groups))
+        got = old_fwd(entry, q, k, v, bias, (rows, groups))[0]
         one = got if groups == 1 else one
         out[f"key_groups_{groups}"] = stats(got)
     out["plain_fp32"] = stats(kattn.mha_fused_plain(q, k, v, bias))
-    out["one_group_equals_old"] = torch.equal(one, old_fwd(old, q, k, v, bias))
+    out["one_group_equals_old"] = torch.equal(one, old_fwd(old, q, k, v, bias)[0])
     return out
 
 
@@ -188,8 +210,8 @@ def run_fwd(old, alts: dict, rounds: int, smi: str) -> None:
         served, none = kattn.fused_mha_fwd(q, k, v, bias, residual=False)
         trained, stats = kattn.fused_mha_fwd(q, k, v, bias)
         errs = {"served": errors([served], [want]), "train": errors([trained], [want]),
-                "old": errors([old_fwd(old, q, k, v, bias)], [want]),
-                **{name: errors([old_fwd(fn, q, k, v, bias, plan)], [want])
+                "old": errors([old_fwd(old, q, k, v, bias)[0]], [want]),
+                **{name: errors([old_fwd(fn, q, k, v, bias, plan)[0]], [want])
                    for name, fn in alts.items()},
                 "bwd_on_residual": errors(kattn.fused_mha_bwd(q, k, v, bias, g, stats),
                                           kattn.mha_fused_bwd_plain(q, k, v, bias, g))}
@@ -219,6 +241,62 @@ def run_fwd(old, alts: dict, rounds: int, smi: str) -> None:
                "train_bound_ms": fwd_bound(b, HEADS, sq, sk, residual=True)["bound_ms"],
                "card": smi}
         print("attention_ab fwd", json.dumps(row), flush=True)
+
+
+def run_long(old_fwd_fn, old_bwd_fn, rounds: int, smi: str) -> None:
+    """The ``--long`` comparison (see the module's note)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = max_sm_mhz()
+    route = ctypes.c_int(0)
+    for label, b, sq, sk, mask_kind in LONG_SHAPES:
+        q, k, v, g, mask = attention_inputs(gen, b, sq, sk, mask_kind)
+        bias = kattn.mask_bias(mask)
+        _, stats = kattn.fused_mha_fwd(q, k, v, bias)
+        _, old_stats = old_fwd(old_fwd_fn, q, k, v, bias, (0, 0))
+        want_o, want_g = (kattn.mha_fused_plain(q, k, v, bias),
+                          kattn.mha_fused_bwd_plain(q, k, v, bias, g))
+        errs = {"fwd": errors([kattn.fused_mha_fwd(q, k, v, bias, residual=False)[0]], [want_o]),
+                "bwd": errors(kattn.fused_mha_bwd(q, k, v, bias, g, stats), want_g),
+                "old_fwd": errors([old_fwd(old_fwd_fn, q, k, v, bias, (0, 0))[0]], [want_o]),
+                "old_bwd": errors(old_bwd(old_bwd_fn, q, k, v, bias, g, old_stats, route),
+                                  want_g)}
+        if any(e["bad"] for e in errs.values()):
+            raise AssertionError(f"{label}: elements out of tolerance {errs}")
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        sdpa_mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
+        gs = g.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=sdpa_mask)
+
+        calls = {"fwd": lambda: kattn.fused_mha_fwd(q, k, v, bias, residual=False),
+                 "fwd_train": lambda: kattn.fused_mha_fwd(q, k, v, bias),
+                 "bwd": lambda: kattn.fused_mha_bwd(q, k, v, bias, g, stats),
+                 "old_fwd": lambda: old_fwd(old_fwd_fn, q, k, v, bias, (0, 0), residual=False),
+                 "old_bwd": lambda: old_bwd(old_bwd_fn, q, k, v, bias, g, old_stats, route),
+                 "sdpa_fwd": sdpa,
+                 "sdpa_fwd_bwd": lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), gs)}
+        graphs = {name: captured(fn) for name, fn in calls.items()}
+        times = {name: [] for name in calls}
+        for r in range(rounds):
+            for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                times[name].append(replay_ms(graphs[name]))
+        del graphs
+        times["sdpa_bwd"] = [fb - f for fb, f in zip(times["sdpa_fwd_bwd"], times["sdpa_fwd"])]
+        scores = b * HEADS * sq * sk
+        row = {"shape": label, "b_sq_sk_h_d": [b, sq, sk, HEADS, HEAD_DIM], "mask": mask_kind,
+               "fwd_groups": kattn.long_fwd_plan(b * HEADS, sq, sk, n_sm,
+                                                 kattn.long_fwd_occupancy(0, sk)),
+               "errors": errs, "calls_per_graph": CALLS, "rounds": rounds,
+               **{f"{n}_ms": statistics.median(t) for n, t in times.items()},
+               **{f"{n}_spread_ms": [min(t), max(t)] for n, t in times.items()},
+               "fwd_bound": fwd_bound(b, HEADS, sq, sk, residual=False),
+               "bwd_bound": bwd_bound(b, HEADS, sq, sk),
+               "fwd_exps": scores, "fwd_sfu_ms": sfu_ms(scores, n_sm, mhz),
+               "bwd_exps": 3 * scores, "bwd_sfu_ms": sfu_ms(3 * scores, n_sm, mhz),
+               "sm_mhz": mhz, "card": smi}
+        print("attention_ab long", json.dumps(row), flush=True)
 
 
 def old_bwd(fn, q, k, v, bias, g, stats, route=None):
@@ -260,12 +338,21 @@ def main() -> None:
     parser.add_argument("--rounds", type=int, default=8)
     parser.add_argument("--fwd", action="store_true",
                         help="time the forward against OLD.cu's forward instead")
+    parser.add_argument("--long", action="store_true",
+                        help="time both directions' long routes against OLD.cu's (the current "
+                             "C interface)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attention_ab: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    if args.long:
+        run_long(load_entry(args.old, "old_fwd", build.SIGNATURES["objcavit_attention_fwd"],
+                            "objcavit_attention_fwd"),
+                 load_entry(args.old, "old", build.SIGNATURES["objcavit_attention_bwd"]),
+                 args.rounds, smi)
+        return
     if args.fwd:
         # the old source's forward has no plan arguments; variants of the
         # current one do

@@ -179,16 +179,69 @@ def test_kernel5_key_tile_decomposition_matches_pallas(dtype, sq, mask_kind):
         torch.testing.assert_close(x, w, rtol=1e-12, atol=1e-12)
 
 
+def _long_inputs(sq: int, sk: int, mask_kind: str, seed: int = 13):
+    """q, k, v, g (B 2, S, H 2, D 32) as numpy, past 512 keys or queries,
+    and a mask that ends inside a late 64-key tile (image 0 keeps Sk - 37
+    keys) and the second (image 1 keeps 100), or image 1 entirely masked
+    ('full')."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal((B, s, 2, D)).astype(np.float32) for s in (sq, sk, sk, sq))
+    mask = np.zeros((B, sk), bool)
+    mask[0, sk - 37:] = True
+    mask[1, 100:] = True
+    if mask_kind == "full":
+        mask[1] = True
+    return (q, k, v, g), mask
+
+
+@pytest.mark.parametrize("dtype,sq,sk,mask_kind", [("float32", 520, 600, "partial"),
+                                                   ("float32", 600, 530, "full"),
+                                                   ("bfloat16", 560, 560, "partial"),
+                                                   ("bfloat16", 600, 520, "full")])
+def test_kernel5_long_route_decomposition_matches_pallas(dtype, sq, sk, mask_kind):
+    """The long route's backward arithmetic (``mha_bwd_long_tiles``: D summed
+    over the key tiles in order by a first pass, dk and dv of each key tile
+    summed over the query tiles in order, dq of each query tile over the key
+    tiles in order) just past 512 keys and queries, against ``jax.grad`` through the Pallas custom VJP in
+    interpret mode at ``test_kernel5_gradients_match_pallas``'s tolerances;
+    and against the plain backward formula in fp64 (1e-12)."""
+    (q, k, v, g), mask = _long_inputs(sq, sk, mask_kind)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _both((q, k, v, g), dtype)
+    jmask = jnp.asarray(mask)
+
+    def loss(q_, k_, v_):
+        out = jax_mha_core(q_, k_, v_, jmask, impl="pallas")
+        return jnp.sum(out.astype(jnp.float32) * jg.astype(jnp.float32))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    bias = kattn.mask_bias(torch.from_numpy(mask))
+    got = kattn.mha_bwd_long_tiles(tq, tk, tv, bias, tg)
+    assert kattn.bwd_route(sq, sk) == "long" and kattn.fwd_plan(4, sq, sk, 132) is None
+    rtol, atol = GRAD_TOLS[dtype]
+    for name, x, w in zip("qkv", got, want):
+        assert x.dtype == getattr(torch, dtype), name
+        np.testing.assert_allclose(_f32(x), _f32(w), rtol=rtol, atol=atol, err_msg=name)
+    f64 = [torch.from_numpy(a).double() for a in (q, k, v, g)]
+    tiled = kattn.mha_bwd_long_tiles(*f64[:3], bias.double(), f64[3])
+    for x, w in zip(tiled, kattn.mha_fused_bwd_plain(*f64[:3], bias.double(), f64[3])):
+        torch.testing.assert_close(x, w, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("sq,sk,route", [(300, 300, "cluster"), (221, 221, "cluster"),
                                          (512, 512, "cluster"), (1, 512, "cluster"),
-                                         (513, 513, "two_kernel"), (40, 513, "two_kernel"),
-                                         (513, 40, "two_kernel"), (1200, 1200, "two_kernel")])
+                                         (513, 513, "long"), (40, 513, "long"),
+                                         (513, 40, "long"), (1200, 1200, "long")])
 def test_kernel5_backward_route_by_shape(sq, sk, route):
     """The backward takes one cluster launch while every key tile of 64 fits
     a portable cluster of 8 blocks (and the queries fit its shared memory),
-    the two-kernel route beyond: the C entry point's rule."""
+    the long route beyond: the C entry point's rule. The forward takes its
+    long route at the same lengths: the two routes' residuals differ (log2
+    units on the long one)."""
     assert kattn.bwd_route(sq, sk) == route
     assert (route == "cluster") == (-(-sk // kattn.KEY_TILE) <= 8 and sq <= kattn.CLUSTER_MAX_S)
+    assert kattn.long_route(sq, sk) == (route == "long")
+    assert (kattn.fwd_plan(32, sq, sk, 132) is None) == (route == "long")
 
 
 def test_kernel5_plain_backward_is_the_gradient_of_the_plain_forward():

@@ -608,7 +608,7 @@ def _assert_attn_close(pairs):
 def test_kernel5_forward_and_backward_match_plain(cuda, case):
     """Forward and backward wrappers against the plain versions, each
     launch counted once and the backward on the route its shape takes (one
-    cluster launch up to 512 keys and queries, the two-kernel route beyond);
+    cluster launch up to 512 keys and queries, the long route beyond);
     a fully masked row is uniform over its keys."""
     b, sq, sk, mask_kind, in_proj = case
     q, k, v, g, mask = _attn_inputs(cuda, b, sq, sk, mask_kind, in_proj=in_proj)
@@ -668,7 +668,7 @@ def test_kernel5_served_forward_writes_no_residual(cuda):
 
 @gpu
 @pytest.mark.parametrize("case", [(8, 300, 300), (8, 221, 221), (2, 513, 513)],
-                         ids=["flagship-480x640", "train-416x544", "two-kernel-Sk513"])
+                         ids=["flagship-480x640", "train-416x544", "long-Sk513"])
 def test_kernel5_backward_is_bitwise_deterministic(cuda, case):
     """Two backward calls on the same inputs give identical dq, dk and dv:
     neither route sums through atomics, so no order depends on timing."""
@@ -680,6 +680,35 @@ def test_kernel5_backward_is_bitwise_deterministic(cuda, case):
     second = kattn.fused_mha_bwd(q, k, v, bias, g, stats)
     torch.cuda.synchronize()
     for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@gpu
+@pytest.mark.parametrize("case", [(8, 1200, 1000, "partial", False), (8, 884, 884, "none", True),
+                                  (2, 600, 40, "partial", False)],
+                         ids=["1200x1000-masked", "S884", "Sq600-Sk40"])
+def test_kernel5_long_routes_match_plain_and_repeat_their_bits(cuda, case):
+    """The long routes at do_final_upscale's served and trained shapes and
+    with a short key side: forward (served and with the residual) and
+    backward against the plain versions; a second call of each gives the
+    same bits."""
+    b, sq, sk, mask_kind, in_proj = case
+    q, k, v, g, mask = _attn_inputs(cuda, b, sq, sk, mask_kind, in_proj=in_proj)
+    bias = kattn.mask_bias(mask)
+    assert kattn.bwd_route(sq, sk) == "long" and kattn.fwd_plan(b * 4, sq, sk, 132) is None
+    served, _ = kattn.fused_mha_fwd(q, k, v, bias, residual=False)
+    out, stats = kattn.fused_mha_fwd(q, k, v, bias)
+    grads = kattn.fused_mha_bwd(q, k, v, bias, g, stats)
+    assert stats.shape == (2, b * 4, sq)
+    _assert_attn_close([("out", out, kattn.mha_fused_plain(q, k, v, bias)),
+                        *zip(("dq", "dk", "dv"), grads, kattn.mha_fused_bwd_plain(q, k, v, bias, g))])
+    o2, s2 = kattn.fused_mha_fwd(q, k, v, bias)
+    again = (kattn.fused_mha_fwd(q, k, v, bias, residual=False)[0], o2, s2,
+             *kattn.fused_mha_bwd(q, k, v, bias, g, s2))
+    torch.cuda.synchronize()
+    assert torch.equal(served, out)
+    for name, x, y in zip(("served", "out", "residual", "dq", "dk", "dv"),
+                          (served, out, stats, *grads), again):
         assert torch.equal(x, y), name
 
 

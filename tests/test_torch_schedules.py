@@ -673,9 +673,9 @@ def test_kernel5_forward_without_residual_returns_none_on_the_cpu():
     "bh,sq,sk,want",
     [(32, 300, 300, (5, 3)), (32, 221, 221, (4, 4)), (32, 300, 77, (5, 2)),
      (8, 1200, 1200, None), (2, 1, 5, (1, 1)), (256, 300, 300, (8, 2)),
-     (4, 512, 512, (1, 4)), (4, 513, 513, None), (16, 64, 64, (1, 1))],
+     (4, 512, 512, (1, 4)), (4, 513, 513, None), (16, 64, 64, (1, 1)), (32, 600, 40, None)],
     ids=["flagship", "train", "sq300-sk77", "s1200", "one-query", "many-heads", "sk512",
-         "sk513", "one-tile"])
+         "sk513", "one-tile", "sq600-sk40"])
 def test_kernel5_fwd_plan(bh, sq, sk, want):
     assert kattn.fwd_plan(bh, sq, sk, H100_SMS) == want
 
@@ -686,6 +686,65 @@ def test_kernel5_fwd_plan_caps_the_key_groups():
     assert kattn.MAX_KEY_GROUPS == 4
     assert kattn.fwd_plan(1000, 16, 512, H100_SMS) == (1, 4)
     assert kattn.fwd_plan(132, 16, 300, H100_SMS) == (1, 4)
+
+
+# blocks of the long forward an H100 SM holds at once, by warpgroups a
+# block (objcavit_attention_long_fwd_blocks on the card: 122 registers a
+# thread, so four blocks of one warpgroup, two of two, one of three)
+H100_LONG_FWD_BLOCKS = {1: 4, 2: 2, 3: 1}
+# (B * H, Sq, Sk) of the long routes: do_final_upscale served (1200 tokens
+# against up to 1000 slots, both ways) and trained (884), a short key side
+LONG_SHAPES = [(32, 1200, 1200), (32, 1200, 1000), (32, 1000, 1200), (32, 1000, 1000),
+               (32, 884, 884), (32, 600, 40)]
+
+
+@pytest.mark.parametrize("bh,sq,sk,want", [(32, 1200, 1200, 2), (32, 1200, 1000, 2),
+                                           (32, 1000, 1200, 1), (32, 1000, 1000, 1),
+                                           (32, 884, 884, 1), (32, 600, 40, 1), (8, 600, 600, 3),
+                                           (4, 40, 513, 3), (256, 884, 884, 1)])
+def test_kernel5_long_fwd_plan(bh, sq, sk, want):
+    """At the served S 1200 (608 blocks of 64 rows) two key groups a block:
+    three waves of two blocks an SM, each ceil(19 / 2) tiles long, against
+    two of four one-group blocks over all 19 (the H100 read 0.0436 and
+    0.0446 ms; three groups ran slower still). One group where the blocks
+    fill the card in one wave (S 884's 448, 1000 x 1200's 512) or a head
+    has one key tile; three where a few heads leave most SMs idle."""
+    assert kattn.long_fwd_plan(bh, sq, sk, H100_SMS, H100_LONG_FWD_BLOCKS) == want
+
+
+@pytest.mark.parametrize("bh,sq,sk", LONG_SHAPES)
+def test_kernel5_long_fwd_plan_covers_every_row_and_key_tile_once(bh, sq, sk):
+    """The plan's key groups take every key tile once, group 0 from tile 0
+    and none longer than ceil(n / G); its count is the cheapest of 1..3 (its
+    waves of blocks times its longest group's tiles times the warpgroups an
+    SM holds, at least LONG_SATURATING_WGS), the fewest of equal costs; and
+    its first wave gives every one of the card's 132 SMs a block."""
+    groups = kattn.long_fwd_plan(bh, sq, sk, H100_SMS, H100_LONG_FWD_BLOCKS)
+    n_kt = -(-sk // kattn.KEY_TILE)
+    counts = range(1, min(kattn.MAX_LONG_GROUPS, n_kt) + 1)
+    assert groups in counts
+    tiles = kattn.key_group_tiles(n_kt, groups)
+    assert [t for r in tiles for t in r] == list(range(n_kt))
+    assert all(len(r) >= 1 for r in tiles) and max(len(r) for r in tiles) == -(-n_kt // groups)
+    blocks = -(-sq // kattn.KEY_TILE) * bh
+
+    def cost(g):
+        per_sm = H100_LONG_FWD_BLOCKS[g]
+        waves = -(-blocks // (H100_SMS * per_sm))
+        longest = max(len(r) for r in kattn.key_group_tiles(n_kt, g))
+        return waves * longest * max(per_sm * g, kattn.LONG_SATURATING_WGS)
+
+    assert groups == min(counts, key=lambda g: (cost(g), g))
+    assert min(blocks, H100_SMS * H100_LONG_FWD_BLOCKS[groups]) >= H100_SMS
+
+
+def test_kernel5_key_groups_match_the_resident_forward():
+    """key_group_tiles is the C kernels' group_first_tile: 5 tiles over 3
+    groups, 8 over 4 (the resident forward at 512 keys), 19 over 3 (the
+    long forward at S 1200)."""
+    assert [list(r) for r in kattn.key_group_tiles(5, 3)] == [[0, 1], [2, 3], [4]]
+    assert [len(r) for r in kattn.key_group_tiles(8, 4)] == [2, 2, 2, 2]
+    assert [len(r) for r in kattn.key_group_tiles(19, 3)] == [7, 6, 6]
 
 
 @pytest.mark.parametrize("bh", [1, 8, 32, 33, 132, 300])
