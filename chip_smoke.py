@@ -247,6 +247,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    kernel 4's kernels, and ``device_memory_stats()``'s peak is
    ``torch.cuda.max_memory_allocated``. Alone (after the build):
    ``cs.phase_host_core(cs.phase_fit()["stats"]["epoch"])``.
+15. distributed (``objcavit_torch/parallel``): (a) ``cli.main --bf16`` on
+   phase 10's data and warm start, 1 epoch of 4 steps, under the OBJCAVIT_*
+   env of a world of one over NCCL and without it, both with PyTorch's
+   deterministic algorithms: the step's gradient reducer on NCCL, kernel
+   4's launches and kernels 1 and 2's in the validation, the two fits'
+   parameters, BN statistics and metrics bit for bit, wall ms a step of
+   each; (b) two processes on the card over gloo, started by
+   ``parallel.launch`` (``python3 chip_smoke.py --dist-rank SPEC``, one a
+   rank): ``Trainer(attn_impl="kernel", bf16).fit()`` of GraphBins-B5 at
+   global bs 8 (4 a rank), 416x544, 221 clip slots, 1 epoch of 2 steps and
+   one validation; each step's 10 + 9 kernel-5 and 1 + 1 kernel-4 launches,
+   one recorded launch of each against its plain version, the same losses,
+   parameters (a digest) and metrics on both ranks, one version dir whose
+   files rank 0 alone wrote; then the first step on one process over the
+   same global batch against the ranks' reduced one, by named group: the
+   plain route in fp64 within rel L2 1e-5, in fp32 within 2x one
+   process's own fp32 distance from fp64 (train-mode BNs magnify where the
+   batch sums are cut), the bf16 kernel route's loss within 1e-3 and its
+   gradients within the bf16 check's bounds.
+   Alone (after the build): ``cs.phase_distributed()``.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -257,6 +277,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import csv
+import hashlib
+import io
 import itertools
 import json
 import os
@@ -300,6 +322,15 @@ from objcavit_torch.data import native
 from objcavit_torch.data import preprocess as pp
 from objcavit_torch.language.provider import YoloClipObjectProvider
 from objcavit_torch.metrics import METRIC_NAMES
+from objcavit_torch.parallel.collectives import GradientReducer
+from objcavit_torch.parallel.distributed import (
+    initialize_distributed,
+    process_index,
+    rank_device,
+    shutdown_distributed,
+)
+from objcavit_torch.parallel.launch import free_port, launch
+from objcavit_torch.training import checkpoint as ckpt_module
 from objcavit_torch.training.checkpoint import checkpoint_dict
 from objcavit_torch.training.optim import build_optimizer
 from objcavit_torch.training.steps import build_model, make_train_loss_fn
@@ -3349,6 +3380,422 @@ def phase_host_core(flagship_epoch: dict) -> dict:
     return launches
 
 
+# phase 15: multi-process training (objcavit_torch/parallel). The machine has
+# one card and NCCL refuses two ranks on one card: (a) is a world of one
+# over NCCL through the entry point, (b) two processes on the card over gloo
+DIST_TRAIN = 16  # (b)'s train frames: one epoch of 2 steps at global bs 8
+DIST_RANKS = 2
+DIST_TIMEOUT = 600  # seconds (b)'s two processes may take before they are killed
+# (b)'s first step against one process's on the same global batch. On the
+# plain route each is the same arithmetic but for where the sums over the
+# batch are cut (the BN statistics, the losses, the gradient's mean over the
+# ranks, cuDNN's algorithms at 4 images against 8):
+# * in fp64 that leaves rounding of ~1e-8 (the bins head's plain softmax
+#   stays fp32; the plain resize lerps in fp64 on fp64 tensors, where its
+#   fp32 lerp had turned rounding into fp32 ulps that the BNs magnified to
+#   ~1e-4): the loss and each named group's gradient within rel L2
+#   DIST_FP64_REL;
+# * in fp32 (TF32 off) the train-mode BNs' backward magnifies it: the first
+#   H100 reading put decoder.conv2 and the encoder stem 2.7e-3 and 3.5e-3
+#   apart, image attention 0 1.3e-4, conv_out and the regressor 2.7e-6 and
+#   2.2e-6, 1.1-1.2 times one process's own fp32 distance from its fp64
+#   step. Each group within DIST_FP32_FLOOR_X times that distance, plus
+#   DIST_FP64_REL; the loss within DIST_FP64_REL;
+# * in bf16 on kernel 5's route (the fit's own first step): the loss within
+#   DIST_BF16_LOSS_REL, the gradients at the bf16 train check's bounds
+#   (TRAIN_GRAD_GROUPS)
+DIST_PLAIN_STEPS = {"fp64 plain": torch.float64, "fp32 plain": torch.float32}
+DIST_FP64_REL = 1e-5
+DIST_FP32_FLOOR_X = 2.0
+DIST_BF16_LOSS_REL = 1e-3
+# a rank's launches in (b): 2 train steps (kernel 4 1 + 1, kernel 5 10 + 9
+# each), one validation of 2 eval steps on its 4 of each 8 images (kernel 5
+# 10, kernel 1's concat form 4, kernel 2 1 each); no figure in a group
+DIST_RANK_LAUNCHES = {"bins_expectation_fwd": 2, "bins_expectation_bwd": 2,
+                      "attention_fwd": 4 * 10, "attention_bwd": 2 * ATTN_BWD_PER_STEP,
+                      "resize": 2 * EVAL_RESIZE, "bins": 2 * EVAL_BINS}
+DIST_STEP_LAUNCHES = {"bins_expectation_fwd": 1, "bins_expectation_bwd": 1,
+                      "attention_fwd": 10, "attention_bwd": ATTN_BWD_PER_STEP}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms and cuDNN's while open, so that two
+    fits of one config give the same bits (cuDNN's backward and the index
+    ops' atomics otherwise sum in any order). cuBLAS asks for its workspace
+    setting in the env."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+@contextlib.contextmanager
+def distributed_env(world: int, rank: int):
+    """The OBJCAVIT_* env of one process of ``world`` while open."""
+    env = {"OBJCAVIT_COORDINATOR": f"127.0.0.1:{free_port()}",
+           "OBJCAVIT_NUM_PROCESSES": str(world), "OBJCAVIT_PROCESS_ID": str(rank)}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def write_dist_configs(tmp: str, cfgs: dict) -> dict[str, str]:
+    """Copies of phase 10's 'fit' config for 1 epoch: 'single' and 'group'
+    (its 32 train frames, 4 steps), 'ranks' (the first DIST_TRAIN frames, 2
+    steps)."""
+    with open(cfgs["fit"]) as f:
+        cfg = yaml.safe_load(f)
+    split = os.path.join(tmp, "nyu_train_dist.txt")
+    with open(cfg["nyu"]["filenames_file_train"]) as f, open(split, "w") as g:
+        g.writelines(f.readlines()[:DIST_TRAIN])
+    paths = {}
+    for name in ("single", "group", "ranks"):
+        cfg["basic"].update(name=f"dist_{name}", max_epochs=1)
+        if name == "ranks":
+            cfg["nyu"] = {**cfg["nyu"], "filenames_file_train": split}
+        paths[name] = os.path.join(tmp, f"dist_{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+    return paths
+
+
+def state_digest(model) -> str:
+    """sha256 of every entry of the model's state dict, in order."""
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def group_grads(model) -> dict[str, torch.Tensor]:
+    """Each TRAIN_GRAD_GROUPS group's gradients, concatenated, in fp32 or
+    wider, on the host."""
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    out = {}
+    for group, (prefixes, _) in TRAIN_GRAD_GROUPS.items():
+        keys = [n for n in grads if n.startswith(prefixes)]
+        if not keys:
+            raise AssertionError(f"no gradient in group {group}")
+        out[group] = torch.cat([grads[n].to(torch.promote_types(grads[n].dtype, torch.float32))
+                                .ravel() for n in keys]).cpu()
+    return out
+
+
+def to_host(tree):
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu().clone()
+
+
+def to_card(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_card(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def dist_args(cfg: str, basic: str):
+    """The config tree cli.main builds for a fit of ``cfg``."""
+    args = cli.load_args(cfg, debug=False, log_debug=False, validate=False, inference=False)
+    args.devices = None
+    return cli.check_and_validate_args(args, basic_params_path=basic)
+
+
+def first_step(args, attn_impl: str, dtype: torch.dtype, batch: dict, objects: dict,
+               dev) -> dict:
+    """The fit's first step on ``batch``: the warm-started model, in fp64
+    (parameters too) where ``dtype`` is, the fit's generator seed,
+    augmentation and dropout on; its loss and backward, the gradients
+    through the group's reducer where there is a group. -> {'loss', 'grads'
+    (group_grads)}."""
+    model = build_model(args, attn_impl=attn_impl)
+    eval_loop.restore_checkpoint(args.basic.from_checkpoint, model)
+    if dtype == torch.float64:
+        model.double()
+        batch, objects = (
+            {k: v.double() if v.is_floating_point() else v for k, v in tree.items()}
+            for tree in (batch, objects))
+    model.to(dev, memory_format=torch.channels_last)
+    loss_fn = make_train_loss_fn(model, LossWrapper.from_args(args),
+                                 args[args.basic.dataset].min_depth,
+                                 augment_on_device=not args.basic.get("use_adabins_dataloader"),
+                                 compute_dtype=dtype)
+    loss = loss_fn(to_card(batch, dev), to_card(objects, dev),
+                   torch.Generator(dev).manual_seed(eval_loop.TRAIN_SEED))
+    loss.backward()
+    if torch.distributed.is_initialized():
+        GradientReducer(model.parameters())()
+    torch.cuda.synchronize()
+    out = {"loss": float(loss.detach()), "grads": group_grads(model)}
+    del model, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_rank(spec_path: str) -> None:
+    """One process of (b), started by ``parallel.launch`` with its rank's
+    env: Trainer(attn_impl="kernel", bf16).fit() on the 'ranks' config over
+    gloo, each step's launches counted, step 1's kernel-4 and kernel-5
+    launches recorded and held against their plain versions, the first
+    step's batch and reduced gradients kept, then an fp32 plain-route step
+    on that batch; the files the rank wrote. Saves rank_<p>.pt."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(backend="gloo")
+    rank = process_index()
+    written, seen = [], {"launches": [], "losses": [], "times": [], "records": {}}
+    real_save, real_config = ckpt_module._save_atomic, ckpt_module.save_config
+
+    def save(obj, path):
+        written.append(os.path.basename(path))
+        real_save(obj, path)
+
+    def save_config(cfg, path):
+        written.append(os.path.basename(path))
+        real_config(cfg, path)
+
+    real_make = eval_loop.make_train_step
+    real_all_reduce = torch.distributed.all_reduce
+    small = {"on": True, "n": 0, "ms": 0.0}  # the step's all-reduces but the reducer's
+
+    def all_reduce(*args, **kwargs):
+        if not small["on"]:
+            return real_all_reduce(*args, **kwargs)
+        torch.cuda.synchronize()  # gloo waits for the tensor's producers anyway
+        t0 = time.perf_counter()
+        work = real_all_reduce(*args, **kwargs)
+        torch.cuda.synchronize()
+        small["n"] += 1
+        small["ms"] += 1000 * (time.perf_counter() - t0)
+        return work
+
+    def make(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+        reducer = step.grad_reducer
+        seen["backend"] = reducer.backend
+
+        def reduce_and_keep():
+            torch.cuda.synchronize()
+            small["on"] = False
+            t0 = time.perf_counter()
+            reducer()
+            torch.cuda.synchronize()
+            small["on"] = True
+            seen.setdefault("reduce_ms", []).append(1000 * (time.perf_counter() - t0))
+            seen.setdefault("grads", group_grads(step.model))  # the first step's, unclipped
+
+        step.grad_reducer = reduce_and_keep
+
+        def timed(batch, objects):
+            seen.setdefault("batch", (to_host({k: v for k, v in batch.items() if k != "objects"}),
+                                      to_host(objects)))
+            before = read_counters()
+            torch.cuda.synchronize()
+            small.update(n=0, ms=0.0)
+            t0 = time.perf_counter()
+            if len(seen["losses"]) == 1:
+                with record_bins_expectation_io() as exp, record_attention_io() as attn:
+                    loss = step(batch, objects)
+                seen["records"] = {"exp": exp, "attn": attn}
+            else:
+                loss = step(batch, objects)
+            torch.cuda.synchronize()
+            seen["times"].append(1000 * (time.perf_counter() - t0))
+            seen.setdefault("small", []).append((small["n"], small["ms"]))
+            after = read_counters()
+            seen["launches"].append({k: after[k] - before[k] for k in DIST_STEP_LAUNCHES})
+            seen["losses"].append(float(loss))
+            timed.last_lr = step.last_lr
+            return loss
+
+        timed.last_lr = None
+        return timed
+
+    ckpt_module._save_atomic, ckpt_module.save_config = save, save_config
+    eval_loop.make_train_step = make
+    torch.distributed.all_reduce = all_reduce
+    try:
+        args = dist_args(spec["cfg"], spec["basic"])
+        zero_counters()
+        model, metrics = eval_loop.Trainer(args, dtype=torch.bfloat16, attn_impl="kernel").fit()
+        torch.cuda.synchronize()
+        launches = expect_launches(f"(b) rank {rank} fit", **DIST_RANK_LAUNCHES)
+        digest = state_digest(model)
+        del model
+        for i, got in enumerate(seen["launches"]):
+            if got != DIST_STEP_LAUNCHES:
+                raise AssertionError(f"(b) rank {rank} step {i}: launches {got}")
+        exp, attn = seen["records"]["exp"], seen["records"]["attn"]
+        if len(exp) != 1 or "dcenters" not in exp[0] or not attn:
+            raise AssertionError(f"(b) rank {rank}: no recorded kernel-4 and kernel-5 step")
+        check_train_kernels(exp[0])
+        check_attention_records(f"(b) rank {rank} recorded step", attn, residual=True)
+        del seen["records"]
+        batch, objects = seen["batch"]
+        out = {"rank": rank, "launches": launches, "step_launches": seen["launches"],
+               "losses": seen["losses"], "times": seen["times"], "reduce_ms": seen["reduce_ms"],
+               "small": seen["small"], "metrics": metrics,
+               "digest": digest, "written": written, "backend": seen["backend"],
+               "batch": batch, "objects": objects,
+               "bf16 kernel": {"loss": seen["losses"][0], "grads": seen["grads"]}}
+        for label, dtype in DIST_PLAIN_STEPS.items():
+            out[label] = first_step(args, "plain", dtype, batch, objects, rank_device())
+        torch.save(out, os.path.join(spec["work"], f"rank_{rank}.pt"))
+    finally:
+        torch.distributed.all_reduce = real_all_reduce
+        eval_loop.make_train_step = real_make
+        ckpt_module._save_atomic, ckpt_module.save_config = real_save, real_config
+        shutdown_distributed()
+
+
+def interleave(parts: list, world: int):
+    """The global batch from each rank's rows: rows [p::P] are rank p's."""
+    if isinstance(parts[0], dict):
+        return {k: interleave([p[k] for p in parts], world) for k in parts[0]}
+    out = torch.empty((parts[0].shape[0] * world,) + tuple(parts[0].shape[1:]),
+                      dtype=parts[0].dtype)
+    for p, rows in enumerate(parts):
+        out[p::world] = rows
+    return out
+
+
+def phase_distributed() -> dict:
+    """Multi-process training through the train entry point. (a) cli.main
+    --bf16 under the OBJCAVIT_* env of a world of one (NCCL) and without it,
+    each 1 epoch of 4 steps on phase 10's data and warm start, both with
+    deterministic algorithms: the group's backend NCCL and the step's
+    gradient reducer on it, kernel 4's launches and kernels 1 and 2 in the
+    validation; the parameters, BN statistics and metrics of the two fits
+    bit for bit; wall ms a step of each. (b) two processes on the card over
+    gloo (``parallel.launch``, ``dist_rank``): Trainer(attn_impl="kernel",
+    bf16).fit() at global bs 8 (4 a rank), 416x544, 221 clip slots, 1 epoch
+    of 2 steps and one validation: each step's 10 + 9 kernel-5 and 1 + 1
+    kernel-4 launches, one recorded launch of each against its plain
+    version, the same losses, parameters and metrics on both ranks bit for
+    bit, one version dir whose files rank 0 alone wrote; then the first
+    step on one process over the same global batch against the ranks'
+    reduced one, by named group: on the plain route in fp64 and in fp32, on
+    kernel 5's route in bf16, at the bounds stated at DIST_FP64_REL."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    fig = 1 if has_tensorboard() else 0
+    a_launches = {"bins_expectation_fwd": FIT_STEPS, "bins_expectation_bwd": FIT_STEPS,
+                  **fit_eval_launches(1, 1, fig)}
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfgs = write_fit_files(tmp)
+        dist = write_dist_configs(tmp, cfgs)
+        fits = {}
+        with deterministic_algorithms():
+            for name in ("single", "group"):
+                env = distributed_env(1, 0) if name == "group" else contextlib.nullcontext()
+                with env:
+                    metrics, seen = run_fit(f"(a) fit --bf16 ({name}), 1 epoch of {FIT_STEPS} "
+                                            f"steps", ["-c", dist[name], "--bf16"],
+                                            cfgs["basic"], **a_launches)
+                launches.update(seen["launches"])
+                reducer = seen["step"].grad_reducer
+                fits[name] = {"metrics": metrics, "wall": [t[0] for t in seen["times"][1:]],
+                              "backend": None if reducer is None else reducer.backend,
+                              "state": {k: v.detach().cpu().clone() for k, v in
+                                        seen["step"].model.state_dict().items()}}
+                check_train_kernels(seen["records"][0])
+                del seen
+        single, group = fits["single"], fits["group"]
+        same = [k for k, v in single["state"].items() if torch.equal(v, group["state"][k])]
+        log(f"  (a) the group's reducer backend {group['backend']!r} (single process: "
+            f"{single['backend']!r}); {len(same)} of {len(single['state'])} state entries and "
+            f"the metrics {'equal' if single['metrics'] == group['metrics'] else 'differ'} bit "
+            f"for bit; wall ms a step after the first, p50 (min, max) of {len(group['wall'])}: "
+            f"world of one {statistics.median(group['wall']):.3f} ({min(group['wall']):.3f}, "
+            f"{max(group['wall']):.3f}), one process {statistics.median(single['wall']):.3f} "
+            f"({min(single['wall']):.3f}, {max(single['wall']):.3f})")
+        if (group["backend"] != "nccl" or single["backend"] is not None
+                or len(same) != len(single["state"]) or single["metrics"] != group["metrics"]):
+            raise AssertionError("(a): the world of one did not give the single-process fit")
+        del fits, single, group
+
+        work = os.path.join(tmp, "ranks")
+        os.makedirs(work)
+        spec = os.path.join(work, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"cfg": dist["ranks"], "basic": cfgs["basic"], "work": work}, f)
+        out = io.StringIO()
+        tb = time.perf_counter()
+        rc = launch([sys.executable, os.path.abspath(__file__), "--dist-rank", spec], DIST_RANKS,
+                    out=out, timeout=DIST_TIMEOUT)
+        b_seconds = time.perf_counter() - tb
+        text = out.getvalue()
+        log("\n".join(line for line in text.splitlines()
+                      if "(b) rank" in line or "recorded step" in line or "Error" in line))
+        if rc != 0:
+            raise AssertionError(f"(b): the ranks exited {rc}:\n{text[-6000:]}")
+        ranks = [torch.load(os.path.join(work, f"rank_{r}.pt"), weights_only=False)
+                 for r in range(DIST_RANKS)]
+        for r in ranks:
+            launches.update(r["launches"])
+        r0 = ranks[0]
+        run_root = os.path.join(tmp, "runs", "dist_ranks")
+        versions = sorted(os.listdir(run_root))
+        log(f"  (b) {DIST_RANKS} processes over gloo in {b_seconds:.1f} s: losses "
+            f"{[r['losses'] for r in ranks]}, digests {[r['digest'][:16] for r in ranks]}, "
+            f"backends {[r['backend'] for r in ranks]}; wall ms a step "
+            f"{[[round(t, 3) for t in r['times']] for r in ranks]}, of which the gradient "
+            f"reducer {[[round(t, 3) for t in r['reduce_ms']] for r in ranks]}, the other "
+            f"all-reduces (BNs, losses, n_b; count, ms, each timed between syncs) "
+            f"{[[(n, round(t, 3)) for n, t in r['small']] for r in ranks]}; versions "
+            f"{versions}, "
+            f"written {[sorted(r['written']) for r in ranks]}")
+        if (any(r[k] != r0[k] for r in ranks for k in ("losses", "digest", "metrics"))
+                or {r["backend"] for r in ranks} != {"gloo"} or versions != ["version_0"]
+                or sorted(r0["written"]) != ["best.ckpt", "hparams.yaml", "last.ckpt"]
+                or any(r["written"] for r in ranks[1:])):
+            raise AssertionError("(b): the ranks disagree, or a rank other than 0 wrote")
+
+        dev = torch.device("cuda")
+        args = dist_args(dist["ranks"], cfgs["basic"])
+        batch = interleave([r["batch"] for r in ranks], DIST_RANKS)
+        objects = interleave([r["objects"] for r in ranks], DIST_RANKS)
+        one = {label: first_step(args, "plain", dtype, batch, objects, dev)
+               for label, dtype in DIST_PLAIN_STEPS.items()}
+        one["bf16 kernel"] = first_step(args, "kernel", torch.bfloat16, batch, objects, dev)
+        floor = {g: rel_l2(v, one["fp64 plain"]["grads"][g])
+                 for g, v in one["fp32 plain"]["grads"].items()}
+        log("  (b) one process's fp32 first step against its fp64 one, gradient rel L2: "
+            + ", ".join(f"{g} {v:.3e}" for g, v in floor.items()))
+        bounds = {"fp64 plain": (DIST_FP64_REL, {g: DIST_FP64_REL for g in floor}),
+                  "fp32 plain": (DIST_FP64_REL, {g: DIST_FP32_FLOOR_X * v + DIST_FP64_REL
+                                                 for g, v in floor.items()}),
+                  "bf16 kernel": (DIST_BF16_LOSS_REL, {g: b for g, (_, b) in
+                                                       TRAIN_GRAD_GROUPS.items()})}
+        bad = []
+        for label, (loss_bound, grad_bounds) in bounds.items():
+            got, want = r0[label], one[label]
+            rels = {g: rel_l2(got["grads"][g], want["grads"][g]) for g in want["grads"]}
+            loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            log(f"  (b) first step, {DIST_RANKS} processes vs one on the same global batch, "
+                f"{label}: loss {got['loss']!r} vs {want['loss']!r} (rel {loss_rel:.3e}, bound "
+                f"{loss_bound}); gradient rel L2 " + ", ".join(
+                    f"{g} {v:.3e} (bound {grad_bounds[g]:.3e})" for g, v in rels.items()))
+            if loss_rel > loss_bound or any(v > grad_bounds[g] for g, v in rels.items()):
+                bad.append(label)
+        if bad:
+            raise AssertionError(f"(b): the first step of {DIST_RANKS} processes strays from "
+                                 f"one process's: {bad}")
+    torch.cuda.empty_cache()
+    log(f"distributed: {time.perf_counter() - t0:.1f} s")
+    return dict(launches)
+
+
 # the regressor's gradient rel L2 on the seed's weights, kernel 5's route
 # against the plain route, as an H100 read them with the forward's planned
 # key groups and the cluster backward: a gap to watch, not a bound (the
@@ -3374,6 +3821,9 @@ def watch_gradients(plain: dict, kernel: dict) -> None:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--dist-rank"]:  # one process of phase 15 (b)
+        dist_rank(sys.argv[2])
+        return
     name = phase_device()
     phase_build()
     kernels = phase_kernels()
@@ -3415,6 +3865,12 @@ def main() -> None:
         f"{host['bins_expectation_fwd']} + {host['bins_expectation_bwd']}, kernel-1 concat "
         f"{host[CONCAT_COUNTER]}, kernel-2 {host['bins']}; the kernels line adds them to "
         f"kernels 1, 2 and 4's counts")
+    dist = phase_distributed()
+    log(f"  distributed paths ((a) two fits, (b) both ranks' fits): kernel-4 launches "
+        f"{dist['bins_expectation_fwd']} + {dist['bins_expectation_bwd']}, kernel-5 "
+        f"{dist['attention_fwd']} + {dist['attention_bwd']}, kernel-1 concat "
+        f"{dist[CONCAT_COUNTER]}, kernel-2 {dist['bins']}; the kernels line adds them to "
+        f"kernels 1, 2, 4 and 5's counts")
 
     def entry(name, source, replaces, launches, key):
         return {"name": name, "route": "cuda", "source": f"objcavit_torch/csrc/{source}",
@@ -3424,7 +3880,8 @@ def main() -> None:
         entry("resize_bilinear_align_corners_into_concat (kernel 1's concat form)",
               "resize_bilinear.cu", "resize_pallas.py:104",
               serving["resize"] + served[CONCAT_COUNTER] + v2[CONCAT_COUNTER] + fu[CONCAT_COUNTER]
-              + dp[CONCAT_COUNTER] + host[CONCAT_COUNTER], "resize_concat"),
+              + dp[CONCAT_COUNTER] + host[CONCAT_COUNTER] + dist[CONCAT_COUNTER],
+              "resize_concat"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form, a function path)",
               "resize_bilinear.cu", "resize_pallas.py:104", serving["resize_bare"], "resize"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form at the final "
@@ -3432,7 +3889,8 @@ def main() -> None:
               "resize_bilinear.cu", "resize_pallas.py:104", fu["resize"] - fu[CONCAT_COUNTER],
               "resize_final"),
         entry("conv_bins_depth_batched", "bins_depth.cu", "pallas_bins.py:214",
-              serving["bins"] + served["bins"] + v2["bins"] + dp["bins"] + host["bins"], "bins"),
+              serving["bins"] + served["bins"] + v2["bins"] + dp["bins"] + host["bins"]
+              + dist["bins"], "bins"),
         entry("conv_bins_depth_batched (full resolution, (8, 480, 640, 128))", "bins_depth.cu",
               "pallas_bins.py:214", fu["bins"], "bins_final"),
         entry("conv_bins_depth (kernel 2, shared W)", "bins_depth.cu", "pallas_bins.py:163",
@@ -3440,11 +3898,13 @@ def main() -> None:
         entry("bins_expectation_fwd", "bins_expectation.cu", "pallas_bins.py:63",
               train["bins_expectation_fwd"] + fit["bins_expectation_fwd"]
               + trained["bins_expectation_fwd"] + v2["bins_expectation_fwd"]
-              + dp["bins_expectation_fwd"] + host["bins_expectation_fwd"], "bins_expectation_fwd"),
+              + dp["bins_expectation_fwd"] + host["bins_expectation_fwd"]
+              + dist["bins_expectation_fwd"], "bins_expectation_fwd"),
         entry("bins_expectation_bwd", "bins_expectation.cu", "pallas_bins.py:91",
               train["bins_expectation_bwd"] + fit["bins_expectation_bwd"]
               + trained["bins_expectation_bwd"] + v2["bins_expectation_bwd"]
-              + dp["bins_expectation_bwd"] + host["bins_expectation_bwd"], "bins_expectation_bwd"),
+              + dp["bins_expectation_bwd"] + host["bins_expectation_bwd"]
+              + dist["bins_expectation_bwd"], "bins_expectation_bwd"),
         entry("bins_expectation_fwd (full resolution, (8, 226304, 256))", "bins_expectation.cu",
               "pallas_bins.py:63", fu["bins_expectation_fwd"], "bins_expectation_fwd_final"),
         entry("bins_expectation_bwd (full resolution, (8, 226304, 256))", "bins_expectation.cu",
@@ -3453,10 +3913,10 @@ def main() -> None:
               "detect_head"),
         entry("fused_mha_fwd", "attention.cu", "pallas_attention.py:91",
               attn_serving["attention_fwd"] + served["attention_fwd"] + trained["attention_fwd"]
-              + v2["attention_fwd"], "attention_fwd"),
+              + v2["attention_fwd"] + dist["attention_fwd"], "attention_fwd"),
         entry("fused_mha_bwd", "attention.cu", "pallas_attention.py:108",
-              attn_train["attention_bwd"] + trained["attention_bwd"] + v2["attention_bwd"],
-              "attention_bwd"),
+              attn_train["attention_bwd"] + trained["attention_bwd"] + v2["attention_bwd"]
+              + dist["attention_bwd"], "attention_bwd"),
         entry("fused_mha_fwd (beyond 512 keys, the long route: final upscale, timed at "
               "S 1200)", "attention.cu", "pallas_attention.py:91", fu["attention_fwd"],
               "attention_fwd_final"),

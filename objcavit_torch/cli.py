@@ -9,9 +9,18 @@ Port of ``objcavit_tpu/cli.py``: the same flags (``-c -v -i --debug
 (saved hparams.yaml files through the 'args:' unwrap) and the log format.
 The dataset sections come from ``basicParams.yaml`` (misc_utils.py:41-48):
 ``basic_params_path``, else the one beside the config file, else the one in
-``$OBJCAVIT_PARAMS_DIR``. It runs on the card unless ``device`` says
-otherwise. Without ``-v`` or ``-i`` it trains (``Trainer.fit``), in one
-process: the multi-process launch is ROADMAP A.5.
+``$OBJCAVIT_PARAMS_DIR``. It runs on the card unless ``device`` (or, when
+the caller passes none, ``$OBJCAVIT_DEVICE``) says otherwise. Without
+``-v`` or ``-i`` it trains (``Trainer.fit``).
+
+Multi-process training: under the OBJCAVIT_COORDINATOR,
+OBJCAVIT_NUM_PROCESSES and OBJCAVIT_PROCESS_ID env (which
+``python -m objcavit_torch.parallel.launch -n N -- python -m
+objcavit_torch.cli -c ...`` sets for each process) ``main`` joins the
+process group before it builds anything (NCCL on the card, rank p on card
+p % count; gloo on the CPU), logs ``process p/P`` and its device, trains
+its rows of each global batch of ``basic.batch_size``, and leaves the
+group when it returns (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +32,14 @@ import os
 import torch
 
 from objcavit_torch.config import check_and_validate_args, load_args
+from objcavit_torch.parallel.distributed import (
+    ENV_DEVICE,
+    initialize_distributed,
+    process_count,
+    process_index,
+    rank_device,
+    shutdown_distributed,
+)
 
 
 def _resolve_basic_params(config_file: str, explicit: str | None) -> str:
@@ -60,9 +77,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def main(argv=None, basic_params_path: str | None = None, device="cuda"):
+def main(argv=None, basic_params_path: str | None = None, device=None):
     """Run the command line ``argv`` (``sys.argv[1:]`` when None); returns
-    what ``Trainer.fit``, ``Trainer.validate`` or ``Trainer.predict`` returns."""
+    what ``Trainer.fit``, ``Trainer.validate`` or ``Trainer.predict`` returns.
+    ``device`` None: ``$OBJCAVIT_DEVICE``, else the card."""
+    device = device or os.environ.get(ENV_DEVICE, "cuda")
+    joined = initialize_distributed(device=device)
+    try:
+        return _run(argv, basic_params_path, rank_device(device))
+    finally:
+        if joined:
+            shutdown_distributed()
+
+
+def _run(argv, basic_params_path: str | None, device: torch.device):
     cl = parse_args(argv)
     args = load_args(cl.config_file, debug=cl.debug, log_debug=cl.log_debug,
                      validate=cl.validate, inference=cl.inference)
@@ -77,6 +105,7 @@ def main(argv=None, basic_params_path: str | None = None, device="cuda"):
                         force=True, format="[%(levelname)s][%(name)s] %(message)s")
     logging.info("Starting (model=%s dataset=%s name=%s)",
                  args.model.name, args.basic.dataset, args.basic.name)
+    logging.info("process %d/%d on %s", process_index(), process_count(), device)
 
     from objcavit_torch.training.loop import Trainer
 

@@ -24,12 +24,15 @@ from __future__ import annotations
 
 import torch
 
+from objcavit_torch.parallel.collectives import rand_rows
 from objcavit_torch.serving import IMAGENET_MEAN, IMAGENET_STD
 
 
 def draw_augment(b: int, generator: torch.Generator | None, device) -> dict[str, torch.Tensor]:
-    """The draws of one batch of ``b`` images, as ``augment_with`` takes them."""
-    u = torch.rand((4, b), generator=generator, device=device)
+    """The draws of one batch of ``b`` images, as ``augment_with`` takes them;
+    in a process group, this rank's images of the global batch's draws
+    (``parallel/collectives.py::rand_rows``)."""
+    u = rand_rows((4, b), generator, device, dim=1)
     return {
         "flip": u[0] < 0.5,
         "gamma_u": u[1],

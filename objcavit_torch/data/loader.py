@@ -1,4 +1,4 @@
-"""Host batching with a prefetch thread, for one process on one device.
+"""Host batching with a prefetch thread, for one process's device.
 
 Port of ``objcavit_tpu/data/loader.py::DeviceLoader``: batches of
 ``batch_size`` samples, in order or (``shuffle``) in an order drawn each
@@ -15,7 +15,12 @@ hook's entries (nested dicts of tensors), ``meta`` the per-sample 'focal',
 'image_path' and 'depth_path'. A dataset whose ``get_batch`` returns a
 batch (``DepthDataset``'s old_dl train path: threaded decode and the host
 core's assembly) gives it whole; else the loader reads sample by sample.
-The distributed interleave is ROADMAP A.5.
+In a process group of P processes (``parallel/distributed.py``) every
+process draws the same order from the same seed and loads rows
+``[p::P]`` of each global batch of ``batch_size``, ``sample_valid``
+included (JAX's interleave, ``objcavit_tpu/data/loader.py:60-80``); a
+``batch_size`` that P does not divide raises ValueError. Each process's
+samples draw from its own stream, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from objcavit_torch.parallel.distributed import (
+    process_count,
+    process_index,
+    process_local_indices,
+)
 from objcavit_torch.utils.device import card_device
 
 PREFETCH = 2  # batches the worker keeps ready
@@ -54,6 +64,13 @@ class DeviceLoader:
         self.host_hook = host_hook
         self.synchronous = synchronous
         self._rng = np.random.default_rng(seed)
+        self._pid, self._pc = process_index(), process_count()
+        if self._pc > 1 and batch_size % self._pc != 0:
+            raise ValueError(
+                f"global batch_size {batch_size} must divide the "
+                f"{self._pc}-process run (each process loads "
+                f"batch_size/process_count samples)"
+            )
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
@@ -61,7 +78,8 @@ class DeviceLoader:
     def host_batches(self) -> Iterator[tuple[dict, dict]]:
         """An epoch's host batches before the hook, drawn from the stream:
         the order, then each batch's samples (``dataset.get_batch`` where it
-        gives the batch, else ``dataset.get`` a sample)."""
+        gives the batch, else ``dataset.get`` a sample); in a process group,
+        this process's rows of each global batch."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
@@ -73,6 +91,9 @@ class DeviceLoader:
                 pad = order[:self.batch_size - len(idxs)]
                 valid = np.concatenate([valid, np.zeros(len(pad), bool)])
                 idxs = np.concatenate([idxs, pad])
+            if self._pc > 1:
+                idxs = process_local_indices(idxs, self._pid, self._pc)
+                valid = process_local_indices(valid, self._pid, self._pc)
             get_batch = getattr(self.dataset, "get_batch", None)
             whole = None if get_batch is None else get_batch(idxs, self._rng)
             if whole is not None:

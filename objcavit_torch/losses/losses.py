@@ -11,6 +11,12 @@ Port of ``objcavit_tpu/losses/losses.py``:
 * MSE, unmasked;
 * ``LossWrapper``, the weighted sum keyed by names and coefficients.
 
+Each loss reads the whole batch through sums (SILog's sums of g and g^2
+and its pixel count, the chamfer's row sums and valid rows, the MSE's sum
+and count); in a process group of more than one process those sums are
+``parallel/collectives.py::global_sum``s, so every rank computes the loss
+of the global batch, with its gradient.
+
 Layout NHWC.
 """
 
@@ -22,6 +28,7 @@ import torch
 
 from objcavit_torch.ops.chamfer import masked_chamfer_1d
 from objcavit_torch.ops.resize import resize_bilinear
+from objcavit_torch.parallel.collectives import global_sum
 
 _POSSIBLE_LOSSES = ("mse", "silog", "bins_chamfer")
 
@@ -35,12 +42,12 @@ def silog_loss(depth_pred: torch.Tensor, depth_gt: torch.Tensor,
                                      align_corners=True)
     g = torch.log(depth_pred) - torch.log(depth_gt)
     if depth_mask is None:
-        n = float(g.numel())
+        n = torch.tensor(float(g.numel()), dtype=g.dtype, device=g.device)
     else:
         n = depth_mask.sum().to(g.dtype)
         g = torch.where(depth_mask, g, 0.0)
-    sum_g = g.sum()
-    dg = (g * g).sum() / n - (lam / (n * n)) * (sum_g * sum_g)
+    sum_g2, sum_g, n = global_sum(torch.stack([(g * g).sum(), g.sum(), n])).unbind()
+    dg = sum_g2 / n - (lam / (n * n)) * (sum_g * sum_g)
     return alpha * torch.sqrt(dg)
 
 
@@ -53,7 +60,11 @@ def bins_chamfer_loss(depth_gt: torch.Tensor, depth_mask: torch.Tensor,
 
 
 def mse_loss(depth_pred: torch.Tensor, depth_gt: torch.Tensor) -> torch.Tensor:
-    return torch.mean((depth_pred - depth_gt) ** 2)
+    sq = (depth_pred - depth_gt) ** 2
+    acc = torch.promote_types(sq.dtype, torch.float32)  # torch.mean's accumulation
+    n = torch.tensor(float(sq.numel()), dtype=acc, device=sq.device)
+    total, n = global_sum(torch.stack([sq.sum(dtype=acc), n])).unbind()
+    return (total / n).to(sq.dtype)
 
 
 class LossWrapper:

@@ -6,6 +6,8 @@ from objcavit_torch.metrics.metrics import (
     metrics_compute,
     metrics_init,
     metrics_preprocess,
+    metrics_reduce,
+    metrics_sync,
     metrics_update,
 )
 
@@ -15,5 +17,7 @@ __all__ = [
     "metrics_compute",
     "metrics_init",
     "metrics_preprocess",
+    "metrics_reduce",
+    "metrics_sync",
     "metrics_update",
 ]

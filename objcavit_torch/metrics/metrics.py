@@ -19,8 +19,8 @@ on the predictions' device, and an update is a fixed-shape masked reduction.
 
 Two behaviours of the reference are kept: the running-average rmse_log
 takes no square root (RMSELog.py's RunningAvg), and an update with no valid
-pixel leaves the running averages as they are. The cross-process reduction
-(``metrics_reduce``/``metrics_sync``) comes with the distributed port.
+pixel leaves the running averages as they are. ``metrics_reduce`` and
+``metrics_sync`` merge states kept on each rank over the process group.
 
 ``metrics_preprocess`` is metrics/MetricsPreprocess.py: the upsample
 (bilinear, align_corners=True, fp32, the plain ``ops/resize.py``, never
@@ -33,8 +33,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from objcavit_torch.ops.resize import resize_bilinear
+from objcavit_torch.parallel.collectives import global_sum
+from objcavit_torch.parallel.distributed import process_count
 
 METRIC_NAMES = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log10", "acc_1", "acc_2", "acc_3")
 
@@ -69,15 +72,20 @@ def metrics_update(state: dict[str, torch.Tensor], depth_pred: torch.Tensor,
     """Fold one (pred, gt, mask) batch into the state; returns a new state.
 
     All three share one shape; only pixels where ``mask`` is True count. One
-    call is one torchmetrics ``update`` on the masked selection.
+    call is one torchmetrics ``update`` on the masked selection. In a process
+    group of more than one process the batch's sums are summed over the
+    ranks (``global_sum``) before the running averages take them: the update
+    is the global batch's, the same state on every rank, as the JAX
+    package's Trainer, which evaluates global arrays, has it.
     """
-    n = mask.float().sum()
+    terms = _per_pixel_terms(depth_pred.float(), depth_gt.float())
+    sums = global_sum(torch.stack([torch.where(mask, terms[name], 0.0).sum()
+                                   for name in METRIC_NAMES] + [mask.float().sum()]))
+    n = sums[-1]
     safe_n = n.clamp(min=1.0)
     has_px = n > 0.0
-    terms = _per_pixel_terms(depth_pred.float(), depth_gt.float())
     new = dict(state)
-    for name in METRIC_NAMES:
-        total = torch.where(mask, terms[name], 0.0).sum()
+    for name, total in zip(METRIC_NAMES, sums.unbind()):
         new[f"{name}/total"] = state[f"{name}/total"] + total
         new[f"{name}/count"] = state[f"{name}/count"] + n
         val = total / safe_n
@@ -101,6 +109,31 @@ def metrics_compute(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         out[name] = v
         out[f"{name}_ra"] = state[f"{name}_ra/avg"]
     return out
+
+
+def metrics_reduce(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Cross-process reduction over the process group: the sums and counts
+    all-reduced with SUM, the running averages (``*_ra/avg``)
+    with a mean, as torchmetrics' dist_reduce_fx does (AbsRel.py:17-18:
+    batch_count 'sum', running_avg 'mean'); one all-reduce of the stacked
+    values."""
+    keys = sorted(state)
+    flat = torch.stack([state[k] for k in keys]).float()
+    dist.all_reduce(flat)
+    world = dist.get_world_size()
+    return {k: v / world if k.endswith("_ra/avg") else v
+            for k, v in zip(keys, flat.unbind())}
+
+
+def metrics_sync(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Every rank's own state merged into one global state, the same on
+    every rank (the one-shot dist-sync torchmetrics performs at compute());
+    without a group, the state as it is. For states updated on each rank's
+    rows alone: the in-fit validation needs none, its updates being global
+    already (``metrics_update``)."""
+    if process_count() == 1:
+        return dict(state)
+    return metrics_reduce(state)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,8 @@ loads with a plain ``load_state_dict``.
 These blocks run inside the encoder on NCHW tensors in
 ``torch.channels_last`` memory (the memory of the NHWC tensors the public
 modules take). BN eps is 1e-3 and the activation SiLU, as in both
-families. In training mode each ``nn.BatchNorm2d``
+families. In training mode each ``BatchNorm2d`` (``nn.BatchNorm2d``, over
+the global batch in a process group)
 normalises with the batch statistics and updates its running mean and its
 unbiased running variance with momentum 0.1, which is what the JAX
 package's ``_TorchBN`` copies (``objcavit_tpu/models/common.py:165-213``).
@@ -76,6 +77,9 @@ from objcavit_torch.kernels.se_project import (
     se_gate_project_plain,
     se_project_eligible,
 )
+from objcavit_torch.parallel.collectives import batch_norm as global_batch_norm
+from objcavit_torch.parallel.collectives import rand_rows
+from objcavit_torch.parallel.distributed import process_count
 from objcavit_torch.utils.fold_bn import FoldedBatchNorm
 
 BN_EPS = 1e-3
@@ -84,9 +88,10 @@ BN_EPS = 1e-3
 def keep_mask(x: torch.Tensor, keep: float, generator: torch.Generator | None) -> torch.Tensor:
     """(B, 1, ..., 1) in x's dtype: 1 where a sample keeps its residual
     branch, with probability ``keep`` (``jax.random.bernoulli``'s rule,
-    uniform < keep), drawn from ``generator`` (the default one if None)."""
+    uniform < keep), drawn from ``generator`` (the default one if None); in
+    a process group, this rank's rows of the global batch's draw."""
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    return (torch.rand(shape, generator=generator, device=x.device) < keep).to(x.dtype)
+    return (rand_rows(shape, generator, x.device) < keep).to(x.dtype)
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool,
@@ -101,6 +106,18 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     mask = (mask_or_generator.to(x.dtype) if isinstance(mask_or_generator, torch.Tensor)
             else keep_mask(x, keep, mask_or_generator))
     return x * mask / torch.tensor(keep, dtype=x.dtype, device=x.device)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d``, whose training mode in a process group of more
+    than one process normalises with the global batch's statistics
+    (``parallel/collectives.py::batch_norm``), as the JAX package's sharded
+    step does; elsewhere it is ``nn.BatchNorm2d`` itself."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and process_count() > 1:
+            return global_batch_norm(self, x)
+        return super().forward(x)
 
 
 class Conv2dSame(nn.Conv2d):
@@ -165,7 +182,7 @@ class ConvNormAct(nn.Sequential):
                  groups: int = 1, act: bool = True):
         layers = [nn.Conv2d(in_ch, out_ch, kernel_size, stride, kernel_size // 2, groups=groups,
                             bias=False),
-                  nn.BatchNorm2d(out_ch, eps=BN_EPS)]
+                  BatchNorm2d(out_ch, eps=BN_EPS)]
         super().__init__(*layers, *([nn.SiLU()] if act else []))
 
 
@@ -249,10 +266,10 @@ class DepthwiseSeparable(FusedRoutes, nn.Module):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.conv_dw = Conv2dSame(in_ch, in_ch, kernel_size, stride, groups=in_ch, bias=False)
-        self.bn1 = nn.BatchNorm2d(in_ch, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(in_ch, eps=BN_EPS)
         self.se = SqueezeExcite(in_ch, max(1, int(in_ch * se_ratio)))
         self.conv_pw = nn.Conv2d(in_ch, out_ch, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(out_ch, eps=BN_EPS)
         self.has_residual = stride == 1 and in_ch == out_ch
         self.fused_route = ("se_project" if se_project and se_project_eligible(in_ch, out_ch)
                             else "plain")
@@ -282,12 +299,12 @@ class MBConv(FusedRoutes, nn.Module):
         self.drop_path_rate = drop_path_rate
         mid = int(in_ch * expand_ratio)
         self.conv_pw = nn.Conv2d(in_ch, mid, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(mid, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(mid, eps=BN_EPS)
         self.conv_dw = Conv2dSame(mid, mid, kernel_size, stride, groups=mid, bias=False)
-        self.bn2 = nn.BatchNorm2d(mid, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(mid, eps=BN_EPS)
         self.se = SqueezeExcite(mid, max(1, int(in_ch * se_ratio)))
         self.conv_pwl = nn.Conv2d(mid, out_ch, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(out_ch, eps=BN_EPS)
         self.has_residual = stride == 1 and in_ch == out_ch
         if (fused_mbconv_head and expand_ratio != 1 and se_ratio > 0
                 and mbconv_eligible(in_ch, mid, kernel_size, stride)):

@@ -31,8 +31,10 @@ names (``conv2``, ``up1..up4._net.{0,1,3,4}``, ``conv3``):
   Pallas resize too (C = 128 passes its ``resize_eligible``) before its
   split conv.
 
-Modules take and return NHWC tensors; inside, they are NCHW views in
-``torch.channels_last`` memory, which is the same memory.
+The up-stages' BatchNorms are ``models/common.py::BatchNorm2d``: over the
+global batch in a process group. Modules take and return NHWC tensors;
+inside, they are NCHW views in ``torch.channels_last`` memory, which is the
+same memory.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from objcavit_torch.kernels.resize import (
     resize_bilinear_align_corners,
     resize_bilinear_align_corners_into_concat,
 )
+from objcavit_torch.models.common import BatchNorm2d
 from objcavit_torch.models.efficientnet import EfficientNetEncoder, encoder_spec
 from objcavit_torch.ops.resize import resize_bilinear
 
@@ -73,10 +76,10 @@ class UpSampleWithSkip(nn.Module):
         super().__init__()
         self._net = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 3, 1, 1),
-            nn.BatchNorm2d(out_channels, eps=DECODER_BN_EPS),
+            BatchNorm2d(out_channels, eps=DECODER_BN_EPS),
             nn.LeakyReLU(0.01),
             nn.Conv2d(out_channels, out_channels, 3, 1, 1),
-            nn.BatchNorm2d(out_channels, eps=DECODER_BN_EPS),
+            BatchNorm2d(out_channels, eps=DECODER_BN_EPS),
             nn.LeakyReLU(0.01),
         )
 

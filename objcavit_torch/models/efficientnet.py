@@ -46,6 +46,7 @@ import torch.nn as nn
 
 from objcavit_torch.models.common import (
     BN_EPS,
+    BatchNorm2d,
     Conv2dSame,
     ConvNormAct,
     DepthwiseSeparable,
@@ -227,7 +228,7 @@ class EfficientNetEncoder(nn.Module):
                              (f"features.{n + 1}.0", f"features.{n + 1}.1"))
         else:
             self.conv_stem = Conv2dSame(3, spec.stem_channels, 3, 2, bias=False)
-            self.bn1 = nn.BatchNorm2d(spec.stem_channels, eps=BN_EPS)
+            self.bn1 = BatchNorm2d(spec.stem_channels, eps=BN_EPS)
             self.blocks = nn.Sequential(*stages)
             self.conv_head = nn.Conv2d(in_ch, spec.head_channels, 1, bias=False)
             self.bn_folds = (("conv_stem", "bn1"),)

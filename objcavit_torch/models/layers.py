@@ -31,18 +31,21 @@ import torch.nn.functional as F
 
 from objcavit_torch.models.common import PatchEmbedConv
 from objcavit_torch.ops.attention import mha_core
+from objcavit_torch.parallel.collectives import rand_rows
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """Inverted dropout drawing its mask from ``generator`` (the default
     generator if None), with flax ``nn.Dropout``'s semantics: the identity
-    outside training or at rate 0, zeros at rate 1."""
+    outside training or at rate 0, zeros at rate 1. x is batch-first; in a
+    process group the mask is this rank's rows of the global batch's
+    (``parallel/collectives.py::rand_rows``)."""
     if not training or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = rand_rows(x.shape, generator, x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

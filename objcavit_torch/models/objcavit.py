@@ -15,7 +15,9 @@ Reference quirks kept exactly (they change the numbers):
   n_b = the batch's largest valid count) to the image sequence length with
   0.0001 while extending the key-padding mask at the END, so the object
   block starts at S - n_b, which depends on the data. Reproduced for any
-  count up to S with a gather. Under ``use_2_saca`` the second SACA takes
+  count up to S with a gather; in a process group n_b is the global
+  batch's (``parallel/collectives.py::global_max``), as in the JAX
+  package's sharded step. Under ``use_2_saca`` the second SACA takes
   the first one's (B, S, E) objects with an all-valid mask: n_b = S and the
   gather is the identity.
 * Invalid object slots hold 0.0001, not 0.
@@ -54,6 +56,7 @@ from objcavit_torch.models.layers import (
 )
 from objcavit_torch.ops.grid_sample import grid_sample_bilinear
 from objcavit_torch.ops.roi_align import ps_roi_align_1x1
+from objcavit_torch.parallel.collectives import global_max
 
 PAD_VALUE = 0.0001
 FEATURE_STRIDE = 2  # image pixels per pixel of the dense features ObjCAViT reads
@@ -151,7 +154,7 @@ class SelfAttnCrossAttn(nn.Module):
 
         # place attended_obj[k] at position S - n_b + k, 0.0001 before it;
         # slots k >= n_b (never materialised by the ragged reference) fall off
-        n_b = (~obj_pad_mask).sum(dim=1).max()
+        n_b = global_max((~obj_pad_mask).sum(dim=1).max())
         src = torch.arange(s, device=image_emb.device) - (s - n_b)
         index = src.clamp(0, n - 1).view(1, s, 1).expand(b, s, attended_obj.shape[2])
         gathered = torch.gather(attended_obj, 1, index)

@@ -9,9 +9,11 @@ targets as a dense (N, T) array and a validity mask):
     loss      = sum_i cham_x[i] / n_rows + sum_i cham_y[i] / n_rows
 
 with n_rows the rows that have a valid target; a row without one adds
-nothing. The JAX package reduces over the implicit (N, P, T) distance tensor,
-which XLA never materialises. At the train shape that tensor is (8, 256,
-226,304): 1.85 GB in fp32 a direction in eager PyTorch. Both directions are
+nothing. In a process group the two sums and n_rows span the global batch
+(``parallel/collectives.py::global_sum``). The JAX package reduces over
+the implicit (N, P, T) distance tensor, which XLA never materialises. At
+the train shape that tensor is (8, 256, 226,304): 1.85 GB in fp32 a
+direction in eager PyTorch. Both directions are
 1-D nearest-neighbour searches instead: each point's nearest neighbour in a
 sorted set is one of the two elements around its ``searchsorted`` position,
 and the loss takes the smaller of their two squared distances, the same fp32
@@ -28,6 +30,8 @@ of them, the port between two.
 from __future__ import annotations
 
 import torch
+
+from objcavit_torch.parallel.collectives import global_sum
 
 _BIG = 1e10  # sentinel for invalid targets; finite, so (a - b)^2 stays finite
 
@@ -49,7 +53,6 @@ def masked_chamfer_1d(x: torch.Tensor, y: torch.Tensor, y_mask: torch.Tensor) ->
     y_mask = y_mask.bool()
     lengths = y_mask.sum(1)
     row_valid = lengths > 0
-    n_rows = row_valid.sum().clamp(min=1)
 
     # invalid targets sort to the end as _BIG and are never nearest to a
     # centre, unless a row has no valid target at all (masked below)
@@ -62,4 +65,7 @@ def masked_chamfer_1d(x: torch.Tensor, y: torch.Tensor, y_mask: torch.Tensor) ->
     d_y = torch.where(y_mask, d_y, 0.0)
     cham_y = d_y.sum(1) / lengths.clamp(min=1)
 
-    return cham_x.sum() / n_rows + cham_y.sum() / n_rows
+    total_x, total_y, rows = global_sum(torch.stack(
+        [cham_x.sum(), cham_y.sum(), row_valid.sum().to(cham_x.dtype)])).unbind()
+    n_rows = rows.clamp(min=1)
+    return total_x / n_rows + total_y / n_rows

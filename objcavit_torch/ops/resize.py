@@ -2,10 +2,10 @@
 
 Port of ``objcavit_tpu/ops/resize.py``. The taps are computed on the host in
 float64 exactly as the JAX package computes them (``_interp_taps``); the
-resize itself gathers the two taps of each axis and lerps in fp32, H first
-and then W, and rounds to the input dtype once at the end. That is the
-arithmetic of the CUDA kernel in ``objcavit_torch/kernels/resize.py``, for
-which this is the plain version.
+resize itself gathers the two taps of each axis and lerps in fp32 (in
+fp64 for an fp64 input), H first and then W, and rounds to the input dtype
+once at the end. That is the arithmetic of the CUDA kernel in
+``objcavit_torch/kernels/resize.py``, for which this is the plain version.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def resize_bilinear(
     _, h, w, _ = x.shape
     if (h, w) == (out_h, out_w):
         return x
-    y = x.float()
+    y = x.to(torch.promote_types(x.dtype, torch.float32))
     if h != out_h:
         lo, hi, frac = device_taps(h, out_h, align_corners, x.device)
         f = frac.view(1, -1, 1, 1)

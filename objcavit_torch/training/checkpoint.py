@@ -15,7 +15,10 @@ restarted run does not let a worse validation replace ``best.ckpt``.
 ``checkpoints/swa.ckpt`` holds the SWA average of the parameters (the same
 layout, parameters only), and ``meta.json`` its count and the step it was
 taken at, so a resumed run keeps averaging and drops an average recorded
-ahead of the state it resumes (``restore_swa``).
+ahead of the state it resumes (``restore_swa``). In a process group only
+the main process writes (``writes``); the state dict keeps the model's own
+names, so ``-v`` and the ``.ckpt`` loaders read a multi-process run's files
+as they read a single process's.
 """
 
 from __future__ import annotations
@@ -49,10 +52,14 @@ def checkpoint_dict(model: nn.Module, optimizer=None, scheduler=None, step: int 
 
 
 class CheckpointManager:
-    def __init__(self, run_dir: str):
+    def __init__(self, run_dir: str, writes: bool = True):
+        """``writes`` False (a process other than the main one): the
+        manager reads the run's files and writes none."""
         self.run_dir = os.path.abspath(run_dir)
         self.ckpt_dir = os.path.join(self.run_dir, "checkpoints")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.writes = writes
+        if writes:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
         self.best_metric = float(self._meta().get("best_metric", float("inf")))
 
     def _meta_path(self) -> str:
@@ -75,11 +82,15 @@ class CheckpointManager:
         os.replace(tmp, self._meta_path())
 
     def save_hparams(self, args: Config) -> None:
+        if not self.writes:
+            return
         save_config(Config({"args": args.to_dict()}), os.path.join(self.run_dir, "hparams.yaml"))
 
     def save(self, model: nn.Module, optimizer=None, scheduler=None, step: int = 0,
              abs_rel: float | None = None) -> None:
         """``last.ckpt`` always; ``best.ckpt`` when ``abs_rel`` beats the best so far."""
+        if not self.writes:
+            return
         ckpt = checkpoint_dict(model, optimizer, scheduler, step)
         _save_atomic(ckpt, os.path.join(self.ckpt_dir, "last.ckpt"))
         if abs_rel is not None and abs_rel < self.best_metric:
@@ -91,6 +102,8 @@ class CheckpointManager:
     def save_swa(self, swa_params: dict[str, torch.Tensor], swa_count: int, step: int) -> None:
         """The SWA average (parameter name -> tensor) after ``swa_count``
         epochs, taken at train step ``step``."""
+        if not self.writes:
+            return
         _save_atomic({"state_dict": {MODEL_PREFIX + k: v.detach().cpu()
                                      for k, v in swa_params.items()}, "global_step": int(step)},
                      self._swa_path())

@@ -31,8 +31,22 @@ Without a checkpoint the model keeps a fresh init from an explicit
 ``torch.Generator`` (the JAX package inits from ``PRNGKey(0)``). A resumed
 run restarts its random numbers (the generator, the loader's order), as
 JAX's does; it saves no generator state. The object provider runs in the
-loader's prefetch thread on the host batch. One process: the multi-process
-launch is ROADMAP A.5.
+loader's prefetch thread on the host batch.
+
+In a process group (``cli`` under the OBJCAVIT_* env,
+``parallel/distributed.py``) each process trains on its rows of the global
+batch of ``basic.batch_size`` and the step is the global batch's
+(``training/steps.py``). Rank 0 makes the version dir, the others join it
+through a broadcast of its path, and every rank checks that it sees it: a
+rank that does not (no shared filesystem under ``paths.run_dir``) fails on
+every rank with that message. Rank 0 alone writes ``hparams.yaml``, the
+checkpoints, the SWA average and TensorBoard; the train and val figures
+are skipped, as in the JAX package. The in-fit validation evaluates each
+rank's rows and sums every batch over the ranks (``metrics_update``), so
+every rank holds the single-process metrics and takes the same ``best``
+decision. ``fit`` returns on every rank after rank 0's last save. ``-v``
+and ``-i`` (batch size 1) raise the loader's ValueError with more than one
+process, as JAX's do.
 """
 
 from __future__ import annotations
@@ -50,6 +64,13 @@ from objcavit_torch.config import Config
 from objcavit_torch.data.dataset import make_dataset
 from objcavit_torch.data.loader import DeviceLoader
 from objcavit_torch.losses import LossWrapper
+from objcavit_torch.parallel.collectives import all_ranks_true, barrier, broadcast_from_main
+from objcavit_torch.parallel.distributed import (
+    is_main_process,
+    process_count,
+    process_index,
+    rank_device,
+)
 from objcavit_torch.metrics import (
     METRIC_NAMES,
     MetricsPreprocessConfig,
@@ -66,7 +87,6 @@ from objcavit_torch.training.steps import (
     make_eval_step,
     make_train_step,
 )
-from objcavit_torch.utils.device import card_device
 from objcavit_torch.utils.torch_import import load_torch_checkpoint
 
 logger = logging.getLogger(__name__)
@@ -116,10 +136,12 @@ class Trainer:
                  attn_impl: str = "plain", device="cuda"):
         """``dtype`` is the compute dtype (the parameters stay fp32);
         ``attn_impl`` ObjCAViT's attention route ('plain', JAX's 'xla', or
-        'kernel'); ``device`` the card unless the caller asks for the CPU."""
+        'kernel'); ``device`` the card unless the caller asks for the CPU (in
+        a process group, card ``rank % count``: ``rank_device``)."""
         self.args = args
         self.dtype = dtype
-        self.device = card_device(device)
+        self.device = rank_device(device)
+        self.is_main = is_main_process()
         self.debug = bool(args.get("debug"))
         self.dataset_cfg = args[args.basic.dataset]
         self.augment_on_device = not bool(args.basic.get("use_adabins_dataloader"))
@@ -199,10 +221,9 @@ class Trainer:
         args = self.args
         if resume is None:
             resume = bool(args.basic.get("auto_resume"))
-        run_base = os.path.join(args.paths.run_dir, args.basic.name)
-        resume_dir = _find_resume_dir(run_base) if resume else None
-        run_dir = resume_dir or _next_version_dir(run_base)
-        ckpt = CheckpointManager(run_dir)
+        run_dir, resume_dir = self._run_dir(os.path.join(args.paths.run_dir, args.basic.name),
+                                            resume)
+        ckpt = CheckpointManager(run_dir, writes=self.is_main)
         ckpt.save_hparams(args)
         logger.info("run dir: %s%s", run_dir, " (resuming)" if resume_dir else "")
 
@@ -272,7 +293,9 @@ class Trainer:
                 swa_params = {k: v.to(self.device) for k, v in restored[0].items()}
                 swa_count = restored[1]
                 logger.info("resumed SWA average (count=%d)", swa_count)
-        writer = _tb_writer(run_dir)
+        writer = _tb_writer(run_dir) if self.is_main else None
+        # the figures read the whole batch, which spans the ranks in a group
+        figures = writer is not None and process_count() == 1
         last_metrics, last_train_batch = {}, None
         try:
             for epoch in range(start_epoch, max_epochs):
@@ -294,7 +317,7 @@ class Trainer:
                     swa_params = _running_average(swa_params, self.model, swa_count)
                     # the step lets a resume drop an average ahead of last.ckpt
                     ckpt.save_swa(swa_params, swa_count, step)
-                if writer is not None and last_train_batch is not None:
+                if figures and last_train_batch is not None:
                     self._log_train_figure(writer, last_train_batch, step)
                 if (epoch + 1) % int(args.basic.get("validate_every", 1)) == 0:
                     last_metrics, last_batch = self._run_eval(
@@ -306,6 +329,7 @@ class Trainer:
                         for k, v in last_metrics.items():
                             writer.add_scalar(f"{'metrics_ra' if k.endswith('_ra') else 'metrics'}"
                                               f"/{k}", v, step)
+                    if figures:
                         self._log_sample_figure(writer, "val/samples", last_batch, step)
                     ckpt.save(self.model, optimizer, scheduler, step,
                               abs_rel=last_metrics["abs_rel"])
@@ -318,8 +342,25 @@ class Trainer:
         finally:
             if writer is not None:
                 writer.close()
+        barrier()  # every rank returns after rank 0's last save
         self.last_metrics = last_metrics
         return self.model, last_metrics
+
+    def _run_dir(self, run_base: str, resume: bool) -> tuple[str, str | None]:
+        """-> (the run's version dir, the same dir if it resumes a run else
+        None): rank 0's choice, on every rank, once every rank sees it."""
+        chosen = None
+        if self.is_main:
+            resume_dir = _find_resume_dir(run_base) if resume else None
+            chosen = (resume_dir or _next_version_dir(run_base), resume_dir)
+        run_dir, resume_dir = broadcast_from_main(chosen, self.device)
+        seen = os.path.isdir(run_dir)
+        if not all_ranks_true(seen, self.device):
+            who = f"rank {process_index()}" if not seen else "another rank"
+            raise RuntimeError(
+                f"{who} cannot see rank 0's run dir {run_dir}: the processes of one run "
+                f"need paths.run_dir on a filesystem they share")
+        return run_dir, resume_dir
 
     def _refresh_swa_batch_stats(self, loader: DeviceLoader, max_batches: int) -> None:
         """The BN statistics of the averaged weights: the equal-weight

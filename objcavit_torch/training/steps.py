@@ -20,6 +20,12 @@ affines. Gradients come back to the fp32 parameters in fp32.
 The train state of the JAX package (``training/state.py``) is the model
 (parameters and BN statistics), the optimizer and the scheduler here.
 
+In a process group (``objcavit_torch.parallel``) each rank runs the step on
+its rows of the global batch; the BatchNorms, the losses and the random
+draws span the global batch and the gradients are averaged over the ranks
+before the clipping (``parallel/collectives.py``), so the step is the one
+the JAX package's sharded step takes.
+
 The eval step runs flip-TTA as one forward on the 2B batch of the images and
 their mirrors, as the JAX package does (the reference runs two forwards,
 GraphBinsLM.py:159-183), in eval mode under ``torch.inference_mode``. BN
@@ -35,12 +41,14 @@ import contextlib
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from objcavit_torch.data.augment import augment_batch
 from objcavit_torch.losses import LossWrapper
 from objcavit_torch.metrics import MetricsPreprocessConfig, metrics_preprocess, metrics_update
 from objcavit_torch.models.adabins import AdaBins
 from objcavit_torch.models.graphbins import N_QUERIES, BinsDepthModel, GraphBins
+from objcavit_torch.parallel.collectives import GradientReducer
 from objcavit_torch.serving import image_seq_len
 
 
@@ -114,18 +122,22 @@ class TrainStep:
     ``loss``, ``loss.backward()`` and ``update`` are its three parts, in
     order. ``scheduler`` may be None (the constant-LR path); ``last_lr`` is
     the LR of the latest update where a scheduler sets it (the reference's
-    ``lr-AdamW`` scalar), else None.
+    ``lr-AdamW`` scalar), else None. ``grad_reducer`` (a
+    ``parallel.collectives.GradientReducer``, in a process group) makes the
+    gradients the global batch's at the start of ``update``, before the
+    clipping.
     """
 
     def __init__(self, model: BinsDepthModel, optimizer: torch.optim.Optimizer, scheduler,
                  loss_fn: Callable, gradient_clip_val: float = 0.0,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, grad_reducer=None):
         self.model = model
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.loss_fn = loss_fn
         self.gradient_clip_val = gradient_clip_val
         self.generator = generator
+        self.grad_reducer = grad_reducer
         self.last_lr: float | None = None
 
     def loss(self, batch, objects) -> torch.Tensor:
@@ -133,6 +145,8 @@ class TrainStep:
         return self.loss_fn(batch, objects, self.generator)
 
     def update(self) -> None:
+        if self.grad_reducer is not None:
+            self.grad_reducer()
         if self.gradient_clip_val > 0:
             torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.gradient_clip_val)
         if self.scheduler is not None:
@@ -154,10 +168,15 @@ def make_train_step(model: BinsDepthModel, optimizer: torch.optim.Optimizer, sch
                     compute_dtype: torch.dtype = torch.float32,
                     generator: torch.Generator | None = None) -> TrainStep:
     """The train step over ``model`` (fp32 parameters) with ``optimizer`` and
-    ``scheduler`` from ``training/optim.py::build_optimizer``."""
+    ``scheduler`` from ``training/optim.py::build_optimizer``. Made in a
+    process group, it averages the gradients over the group
+    (``GradientReducer``): with the losses and BatchNorms over the global
+    batch, the step is the single-process step on the global batch. Every
+    rank draws from ``generator`` seeded alike."""
     loss_fn = make_train_loss_fn(model, loss_wrapper, min_depth, augment_on_device,
                                  compute_dtype)
-    return TrainStep(model, optimizer, scheduler, loss_fn, gradient_clip_val, generator)
+    reducer = GradientReducer(model.parameters()) if dist.is_initialized() else None
+    return TrainStep(model, optimizer, scheduler, loss_fn, gradient_clip_val, generator, reducer)
 
 
 def make_bn_refresh_step(model: BinsDepthModel, augment_on_device: bool,

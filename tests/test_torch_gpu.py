@@ -11,6 +11,7 @@ card, with the tolerances chip_smoke.py states.
 runs on the CPU, in a subprocess, in the Tier-1 command.
 """
 
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -1255,3 +1256,59 @@ def test_a_tiny_fit_through_the_cli_launches_kernel_4_and_validates_on_1_and_2(c
     ckpt = torch.load(tmp_path / "runs" / "tiny" / "version_0" / "checkpoints" / "last.ckpt",
                       weights_only=False)
     assert ckpt["global_step"] == 1
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms and cuDNN's while open: two runs of
+    one step then give the same bits (cuDNN's backward and the index ops'
+    atomics otherwise sum in any order)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+@gpu
+def test_world_of_one_nccl_step_gives_the_single_process_parameters_bit_for_bit(cuda):
+    """Two bf16 steps of the tiny model in an NCCL group of one process (the
+    step made with the group's gradient reducer, which reduces nothing over
+    one rank) and without a group: the same parameters and BN statistics,
+    bit for bit."""
+    from objcavit_torch.parallel.distributed import initialize_distributed, shutdown_distributed
+    from objcavit_torch.parallel.launch import free_port
+
+    def two_steps():
+        step, batch, objects = build_flagship_train(batch=2, h=384, w=352, n_obj=8,
+                                                    device="cuda",
+                                                    encoder_name="efficientnet-tiny")
+        for _ in range(2):
+            step(batch, objects)
+        torch.cuda.synchronize()
+        return step, {k: v.clone() for k, v in step.model.state_dict().items()}
+
+    with deterministic_algorithms():
+        _, want = two_steps()
+        assert initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                                      device="cuda")
+        try:
+            step, got = two_steps()
+            assert step.grad_reducer is not None and step.grad_reducer.backend == "nccl"
+        finally:
+            shutdown_distributed()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@gpu
+def test_nccl_on_a_cpu_device_raises(cuda):
+    from objcavit_torch.parallel.distributed import initialize_distributed
+
+    with pytest.raises(ValueError, match="NCCL"):
+        initialize_distributed("127.0.0.1:1", 1, 0, backend="nccl", device="cpu")
+    assert not torch.distributed.is_initialized()

@@ -1,0 +1,266 @@
+"""The processes of tests/test_torch_distributed.py, one rank each.
+
+    python tests/torch_dist_workers.py <task> <workdir>
+
+started by ``objcavit_torch.parallel.launch`` (``--cpu``), so each process
+has the OBJCAVIT_* env of its rank and joins a gloo group on the CPU. A task
+reads its inputs from ``workdir`` and writes ``<task>_<rank>.pt`` there. No
+JAX here: the test process holds the JAX side. Tasks:
+
+* ``group``: ranks, ``metrics_sync`` of this rank's metric state, the
+  loader's rows of each global batch and its divisibility error,
+  ``rand_rows``, the run dir chosen by rank 0, and a rank that cannot see it;
+  the global BatchNorm and the MSE on rows 1, 2, 3 and 4 rows a rank, with
+  the collectives the BatchNorm made each way; ``GradientReducer`` on one
+  set of gradients and on two sets of one size;
+* ``step``: one train step of the tiny GraphBins on this rank's rows of a
+  global batch, augmentation and dropout on: in fp64 from the seeded
+  generator, then in fp32 (loss and reduced gradients) on the uniform draws
+  JAX made for the global batch, replayed in place of ``torch.rand``;
+* ``cli``: ``cli.main`` on a params file (a ``--debug`` fit), with the
+  files each rank writes.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import types
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from objcavit_torch import cli
+from objcavit_torch.data.loader import DeviceLoader
+from objcavit_torch.losses import LossWrapper
+from objcavit_torch.losses.losses import mse_loss
+from objcavit_torch.metrics import metrics_sync
+from objcavit_torch.models.common import BatchNorm2d
+from objcavit_torch.models.graphbins import GraphBins
+from objcavit_torch.parallel.collectives import GradientReducer, rand_rows
+from objcavit_torch.parallel.distributed import (
+    initialize_distributed,
+    is_main_process,
+    process_count,
+    process_index,
+    shutdown_distributed,
+)
+from objcavit_torch.training import checkpoint
+from objcavit_torch.training.loop import Trainer
+from objcavit_torch.training.optim import build_optimizer
+from objcavit_torch.training.steps import make_train_step
+
+
+class IndexDataset:
+    """Sample i is an image filled with i; its draws come from the loader's
+    generator, as a train sample's do."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def get(self, idx: int, rng: np.random.Generator) -> dict:
+        rng.random()
+        return {"image": np.full((2, 2, 3), idx, np.float32),
+                "depth": np.ones((2, 2, 1), np.float32), "focal": 1.0,
+                "image_path": f"{idx}.jpg", "depth_path": f"{idx}.png"}
+
+
+def task_group(work: str) -> dict:
+    inp = torch.load(os.path.join(work, "group_in.pt"), weights_only=False)
+    rank, world = process_index(), process_count()
+    out = {"rank": rank, "world": world, "main": is_main_process()}
+    state = {k: torch.tensor(v) for k, v in inp["states"][rank].items()}
+    out["merged"] = {k: float(v) for k, v in metrics_sync(state).items()}
+
+    loader = DeviceLoader(IndexDataset(inp["n"]), inp["batch"], "cpu", shuffle=True,
+                          seed=inp["seed"], synchronous=True)
+    out["batches"] = [(b["image"][:, 0, 0, 0].astype(int).tolist(), b["sample_valid"].tolist())
+                      for b, _ in loader.host_batches()]
+    try:
+        DeviceLoader(IndexDataset(inp["n"]), inp["batch"] + world // 2, "cpu")
+    except ValueError as e:
+        out["divide_error"] = str(e)
+
+    out["rand"] = [rand_rows(shape, torch.Generator().manual_seed(5), "cpu", dim).tolist()
+                   for shape, dim in inp["rand"]]
+
+    holder = types.SimpleNamespace(is_main=is_main_process(), device=torch.device("cpu"))
+    out["run_dir"] = Trainer._run_dir(holder, os.path.join(work, "runs"), False)[0]
+    unseen = os.path.join(work, "unseen")
+    if rank == world - 1:  # this rank sees no run dir under ``unseen``
+        real = os.path.isdir
+        os.path.isdir = lambda p: False if str(p).startswith(unseen) else real(p)
+    try:
+        Trainer._run_dir(holder, unseen, False)
+    except RuntimeError as e:
+        out["unseen_error"] = str(e)
+    out.update(uneven_rows(inp["uneven"], rank))
+    out.update(reduce_gradients(rank))
+    return out
+
+
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter",
+               "reduce_scatter_tensor", "broadcast", "all_to_all")
+
+
+class CountCollectives:
+    """Counts the calls of ``torch.distributed``'s collectives while open."""
+
+    def __enter__(self):
+        self.calls, self.saved = [], {n: getattr(dist, n) for n in COLLECTIVES}
+        for name, fn in self.saved.items():
+            setattr(dist, name, lambda *a, _n=name, _f=fn, **k: (self.calls.append(_n),
+                                                                  _f(*a, **k))[1])
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+
+
+def uneven_rows(inp: dict, rank: int) -> dict:
+    """Rank p's rows ``inp['rows'][p]`` of the fp64 global batch: the
+    group's ``BatchNorm2d`` in training (its output, running statistics and
+    the gradients of sum(y * c) over this rank's rows), the collectives it
+    made forward and backward; the MSE of this rank's rows and its
+    gradient."""
+    rows = slice(*inp["rows"][rank])
+    x = torch.from_numpy(inp["x"][rows]).requires_grad_()
+    bn = BatchNorm2d(x.shape[1], eps=inp["eps"]).double().train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(inp["weight"]))
+        bn.bias.copy_(torch.from_numpy(inp["bias"]))
+    with CountCollectives() as fwd:
+        y = bn(x)
+    with CountCollectives() as bwd:
+        y.backward(torch.from_numpy(inp["c"][rows]))
+    pred = torch.from_numpy(inp["pred"][rows]).requires_grad_()
+    mse = mse_loss(pred, torch.from_numpy(inp["gt"][rows]))
+    mse.backward()
+    return {"bn": {"y": y.detach(), "dx": x.grad, "dw": bn.weight.grad, "db": bn.bias.grad,
+                   "running_mean": bn.running_mean, "running_var": bn.running_var,
+                   "fwd": fwd.calls, "bwd": bwd.calls},
+            "mse": float(mse), "mse_grad": pred.grad}
+
+
+def reduce_gradients(rank: int) -> dict:
+    """``GradientReducer`` over three parameters: gradients rank + 1 on #0
+    and #2 of every rank (#1 without one), then #0, #1 on even ranks and
+    #1, #2 on odd ones: as many a rank, other sets."""
+    params = [torch.nn.Parameter(torch.zeros(3, dtype=torch.float64)) for _ in range(3)]
+    for i in (0, 2):
+        params[i].grad = torch.full((3,), rank + 1.0, dtype=torch.float64)
+    GradientReducer(params)()
+    out = {"reduced": [None if p.grad is None else p.grad.tolist() for p in params]}
+    for i, p in enumerate(params):
+        p.grad = torch.ones(3, dtype=torch.float64) if i in ((0, 1) if rank % 2 == 0
+                                                              else (1, 2)) else None
+    try:
+        GradientReducer(params)()
+    except RuntimeError as e:
+        out["layout_error"] = str(e)
+    return out
+
+
+def make_step(inp: dict, dtype: torch.dtype = torch.float32):
+    """tests/test_torch_train.py's step of the tiny GraphBins from
+    ``inp``'s weights and settings, with parameters and compute in
+    ``dtype``, augmentation and dropout on."""
+    model = GraphBins(encoder_name=inp["enc"], n_bins=inp["n_bins"], dropout_rate=inp["dropout"])
+    model.load_state_dict(inp["state"])
+    model.to(dtype)
+    optimizer, scheduler = build_optimizer(model, inp["lr"], inp["wd"], inp["total_steps"])
+    return make_train_step(model, optimizer, scheduler, LossWrapper(*inp["losses"]),
+                           inp["min_depth"], augment_on_device=True,
+                           gradient_clip_val=inp["clip"], compute_dtype=dtype,
+                           generator=torch.Generator().manual_seed(inp["seed"]))
+
+
+def tensors(tree: dict, dtype: torch.dtype = torch.float32, rows=slice(None)) -> dict:
+    """Numpy arrays -> tensors of ``rows``, floating ones in ``dtype``."""
+    out = {}
+    for k, v in tree.items():
+        t = torch.from_numpy(np.ascontiguousarray(v[rows]))
+        out[k] = t.to(dtype) if t.is_floating_point() else t
+    return out
+
+
+def _grads(model) -> dict:
+    return {n: None if p.grad is None else p.grad.detach().clone()
+            for n, p in model.named_parameters()}
+
+
+def task_step(work: str) -> dict:
+    inp = torch.load(os.path.join(work, "step_in.pt"), weights_only=False)
+    rows = slice(process_index(), None, process_count())
+    step = make_step(inp, torch.float64)
+    loss = step(tensors(inp["batch"], torch.float64, rows),
+                tensors(inp["objects"], torch.float64, rows))
+    out = {"loss": float(loss), "grads": _grads(step.model),
+           "state": {k: v.clone() for k, v in step.model.state_dict().items()},
+           "reducer": type(step.grad_reducer).__name__}
+
+    draws = [torch.from_numpy(a) for a in inp["jax_draws"]]
+    real_rand = torch.rand
+
+    def replay(size, generator=None, device=None, **_):
+        want = draws.pop(0)
+        if tuple(size) != tuple(want.shape):
+            raise AssertionError(f"draw of {tuple(size)}, JAX drew {tuple(want.shape)}")
+        return want.to(device)
+
+    step = make_step(inp)
+    torch.rand = replay
+    try:
+        loss = step.loss(tensors(inp["batch"], rows=rows), tensors(inp["objects"], rows=rows))
+        loss.backward()
+        step.grad_reducer()
+    finally:
+        torch.rand = real_rand
+    out["jax_fed"] = {"loss": float(loss.detach()), "grads": _grads(step.model),
+                      "draws_left": len(draws)}
+    return out
+
+
+def task_cli(work: str) -> dict:
+    with open(os.path.join(work, "cli_argv.json")) as f:
+        argv = json.load(f)
+    written = []
+    real_save, real_config = checkpoint._save_atomic, checkpoint.save_config
+
+    def save(obj, path):
+        written.append(os.path.basename(path))
+        real_save(obj, path)
+
+    def save_config(cfg, path):
+        written.append(os.path.basename(path))
+        real_config(cfg, path)
+
+    checkpoint._save_atomic, checkpoint.save_config = save, save_config
+    _, metrics = cli.main(argv, basic_params_path="/nonexistent")
+    return {"metrics": metrics, "written": written}
+
+
+def main() -> None:
+    task, work = sys.argv[1], sys.argv[2]
+    rank = int(os.environ["OBJCAVIT_PROCESS_ID"])
+    if task == "cli":  # cli.main joins and leaves the group itself
+        out = task_cli(work)
+    else:
+        if not initialize_distributed(device=os.environ.get(cli.ENV_DEVICE, "cuda")):
+            raise SystemExit("no OBJCAVIT_* env: start this through objcavit_torch.parallel.launch")
+        try:
+            out = {"group": task_group, "step": task_step}[task](work)
+        finally:
+            shutdown_distributed()
+    torch.save(out, os.path.join(work, f"{task}_{rank}.pt"))
+    print(json.dumps({"task": task, "done": True}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
