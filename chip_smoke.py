@@ -267,6 +267,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    batch sums are cut), the bf16 kernel route's loss within 1e-3 and its
    gradients within the bf16 check's bounds.
    Alone (after the build): ``cs.phase_distributed()``.
+16. export (``objcavit_torch/serving_export.py``): three servers exported
+   on the card (``export_pipeline``, ``save_artifact``; each export's
+   seconds and its program's and weights' bytes printed): (a) the flagship
+   on kernel 5's route and kernels 7 and 8's, bs 8 (kernel 1's concat form,
+   2, 5 up to 512 keys, 7 and 8); (b) the fused server on the plain routes
+   with the class-max head, bs 8 (kernel 6 and the ``torch.while_loop``
+   NMS in the program); (c) AdaBins-B5 with do_final_upscale on kernel 5's
+   route, bs 1 (its long route at S 1200, kernel 1's bare form, kernel 2 at
+   full resolution). Each eager server answers one counted request, and
+   each graph's ``objcavit::`` ops must be its launches. Then one fresh
+   process (``python3 chip_smoke.py --load-artifacts SPEC``, which stops
+   before this script's imports of the model code) loads the three with
+   ``ServingArtifact`` and must import no model, server or JAX module,
+   give each eager depth bit for bit (else name the first kernel launch
+   whose inputs or outputs differ, ``first_difference``, and hold the depth
+   within phase 9's bound), and launch what eager launched; served img/s,
+   p50 and one trace's device time and idle share of artifact and eager
+   side by side. Alone (after the build): ``cs.phase_export()``.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -277,6 +295,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import csv
+import functools
 import hashlib
 import io
 import itertools
@@ -292,11 +311,6 @@ import time
 import numpy as np
 import torch
 
-import torch.nn.functional as F
-import yaml
-
-import objcavit_torch.training.loop as eval_loop
-from objcavit_torch import cli
 from objcavit_torch.kernels import attention as kattn
 from objcavit_torch.kernels import bins as kbins
 from objcavit_torch.kernels import bins_expectation as kexp
@@ -305,11 +319,121 @@ from objcavit_torch.kernels import detect_head as kdetect
 from objcavit_torch.kernels import mbconv as kmb
 from objcavit_torch.kernels import resize as kresize
 from objcavit_torch.kernels import se_project as kse
+from objcavit_torch.utils import profiling
+
+COUNTERS = {
+    "resize": kresize.resize_bilinear_align_corners,  # either form of kernel 1
+    "bins": kbins.conv_bins_depth_batched,
+    "bins_shared": kbins.conv_bins_depth,
+    "bins_expectation_fwd": kexp.bins_expectation_fwd,
+    "bins_expectation_bwd": kexp.bins_expectation_bwd,
+    "detect_head": kdetect.fused_detect_head,
+    "attention_fwd": kattn.fused_mha_fwd,
+    "attention_bwd": kattn.fused_mha_bwd,
+    "se_project": kse.se_gate_project,
+    "mbconv_head": kmb.mbconv_expand_dw_pool,
+    "mbconv_bs": kmb.mbconv_bs_expand_dw_pool,
+    "dw_conv": kmb.dw_conv_silu_pool,
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# the backward's launches on its cluster route (one launch a call; longer
+# sequences take the long route): every backward on the main paths
+# (S 132 to 300) must take it
+CLUSTER_COUNTER = "attention_bwd_cluster"
+# kernel 1's launches in its concat form: every served upsample takes it
+# (the decoder writes its concat buffers), unless a phase says otherwise
+CONCAT_COUNTER = "resize_concat"
+
+
+def zero_counters() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    kattn.fused_mha_bwd.cluster_launches = 0
+    kresize.resize_bilinear_align_corners.concat_launches = 0
+
+
+def read_counters() -> dict:
+    return {**{name: fn.launches for name, fn in COUNTERS.items()},
+            CLUSTER_COUNTER: kattn.fused_mha_bwd.cluster_launches,
+            CONCAT_COUNTER: kresize.resize_bilinear_align_corners.concat_launches}
+
+
+LOADER_FLAG = "--load-artifacts"
+
+
+def load_artifacts(spec_path: str) -> None:
+    """Phase 16's loading process (``chip_smoke.py --load-artifacts SPEC``):
+    each artifact the spec names is loaded by ``ServingArtifact`` alone and
+    run on the parent's frames; what it saw goes to the spec's ``out`` file:
+    the depth against the parent's eager depth, one request's kernel
+    launches, the seconds to load and to run the first request, the served
+    rate and p50, one trace's device time and idle share, and the modules of
+    the model code, the servers or JAX that this process imported (none may
+    be). TF32 is off, as in the parent."""
+    from objcavit_torch.serving_export import ServingArtifact
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {"cases": {}}
+    for case in spec["cases"]:
+        t0 = time.perf_counter()
+        art = ServingArtifact.load(case["dir"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        io_ = torch.load(case["io"], map_location="cuda", weights_only=True)
+        frames, want = io_["frames"].cpu(), io_["depth"]
+        zero_counters()
+        t0 = time.perf_counter()
+        depth = art(frames)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_counters()
+        diff = (depth.float() - want.float()).abs()
+        rate = profiling.served_rate(art, [frames], n_req=case["requests"], n_lat=case["latencies"])
+        traced = profiling.trace_calls(lambda: art(frames), n_req=3)
+        traced.pop("top")
+        out["cases"][case["name"]] = {
+            "equal": bool(torch.equal(depth, want)), "max_abs_diff": float(diff.max()),
+            "out_of_bound": int((diff > case["atol"] + case["rtol"] * want.abs()).sum()),
+            "shape": list(depth.shape), "dtype": str(depth.dtype), "launches": launches,
+            "load_s": load_s, "first_s": first_s, "rate": rate, "trace": traced}
+        print(json.dumps({"loaded": case["name"], "load_s": round(load_s, 3),
+                          "equal": out["cases"][case["name"]]["equal"]}), flush=True)
+        del art, depth, want, io_
+        torch.cuda.empty_cache()
+    out["modules"] = sorted(m for m in sys.modules if m == "objcavit_torch.serving"
+                            or m.startswith(("objcavit_torch.models", "objcavit_tpu", "jax")))
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+
+
+# the loading process stops here, before the imports of the model code below
+if __name__ == "__main__" and sys.argv[1:2] == [LOADER_FLAG]:
+    load_artifacts(sys.argv[2])
+    sys.exit(0)
+
+import torch.nn.functional as F  # noqa: E402
+import yaml  # noqa: E402
+
+import objcavit_torch.training.loop as eval_loop
+from objcavit_torch import cli
 from objcavit_torch.losses import LossWrapper
 from objcavit_torch.models.yolov7 import n_anchors
 from objcavit_torch.ops.bins import bins_head_depth
 from objcavit_torch.utils.mbconv_ab import DW_CASES, MBCONV_SHAPES, cudnn_depthwise, mbconv_bound
 from objcavit_torch.utils.resize_se_ab import RESIZE_SHAPES, SE_SHAPES
+from objcavit_torch.serving_export import (
+    ServingArtifact,
+    export_pipeline,
+    graph_ops,
+    save_artifact,
+)
 from objcavit_torch.serving import (
     DepthPipeline,
     FusedDepthPipeline,
@@ -362,7 +486,6 @@ from objcavit_torch.utils.kernel_io import (
     share_edge_grids,
     skip_mismatches,
 )
-from objcavit_torch.utils import profiling
 from objcavit_torch.utils.profile_stages import (
     fused_stage_split,
     route_split,
@@ -537,20 +660,6 @@ V2M_FROM_SE_SHAPES = {(15, 20, 1056, 304, False): 1, (15, 20, 3072, 512, True): 
 # operations/ms on the tensor cores in bf16 and on the CUDA cores in fp32
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 PEAK_OPS_PER_MS = {"bf16": 989e12 / 1e3, "fp32": 67e12 / 1e3}
-COUNTERS = {
-    "resize": kresize.resize_bilinear_align_corners,  # either form of kernel 1
-    "bins": kbins.conv_bins_depth_batched,
-    "bins_shared": kbins.conv_bins_depth,
-    "bins_expectation_fwd": kexp.bins_expectation_fwd,
-    "bins_expectation_bwd": kexp.bins_expectation_bwd,
-    "detect_head": kdetect.fused_detect_head,
-    "attention_fwd": kattn.fused_mha_fwd,
-    "attention_bwd": kattn.fused_mha_bwd,
-    "se_project": kse.se_gate_project,
-    "mbconv_head": kmb.mbconv_expand_dw_pool,
-    "mbconv_bs": kmb.mbconv_bs_expand_dw_pool,
-    "dw_conv": kmb.dw_conv_silu_pool,
-}
 # phase 9: the -v/-i entry points on the flagship's params file, with
 # params/basicParams.yaml's dataset sections (NYU: Eigen crop, 480x640);
 # the data root points at nothing, so the 16 synthetic NYU images are used
@@ -576,10 +685,6 @@ EVAL_METRIC_RTOL, EVAL_METRIC_ATOL = 0.02, 1e-3
 NUMBER = re.compile(r"-?\d+\.\d+(?:e-?\d+)?")
 
 
-def log(msg: str) -> None:
-    print(msg, flush=True)
-
-
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
     got, want = got.float(), want.float()
     if got.shape != want.shape:
@@ -590,28 +695,6 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float, a
     if bad or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: {bad} elements out of tolerance, max abs err {max_abs}")
     return max_abs
-
-
-# the backward's launches on its cluster route (one launch a call; longer
-# sequences take the long route): every backward on the main paths
-# (S 132 to 300) must take it
-CLUSTER_COUNTER = "attention_bwd_cluster"
-# kernel 1's launches in its concat form: every served upsample takes it
-# (the decoder writes its concat buffers), unless a phase says otherwise
-CONCAT_COUNTER = "resize_concat"
-
-
-def zero_counters() -> None:
-    for fn in COUNTERS.values():
-        fn.launches = 0
-    kattn.fused_mha_bwd.cluster_launches = 0
-    kresize.resize_bilinear_align_corners.concat_launches = 0
-
-
-def read_counters() -> dict:
-    return {**{name: fn.launches for name, fn in COUNTERS.items()},
-            CLUSTER_COUNTER: kattn.fused_mha_bwd.cluster_launches,
-            CONCAT_COUNTER: kresize.resize_bilinear_align_corners.concat_launches}
 
 
 def expect_launches(what: str, **want: int) -> dict:
@@ -3802,6 +3885,232 @@ def phase_distributed() -> dict:
 # check's bound is 0.3). With one key group (the first port's summation
 # order) the kernel route read 0.11180; the groups change the fp32 rounding
 # of the sums, not the forward's accuracy against fp64 (PERF.md §6)
+# phase 16: export (objcavit_torch/serving_export.py). Each case: its
+# builder's keyword arguments, its batch, and one request's launches
+EXPORT_CASES = {
+    "a": ("(a) GraphBins-B5, kernel attention and encoder", "flagship", BATCH,
+          {"attn_impl": "kernel", "encoder_impl": "kernel"},
+          {"resize": 4, "bins": 1, "attention_fwd": 10, "se_project": 7, "mbconv_head": 32}),
+    "b": ("(b) fused GraphBins-B5 + YOLOv7-seg, class-max head", "fused", BATCH,
+          {"class_max_head": True}, {"resize": 4, "bins": 1, "detect_head": 3}),
+    "c": ("(c) AdaBins-B5 final upscale, kernel attention", "adabins", 1,
+          {"attn_impl": "kernel", **FU},
+          {"resize": EVAL_RESIZE + FU_BARE, CONCAT_COUNTER: EVAL_RESIZE, "bins": 1,
+           "attention_fwd": 4}),
+}
+EXPORT_BUILDERS = {"flagship": build_flagship_pipeline, "fused": build_fused_flagship,
+                   "adabins": build_adabins_pipeline}
+# an exported graph's objcavit:: op -> the counter its CUDA implementation adds to
+EXPORT_OP_COUNTERS = {"objcavit::resize_bilinear_ac": "resize",
+                      "objcavit::resize_bilinear_ac_concat": "resize",
+                      "objcavit::conv_bins_depth_batched": "bins",
+                      "objcavit::attention_fwd": "attention_fwd",
+                      "objcavit::detect_head": "detect_head",
+                      "objcavit::se_project": "se_project",
+                      "objcavit::mbconv_head": "mbconv_head"}
+EXPORT_REQUESTS, EXPORT_LATENCIES = 10, 7  # served_rate's run and its timed requests
+EXPORT_TIMEOUT = 420  # seconds the loading process may take
+# the wrappers' CUDA launches, which an exported op's CUDA implementation
+# calls too: where artifact and eager depth differ, the first launch whose
+# inputs or outputs differ names where
+LAUNCH_FUNCTIONS = ((kresize, "resize_cuda"), (kresize, "resize_into_concat_cuda"),
+                    (kbins, "conv_bins_depth_batched_cuda"), (kattn, "fused_mha_fwd"),
+                    (kdetect, "fused_detect_head_cuda"), (kse, "se_gate_project_cuda"),
+                    (kmb, "mbconv_expand_dw_pool_cuda"))
+
+
+def fingerprints(obj) -> list:
+    """(fp64 sum, fp64 sum of squares) of each tensor in ``obj``."""
+    tensors = [obj] if isinstance(obj, torch.Tensor) else [
+        t for t in (obj if isinstance(obj, (tuple, list)) else ()) if isinstance(t, torch.Tensor)]
+    return [(float(t.double().sum()), float(t.double().square().sum())) for t in tensors]
+
+
+@contextlib.contextmanager
+def record_launches():
+    """While open, each served kernel launch (``LAUNCH_FUNCTIONS``) appends
+    (its function, its inputs' and its outputs' fingerprints) to the
+    yielded list."""
+    seen, saved = [], []
+    for module, name in LAUNCH_FUNCTIONS:
+        fn = getattr(module, name)
+
+        def wrapped(*args, _fn=fn, _name=name, **kwargs):
+            out = _fn(*args, **kwargs)
+            seen.append((_name, fingerprints(list(args)), fingerprints(out)))
+            return out
+
+        # with the function's attributes: fused_mha_fwd counts its launches
+        # on itself, by its module-level name
+        functools.update_wrapper(wrapped, fn)
+        saved.append((module, name, fn))
+        setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def first_difference(key: str, frames: np.ndarray) -> str:
+    """Where case ``key``'s exported program first parts from its eager
+    server: the first kernel launch whose inputs (then: whose outputs)
+    differ, in launch order, from a new build and export of the same seed."""
+    _, builder, _, kwargs, _ = EXPORT_CASES[key]
+    pipe = EXPORT_BUILDERS[builder](dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0, **kwargs)
+    program, weights = export_pipeline(pipe, frames.shape)
+    module = program.module()
+    with record_launches() as eager:
+        pipe(frames)
+    with record_launches() as exported, torch.inference_mode():
+        module(weights, torch.from_numpy(frames).cuda())
+    torch.cuda.synchronize()
+    for i, (e, x) in enumerate(zip(eager, exported)):
+        if e[0] != x[0] or e[1] != x[1]:
+            return f"the inputs of launch {i} ({e[0]} eager, {x[0]} exported), after launch {i - 1}"
+        if e[2] != x[2]:
+            return f"the outputs of launch {i} ({e[0]}), on equal inputs"
+    return f"no launch ({len(eager)} eager, {len(exported)} exported): after the last"
+
+
+def phase_export() -> dict:
+    """Phase 16: export. Three servers are exported on the card
+    (``export_pipeline``, ``save_artifact``): (a) the flagship on kernel 5's
+    and kernels 7 and 8's routes, bs 8; (b) the fused server on the plain
+    routes with the class-max head (kernel 6) and the NMS loop, bs 8; (c)
+    AdaBins-B5 with do_final_upscale on kernel 5's route, bs 1 (its long
+    route at S 1200, kernel 1's bare form, kernel 2 at full resolution).
+    Each eager server answers one counted request (its launches checked)
+    and is traced once; each graph's objcavit:: ops must be those launches.
+    Then one fresh process (``LOADER_FLAG``) loads
+    the three artifacts with ``ServingArtifact`` alone and must import no
+    model code, give each eager depth bit for bit (or, where not, name the
+    first launch that differs and hold the depth within phase 9's bf16
+    bound), launch what the eager server launched, and is timed (served
+    rate, p50, one trace). Then each exported program (held here, as
+    ``ServingArtifact`` runs it) and its eager server are timed in turns.
+    Returns the eager and the loaded requests' launches summed, by
+    kernels line: 'main' (a, b) and 'final' (c)."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1616)
+    eager, frames_of, pipes, served = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {"cases": [], "out": os.path.join(tmp, "loaded.json")}
+        for key, (what, builder, batch, kwargs, want) in EXPORT_CASES.items():
+            t1 = time.perf_counter()
+            pipe = EXPORT_BUILDERS[builder](dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0,
+                                            **kwargs)
+            frames = frames_of[key] = rng.integers(0, 256, (batch, *EVAL_DIMS, 3),
+                                                   dtype=np.uint8)
+            pipe(frames)  # warm-up
+            torch.cuda.synchronize()
+            zero_counters()
+            depth = pipe(frames)
+            torch.cuda.synchronize()
+            launches = expect_launches(f"{what}: eager, 1 request of {batch}", **want)
+            check_depth(what, depth, pipe.model.min_depth, pipe.model.max_depth, batch,
+                        EVAL_DIMS, full_res=builder == "adabins")
+            t2 = time.perf_counter()
+            program, weights = export_pipeline(pipe, frames.shape)
+            export_s = time.perf_counter() - t2
+            ops = graph_ops(program)
+            per_counter = collections.Counter()
+            for op, n in ops.items():
+                per_counter[EXPORT_OP_COUNTERS[op]] += n
+            if dict(per_counter) != {k: v for k, v in want.items() if k in COUNTERS}:
+                raise AssertionError(f"{what}: the graph's ops {ops} are not the launches {want}")
+            path = os.path.join(tmp, key)
+            t2 = time.perf_counter()
+            save_artifact(path, program, weights, extra_meta={"pipeline": builder})
+            save_s = time.perf_counter() - t2
+            sizes = {f: os.path.getsize(os.path.join(path, f))
+                     for f in ("program.pt2", "weights.pt", "meta.json")}
+            if not sizes["program.pt2"] < sizes["weights.pt"] / 10:
+                raise AssertionError(f"{what}: the program carries weights: {sizes}")
+            torch.save({"frames": torch.from_numpy(frames), "depth": depth.cpu()},
+                       os.path.join(tmp, f"{key}_io.pt"))
+            with open(os.path.join(path, "meta.json")) as f:
+                served[key] = ServingArtifact(program, weights, json.load(f))
+            del program, weights
+            eager[key] = {"launches": launches, "trace": trace(lambda: pipe(frames), n_req=3)}
+            log(f"  {what}: exported in {export_s:.2f} s, saved in {save_s:.2f} s; bytes: program "
+                f"{sizes['program.pt2']}, weights {sizes['weights.pt']}, meta "
+                f"{sizes['meta.json']}; graph ops {ops}; case built, checked and exported in "
+                f"{time.perf_counter() - t1:.2f} s")
+            spec["cases"].append({"name": key, "dir": path, "io": os.path.join(tmp, f"{key}_io.pt"),
+                                  "requests": EXPORT_REQUESTS, "latencies": EXPORT_LATENCIES,
+                                  "rtol": EVAL_METRIC_RTOL, "atol": EVAL_METRIC_ATOL})
+            pipes[key] = pipe
+            del depth
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), LOADER_FLAG, spec_path],
+                              capture_output=True, text=True, timeout=EXPORT_TIMEOUT, cwd=REPO)
+        loader_s = time.perf_counter() - t1
+        for line in proc.stdout.splitlines():
+            log(f"  [loader] {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the loading process failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-6000:]}")
+        with open(spec["out"]) as f:
+            loaded = json.load(f)
+        # the served rate of each exported program (the one the loading
+        # process read back, held here) and its eager server, in turns
+        # (eager, artifact, artifact, eager): the host's drift hits both
+        for key, pipe in pipes.items():
+            for side in ("eager", "artifact", "artifact", "eager"):
+                eager[key].setdefault(side, []).append(served_rate(
+                    pipe if side == "eager" else served[key], [frames_of[key]],
+                    n_req=EXPORT_REQUESTS, n_lat=EXPORT_LATENCIES))
+        del pipes, served
+        torch.cuda.empty_cache()
+    log(f"  loading process: {loader_s:.2f} s in all; model modules imported there: "
+        f"{loaded['modules']}")
+    if loaded["modules"]:
+        raise AssertionError(f"the loading process imported model code: {loaded['modules']}")
+    totals = {"main": collections.Counter(), "final": collections.Counter()}
+    for key, (what, builder, batch, kwargs, want) in EXPORT_CASES.items():
+        got, ref = loaded["cases"][key], eager[key]
+        if got["launches"] != ref["launches"]:
+            raise AssertionError(f"{what}: artifact launches {got['launches']}, eager "
+                                 f"{ref['launches']}")
+        if got["equal"]:
+            agreement = "bit for bit"
+        else:
+            where = first_difference(key, frames_of[key])
+            agreement = (f"NOT bit for bit: max abs diff {got['max_abs_diff']:.3e} m, first "
+                         f"at {where}")
+            if got["out_of_bound"]:
+                raise AssertionError(f"{what}: {got['out_of_bound']} depth values of the artifact "
+                                     f"out of phase 9's bound")
+        rate = got["rate"]
+        log(f"  {what}, artifact in the loading process: served {rate['img_per_s']:.2f} img/s "
+            f"over {EXPORT_REQUESTS} requests of {batch}; p50 {rate['p50_ms']:.2f} ms of "
+            f"{EXPORT_LATENCIES}; peak memory {rate['peak_gib']:.3f} GiB")
+        for side in ("eager", "artifact"):
+            rates = ref[side]
+            log(f"  {what}, {side} in this process, in turns: served "
+                + ", ".join(f"{r['img_per_s']:.2f}" for r in rates) + " img/s; p50 "
+                + ", ".join(f"{r['p50_ms']:.2f}" for r in rates) + " ms")
+        for side, t in (("eager", ref["trace"]), ("artifact", got["trace"])):
+            log(f"  {what}, {side}: traced (3 requests): {t['window_ms_per_request']:.3f} ms a "
+                f"request, device busy {t['device_busy_ms_per_request']:.3f} ms, "
+                f"{t['device_kernels_per_request']:.0f} kernels, idle share "
+                f"{t['idle_share']:.3f}")
+        log(f"  {what}: artifact loaded in {got['load_s']:.2f} s, first request "
+            f"{got['first_s']:.3f} s, depth {got['shape']} {got['dtype']} against eager: "
+            f"{agreement}; launches {({k: v for k, v in got['launches'].items() if v})} "
+            f"(as eager)")
+        part = totals["final" if builder == "adabins" else "main"]
+        part.update(ref["launches"])
+        part.update(got["launches"])
+    log(f"export: {time.perf_counter() - t0:.1f} s")
+    return {k: dict(v) for k, v in totals.items()}
+
+
 WATCH_REGRESSOR = {"kernel": 0.11606, "plain": 0.09133}
 
 
@@ -3871,6 +4180,12 @@ def main() -> None:
         f"{dist['attention_fwd']} + {dist['attention_bwd']}, kernel-1 concat "
         f"{dist[CONCAT_COUNTER]}, kernel-2 {dist['bins']}; the kernels line adds them to "
         f"kernels 1, 2, 4 and 5's counts")
+    exported = phase_export()
+    ex, exf = exported["main"], exported["final"]
+    log(f"  export paths (one eager and one loaded request of each artifact): (a) and (b) "
+        f"{ex}, (c) {exf}; the kernels line adds (a) and (b) to kernels 1 (concat), 2, 5, 6, "
+        f"7 and 8's counts and (c) to the final-upscale entries of kernels 1, 2 and 5 and to "
+        f"kernel 1's concat form")
 
     def entry(name, source, replaces, launches, key):
         return {"name": name, "route": "cuda", "source": f"objcavit_torch/csrc/{source}",
@@ -3880,19 +4195,20 @@ def main() -> None:
         entry("resize_bilinear_align_corners_into_concat (kernel 1's concat form)",
               "resize_bilinear.cu", "resize_pallas.py:104",
               serving["resize"] + served[CONCAT_COUNTER] + v2[CONCAT_COUNTER] + fu[CONCAT_COUNTER]
-              + dp[CONCAT_COUNTER] + host[CONCAT_COUNTER] + dist[CONCAT_COUNTER],
-              "resize_concat"),
+              + dp[CONCAT_COUNTER] + host[CONCAT_COUNTER] + dist[CONCAT_COUNTER]
+              + ex.get(CONCAT_COUNTER, 0) + exf.get(CONCAT_COUNTER, 0), "resize_concat"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form, a function path)",
               "resize_bilinear.cu", "resize_pallas.py:104", serving["resize_bare"], "resize"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form at the final "
               "upsample, (8, 240, 320, 128) -> 480x640, then torch.cat with the image)",
-              "resize_bilinear.cu", "resize_pallas.py:104", fu["resize"] - fu[CONCAT_COUNTER],
+              "resize_bilinear.cu", "resize_pallas.py:104",
+              fu["resize"] - fu[CONCAT_COUNTER] + exf["resize"] - exf[CONCAT_COUNTER],
               "resize_final"),
         entry("conv_bins_depth_batched", "bins_depth.cu", "pallas_bins.py:214",
               serving["bins"] + served["bins"] + v2["bins"] + dp["bins"] + host["bins"]
-              + dist["bins"], "bins"),
+              + dist["bins"] + ex["bins"], "bins"),
         entry("conv_bins_depth_batched (full resolution, (8, 480, 640, 128))", "bins_depth.cu",
-              "pallas_bins.py:214", fu["bins"], "bins_final"),
+              "pallas_bins.py:214", fu["bins"] + exf["bins"], "bins_final"),
         entry("conv_bins_depth (kernel 2, shared W)", "bins_depth.cu", "pallas_bins.py:163",
               unfactored["bins_shared"], "bins_shared"),
         entry("bins_expectation_fwd", "bins_expectation.cu", "pallas_bins.py:63",
@@ -3909,24 +4225,27 @@ def main() -> None:
               "pallas_bins.py:63", fu["bins_expectation_fwd"], "bins_expectation_fwd_final"),
         entry("bins_expectation_bwd (full resolution, (8, 226304, 256))", "bins_expectation.cu",
               "pallas_bins.py:91", fu["bins_expectation_bwd"], "bins_expectation_bwd_final"),
-        entry("fused_detect_head", "detect_head.cu", "detect_head_pallas.py:65", fused,
-              "detect_head"),
+        entry("fused_detect_head", "detect_head.cu", "detect_head_pallas.py:65",
+              fused + ex["detect_head"], "detect_head"),
         entry("fused_mha_fwd", "attention.cu", "pallas_attention.py:91",
               attn_serving["attention_fwd"] + served["attention_fwd"] + trained["attention_fwd"]
-              + v2["attention_fwd"] + dist["attention_fwd"], "attention_fwd"),
+              + v2["attention_fwd"] + dist["attention_fwd"] + ex["attention_fwd"],
+              "attention_fwd"),
         entry("fused_mha_bwd", "attention.cu", "pallas_attention.py:108",
               attn_train["attention_bwd"] + trained["attention_bwd"] + v2["attention_bwd"]
               + dist["attention_bwd"], "attention_bwd"),
         entry("fused_mha_fwd (beyond 512 keys, the long route: final upscale, timed at "
-              "S 1200)", "attention.cu", "pallas_attention.py:91", fu["attention_fwd"],
-              "attention_fwd_final"),
+              "S 1200)", "attention.cu", "pallas_attention.py:91",
+              fu["attention_fwd"] + exf["attention_fwd"], "attention_fwd_final"),
         entry("fused_mha_bwd (beyond 512 keys, the long route: final upscale, timed at "
               "S 884)", "attention.cu", "pallas_attention.py:108", fu["attention_bwd"],
               "attention_bwd_final"),
         entry("se_gate_project", "se_project.cu", "se_project_pallas.py:80",
-              encoder_serving["se_project"] + v2["se_project"] + dp["se_project"], "se_project"),
+              encoder_serving["se_project"] + v2["se_project"] + dp["se_project"]
+              + ex["se_project"], "se_project"),
         entry("mbconv_expand_dw_pool", "mbconv_head.cu", "mbconv_pallas.py:153",
-              encoder_serving["mbconv_head"] + dp["mbconv_head"], "mbconv_head"),
+              encoder_serving["mbconv_head"] + dp["mbconv_head"] + ex["mbconv_head"],
+              "mbconv_head"),
         entry("mbconv_bs_expand_dw_pool (kernel 8 on an (H, W, B, C) tensor map)", "mbconv_head.cu",
               "mbconv_bs.py:180", encoder_functions["mbconv_bs"], "mbconv_bs"),
         entry("dw_conv_silu_pool (a ring of input rows by TMA, rolling tap rows; a function path)",

@@ -383,5 +383,13 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
     """q (B, Sq, H, D), k and v (B, Sk, H, D), mask (B, Sk) bool True =
     masked -> (B, Sq, H, D): ``pallas_mha``'s signature. The residual is
-    written only where a backward may read it (``residual_needed``)."""
+    written only where a backward may read it (``residual_needed``). While
+    ``torch.export`` traces, the forward alone, as the custom op
+    ``objcavit::attention_fwd`` (an exported program has no backward)."""
+    if torch.compiler.is_exporting():
+        if residual_needed(q, k, v):
+            raise RuntimeError("an exported program runs kernel 5's forward alone, but autograd "
+                               "needs its gradient here: export under torch.no_grad()")
+        from objcavit_torch.kernels import ops
+        return ops.attention_fwd(q, k, v, mask_bias(key_padding_mask))
     return FusedMHA.apply(q, k, v, mask_bias(key_padding_mask), residual_needed(q, k, v))

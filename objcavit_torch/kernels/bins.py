@@ -134,13 +134,22 @@ def conv_bins_depth_batched(
     """Kernel 2. depth[b,h,w] = sum_k softmax_k(x[b,h,w] @ kernels[b] + bias)_k * centers[b,k].
 
     x (B, H, W, C) bf16, kernels (B, C, 256) bf16, bias (256,) fp32,
-    centers (B, 256) fp32 -> (B, H, W, 1) fp32.
+    centers (B, 256) fp32 -> (B, H, W, 1) fp32. While ``torch.export``
+    traces, the custom op ``objcavit::conv_bins_depth_batched``.
     """
     check_no_grad("conv_bins_depth_batched", x, kernels, bias, centers)
+    if torch.compiler.is_exporting():
+        from objcavit_torch.kernels import ops
+        return ops.conv_bins_depth_batched(x, kernels, bias, centers)
     if x.device.type == "cpu":
         return conv_bins_depth_batched_plain(x, kernels, bias, centers)
     if x.device.type != "cuda":
         raise ValueError(f"bins kernel runs on CUDA tensors, got {x.device}")
+    return conv_bins_depth_batched_cuda(x, kernels, bias, centers)
+
+
+def conv_bins_depth_batched_cuda(x, kernels, bias, centers) -> torch.Tensor:
+    """Kernel 2's launch on CUDA tensors: its checks, the kernel, the count."""
     depth = _launch(x, kernels, bias, centers)
     conv_bins_depth_batched.launches += 1
     return depth

@@ -234,9 +234,22 @@ def _route(flat: torch.Tensor) -> bool:
 def fused_detect_head(flat: torch.Tensor, packed: PackedDetectHead):
     """Kernel 6. flat (B, S, Cin) bf16 -> (y5 (B, S, 3, 5), coef (B, S, 3,
     nm) bf16; cls_max (B, S, 3) fp32, cls_arg (B, S, 3) int32): the dense
-    head flat @ W + b reduced over each anchor's classes."""
+    head flat @ W + b reduced over each anchor's classes. While
+    ``torch.export`` traces, the custom op ``objcavit::detect_head``, which
+    takes ``packed`` as its tensors and ints."""
+    if torch.compiler.is_exporting():
+        check_no_grad("fused_detect_head", flat)
+        from objcavit_torch.kernels import ops
+        return ops.detect_head(flat, packed.wcls, packed.bcls, packed.w5c, packed.b5c,
+                               packed.num_classes, packed.nm)
     if not _route(flat):
         return fused_detect_head_plain(flat, packed)
+    return fused_detect_head_cuda(flat, packed)
+
+
+def fused_detect_head_cuda(flat: torch.Tensor, packed: PackedDetectHead):
+    """Kernel 6's launch on CUDA tensors, one block an SM: its checks, the
+    kernel, the count."""
     dev = flat.device
     return _launch(flat, packed, _sm_count(dev.index if dev.index is not None
                                            else torch.cuda.current_device()))

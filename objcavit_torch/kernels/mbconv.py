@@ -588,9 +588,20 @@ def mbconv_expand_dw_pool(x, we, be, wd, bd, ksize: int):
     """Kernel 8. x (B, H, W, Cin) bf16, we (Cin, M) bf16, be (M,) fp32, wd
     (k, k, 1, M) bf16, bd (M,) fp32 -> (y (B, H, W, M) bf16, pool (B, M)
     fp32): ``silu(dw(silu(x @ we + be)) + bd)``, SAME, stride 1, and its
-    spatial sum."""
+    spatial sum. While ``torch.export`` traces, the custom op
+    ``objcavit::mbconv_head``."""
+    if torch.compiler.is_exporting():
+        check_no_grad("mbconv_expand_dw_pool", x, we, be, wd, bd)
+        from objcavit_torch.kernels import ops
+        return ops.mbconv_head(x, we, be, wd, bd, ksize)
     if not _route("mbconv_expand_dw_pool", x, we, be, wd, bd):
         return mbconv_expand_dw_pool_plain(x, we, be, wd, bd, ksize)
+    return mbconv_expand_dw_pool_cuda(x, we, be, wd, bd, ksize)
+
+
+def mbconv_expand_dw_pool_cuda(x, we, be, wd, bd, ksize: int):
+    """Kernel 8's launch on CUDA tensors: its checks, its plan, the kernel,
+    the count."""
     out = _launch(x, we, be, wd, bd, ksize, batch_minor=False)
     mbconv_expand_dw_pool.launches += 1
     return out

@@ -164,29 +164,47 @@ def _launch(x: torch.Tensor, skip: torch.Tensor | None, out_h: int, out_w: int) 
     return y
 
 
-def resize_bilinear_align_corners(
-    x: torch.Tensor, out_h: int, out_w: int
-) -> torch.Tensor:
-    """(B, Hi, Wi, C) -> (B, out_h, out_w, C), align_corners=True bilinear."""
-    check_no_grad("resize_bilinear_align_corners", x)
-    if x.device.type == "cpu":
-        return resize_bilinear_align_corners_plain(x, out_h, out_w)
-    if x.device.type != "cuda":
-        raise ValueError(f"resize kernel runs on CUDA tensors, got {x.device}")
+def resize_cuda(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """The bare form's launch on a CUDA tensor: its checks, then the kernel."""
     check_resize_inputs(x, out_h, out_w)
     return _launch(x, None, out_h, out_w)
 
 
+def resize_into_concat_cuda(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """The concat form's launch on CUDA tensors: its checks, then the kernel."""
+    check_concat_inputs(x, skip)
+    return _launch(x, skip, skip.shape[1], skip.shape[2])
+
+
+def resize_bilinear_align_corners(
+    x: torch.Tensor, out_h: int, out_w: int
+) -> torch.Tensor:
+    """(B, Hi, Wi, C) -> (B, out_h, out_w, C), align_corners=True bilinear.
+    While ``torch.export`` traces, the custom op ``objcavit::resize_bilinear_ac``."""
+    check_no_grad("resize_bilinear_align_corners", x)
+    if torch.compiler.is_exporting():
+        from objcavit_torch.kernels import ops
+        return ops.resize_bilinear_ac(x, out_h, out_w)
+    if x.device.type == "cpu":
+        return resize_bilinear_align_corners_plain(x, out_h, out_w)
+    if x.device.type != "cuda":
+        raise ValueError(f"resize kernel runs on CUDA tensors, got {x.device}")
+    return resize_cuda(x, out_h, out_w)
+
+
 def resize_bilinear_align_corners_into_concat(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     """x (B, Hi, Wi, C), skip (B, Ho, Wo, Cs) -> (B, Ho, Wo, C + Cs): the
-    align_corners=True upsample of x, then the skip, along channels."""
+    align_corners=True upsample of x, then the skip, along channels. While
+    ``torch.export`` traces, the custom op ``objcavit::resize_bilinear_ac_concat``."""
     check_no_grad("resize_bilinear_align_corners_into_concat", x, skip)
+    if torch.compiler.is_exporting():
+        from objcavit_torch.kernels import ops
+        return ops.resize_bilinear_ac_concat(x, skip)
     if x.device.type == "cpu" and skip.device.type == "cpu":
         return resize_into_concat_plain(x, skip)
     if x.device.type != "cuda":
         raise ValueError(f"resize kernel runs on CUDA tensors, got {x.device}")
-    check_concat_inputs(x, skip)
-    return _launch(x, skip, skip.shape[1], skip.shape[2])
+    return resize_into_concat_cuda(x, skip)
 
 
 resize_bilinear_align_corners.launches = 0

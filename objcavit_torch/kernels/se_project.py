@@ -182,14 +182,24 @@ def check_se_project_inputs(dw_out, gate, kernel, bias, skip) -> None:
 def se_gate_project(dw_out, gate, kernel, bias, skip=None) -> torch.Tensor:
     """Kernel 7. dw_out (B, H, W, M) bf16, gate (B, M) bf16, kernel (M, O)
     bf16, bias (O,) fp32, skip (B, H, W, O) bf16 or None -> (B, H, W, O)
-    bf16: ``(dw_out * gate) @ kernel + bias``, cast, ``+ skip``."""
+    bf16: ``(dw_out * gate) @ kernel + bias``, cast, ``+ skip``. While
+    ``torch.export`` traces, the custom op ``objcavit::se_project``."""
     _check_skip(dw_out, skip)
     check_no_grad("se_gate_project", dw_out, gate, kernel, bias,
                   *([skip] if skip is not None else []))
+    if torch.compiler.is_exporting():
+        from objcavit_torch.kernels import ops
+        return ops.se_project(dw_out, gate, kernel, bias, skip)
     if dw_out.device.type == "cpu":
         return se_gate_project_plain(dw_out, gate, kernel, bias, skip)
     if dw_out.device.type != "cuda":
         raise ValueError(f"se_project kernel runs on CUDA tensors, got {dw_out.device}")
+    return se_gate_project_cuda(dw_out, gate, kernel, bias, skip)
+
+
+def se_gate_project_cuda(dw_out, gate, kernel, bias, skip=None) -> torch.Tensor:
+    """Kernel 7's launch on CUDA tensors: its checks, its plan, the kernel,
+    the count."""
     check_se_project_inputs(dw_out, gate, kernel, bias, skip)
     b, h, w, m = dw_out.shape
     o = kernel.shape[1]

@@ -64,14 +64,11 @@ class YoloClipObjectProvider(_SlotSizing):
         ``allow_random`` a missing asset raises, checked in the JAX
         package's order: the CLIP checkpoint, the BPE file, the detector's
         checkpoint."""
-        from objcavit_torch.models.yolov7 import Yolov7Seg, Yolov7SegDetector
-        from objcavit_torch.utils.benchkit import build_detector
-        from objcavit_torch.utils.device import card_device
-        from objcavit_torch.utils.fold_bn import fold_batchnorm
+        from objcavit_torch.models.yolov7 import Yolov7SegDetector
+        from objcavit_torch.utils.benchkit import build_detector, load_detector
         from objcavit_torch.utils.torch_import import (
             clip_text_from_state_dict,
             load_clip_text_weights,
-            load_yolov7_weights,
         )
 
         mcfg = args[args.model.name]
@@ -89,9 +86,7 @@ class YoloClipObjectProvider(_SlotSizing):
                     "detections and embeddings; ask for them explicitly with --debug or "
                     "allow_random_detector: true.")
         if yolo_ckpt and os.path.exists(yolo_ckpt):
-            # as build_detector: eval, BN folded, fp32, channels_last on the device
-            model = load_yolov7_weights(yolo_ckpt, Yolov7Seg()).eval().to(card_device(device))
-            model = fold_batchnorm(model).cast(torch.float32).to(memory_format=torch.channels_last)
+            model = load_detector(yolo_ckpt, torch.float32, device)
             logger.info("YOLOv7-seg weights loaded from %s", yolo_ckpt)
         else:
             logger.warning("no YOLOv7-seg checkpoint (%s): the detector runs with RANDOM "

@@ -215,9 +215,12 @@ class FusedRoutes(Residual):
     """What the MBConvs and DepthwiseSeparable share for the fused routes: the
     route of the moment, and the weights in a kernel's layout (``packed``),
     made once per set of weights: rebuilt when a tensor is replaced, moved,
-    cast or changed in place."""
+    cast or changed in place. While ``torch.export`` traces, the weights are
+    the program's inputs, so the packing is traced into it, uncached."""
 
     def packed(self, name: str, pack, *tensors: torch.Tensor):
+        if torch.compiler.is_exporting():
+            return pack(*tensors)
         # a cast or a move makes a new tensor, an in-place edit a new version
         key = [(t.data_ptr(), t._version) for t in tensors]
         packs = self.__dict__.setdefault("_packs", {})

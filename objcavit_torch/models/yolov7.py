@@ -301,24 +301,28 @@ class Yolov7Seg(nn.Module):
         the dense head, their box/objectness rows ('w5', 'b5') and the other
         rows ('wr', 'br') for the sparse head, and 'packed' for kernel 6.
         Made once per set of weights: rebuilt when a detect conv's tensors
-        are replaced, moved or changed in place."""
+        are replaced, moved or changed in place; while ``torch.export``
+        traces, made in the program from its weight inputs, uncached."""
         dtype = self.dtype
-        key = (dtype,) + tuple((p.data_ptr(), p._version) for d in self.detects()
-                               for p in (d.weight, d.bias))
-        if key != self._heads_key:
-            no = self.no
-            sel5 = [a * no + c for a in range(3) for c in range(5)]
-            rest = [a * no + c for a in range(3) for c in range(5, no)]
-            self._heads = []
-            for d in self.detects():
-                w = d.weight.reshape(d.weight.shape[0], -1)
-                wt, b = w.to(dtype).contiguous(), d.bias.to(dtype)
-                self._heads.append({
-                    "w": wt, "b": b, "w5": wt[sel5], "b5": b[sel5], "wr": wt[rest], "br": b[rest],
-                    "packed": pack_detect_head(w, d.bias, self.num_classes, self.nm, dtype),
-                })
-            self._heads_key = key
-        return self._heads
+        exporting = torch.compiler.is_exporting()
+        key = None if exporting else (dtype,) + tuple(
+            (p.data_ptr(), p._version) for d in self.detects() for p in (d.weight, d.bias))
+        if not exporting and key == self._heads_key:
+            return self._heads
+        no = self.no
+        sel5 = [a * no + c for a in range(3) for c in range(5)]
+        rest = [a * no + c for a in range(3) for c in range(5, no)]
+        heads = []
+        for d in self.detects():
+            w = d.weight.reshape(d.weight.shape[0], -1)
+            wt, b = w.to(dtype).contiguous(), d.bias.to(dtype)
+            heads.append({
+                "w": wt, "b": b, "w5": wt[sel5], "b5": b[sel5], "wr": wt[rest], "br": b[rest],
+                "packed": pack_detect_head(w, d.bias, self.num_classes, self.nm, dtype),
+            })
+        if not exporting:
+            self._heads, self._heads_key = heads, key
+        return heads
 
     def forward(self, image: torch.Tensor, topk_positions: int | None = None,
                 class_max: bool = False, with_proto: bool = True):

@@ -49,6 +49,11 @@ def _greedy_keep(iou: torch.Tensor, cand: torch.Tensor, iou_thres: float) -> tor
     reaches it within K steps. f leaves a fixed point unchanged, so the loop
     may run ``STEPS_PER_CHECK`` steps between checks and still stop on the
     exact answer; a check compares the last two steps (one host sync).
+
+    While ``torch.export`` traces, the loop is JAX's ``lax.while_loop``
+    (``objcavit_tpu/ops/nms.py``) as ``torch.while_loop``: one step of f a
+    turn until two steps agree or K steps ran, with no host sync. It stops
+    on the same fixed point.
     """
     k = cand.shape[-1]
     lower = torch.ones((k, k), dtype=torch.bool, device=cand.device).tril(-1)
@@ -57,6 +62,16 @@ def _greedy_keep(iou: torch.Tensor, cand: torch.Tensor, iou_thres: float) -> tor
     def f(x):
         return cand & ~(sup & x[..., None, :]).any(-1)
 
+    if torch.compiler.is_exporting():
+        def cond(x, prev, it):
+            return (x != prev).any() & (it < k)
+
+        def body(x, prev, it):
+            # clone: a loop's outputs may not alias its inputs
+            return f(x), x.clone(), it + 1
+
+        it = torch.ones((), dtype=torch.int64, device=cand.device)
+        return torch.while_loop(cond, body, (f(cand), cand, it))[0]
     x = cand
     for _ in range(0, k + 1, STEPS_PER_CHECK):
         for _ in range(STEPS_PER_CHECK):

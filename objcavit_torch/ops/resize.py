@@ -36,18 +36,27 @@ def interp_taps(in_size: int, out_size: int, align_corners: bool):
     return lo, hi, frac
 
 
-@functools.lru_cache(maxsize=128)
 def device_taps(in_size: int, out_size: int, align_corners: bool, device: torch.device):
-    """``interp_taps`` as (int32, int32, float32) tensors on ``device``.
+    """``interp_taps`` as (int32, int32, float32) tensors on ``device``,
+    cached. While ``torch.export`` traces, made anew and uncached: the
+    program keeps them as its constants."""
+    if torch.compiler.is_exporting():
+        return _taps_tensors(in_size, out_size, align_corners, device)
+    return _cached_taps(in_size, out_size, align_corners, device)
 
-    Made outside inference mode even when the first caller is a served
+
+def _taps_tensors(in_size: int, out_size: int, align_corners: bool, device: torch.device):
+    return tuple(torch.from_numpy(a.copy()).to(device)
+                 for a in interp_taps(in_size, out_size, align_corners))
+
+
+@functools.lru_cache(maxsize=128)
+def _cached_taps(in_size: int, out_size: int, align_corners: bool, device: torch.device):
+    """Made outside inference mode even when the first caller is a served
     request: a cached tensor made inside it could never be saved for the
     backward of a later training step in the same process."""
     with torch.inference_mode(False):
-        return tuple(
-            torch.from_numpy(a.copy()).to(device)
-            for a in interp_taps(in_size, out_size, align_corners)
-        )
+        return _taps_tensors(in_size, out_size, align_corners, device)
 
 
 def resize_bilinear(

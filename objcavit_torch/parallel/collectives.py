@@ -182,12 +182,13 @@ class GradientReducer:
 
     def __call__(self) -> None:
         world = dist.get_world_size()
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if world == 1 or not grads:
+        if world == 1 or not self.params:
             return
+        # the check runs on a rank without any gradient too: its peers wait
+        # in the check's all-reduce
         layout = tuple(p.grad is not None for p in self.params)
         if layout != self._checked:
-            mask = torch.tensor(layout, dtype=torch.float64, device=grads[0].device)
+            mask = torch.tensor(layout, dtype=torch.float64, device=self.params[0].device)
             spread = torch.cat([mask, -mask])
             dist.all_reduce(spread, op=dist.ReduceOp.MAX)  # the largest, minus the smallest
             differ = (spread[:mask.numel()] + spread[mask.numel():]).nonzero().flatten()
@@ -198,7 +199,7 @@ class GradientReducer:
                                    f"{mask.numel()}, the first #{i}, on this rank "
                                    f"{'with' if layout[i] else 'without'} one)")
             self._checked = layout
-        for bucket in self._buckets(grads):
+        for bucket in self._buckets([p.grad for p in self.params if p.grad is not None]):
             flat = torch.cat([g.reshape(-1) for g in bucket])
             dist.all_reduce(flat)
             flat.div_(world)

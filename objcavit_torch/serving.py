@@ -78,45 +78,71 @@ class DepthPipeline:
         self._sentinels: dict[int, tuple] = {}
 
     def _sentinel_objects(self, b: int):
-        if b not in self._sentinels:
+        """The no-detection sentinel's (features, xywh, valid) for a batch of
+        ``b``, made once (outside inference mode, so ``torch.export`` may
+        keep them as constants); while ``torch.export`` traces, a batch not
+        made before is made in the program, uncached."""
+        hit = self._sentinels.get(b)
+        if hit is None:
             n, dev = self.n_obj_max, self.device
-            feats = torch.zeros((b, n, self.model.obj_feature_dim), device=dev)
-            if self.unk_feature is not None:
-                feats[:, 0] = self.unk_feature
-            xywh = torch.full((b, n, 4), -1.0, device=dev)
-            valid = torch.zeros((b, n), dtype=torch.bool, device=dev)
-            valid[:, 0] = True
-            self._sentinels[b] = (feats, xywh, valid)
-        return self._sentinels[b]
+            with torch.inference_mode(False):
+                feats = torch.zeros((b, n, self.model.obj_feature_dim), device=dev)
+                if self.unk_feature is not None:
+                    feats[:, 0] = self.unk_feature
+                xywh = torch.full((b, n, 4), -1.0, device=dev)
+                valid = torch.zeros((b, n), dtype=torch.bool, device=dev)
+                valid[:, 0] = True
+            hit = (feats, xywh, valid)
+            if not torch.compiler.is_exporting():
+                self._sentinels[b] = hit
+        return hit
+
+    def normalise(self, frames: torch.Tensor) -> torch.Tensor:
+        """uint8 (B, H, W, 3) on the device -> /255, resized to the eval size,
+        ImageNet-normalised fp32."""
+        x = resize_bilinear(frames.float() / 255.0, *self.eval_dims, align_corners=False)
+        return (x - self.mean) / self.std
+
+    def _at_input_res(self, depth: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
+        if self.output_at_input_res:
+            return resize_bilinear(depth, frames.shape[1], frames.shape[2], align_corners=True)
+        return depth
+
+    def serve(self, frames: torch.Tensor) -> torch.Tensor:
+        """A request's device work, with no host round trip: uint8 frames on
+        the device -> ``normalise`` -> the model (GraphBins with the
+        sentinel objects) -> depth, resized to the input size with
+        ``output_at_input_res``. ``__call__`` runs it for a pipeline without
+        a provider, and ``serving_export`` traces it."""
+        x = self.normalise(frames)
+        if self.model.takes_objects:
+            out = self.model(x, *self._sentinel_objects(frames.shape[0]))
+        else:
+            out = self.model(x)
+        return self._at_input_res(out["depth_pred"], frames)
 
     @torch.inference_mode()
     def __call__(self, frames_u8) -> torch.Tensor:
         """frames_u8: (B, H, W, 3) uint8 (numpy or tensor) -> (B, h, w, 1)
         fp32 depth in metres on the model's device."""
-        frames = torch.as_tensor(frames_u8).to(self.device)
-        if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[3] != 3:
-            raise ValueError(
-                f"frames must be uint8 (B, H, W, 3), got {frames.dtype} {tuple(frames.shape)}"
-            )
-        b, in_h, in_w, _ = frames.shape
-        x = frames.float() / 255.0
-        x = resize_bilinear(x, *self.eval_dims, align_corners=False)
-        x = (x - self.mean) / self.std
-        if not self.model.takes_objects:
-            depth = self.model(x)["depth_pred"]
-        else:
-            if self.provider is not None:
-                objs = self.provider(x.cpu().numpy())
-                feats, xywh, valid = (
-                    torch.as_tensor(np.asarray(objs[k]), device=self.device)
-                    for k in ("features", "xywh", "valid")
-                )
-            else:
-                feats, xywh, valid = self._sentinel_objects(b)
-            depth = self.model(x, feats, xywh, valid)["depth_pred"]
-        if self.output_at_input_res:
-            depth = resize_bilinear(depth, in_h, in_w, align_corners=True)
-        return depth
+        frames = device_frames(frames_u8, self.device)
+        if self.provider is None or not self.model.takes_objects:
+            return self.serve(frames)
+        x = self.normalise(frames)
+        objs = self.provider(x.cpu().numpy())
+        feats, xywh, valid = (torch.as_tensor(np.asarray(objs[k]), device=self.device)
+                              for k in ("features", "xywh", "valid"))
+        return self._at_input_res(self.model(x, feats, xywh, valid)["depth_pred"], frames)
+
+
+def device_frames(frames_u8, device) -> torch.Tensor:
+    """A request's frames on ``device``; ValueError unless (B, H, W, 3) uint8."""
+    frames = torch.as_tensor(frames_u8).to(device)
+    if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[3] != 3:
+        raise ValueError(
+            f"frames must be uint8 (B, H, W, 3), got {frames.dtype} {tuple(frames.shape)}"
+        )
+    return frames
 
 
 def build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,
@@ -380,20 +406,13 @@ class FusedDepthPipeline:
         warn_if_saturated(logging.getLogger(__name__), n_cand.cpu().numpy(), pre_topk,
                           "fused serving")
 
-    @torch.inference_mode()
-    def __call__(self, frames_u8) -> torch.Tensor:
-        """frames_u8: (B, H, W, 3) uint8 (numpy or tensor) -> (B, h/2, w/2, 1)
-        fp32 depth in metres on the model's device."""
-        frames = torch.as_tensor(frames_u8).to(self.device)
-        if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[3] != 3:
-            raise ValueError(
-                f"frames must be uint8 (B, H, W, 3), got {frames.dtype} {tuple(frames.shape)}"
-            )
+    def serve(self, frames: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """A request's device work, with no host round trip but the NMS's
+        convergence checks (none while ``torch.export`` traces): uint8
+        frames on the device -> depth, and the detection meta
+        {'n_candidates' (B,) on the device, 'pre_topk'}. ``__call__`` runs
+        it, and ``serving_export`` traces it."""
         stride = self.det_stride
-        if frames.shape[0] % stride:
-            raise ValueError(f"video det_stride={stride} needs the clip length divisible by it, "
-                             f"got batch {frames.shape[0]}")
-        self._check_pending_saturation()
         x01 = resize_bilinear(frames.float() / 255.0, *self.eval_dims, align_corners=False)
         normed = (x01 - self.mean) / self.std
         x_det = x01[::stride] if stride > 1 else x01
@@ -403,15 +422,29 @@ class FusedDepthPipeline:
         det = self._detections(x_det)
         feats, xywh, valid = self._objects(det, det_hw)
         depth = self.model(normed, feats, xywh, valid)["depth_pred"]
-        self.last_det_meta = {"n_candidates": det["n_candidates"], "pre_topk": det["pre_topk"]}
-        self._pending_sat = (det["n_candidates"], det["pre_topk"])
+        return depth, {"n_candidates": det["n_candidates"], "pre_topk": det["pre_topk"]}
+
+    @torch.inference_mode()
+    def __call__(self, frames_u8) -> torch.Tensor:
+        """frames_u8: (B, H, W, 3) uint8 (numpy or tensor) -> (B, h/2, w/2, 1)
+        fp32 depth in metres on the model's device."""
+        frames = device_frames(frames_u8, self.device)
+        stride = self.det_stride
+        if frames.shape[0] % stride:
+            raise ValueError(f"video det_stride={stride} needs the clip length divisible by it, "
+                             f"got batch {frames.shape[0]}")
+        self._check_pending_saturation()
+        depth, meta = self.serve(frames)
+        self.last_det_meta = meta
+        self._pending_sat = (meta["n_candidates"], meta["pre_topk"])
         return depth
 
 
 def build_fused_flagship(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,
                          device="cuda", attn_impl: str = "plain", num_classes: int = 1203,
                          class_names=None, language_strategy: str = "synset_def_wn",
-                         clip_model=None, bpe_path: str | None = None, **pipeline_kwargs) -> FusedDepthPipeline:
+                         clip_model=None, bpe_path: str | None = None,
+                         yolov7_checkpoint: str | None = None, **pipeline_kwargs) -> FusedDepthPipeline:
     """The fused server at the flagship's width: GraphBins-B5 (BN folded),
     YOLOv7-seg with ``num_classes`` classes (BN folded, RepConvs merged) and
     the class table from the CLIP text tower (``clip_model``, or the
@@ -421,14 +454,19 @@ def build_fused_flagship(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int =
     ``pipeline_kwargs`` go to ``FusedDepthPipeline`` (conf_thres, iou_thres,
     det_topk, pre_topk, class_max_head, det_stride, det_scale, n_obj_max).
     Released YOLOv7-seg and CLIP weights load through
-    ``utils/torch_import.py`` (``load_yolov7_weights``,
-    ``load_clip_text_weights``); this function draws random ones."""
+    ``utils/torch_import.py``: the detector from ``yolov7_checkpoint``
+    (``benchkit.load_detector``; 1203 classes), the text tower as
+    ``clip_model`` (``load_clip_text_weights``, ``clip_text_from_state_dict``);
+    otherwise this function draws random ones."""
     from objcavit_torch.language.embedding import build_class_table, make_embedder
-    from objcavit_torch.utils.benchkit import build_detector, build_flagship_model
+    from objcavit_torch.utils.benchkit import build_detector, build_flagship_model, load_detector
 
     device = card_device(device)
     model = build_flagship_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl)
-    detector = build_detector(num_classes, dtype=dtype, seed=seed + 1, device=device)
+    if yolov7_checkpoint is not None:
+        detector = load_detector(yolov7_checkpoint, dtype, device)
+    else:
+        detector = build_detector(num_classes, dtype=dtype, seed=seed + 1, device=device)
     if class_names is None:
         class_names = [f"class_{i}" for i in range(num_classes)]
     embedder = make_embedder("clip", clip_model, bpe_path, device=device, seed=seed + 2)

@@ -179,6 +179,17 @@ def build_detector(num_classes: int = 1203, dtype=torch.bfloat16, seed: int = 1,
     return model.cast(dtype).to(memory_format=torch.channels_last)
 
 
+def load_detector(checkpoint: str, dtype=torch.bfloat16, device="cuda"):
+    """The YOLOv7-seg release ``checkpoint`` (``utils/torch_import.py``) as
+    ``build_detector`` gives a detector: eval mode, BN folded, cast to
+    ``dtype`` (detect convs fp32), channels_last on ``device``."""
+    from objcavit_torch.models.yolov7 import Yolov7Seg
+    from objcavit_torch.utils.torch_import import load_yolov7_weights
+
+    model = load_yolov7_weights(checkpoint, Yolov7Seg()).eval().to(card_device(device))
+    return fold_batchnorm(model).cast(dtype).to(memory_format=torch.channels_last)
+
+
 def build_flagship(batch: int, h: int = 480, w: int = 640, n_obj: int = 300,
                    seed: int = 0, dtype=torch.bfloat16, device="cuda", attn_impl: str = "plain"):
     """Flagship model plus one batch of inputs made with numpy from ``seed``.

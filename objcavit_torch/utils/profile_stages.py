@@ -6,6 +6,7 @@
     python -m objcavit_torch.utils.profile_stages --attn   # both attention routes
     python -m objcavit_torch.utils.profile_stages --encoder  # both encoder routes
     python -m objcavit_torch.utils.profile_stages --final-upscale  # do_final_upscale
+    python -m objcavit_torch.utils.profile_stages --export  # exported programs
 
 Server: three measurements of ``build_flagship_pipeline()`` (GraphBins-B5, bf16, BN
 folded, 480x640, 300 slots, random weights, sentinel objects):
@@ -56,6 +57,9 @@ route: each server's stage split and one trace of 5 requests, read as the
 server's is, then AdaBins-B5's full-resolution train step's split and
 trace, read as ``--train``'s.
 
+Export (``--export``): ``profile_export``'s two servers beside their
+exported programs, in turns.
+
 Each line names the card (``nvidia-smi``) at the start and at the end.
 """
 
@@ -72,7 +76,9 @@ import time
 import numpy as np
 import torch
 from objcavit_torch.serving import build_adabins_pipeline, build_flagship_pipeline
-from objcavit_torch.utils import profiling
+from objcavit_torch.utils.profiling import served_rate
+from objcavit_torch.utils.profiling import trace_calls as trace
+from objcavit_torch.utils.profiling import union_us  # noqa: F401  (its earlier home)
 from objcavit_torch.utils.benchkit import build_adabins_train, build_flagship_train
 
 SMI = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
@@ -255,29 +261,6 @@ def fused_stage_split(pipe, frames, iters: int = 25, warmup: int = 5) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def served_rate(pipe, frames: list, n_req: int = 20, n_lat: int = 21) -> dict:
-    """img/s over ``n_req`` requests one after another, latency p50/p90 of
-    ``n_lat`` synchronised requests, and the peak memory of both."""
-    for f in frames:
-        pipe(f)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for i in range(n_req):
-        pipe(frames[i % len(frames)])
-    torch.cuda.synchronize()
-    rate = n_req * frames[0].shape[0] / (time.perf_counter() - t0)
-    lat = []
-    for i in range(n_lat):
-        t1 = time.perf_counter()
-        pipe(frames[i % len(frames)])
-        torch.cuda.synchronize()
-        lat.append(1000 * (time.perf_counter() - t1))
-    return {"img_per_s": rate, "p50_ms": statistics.median(lat),
-            "p90_ms": sorted(lat)[int(0.9 * (n_lat - 1))],
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-
-
 def profile_fused() -> None:
     """Both head routes at NYU 480x640 (18,900 anchors, 300 slots) and KITTI
     352x1216 (26,334 anchors, 418 slots), bs 8: the stage split and the
@@ -305,70 +288,6 @@ def profile_fused() -> None:
                 print(f"fused {dims} trace ({route})", json.dumps(t), flush=True)
             rates[route].append(served_rate(pipe, frames))
             print(f"fused {dims} served ({route})", json.dumps(rates[route][-1]), flush=True)
-
-
-def kernel_kind(name: str) -> str:
-    n = name.lower()
-    for needle, kind in (("attn_", "kernel 5 (attention)"),
-                         ("detect_head", "kernel 6 (detect head)"),
-                         ("se_project", "kernel 7 (SE-gate project)"),
-                         ("mbconv_kernel", "kernel 8 (MBConv head)"),
-                         ("pool_reduce", "kernel 8 (MBConv head)"),
-                         ("bins_expectation", "kernel 4 (bins expectation)"),
-                         ("conv_bins_depth", "kernel 2 (bins)"),
-                         ("resize_kernel", "kernel 1 (resize)"), ("memcpy", "memcpy")):
-        if needle in n:
-            return kind
-    if any(k in n for k in ("fprop", "conv2d_c1_k1", "cudnn", "implicit_gemm")):
-        return "cudnn conv"
-    if any(k in n for k in ("nvjet", "gemm", "wmma", "cutlass")):
-        return "gemm"
-    for needle, kind in (("reduce_kernel", "reduction"), ("softmax", "softmax"),
-                         ("cat", "concat"), ("elementwise", "elementwise")):
-        if needle in n:
-            return kind
-    return "other"
-
-
-def union_us(intervals) -> float:
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy
-
-
-def trace(run, n_req: int = 5) -> dict:
-    """One ``torch.profiler`` trace of ``n_req`` calls of ``run()``, per call."""
-    run()
-    torch.cuda.synchronize()
-    with profiling.trace() as prof:
-        with profiling.annotate("requests"):
-            for _ in range(n_req):
-                run()
-            torch.cuda.synchronize()
-    events = prof.events()
-    on_device = [str(e.device_type).endswith("CUDA") for e in events]
-    window = next(e for e, d in zip(events, on_device) if e.name == "requests" and not d).time_range
-    # the trace mirrors annotations ("requests", the optimizer's step) on the
-    # device's timeline: they are not kernels
-    device = [e for e, d in zip(events, on_device)
-              if d and e.name != "requests" and not getattr(e, "is_user_annotation", False)]
-    busy = union_us((e.time_range.start, e.time_range.end) for e in device)
-    by_kind = collections.Counter()
-    for e in device:
-        by_kind[kernel_kind(e.name)] += e.time_range.elapsed_us()
-    ka = prof.key_averages()
-    attr = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") else "self_cuda_time_total"
-    return {
-        "window_ms_per_request": window.elapsed_us() / 1000 / n_req,
-        "device_kernels_per_request": len(device) / n_req,
-        "device_busy_ms_per_request": busy / 1000 / n_req,
-        "idle_share": 1 - busy / window.elapsed_us(),
-        "device_ms_per_request_by_kind": {k: v / 1000 / n_req for k, v in by_kind.most_common()},
-        "top": ka.table(sort_by=attr, row_limit=25, max_name_column_width=80),
-    }
 
 
 def sweep(pipe, rng) -> list[str]:
@@ -433,6 +352,62 @@ def profile_final_upscale() -> None:
     print("train trace (adabins, final upscale)", json.dumps(t), flush=True)
 
 
+def enqueue_ms(run, frames, n: int = 15) -> float:
+    """Median host ms of ``run(frames)`` returning, the card idle before each."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(frames)
+        times.append(1000 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def profile_export() -> None:
+    """Two of ``chip_smoke.py`` phase 16's servers, the flagship on kernel 5's
+    and kernels 7 and 8's routes (bs 8) and AdaBins-B5 with do_final_upscale
+    on kernel 5's (bs 1), each beside its exported program
+    (``serving_export``, held in this process as ``ServingArtifact`` runs
+    it), in turns (eager, program, program, eager): a request's host
+    enqueue ms, the program's also with its per-call input check, and the
+    served rate and p50."""
+    from objcavit_torch.serving_export import ServingArtifact, export_pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    for what, build, batch in (
+            ("flagship, kernel routes", lambda: build_flagship_pipeline(
+                attn_impl="kernel", encoder_impl="kernel"), 8),
+            ("AdaBins final upscale", lambda: build_adabins_pipeline(
+                attn_impl="kernel", do_final_upscale=True), 1)):
+        pipe = build()
+        frames = rng.integers(0, 256, (batch, *pipe.eval_dims, 3), dtype=np.uint8)
+        pipe(frames)
+        program, weights = export_pipeline(pipe, frames.shape)
+        program.example_inputs = None  # as a saved and loaded program
+        art = ServingArtifact(program, weights, {"platforms": ["cuda"],
+                                                 "frames_shape": list(frames.shape)})
+        art(frames)
+
+        def checked(f):
+            art._module.validate_inputs = True
+            return art(f)
+
+        out = collections.defaultdict(list)
+        for side in ("eager", "program", "program", "eager"):
+            run = pipe if side == "eager" else art
+            out[f"{side} enqueue ms"].append(enqueue_ms(run, frames))
+            if side == "program":
+                out["program enqueue ms, input check on"].append(enqueue_ms(checked, frames))
+            r = served_rate(run, [frames], n_req=10, n_lat=7)
+            out[f"{side} img/s"].append(r["img_per_s"])
+            out[f"{side} p50 ms"].append(r["p50_ms"])
+        print(f"export, {what}, bs {batch}", json.dumps(out), flush=True)
+        del pipe, art, program, weights
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--train", action="store_true", help="profile the train step")
@@ -443,6 +418,8 @@ def main() -> None:
                         help="stage splits and traces of the flagship on each encoder route")
     parser.add_argument("--final-upscale", action="store_true",
                         help="stage splits and traces of the do_final_upscale servers and step")
+    parser.add_argument("--export", action="store_true",
+                        help="host cost and served rate of exported programs beside eager")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_stages: needs a CUDA card")
@@ -450,7 +427,8 @@ def main() -> None:
     other = (profile_train if args.train else profile_fused if args.fused
              else profile_attention_routes if args.attn
              else profile_encoder_routes if args.encoder
-             else profile_final_upscale if args.final_upscale else None)
+             else profile_final_upscale if args.final_upscale
+             else profile_export if args.export else None)
     if other is not None:
         other()
         print(smi(), flush=True)

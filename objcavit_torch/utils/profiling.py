@@ -6,18 +6,24 @@ Port of ``objcavit_tpu/utils/profiling.py``:
   present, CUDA activities) of the block, written into ``logdir`` as a
   Chrome trace (``chrome://tracing``, Perfetto or TensorBoard's profile
   plugin read it); without ``logdir`` nothing is written and the caller
-  reads the yielded profiler (``profile_stages.trace`` does);
+  reads the yielded profiler (``trace_calls`` does);
 * ``annotate(name)``: a named range on the trace's timeline
   (``record_function``), mirrored onto the card's;
 * ``enable_nan_debugging()``: autograd's anomaly mode with its NaN check,
   so a backward that makes a NaN raises at the operator that made it;
-* ``device_memory_stats()``: each card's bytes in use, peak and limit.
+* ``device_memory_stats()``: each card's bytes in use, peak and limit;
+* ``served_rate(pipe, frames)`` and ``trace_calls(run)``: a server's img/s,
+  latency and peak memory, and one trace's device time, idle share and
+  kernels by kind (``utils/profile_stages.py`` and ``chip_smoke.py`` read
+  them; any callable server, an exported artifact's too).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import statistics
 import time
 from typing import Iterator
 
@@ -66,3 +72,90 @@ def device_memory_stats() -> dict:
             "bytes_limit": torch.cuda.mem_get_info(i)[1],
         }
     return stats
+
+
+def served_rate(pipe, frames: list, n_req: int = 20, n_lat: int = 21) -> dict:
+    """img/s over ``n_req`` requests one after another, latency p50/p90 of
+    ``n_lat`` synchronised requests, and the peak memory of both."""
+    for f in frames:
+        pipe(f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(n_req):
+        pipe(frames[i % len(frames)])
+    torch.cuda.synchronize()
+    rate = n_req * frames[0].shape[0] / (time.perf_counter() - t0)
+    lat = []
+    for i in range(n_lat):
+        t1 = time.perf_counter()
+        pipe(frames[i % len(frames)])
+        torch.cuda.synchronize()
+        lat.append(1000 * (time.perf_counter() - t1))
+    return {"img_per_s": rate, "p50_ms": statistics.median(lat),
+            "p90_ms": sorted(lat)[int(0.9 * (n_lat - 1))],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def kernel_kind(name: str) -> str:
+    n = name.lower()
+    for needle, kind in (("attn_", "kernel 5 (attention)"),
+                         ("detect_head", "kernel 6 (detect head)"),
+                         ("se_project", "kernel 7 (SE-gate project)"),
+                         ("mbconv_kernel", "kernel 8 (MBConv head)"),
+                         ("pool_reduce", "kernel 8 (MBConv head)"),
+                         ("bins_expectation", "kernel 4 (bins expectation)"),
+                         ("conv_bins_depth", "kernel 2 (bins)"),
+                         ("resize_kernel", "kernel 1 (resize)"), ("memcpy", "memcpy")):
+        if needle in n:
+            return kind
+    if any(k in n for k in ("fprop", "conv2d_c1_k1", "cudnn", "implicit_gemm")):
+        return "cudnn conv"
+    if any(k in n for k in ("nvjet", "gemm", "wmma", "cutlass")):
+        return "gemm"
+    for needle, kind in (("reduce_kernel", "reduction"), ("softmax", "softmax"),
+                         ("cat", "concat"), ("elementwise", "elementwise")):
+        if needle in n:
+            return kind
+    return "other"
+
+
+def union_us(intervals) -> float:
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def trace_calls(run, n_req: int = 5) -> dict:
+    """One ``torch.profiler`` trace of ``n_req`` calls of ``run()``, per call."""
+    run()
+    torch.cuda.synchronize()
+    with trace() as prof:
+        with annotate("requests"):
+            for _ in range(n_req):
+                run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    on_device = [str(e.device_type).endswith("CUDA") for e in events]
+    window = next(e for e, d in zip(events, on_device) if e.name == "requests" and not d).time_range
+    # the trace mirrors annotations ("requests", the optimizer's step) on the
+    # device's timeline: they are not kernels
+    device = [e for e, d in zip(events, on_device)
+              if d and e.name != "requests" and not getattr(e, "is_user_annotation", False)]
+    busy = union_us((e.time_range.start, e.time_range.end) for e in device)
+    by_kind = collections.Counter()
+    for e in device:
+        by_kind[kernel_kind(e.name)] += e.time_range.elapsed_us()
+    ka = prof.key_averages()
+    attr = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") else "self_cuda_time_total"
+    return {
+        "window_ms_per_request": window.elapsed_us() / 1000 / n_req,
+        "device_kernels_per_request": len(device) / n_req,
+        "device_busy_ms_per_request": busy / 1000 / n_req,
+        "idle_share": 1 - busy / window.elapsed_us(),
+        "device_ms_per_request_by_kind": {k: v / 1000 / n_req for k, v in by_kind.most_common()},
+        "top": ka.table(sort_by=attr, row_limit=25, max_name_column_width=80),
+    }

@@ -96,15 +96,16 @@ def _rel(got, want) -> float:
     return float(np.linalg.norm(got - want) / (np.linalg.norm(want) + 1e-30))
 
 
-def launch_cpu(cmd: list[str], n: int) -> tuple[int, str]:
+def launch_cpu(cmd: list[str], n: int, timeout: float = LAUNCH_TIMEOUT) -> tuple[int, str]:
     """``n`` processes of ``cmd`` through the port's launcher on the CPU, one
-    torch thread each; -> (exit status, their rank-prefixed output)."""
+    torch thread each, killed after ``timeout`` seconds; -> (exit status,
+    their rank-prefixed output)."""
     env = {"PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     out = io.StringIO()
     try:
-        rc = launch(cmd, n, cpu=True, out=out, timeout=LAUNCH_TIMEOUT)
+        rc = launch(cmd, n, cpu=True, out=out, timeout=timeout)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -114,9 +115,9 @@ def launch_cpu(cmd: list[str], n: int) -> tuple[int, str]:
     return rc, out.getvalue()
 
 
-def run_ranks(task: str, work, n: int) -> list[dict]:
+def run_ranks(task: str, work, n: int, timeout: float = LAUNCH_TIMEOUT) -> list[dict]:
     """``n`` ranks of ``task``; -> each rank's output."""
-    rc, text = launch_cpu([sys.executable, WORKER, task, str(work)], n)
+    rc, text = launch_cpu([sys.executable, WORKER, task, str(work)], n, timeout)
     assert rc == 0, text[-6000:]
     return [torch.load(os.path.join(work, f"{task}_{r}.pt"), weights_only=False)
             for r in range(n)]
@@ -338,6 +339,22 @@ def test_gradient_reducer_means_gradients_and_refuses_other_sets(group_run):
         assert r["reduced"] == [[2.5] * 3, None, [2.5] * 3]
         assert "the ranks differ on which parameters have a gradient (2 of 3, the first #0" \
             in r["layout_error"]
+
+
+EMPTY_GRADS_TIMEOUT = 60  # seconds: a rank that skipped the check left its peer waiting
+
+
+def test_gradient_reducer_raises_on_every_rank_when_one_has_no_gradient(tmp_path):
+    """Two ranks over gloo, rank 1 without any gradient: the layout check
+    still runs there, so both ranks raise. Rank 1 used to return and leave
+    rank 0 in the check's all-reduce: until its group went away, or past a
+    training loop's next collective, for good."""
+    ranks = run_ranks("empty_grads", tmp_path, 2, timeout=EMPTY_GRADS_TIMEOUT)
+    errors = [r["error"] for r in ranks]
+    assert "rank 0: the ranks differ on which parameters have a gradient (2 of 2, the first " \
+        "#0, on this rank with one)" in errors[0], errors
+    assert "rank 1: the ranks differ on which parameters have a gradient (2 of 2, the first " \
+        "#0, on this rank without one)" in errors[1], errors
 
 
 # ------------------------------------------------------- 2 ranks, one step

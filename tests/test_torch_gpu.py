@@ -1312,3 +1312,34 @@ def test_nccl_on_a_cpu_device_raises(cuda):
     with pytest.raises(ValueError, match="NCCL"):
         initialize_distributed("127.0.0.1:1", 1, 0, backend="nccl", device="cpu")
     assert not torch.distributed.is_initialized()
+
+
+@gpu
+def test_tiny_graphbins_artifact_gives_the_eager_bits_and_launches(cuda, tmp_path):
+    """``serving_export`` on the card: the tiny GraphBins in bf16 on both
+    kernel routes, exported at bs 2 and 384x352, loaded back: the eager
+    depth bit for bit, and each kernel launched as often as eager."""
+    from objcavit_torch.serving import DepthPipeline
+    from objcavit_torch.serving_export import ServingArtifact, export_artifact
+
+    counters = (kresize.resize_bilinear_align_corners, kbins.conv_bins_depth_batched,
+                kattn.fused_mha_fwd, kse.se_gate_project, kmb.mbconv_expand_dw_pool)
+    model = build_flagship_model(device="cuda", encoder_name="efficientnet-tiny",
+                                 attn_impl="kernel", encoder_impl="kernel",
+                                 dims_train=(384, 352), dims_test=(384, 352))
+    pipe = DepthPipeline(model, eval_dims=(384, 352))
+    frames = np.random.default_rng(5).integers(0, 256, (2, 384, 352, 3), dtype=np.uint8)
+
+    def launched(run):
+        before = [c.launches for c in counters]
+        out = run(frames)
+        torch.cuda.synchronize()
+        return out, [c.launches - b for c, b in zip(counters, before)]
+
+    want, eager = launched(pipe)
+    (path,) = export_artifact(pipe, str(tmp_path / "art"), batch_sizes=(2,))
+    art = ServingArtifact.load(path)
+    assert art.meta["platforms"] == ["cuda"]
+    got, loaded = launched(art)
+    assert eager == loaded == [4, 1, 10, 5, 2]
+    assert torch.equal(got, want)

@@ -270,3 +270,45 @@ def test_upsample_with_skip_bf16_eval_matches_jax():
     for want in wants:
         gap = np.abs(got - want)
         assert gap.max() < 0.02 and gap.mean() < 0.002, (gap.max(), gap.mean())
+
+
+def _numpy_lerp(x: np.ndarray, ho: int, wo: int, align_corners: bool, dtype) -> np.ndarray:
+    """``ops.resize.resize_bilinear``'s arithmetic in NumPy at ``dtype``: the
+    host taps, H then W, each ``a (1 - f) + b f`` with ``1 - f`` in fp32 (the
+    taps' type)."""
+    y = x.astype(dtype)
+    for axis, out in ((1, ho), (2, wo)):
+        if y.shape[axis] == out:
+            continue
+        lo, hi, frac = interp_taps(y.shape[axis], out, align_corners)
+        shape = [1, 1, 1, 1]
+        shape[axis] = out
+        f, g = frac.reshape(shape), (np.float32(1.0) - frac).reshape(shape)
+        y = np.take(y, lo, axis) * g.astype(dtype) + np.take(y, hi, axis) * f.astype(dtype)
+    return y
+
+
+@pytest.mark.parametrize("align_corners", [True, False], ids=["align-corners", "half-pixel"])
+@pytest.mark.parametrize("shape", [(2, 7, 9, 5, 16, 20), (1, 17, 22, 3, 12, 8),
+                                   (1, 6, 6, 4, 6, 11)], ids=["up", "down", "w-only"])
+def test_resize_bilinear_lerps_in_the_inputs_precision(shape, align_corners):
+    """fp64 lerps in fp64: within 1e-15 of a NumPy fp64 lerp on the same
+    taps (fp32 would miss by ~1e-7); fp32 gives the NumPy fp32 lerp's bits;
+    bf16 is the fp32 lerp of its values, rounded once."""
+    from objcavit_torch.ops.resize import resize_bilinear
+
+    b, hi, wi, c, ho, wo = shape
+    x = np.random.default_rng(hi * wi + ho).standard_normal((b, hi, wi, c))
+    got = resize_bilinear(torch.from_numpy(x), ho, wo, align_corners)
+    assert got.dtype == torch.float64
+    want = _numpy_lerp(x, ho, wo, align_corners, np.float64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-15, atol=1e-15)
+    x32 = torch.from_numpy(x.astype(np.float32))
+    got32 = resize_bilinear(x32, ho, wo, align_corners)
+    np.testing.assert_array_equal(got32.numpy(),
+                                  _numpy_lerp(x32.numpy(), ho, wo, align_corners, np.float32))
+    assert np.abs(got32.numpy() - want).max() > 1e-9  # fp32 is not fp64's result
+    x16 = x32.to(torch.bfloat16)
+    got16 = resize_bilinear(x16, ho, wo, align_corners)
+    assert got16.dtype == torch.bfloat16
+    assert torch.equal(got16, resize_bilinear(x16.float(), ho, wo, align_corners).to(torch.bfloat16))

@@ -167,6 +167,20 @@ def reduce_gradients(rank: int) -> dict:
     return out
 
 
+def task_empty_grads(work: str) -> dict:
+    """``GradientReducer`` where rank 0 has gradients on both parameters and
+    rank 1 none: each rank's error, or None."""
+    params = [torch.nn.Parameter(torch.zeros(3, dtype=torch.float64)) for _ in range(2)]
+    if process_index() == 0:
+        for p in params:
+            p.grad = torch.ones(3, dtype=torch.float64)
+    try:
+        GradientReducer(params)()
+    except RuntimeError as e:
+        return {"error": str(e)}
+    return {"error": None}
+
+
 def make_step(inp: dict, dtype: torch.dtype = torch.float32):
     """tests/test_torch_train.py's step of the tiny GraphBins from
     ``inp``'s weights and settings, with parameters and compute in
@@ -255,7 +269,8 @@ def main() -> None:
         if not initialize_distributed(device=os.environ.get(cli.ENV_DEVICE, "cuda")):
             raise SystemExit("no OBJCAVIT_* env: start this through objcavit_torch.parallel.launch")
         try:
-            out = {"group": task_group, "step": task_step}[task](work)
+            out = {"group": task_group, "step": task_step,
+                   "empty_grads": task_empty_grads}[task](work)
         finally:
             shutdown_distributed()
     torch.save(out, os.path.join(work, f"{task}_{rank}.pt"))
