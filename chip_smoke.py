@@ -286,6 +286,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    p50 and one trace's device time and idle share of artifact and eager
    side by side. Alone (after the build): ``cs.phase_export()``.
 
+17. tensor parallelism (``objcavit_torch/parallel/tp.py``): two processes
+   on the card over gloo (``python3 chip_smoke.py --tp-rank SPEC`` each,
+   through ``parallel.launch``) as a 1 x 2 process grid, the flagship's
+   attention stacks split over its model axis (2 of 4 heads and 512 of 1024
+   FFN columns a rank), then one process for reference: (a) the server on
+   kernel 5's route and kernels 7 and 8's, bf16, BN folded, 480x640, 300
+   slots, bs 8: 10 kernel-5 launches a request on each rank at B 8, H 2
+   (the first request's held against the plain version), 32 + 7 of kernels
+   8 and 7, 4 of kernel 1's concat form and 1 of kernel 2; the depth bit
+   for bit on both ranks and within ``TP_SERVE_REL`` of one process's; (b)
+   the flagship step at bs 8, 416x544, 221 slots: the first step's gathered
+   gradients against one process's on the same batch and draws, in fp64 on
+   the plain route and in bf16 on kernel 5's route (``TP_STEP_BOUNDS``),
+   then 3 bf16 steps, 10 + 9 kernel-5 and 1 + 1 kernel-4 launches each on
+   each rank, the split parameters' shapes kept through the updates; (c)
+   wall ms a request and a step of the ranks beside one process's, a
+   one-card gloo time. Alone (after the build): ``cs.phase_tp()``.
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -446,7 +464,10 @@ from objcavit_torch.data import native
 from objcavit_torch.data import preprocess as pp
 from objcavit_torch.language.provider import YoloClipObjectProvider
 from objcavit_torch.metrics import METRIC_NAMES
+from objcavit_torch.models.layers import MultiHeadAttention, TransformerEncoderLayer
+from objcavit_torch.parallel import make_grid, tp_gather_state_dict, tp_shard_model
 from objcavit_torch.parallel.collectives import GradientReducer
+from objcavit_torch.parallel.tp import tp_specs
 from objcavit_torch.parallel.distributed import (
     initialize_distributed,
     process_index,
@@ -3559,10 +3580,15 @@ def state_digest(model) -> str:
     return h.hexdigest()
 
 
-def group_grads(model) -> dict[str, torch.Tensor]:
+def group_grads(model, grid=None) -> dict[str, torch.Tensor]:
     """Each TRAIN_GRAD_GROUPS group's gradients, concatenated, in fp32 or
-    wider, on the host."""
-    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    wider, on the host; of the whole model, joined over ``grid``'s model
+    axis, where a grid splits it (``tp_gather_state_dict``)."""
+    if grid is None:
+        grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    else:
+        grads = {n: g for n, g in tp_gather_state_dict(model, grid, grads=True).items()
+                 if g is not None}
     out = {}
     for group, (prefixes, _) in TRAIN_GRAD_GROUPS.items():
         keys = [n for n in grads if n.startswith(prefixes)]
@@ -4111,6 +4137,274 @@ def phase_export() -> dict:
     return {k: dict(v) for k, v in totals.items()}
 
 
+# phase 17: tensor parallelism of the attention stacks (objcavit_torch/parallel/
+# tp.py) on a 1 x 2 process grid: two processes on the one card over gloo
+# (NCCL refuses two ranks on one card), each holding 2 of the flagship's 4
+# heads and 512 of its FFN's 1024 columns, against one process
+TP_GRID = (1, 2)  # (n_data, n_model)
+TP_TIMEOUT = 300  # seconds the two processes may take before they are killed
+TP_FLAG = "--tp-rank"
+TP_FFN = 1024  # the flagship's FFN width
+TP_FRAMES_SEED = 1717
+TP_REQUESTS = 2  # counted requests after a warm-up, the first one's kernel-5 launches checked
+TP_TIMED = 3  # synchronised requests timed after them
+TP_STEPS = 3  # bf16 steps on kernel 5's route: the first checked, the last two timed
+TP_REQUEST_LAUNCHES = {"attention_fwd": 10, "resize": 4, "bins": 1, "mbconv_head": 32,
+                       "se_project": 7}
+TP_STEP_LAUNCHES = {"bins_expectation_fwd": 1, "bins_expectation_bwd": 1, "attention_fwd": 10,
+                    "attention_bwd": ATTN_BWD_PER_STEP}
+# (a)'s depth against one process's server on the same frames. The two runs
+# differ only where the split reorders a sum: each rank rounds its half of
+# out_proj's and linear2's products to bf16, the all-reduce adds the halves
+# in bf16 and the bias follows (two roundings more than one process's one)
+# at the 18 block outputs of a forward; every other op sees the same
+# inputs. That is a few bf16 ulps at 18 places, far less rounding than the
+# bf16 route as a whole carries, which phase 4 holds against fp32 at
+# FEATURE_REL_BOUND on ObjCAViT's outputs: the depth's rel L2 is held there
+TP_SERVE_REL = FEATURE_REL_BOUND
+# (b)'s first step against one process's on the same batch and draws: in
+# fp64 on the plain route at phase 15's DIST_FP64_REL (the bins head's
+# softmax stays fp32 in an fp64 step, so a reordered fp64 sum may move an
+# fp32 rounding); in bf16 on kernel 5's route, the loss at phase 15's
+# DIST_BF16_LOSS_REL and the gradients at the bf16 train check's bounds
+# (TRAIN_GRAD_GROUPS), as phase 15 (b) holds two processes against one
+TP_STEP_BOUNDS = {"fp64 plain": (DIST_FP64_REL, {g: DIST_FP64_REL for g in TRAIN_GRAD_GROUPS}),
+                  "bf16 kernel": (DIST_BF16_LOSS_REL, {g: b for g, (_, b) in
+                                                       TRAIN_GRAD_GROUPS.items()})}
+
+
+def check_split(what: str, model, grid) -> dict[str, tuple]:
+    """Every attention holds ATTN_HEADS / n_model heads and every FFN
+    TP_FFN / n_model columns, none replicated: -> the split parameters'
+    local shapes."""
+    blocks = [m for m in model.modules()
+              if isinstance(m, (MultiHeadAttention, TransformerEncoderLayer))]
+    heads = {m.in_proj_weight.shape[0] // 3 // HEAD_DIM for m in blocks
+             if isinstance(m, MultiHeadAttention)}
+    widths = {m.linear1.weight.shape[0] for m in blocks if isinstance(m, TransformerEncoderLayer)}
+    if (any(m.tp is None for m in blocks) or heads != {ATTN_HEADS // grid.n_model}
+            or widths != {TP_FFN // grid.n_model}):
+        raise AssertionError(f"{what}: heads a rank {heads}, FFN columns a rank {widths}, "
+                             f"{sum(m.tp is None for m in blocks)} blocks replicated")
+    return {n: tuple(model.get_parameter(n).shape) for n in tp_specs(model, grid.n_model)}
+
+
+def tp_serve(what: str, grid=None) -> dict:
+    """(a): the flagship server on kernel 5's route and kernels 7 and 8's,
+    bf16, BN folded, 480x640, 300 slots; split over ``grid``'s model axis
+    where there is one. A warm-up request, TP_REQUESTS counted ones (their
+    launches; the first one's kernel-5 launches against the plain version),
+    then TP_TIMED timed ones. -> depths, launches, kernel 5's head counts,
+    wall ms a request."""
+    pipe = build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=EVAL_DIMS, seed=0,
+                                   attn_impl="kernel", encoder_impl="kernel", grid=grid)
+    if grid is not None:
+        check_split(what, pipe.model, grid)
+    rng = np.random.default_rng(TP_FRAMES_SEED)
+    frames = [rng.integers(0, 256, (BATCH, *EVAL_DIMS, 3), dtype=np.uint8)
+              for _ in range(TP_REQUESTS)]
+    pipe(frames[0])  # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    with record_attention_io() as records:
+        depths = [pipe(f) for f in frames]
+    torch.cuda.synchronize()
+    launches = expect_launches(f"(a) {what}, {TP_REQUESTS} requests of {BATCH}",
+                               **{k: v * TP_REQUESTS for k, v in TP_REQUEST_LAUNCHES.items()})
+    heads = sorted({tuple(r["q"].shape[::2]) for r in records})  # (B, H) of each launch
+    check_attention_records(f"(a) {what}, request 0", records[:TP_REQUEST_LAUNCHES[
+        "attention_fwd"]], residual=False)
+    del records
+    for i, depth in enumerate(depths):
+        check_depth(f"(a) {what}, request {i}", depth, pipe.model.min_depth, pipe.model.max_depth)
+    ms = []
+    for i in range(TP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe(frames[i % len(frames)])
+        torch.cuda.synchronize()
+        ms.append(1000 * (time.perf_counter() - t0))
+    out = {"depths": [d.cpu() for d in depths], "launches": launches, "heads": heads, "ms": ms}
+    del pipe, depths
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_first_step(attn_impl: str, dtype: torch.dtype, grid=None) -> dict:
+    """(b)'s first step of the flagship train step (bs 8, 416x544, 221
+    slots; seed 0's weights, batch and draws) on ``attn_impl`` in ``dtype``
+    (parameters too where fp64), split over ``grid``'s model axis where
+    there is one: -> its loss and the whole model's gradients by group."""
+    step, batch, objects = build_flagship_train(batch=BATCH, h=TRAIN_DIMS[0], w=TRAIN_DIMS[1],
+                                                n_obj=TRAIN_SLOTS, seed=0, attn_impl=attn_impl)
+    model = step.model
+    if dtype == torch.float64:
+        model.double()
+        batch, objects = ({k: v.double() if v.is_floating_point() else v for k, v in t.items()}
+                          for t in (batch, objects))
+    if grid is not None:
+        tp_shard_model(model, grid)
+    loss_fn = make_train_loss_fn(model, LossWrapper(*TRAIN_LOSSES), model.min_depth,
+                                 augment_on_device=True, compute_dtype=dtype)
+    loss = loss_fn(batch, objects, torch.Generator(batch["image"].device).manual_seed(0))
+    loss.backward()
+    out = {"loss": float(loss.detach()), "grads": group_grads(model, grid)}
+    del step, model, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train(what: str, grid=None) -> dict:
+    """(b): the first step in fp64 on the plain route, then TP_STEPS bf16
+    steps of the flagship step on kernel 5's route, split over ``grid``'s
+    model axis where there is one: each step's launches, the first step's
+    loss and gradients (before the clipping) and its kernel-5 launches
+    against the plain version, the split parameters' shapes after the
+    updates, wall ms a step."""
+    out = {"fp64 plain": tp_first_step("plain", torch.float64, grid)}
+    step, batch, objects = build_flagship_train(batch=BATCH, h=TRAIN_DIMS[0], w=TRAIN_DIMS[1],
+                                                n_obj=TRAIN_SLOTS, seed=0, attn_impl="kernel")
+    local = {}
+    if grid is not None:
+        tp_shard_model(step.model, grid)  # the optimizer keeps its parameters, split in place
+        local = check_split(what, step.model, grid)
+    losses, ms, launches = [], [], collections.Counter()
+    for i in range(TP_STEPS):
+        torch.cuda.synchronize()
+        before = read_counters()
+        t0 = time.perf_counter()
+        if i == 0:
+            with record_attention_io() as records:
+                loss = step.loss(batch, objects)
+                loss.backward()
+                reducer, step.grad_reducer = step.grad_reducer, None
+                if reducer is not None:  # the update's reduction, before the gradients are read
+                    reducer()
+                grads = group_grads(step.model, grid)
+                step.update()
+                step.grad_reducer = reducer
+        else:
+            loss = step(batch, objects)
+        torch.cuda.synchronize()
+        ms.append(1000 * (time.perf_counter() - t0))
+        after = read_counters()
+        got = {k: after[k] - before[k] for k in TP_STEP_LAUNCHES}
+        if got != TP_STEP_LAUNCHES:
+            raise AssertionError(f"(b) {what}, step {i}: launches {got}")
+        launches.update({k: after[k] - before[k] for k in after})
+        losses.append(float(loss.detach()))
+    check_attention_records(f"(b) {what}, step 0", records, residual=True)
+    del records
+    moved = {n: tuple(step.model.get_parameter(n).shape) for n in local}
+    if moved != local:
+        raise AssertionError(f"(b) {what}: the split parameters changed shape in the update")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"(b) {what}: a loss is not finite: {losses}")
+    out.update({"bf16 kernel": {"loss": losses[0], "grads": grads}, "losses": losses,
+                "ms": ms, "launches": dict(launches), "local": len(local)})
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(spec_path: str) -> None:
+    """One process of phase 17, started by ``parallel.launch`` with its
+    rank's env: joins a gloo group on the card, makes the 1 x 2 grid, runs
+    (a) and (b) split over its model axis and saves rank_<p>.pt."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(backend="gloo")
+    try:
+        grid = make_grid(*TP_GRID)
+        what = f"rank {process_index()} (model index {grid.model_index})"
+        out = {"rank": process_index(), "serve": tp_serve(what, grid),
+               "train": tp_train(what, grid)}
+        torch.save(out, os.path.join(spec["work"], f"rank_{process_index()}.pt"))
+    finally:
+        shutdown_distributed()
+
+
+def phase_tp() -> dict:
+    """Tensor parallelism: two processes on the card over gloo
+    (``parallel.launch``, ``tp_rank``) as a 1 x 2 grid, the flagship split
+    over its model axis (2 heads and 512 FFN columns a rank), then one
+    process: (a) the server's depth, the same bits on both ranks and within
+    TP_SERVE_REL of one process's, 10 kernel-5 launches a request at B 8, H
+    2; (b) the first step's gathered gradients against one process's at
+    TP_STEP_BOUNDS, 10 + 9 kernel-5 launches a step, the split kept through
+    the updates; (c) wall ms a request and a step, ranks and one process
+    (a one-card gloo time). -> the ranks' launches."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        spec = os.path.join(work, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"work": work}, f)
+        out = io.StringIO()
+        rc = launch([sys.executable, os.path.abspath(__file__), TP_FLAG, spec], TP_GRID[0] * TP_GRID[1],
+                    out=out, timeout=TP_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        text = out.getvalue()
+        log("\n".join(line for line in text.splitlines() if "(a) " in line or "(b) " in line
+                      or "Error" in line))
+        if rc != 0:
+            raise AssertionError(f"tp: the ranks exited {rc}:\n{text[-6000:]}")
+        ranks = [torch.load(os.path.join(work, f"rank_{r}.pt"), weights_only=False)
+                 for r in range(TP_GRID[0] * TP_GRID[1])]
+    t1 = time.perf_counter()
+    one = {"serve": tp_serve("one process"), "train": tp_train("one process")}
+    one_s = time.perf_counter() - t1
+    r0 = ranks[0]
+    bad = []
+    for r in ranks[1:]:
+        if not all(torch.equal(a, b) for a, b in zip(r["serve"]["depths"], r0["serve"]["depths"])):
+            bad.append(f"(a) rank {r['rank']}'s depth differs from rank 0's")
+        if r["train"]["losses"] != r0["train"]["losses"]:
+            bad.append(f"(b) rank {r['rank']}'s losses differ from rank 0's")
+    heads = {h for r in ranks for h in r["serve"]["heads"]}
+    if heads != {(BATCH, ATTN_HEADS // TP_GRID[1])}:
+        bad.append(f"kernel 5's (B, H) on the ranks {heads}")
+    rels = [rel_l2(d, w) for d, w in zip(r0["serve"]["depths"], one["serve"]["depths"])]
+    err = max(float((d - w).abs().max())
+              for d, w in zip(r0["serve"]["depths"], one["serve"]["depths"]))
+    log(f"  (a) depth: the ranks bit for bit {'NOT ' * any('(a) rank' in b for b in bad)}alike; "
+        f"against one process's server, rel L2 {', '.join(f'{v:.3e}' for v in rels)} (bound {TP_SERVE_REL}), "
+        f"max abs err {err:.4e} m; kernel 5's (B, H) on the ranks {sorted(heads)}, one process "
+        f"{one['serve']['heads']}")
+    if max(rels) > TP_SERVE_REL:
+        bad.append("(a) depth")
+    for label, (loss_bound, grad_bounds) in TP_STEP_BOUNDS.items():
+        got, want = r0["train"][label], one["train"][label]
+        grels = {g: rel_l2(got["grads"][g], want["grads"][g]) for g in want["grads"]}
+        loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        log(f"  (b) first step, the 1 x 2 grid's gathered gradients vs one process's, {label}: "
+            f"loss {got['loss']!r} vs {want['loss']!r} (rel {loss_rel:.3e}, bound {loss_bound}); "
+            "gradient rel L2 " + ", ".join(f"{g} {v:.3e} (bound {grad_bounds[g]:.3e})"
+                                           for g, v in grels.items()))
+        if loss_rel > loss_bound or any(v > grad_bounds[g] for g, v in grels.items()):
+            bad.append(f"(b) {label}")
+    log(f"  (b) losses (the ranks' bit for bit alike, each step): ranks "
+        f"{[r['train']['losses'] for r in ranks]}, one process "
+        f"{one['train']['losses']}; {r0['train']['local']} split parameters a rank kept their "
+        f"shapes through {TP_STEPS} updates")
+    for part, unit in (("serve", "a request"), ("train", "a step")):
+        log(f"  (c) wall ms {unit}, a one-card gloo time (not a claim): ranks "
+            f"{[[round(t, 3) for t in r[part]['ms']] for r in ranks]}, one process "
+            f"{[round(t, 3) for t in one[part]['ms']]}")
+    log(f"tp: {time.perf_counter() - t0:.1f} s (the ranks {ranks_s:.1f}, one process "
+        f"{one_s:.1f})")
+    if bad:
+        raise AssertionError(f"tp: {bad}")
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["serve"]["launches"])
+        launches.update(r["train"]["launches"])
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 WATCH_REGRESSOR = {"kernel": 0.11606, "plain": 0.09133}
 
 
@@ -4132,6 +4426,9 @@ def watch_gradients(plain: dict, kernel: dict) -> None:
 def main() -> None:
     if sys.argv[1:2] == ["--dist-rank"]:  # one process of phase 15 (b)
         dist_rank(sys.argv[2])
+        return
+    if sys.argv[1:2] == [TP_FLAG]:  # one process of phase 17
+        tp_rank(sys.argv[2])
         return
     name = phase_device()
     phase_build()
@@ -4186,6 +4483,12 @@ def main() -> None:
         f"{ex}, (c) {exf}; the kernels line adds (a) and (b) to kernels 1 (concat), 2, 5, 6, "
         f"7 and 8's counts and (c) to the final-upscale entries of kernels 1, 2 and 5 and to "
         f"kernel 1's concat form")
+    tp = phase_tp()
+    log(f"  tensor-parallel paths (both ranks: {TP_REQUESTS} counted requests, {TP_STEPS} bf16 "
+        f"steps): kernel-5 launches {tp['attention_fwd']} + {tp['attention_bwd']}, kernel-4 "
+        f"{tp['bins_expectation_fwd']} + {tp['bins_expectation_bwd']}, kernel-1 concat "
+        f"{tp[CONCAT_COUNTER]}, kernel-2 {tp['bins']}, kernel-8 {tp['mbconv_head']}, kernel-7 "
+        f"{tp['se_project']}; the kernels line adds them to kernels 1, 2, 4, 5, 7 and 8's counts")
 
     def entry(name, source, replaces, launches, key):
         return {"name": name, "route": "cuda", "source": f"objcavit_torch/csrc/{source}",
@@ -4196,7 +4499,8 @@ def main() -> None:
               "resize_bilinear.cu", "resize_pallas.py:104",
               serving["resize"] + served[CONCAT_COUNTER] + v2[CONCAT_COUNTER] + fu[CONCAT_COUNTER]
               + dp[CONCAT_COUNTER] + host[CONCAT_COUNTER] + dist[CONCAT_COUNTER]
-              + ex.get(CONCAT_COUNTER, 0) + exf.get(CONCAT_COUNTER, 0), "resize_concat"),
+              + ex.get(CONCAT_COUNTER, 0) + exf.get(CONCAT_COUNTER, 0) + tp[CONCAT_COUNTER],
+              "resize_concat"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form, a function path)",
               "resize_bilinear.cu", "resize_pallas.py:104", serving["resize_bare"], "resize"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form at the final "
@@ -4206,7 +4510,7 @@ def main() -> None:
               "resize_final"),
         entry("conv_bins_depth_batched", "bins_depth.cu", "pallas_bins.py:214",
               serving["bins"] + served["bins"] + v2["bins"] + dp["bins"] + host["bins"]
-              + dist["bins"] + ex["bins"], "bins"),
+              + dist["bins"] + ex["bins"] + tp["bins"], "bins"),
         entry("conv_bins_depth_batched (full resolution, (8, 480, 640, 128))", "bins_depth.cu",
               "pallas_bins.py:214", fu["bins"] + exf["bins"], "bins_final"),
         entry("conv_bins_depth (kernel 2, shared W)", "bins_depth.cu", "pallas_bins.py:163",
@@ -4215,12 +4519,12 @@ def main() -> None:
               train["bins_expectation_fwd"] + fit["bins_expectation_fwd"]
               + trained["bins_expectation_fwd"] + v2["bins_expectation_fwd"]
               + dp["bins_expectation_fwd"] + host["bins_expectation_fwd"]
-              + dist["bins_expectation_fwd"], "bins_expectation_fwd"),
+              + dist["bins_expectation_fwd"] + tp["bins_expectation_fwd"], "bins_expectation_fwd"),
         entry("bins_expectation_bwd", "bins_expectation.cu", "pallas_bins.py:91",
               train["bins_expectation_bwd"] + fit["bins_expectation_bwd"]
               + trained["bins_expectation_bwd"] + v2["bins_expectation_bwd"]
               + dp["bins_expectation_bwd"] + host["bins_expectation_bwd"]
-              + dist["bins_expectation_bwd"], "bins_expectation_bwd"),
+              + dist["bins_expectation_bwd"] + tp["bins_expectation_bwd"], "bins_expectation_bwd"),
         entry("bins_expectation_fwd (full resolution, (8, 226304, 256))", "bins_expectation.cu",
               "pallas_bins.py:63", fu["bins_expectation_fwd"], "bins_expectation_fwd_final"),
         entry("bins_expectation_bwd (full resolution, (8, 226304, 256))", "bins_expectation.cu",
@@ -4229,11 +4533,11 @@ def main() -> None:
               fused + ex["detect_head"], "detect_head"),
         entry("fused_mha_fwd", "attention.cu", "pallas_attention.py:91",
               attn_serving["attention_fwd"] + served["attention_fwd"] + trained["attention_fwd"]
-              + v2["attention_fwd"] + dist["attention_fwd"] + ex["attention_fwd"],
-              "attention_fwd"),
+              + v2["attention_fwd"] + dist["attention_fwd"] + ex["attention_fwd"]
+              + tp["attention_fwd"], "attention_fwd"),
         entry("fused_mha_bwd", "attention.cu", "pallas_attention.py:108",
               attn_train["attention_bwd"] + trained["attention_bwd"] + v2["attention_bwd"]
-              + dist["attention_bwd"], "attention_bwd"),
+              + dist["attention_bwd"] + tp["attention_bwd"], "attention_bwd"),
         entry("fused_mha_fwd (beyond 512 keys, the long route: final upscale, timed at "
               "S 1200)", "attention.cu", "pallas_attention.py:91",
               fu["attention_fwd"] + exf["attention_fwd"], "attention_fwd_final"),
@@ -4242,10 +4546,10 @@ def main() -> None:
               "attention_bwd_final"),
         entry("se_gate_project", "se_project.cu", "se_project_pallas.py:80",
               encoder_serving["se_project"] + v2["se_project"] + dp["se_project"]
-              + ex["se_project"], "se_project"),
+              + ex["se_project"] + tp["se_project"], "se_project"),
         entry("mbconv_expand_dw_pool", "mbconv_head.cu", "mbconv_pallas.py:153",
-              encoder_serving["mbconv_head"] + dp["mbconv_head"] + ex["mbconv_head"],
-              "mbconv_head"),
+              encoder_serving["mbconv_head"] + dp["mbconv_head"] + ex["mbconv_head"]
+              + tp["mbconv_head"], "mbconv_head"),
         entry("mbconv_bs_expand_dw_pool (kernel 8 on an (H, W, B, C) tensor map)", "mbconv_head.cu",
               "mbconv_bs.py:180", encoder_functions["mbconv_bs"], "mbconv_bs"),
         entry("dw_conv_silu_pool (a ring of input rows by TMA, rolling tap rows; a function path)",

@@ -32,11 +32,8 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
-from objcavit_torch.parallel.distributed import (
-    process_count,
-    process_index,
-    process_local_indices,
-)
+from objcavit_torch.parallel.distributed import process_local_indices
+from objcavit_torch.parallel.mesh import current_grid
 from objcavit_torch.utils.device import card_device
 
 PREFETCH = 2  # batches the worker keeps ready
@@ -64,7 +61,8 @@ class DeviceLoader:
         self.host_hook = host_hook
         self.synchronous = synchronous
         self._rng = np.random.default_rng(seed)
-        self._pid, self._pc = process_index(), process_count()
+        grid = current_grid()  # the data axis: the ranks of one model index share rows
+        self._pid, self._pc = grid.data_index, grid.n_data
         if self._pc > 1 and batch_size % self._pc != 0:
             raise ValueError(
                 f"global batch_size {batch_size} must divide the "

@@ -37,7 +37,7 @@ import torch.distributed as dist
 
 from objcavit_torch.ops.resize import resize_bilinear
 from objcavit_torch.parallel.collectives import global_sum
-from objcavit_torch.parallel.distributed import process_count
+from objcavit_torch.parallel.mesh import current_grid
 
 METRIC_NAMES = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log10", "acc_1", "acc_2", "acc_3")
 
@@ -119,8 +119,9 @@ def metrics_reduce(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     values."""
     keys = sorted(state)
     flat = torch.stack([state[k] for k in keys]).float()
-    dist.all_reduce(flat)
-    world = dist.get_world_size()
+    grid = current_grid()  # the data axis: a model group's ranks share rows
+    dist.all_reduce(flat, group=grid.data_group)
+    world = grid.n_data
     return {k: v / world if k.endswith("_ra/avg") else v
             for k, v in zip(keys, flat.unbind())}
 
@@ -131,7 +132,7 @@ def metrics_sync(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     without a group, the state as it is. For states updated on each rank's
     rows alone: the in-fit validation needs none, its updates being global
     already (``metrics_update``)."""
-    if process_count() == 1:
+    if current_grid().n_data == 1:
         return dict(state)
     return metrics_reduce(state)
 

@@ -79,7 +79,7 @@ from objcavit_torch.kernels.se_project import (
 )
 from objcavit_torch.parallel.collectives import batch_norm as global_batch_norm
 from objcavit_torch.parallel.collectives import rand_rows
-from objcavit_torch.parallel.distributed import process_count
+from objcavit_torch.parallel.mesh import current_grid
 from objcavit_torch.utils.fold_bn import FoldedBatchNorm
 
 BN_EPS = 1e-3
@@ -109,13 +109,13 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d``, whose training mode in a process group of more
-    than one process normalises with the global batch's statistics
+    """``nn.BatchNorm2d``, whose training mode over more than one data rank
+    (a process group, or a grid's data axis) normalises with the global batch's statistics
     (``parallel/collectives.py::batch_norm``), as the JAX package's sharded
     step does; elsewhere it is ``nn.BatchNorm2d`` itself."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and process_count() > 1:
+        if self.training and current_grid().n_data > 1:
             return global_batch_norm(self, x)
         return super().forward(x)
 

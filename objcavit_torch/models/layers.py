@@ -13,6 +13,15 @@ Port of ``objcavit_tpu/models/layers.py``:
   self-attention, after the ReLU, after ``linear2``. It draws from the
   ``torch.Generator`` passed to ``forward``.
 * ``TransformerEncoder``: ``layers.{i}``.
+
+Split over a process grid's model axis (``parallel/tp.py::tp_shard_model``
+sets a block's ``tp``, its grid), an attention holds its rank's heads and an
+FFN its rank's columns of ``linear1`` and rows of ``linear2``: the block's
+input passes through ``copy_to_model``, its output product through
+``reduce_from_model`` (Megatron's f and g, ``parallel/collectives.py``), and
+the output bias is added once, after the reduce. The dropout after the ReLU
+takes this model rank's columns of the global draw, so the masks are one
+process's.
 * ``PatchTransformerEncoder``: miniViT's patch embedding conv
   (``embedding_convPxP``, kernel = stride), the learned
   ``positional_encodings`` (max_seq_len, E) table sliced to the token
@@ -31,21 +40,23 @@ import torch.nn.functional as F
 
 from objcavit_torch.models.common import PatchEmbedConv
 from objcavit_torch.ops.attention import mha_core
-from objcavit_torch.parallel.collectives import rand_rows
+from objcavit_torch.parallel.collectives import copy_to_model, rand_rows, reduce_from_model
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None,
+            block: tuple[int, int] | None = None) -> torch.Tensor:
     """Inverted dropout drawing its mask from ``generator`` (the default
     generator if None), with flax ``nn.Dropout``'s semantics: the identity
     outside training or at rate 0, zeros at rate 1. x is batch-first; in a
     process group the mask is this rank's rows of the global batch's
-    (``parallel/collectives.py::rand_rows``)."""
+    (``parallel/collectives.py::rand_rows``), and with ``block`` (i, n) x's
+    last dim is block i of n of the global draw's."""
     if not training or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = rand_rows(x.shape, generator, x.device) >= rate
+    keep = rand_rows(x.shape, generator, x.device, block=block) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -58,11 +69,19 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.tp = None  # the grid whose model axis splits the heads
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, query, key, value, key_padding_mask=None):
-        e, h = self.embed_dim, self.num_heads
+        e = self.in_proj_weight.shape[0] // 3  # this rank's heads' width
+        h = self.num_heads * e // self.embed_dim
+        if self.tp is not None:
+            copies = {}  # one copy a distinct input keeps ``query is key``
+            for t in (query, key, value):
+                if id(t) not in copies:
+                    copies[id(t)] = copy_to_model(t, self.tp.model_group)
+            query, key, value = (copies[id(t)] for t in (query, key, value))
         if query is key and key is value:
             q, k, v = F.linear(query, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
         else:
@@ -71,7 +90,11 @@ class MultiHeadAttention(nn.Module):
             q, k, v = F.linear(query, wq, bq), F.linear(key, wk, bk), F.linear(value, wv, bv)
         q, k, v = (t.reshape(*t.shape[:-1], h, e // h) for t in (q, k, v))
         out = mha_core(q, k, v, key_padding_mask, impl=self.attn_impl)
-        return self.out_proj(out.reshape(*out.shape[:-2], e))
+        out = out.reshape(*out.shape[:-2], e)
+        if self.tp is None:
+            return self.out_proj(out)
+        out = reduce_from_model(F.linear(out, self.out_proj.weight), self.tp.model_group)
+        return out + self.out_proj.bias
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -84,14 +107,21 @@ class TransformerEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, embed_dim)
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.tp = None  # the grid whose model axis splits the FFN
 
     def forward(self, x, key_padding_mask=None, generator=None):
-        def drop(t):
-            return dropout(t, self.dropout_rate, self.training, generator)
+        def drop(t, block=None):
+            return dropout(t, self.dropout_rate, self.training, generator, block)
 
         x = self.norm1(x + drop(self.self_attn(x, x, x, key_padding_mask)))
-        h = drop(F.relu(self.linear1(x)))
-        return self.norm2(x + drop(self.linear2(h)))
+        if self.tp is None:
+            h = drop(F.relu(self.linear1(x)))
+            return self.norm2(x + drop(self.linear2(h)))
+        group = self.tp.model_group
+        h = drop(F.relu(self.linear1(copy_to_model(x, group))),
+                 (self.tp.model_index, self.tp.n_model))
+        y = reduce_from_model(F.linear(h, self.linear2.weight), group) + self.linear2.bias
+        return self.norm2(x + drop(y))
 
 
 class TransformerEncoder(nn.Module):

@@ -40,6 +40,18 @@ than one process). At a world of one (no group, or a group of one)
 ``global_sum``, ``global_max``, ``batch_norm`` and ``rand_rows`` take the
 single-process code unchanged, and the reducer reduces nothing.
 
+Under a process grid (``parallel/mesh.py``) the ranks of one model group
+hold the same rows, so every one of these reads the batch over the data
+group alone: the sums, the max, the BatchNorm statistics, the draws' rows
+(``[d::n_data]``, d the data index) and the gradient mean (a replicated
+parameter's over every rank, ``GradientReducer``). Without a grid the data
+group is the whole group. Two collectives serve the model axis,
+Megatron's conjugate operators around a split block (``parallel/tp.py``):
+``copy_to_model`` (the identity forward, the all-reduce of the gradient
+over the model group backward) on the block's input, and
+``reduce_from_model`` (the all-reduce of the partial products forward, the
+identity backward) on its output.
+
 ``GradientReducer`` stands where ``DistributedDataParallel`` would: the
 train step runs the model through ``torch.func.functional_call`` on bf16
 copies of the parameters (``GraphBins.params_in``), a forward DDP's own
@@ -56,42 +68,94 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from objcavit_torch.parallel.distributed import process_count, process_index
+from objcavit_torch.parallel.distributed import process_count
+from objcavit_torch.parallel.mesh import current_grid
 
 BUCKET_BYTES = 25 * 2**20  # a gradient bucket's size, DDP's default
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the group's ranks, with its gradient (the identity
-    at a world of one)."""
-    if process_count() == 1:
+    """``t`` summed over the data group's ranks, with its gradient (the
+    identity where the data axis is one rank)."""
+    grid = current_grid()
+    if grid.n_data == 1:
         return t
     from torch.distributed.nn.functional import all_reduce
 
-    return all_reduce(t)
+    return all_reduce(t, group=grid.data_group)
 
 
 def global_max(t: torch.Tensor) -> torch.Tensor:
-    """The elementwise largest of ``t`` over the group's ranks, without a
-    gradient (``t`` itself at a world of one)."""
-    if process_count() == 1:
+    """The elementwise largest of ``t`` over the data group's ranks, without
+    a gradient (``t`` itself where the data axis is one rank)."""
+    grid = current_grid()
+    if grid.n_data == 1:
         return t
     t = t.detach().clone()
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=grid.data_group)
     return t
 
 
-def rand_rows(shape, generator: torch.Generator | None, device, dim: int = 0) -> torch.Tensor:
+def rand_rows(shape, generator: torch.Generator | None, device, dim: int = 0,
+              block: tuple[int, int] | None = None) -> torch.Tensor:
     """``torch.rand(shape)`` for this rank's rows of the global batch along
-    ``dim``: the global draw, ``shape[dim] * P`` rows, from ``generator``,
-    then rows ``[p::P]``. At a world of one, the draw itself."""
-    world = process_count()
-    if world == 1:
+    ``dim``: the global draw, ``shape[dim] * n_data`` rows, from
+    ``generator``, then rows ``[d::n_data]``. ``block`` (i, n): ``shape``'s
+    last dim is block i of the n equal blocks of the global draw's last dim
+    (a model rank's columns of a split FFN). Where there is one data rank
+    and no block, the draw itself."""
+    grid = current_grid()
+    if grid.n_data == 1 and block is None:
         return torch.rand(shape, generator=generator, device=device)
     full = list(shape)
-    full[dim] *= world
+    full[dim] *= grid.n_data
+    if block is not None:
+        full[-1] *= block[1]
     u = torch.rand(full, generator=generator, device=device)
-    return u[(slice(None),) * dim + (slice(process_index(), None, world),)]
+    if grid.n_data > 1:
+        u = u[(slice(None),) * dim + (slice(grid.data_index, None, grid.n_data),)]
+    if block is not None:
+        u = u[..., block[0] * shape[-1]:(block[0] + 1) * shape[-1]]
+    return u
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: ``x`` itself forward; backward, the gradient summed
+    over the model ``group`` (each rank's heads or FFN columns give their
+    part of the input's gradient)."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g: ``x`` summed over the model ``group`` forward (each
+    rank's partial product of a row-split weight); the gradient itself
+    backward."""
+    return _ReduceFromModel.apply(x, group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dy = dy.contiguous().clone()
+        dist.all_reduce(dy, group=ctx.group)
+        return dy, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
 
 
 def batch_norm(bn: torch.nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
@@ -101,14 +165,31 @@ def batch_norm(bn: torch.nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> to
     return _GlobalBatchNorm.apply(x, bn.weight, bn.bias, bn)
 
 
-def _gather_rows(row: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``row``, stacked in rank order: one all-reduce of a
-    zeroed (P, len) tensor holding this rank's row: all-reduce is a
-    collective of NCCL and of gloo on CUDA tensors as well as CPU ones."""
-    rows = row.new_zeros(dist.get_world_size(), row.numel())
-    rows[dist.get_rank()] = row
-    dist.all_reduce(rows)
-    return rows
+def stack_over(t: torch.Tensor, index: int, n: int, group) -> torch.Tensor:
+    """The ``n`` ranks of ``group``'s ``t`` (one shape on each), stacked in
+    the order of their ``index``: one all-reduce of a zeroed (n, ...) tensor
+    holding this rank's ``t``, a collective of NCCL and of gloo on CUDA
+    tensors as well as CPU ones."""
+    stack = t.new_zeros((n,) + tuple(t.shape))
+    stack[index] = t
+    dist.all_reduce(stack, group=group)
+    return stack
+
+
+def _gather_rows(row: torch.Tensor, grid=None) -> torch.Tensor:
+    """Every data rank's ``row``, stacked in data-index order."""
+    grid = current_grid() if grid is None else grid
+    return stack_over(row, grid.data_index, grid.n_data, grid.data_group)
+
+
+def gather_data(x: torch.Tensor, grid=None) -> torch.Tensor:
+    """Every data rank's ``x`` (the same shape on each), joined along dim 0
+    in data-index order (``x`` itself where the data axis is one rank), over
+    ``grid``'s data axis (the process's grid if None)."""
+    grid = current_grid() if grid is None else grid
+    if grid.n_data == 1:
+        return x
+    return _gather_rows(x.reshape(-1), grid).reshape((grid.n_data * x.shape[0],) + x.shape[1:])
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -156,7 +237,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
             grad_w = (sums[1] * invstd).to(weight.dtype)
             grad_b = sums[0].to(weight.dtype)
         sums = sums.clone()
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=current_grid().data_group)
         sum_dy, sum_dy_xmu = (sums / ctx.total).unbind()
         scale = invstd if weight is None else invstd * weight.to(acc)
         dx = (dy - sum_dy.view(shape)
@@ -166,7 +247,16 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
 class GradientReducer:
     """``reducer()`` after the backward: every parameter's gradient becomes
-    its mean over the group's ranks (nothing to do at a world of one).
+    its mean over the data group's ranks (nothing to do at a world of one).
+    Under a grid split over its model axis (``parallel/tp.py``), a split
+    parameter's gradient (its ``tp_dim`` set) is its mean over the data
+    group alone: the model ranks hold other slices, whose gradients differ
+    by design. A replicated parameter's gradient is its mean over every
+    rank: each model rank computed the same data-rank gradient, equal in
+    exact arithmetic, but kernels that sum in any order (cuDNN's backward
+    convs) round them apart, and the model ranks' copies of the parameter
+    would drift apart from the first update (an H100 read two ranks' losses
+    apart at the second step); the mean over the model ranks makes them one.
     Parameters without a gradient keep None; every rank must have the same
     such set, which one small all-reduce of the set's mask (its largest and
     smallest over the ranks) checks at the first call and whenever the set
@@ -181,7 +271,8 @@ class GradientReducer:
         self._checked: tuple | None = None  # the set of parameters with a gradient
 
     def __call__(self) -> None:
-        world = dist.get_world_size()
+        grid = current_grid()
+        world = grid.n_data * grid.n_model  # the grid spans the whole group
         if world == 1 or not self.params:
             return
         # the check runs on a rank without any gradient too: its peers wait
@@ -190,7 +281,8 @@ class GradientReducer:
         if layout != self._checked:
             mask = torch.tensor(layout, dtype=torch.float64, device=self.params[0].device)
             spread = torch.cat([mask, -mask])
-            dist.all_reduce(spread, op=dist.ReduceOp.MAX)  # the largest, minus the smallest
+            # the largest, minus the smallest
+            dist.all_reduce(spread, op=dist.ReduceOp.MAX)
             differ = (spread[:mask.numel()] + spread[mask.numel():]).nonzero().flatten()
             if differ.numel():
                 i = int(differ[0])
@@ -199,10 +291,18 @@ class GradientReducer:
                                    f"{mask.numel()}, the first #{i}, on this rank "
                                    f"{'with' if layout[i] else 'without'} one)")
             self._checked = layout
-        for bucket in self._buckets([p.grad for p in self.params if p.grad is not None]):
+        grads = [(p.grad, getattr(p, "tp_dim", None) is not None) for p in self.params
+                 if p.grad is not None]
+        self._mean([g for g, split in grads if not split], dist.group.WORLD, world)
+        if grid.n_data > 1:
+            self._mean([g for g, split in grads if split], grid.data_group, grid.n_data)
+
+    def _mean(self, grads, group, n: int) -> None:
+        """Each of ``grads`` its mean over the ``n`` ranks of ``group``, in place."""
+        for bucket in self._buckets(grads):
             flat = torch.cat([g.reshape(-1) for g in bucket])
-            dist.all_reduce(flat)
-            flat.div_(world)
+            dist.all_reduce(flat, group=group)
+            flat.div_(n)
             offset = 0
             for g in bucket:
                 g.copy_(flat[offset:offset + g.numel()].view(g.shape))

@@ -25,12 +25,13 @@ gives the loss and the gradient of the global batch
 of ``batch_size x N``; set ``basic.batch_size = ref_batch_size * N`` to
 reproduce it.
 
-No counterpart: ``shard_host_local_batch`` and ``parallel/mesh.py``'s
-``make_mesh``, ``batch_sharding``, ``replicated_sharding`` and
-``shard_batch`` assemble one global array over a device mesh. Here each rank
-keeps its own rows on its own card, and the collectives of
-``parallel/collectives.py`` join them where the global batch is read.
-``parallel/tp.py`` (the mesh's "model" axis) is not ported either.
+No counterpart: ``shard_host_local_batch``, ``batch_sharding``,
+``replicated_sharding`` and ``shard_batch`` assemble one global array over
+a device mesh. Here each rank keeps its own rows on its own card, and the
+collectives of ``parallel/collectives.py`` join them where the global batch
+is read. ``make_mesh``'s counterpart is ``parallel/mesh.py::make_grid``, a
+(data, model) grid of the group's processes; the model axis splits the
+attention stacks (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -162,6 +163,10 @@ def rank_device(device="cuda") -> torch.device:
 
 
 def shutdown_distributed() -> None:
-    """Leave the process group, where there is one."""
+    """Leave the process group, where there is one, and forget the process
+    grid made in it (``parallel/mesh.py``)."""
+    from objcavit_torch.parallel.mesh import reset_grid
+
+    reset_grid()
     if dist.is_initialized():
         dist.destroy_process_group()

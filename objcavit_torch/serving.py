@@ -20,7 +20,16 @@ right for the 'control_obj_zeros_512' ablation only).
 YOLOv7-seg -> fixed-shape NMS -> a gather from the per-class phrase table
 -> GraphBins, with no host round trip but the NMS's convergence checks.
 ``stream_depth`` keeps one batch on the card while the next is decoded.
-The port has no mesh and no spatial sharding: one process drives one card.
+
+``DepthPipeline(grid=...)`` is JAX's ``mesh=``: a process grid
+(``parallel/mesh.py``) whose ranks each get the same request, serve their
+rows ``[d::n_data]`` of it (d the data index; the whole batch where n_data
+does not divide it, as JAX's ``shard_batch`` replicates it), through a
+model split over the model axis where the caller split it
+(``parallel/tp.py::tp_shard_model``; ``build_flagship_pipeline(grid=...)``
+does), and gather the depth over the data axis: every rank returns the
+global batch's. JAX's ``spatial=True`` (the image height over the model
+axis) is not ported yet (ROADMAP §A.3) and raises.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 
 from objcavit_torch.ops.resize import resize_bilinear
+from objcavit_torch.parallel.collectives import gather_data
 from objcavit_torch.utils.device import card_device
 
 # ImageNet statistics (objcavit_tpu/data/preprocess.py)
@@ -60,7 +70,12 @@ class DepthPipeline:
 
     def __init__(self, model, eval_dims: tuple[int, int] = (480, 640),
                  n_obj_max: int | None = None, output_at_input_res: bool = False,
-                 provider=None, unk_feature=None):
+                 provider=None, unk_feature=None, grid=None, spatial: bool = False):
+        if spatial:
+            raise NotImplementedError(
+                "spatial serving (the image height split over the grid's model axis, "
+                "objcavit_tpu/serving.py's spatial=True) is not ported: ROADMAP §A.3")
+        self.grid = grid
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.eval_dims = tuple(eval_dims)
@@ -108,18 +123,37 @@ class DepthPipeline:
             return resize_bilinear(depth, frames.shape[1], frames.shape[2], align_corners=True)
         return depth
 
+    def _split(self, b: int) -> bool:
+        """Whether a batch of ``b`` splits over the grid's data axis."""
+        return self.grid is not None and self.grid.n_data > 1 and b % self.grid.n_data == 0
+
+    def _rows(self, frames: torch.Tensor) -> torch.Tensor:
+        """This data rank's rows of the request, ``[d::n_data]``."""
+        if not self._split(frames.shape[0]):
+            return frames
+        return frames[self.grid.data_index::self.grid.n_data]
+
+    def _global(self, depth: torch.Tensor, b: int) -> torch.Tensor:
+        """The request's depth from every data rank's rows, in the request's order."""
+        if not self._split(b):
+            return depth
+        n = self.grid.n_data
+        return gather_data(depth, self.grid).unflatten(0, (n, b // n)).transpose(0, 1).flatten(0, 1)
+
     def serve(self, frames: torch.Tensor) -> torch.Tensor:
         """A request's device work, with no host round trip: uint8 frames on
         the device -> ``normalise`` -> the model (GraphBins with the
         sentinel objects) -> depth, resized to the input size with
         ``output_at_input_res``. ``__call__`` runs it for a pipeline without
-        a provider, and ``serving_export`` traces it."""
+        a provider, and ``serving_export`` traces it. Under a grid, this
+        rank's rows of ``frames`` through the model, then every rank's."""
+        b, frames = frames.shape[0], self._rows(frames)
         x = self.normalise(frames)
         if self.model.takes_objects:
             out = self.model(x, *self._sentinel_objects(frames.shape[0]))
         else:
             out = self.model(x)
-        return self._at_input_res(out["depth_pred"], frames)
+        return self._global(self._at_input_res(out["depth_pred"], frames), b)
 
     @torch.inference_mode()
     def __call__(self, frames_u8) -> torch.Tensor:
@@ -128,11 +162,13 @@ class DepthPipeline:
         frames = device_frames(frames_u8, self.device)
         if self.provider is None or not self.model.takes_objects:
             return self.serve(frames)
+        b, frames = frames.shape[0], self._rows(frames)
         x = self.normalise(frames)
         objs = self.provider(x.cpu().numpy())
         feats, xywh, valid = (torch.as_tensor(np.asarray(objs[k]), device=self.device)
                               for k in ("features", "xywh", "valid"))
-        return self._at_input_res(self.model(x, feats, xywh, valid)["depth_pred"], frames)
+        depth = self._at_input_res(self.model(x, feats, xywh, valid)["depth_pred"], frames)
+        return self._global(depth, b)
 
 
 def device_frames(frames_u8, device) -> torch.Tensor:
@@ -147,16 +183,23 @@ def device_frames(frames_u8, device) -> torch.Tensor:
 
 def build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,
                             device="cuda", attn_impl: str = "plain",
-                            encoder_impl: str = "plain", **overrides) -> DepthPipeline:
+                            encoder_impl: str = "plain", grid=None, **overrides) -> DepthPipeline:
     """Flagship GraphBins-B5 pipeline, BN folded, with random weights from
     ``seed``, its attention on the route ``attn_impl`` and its encoder on
     the route ``encoder_impl``; ``overrides`` update the model's arguments
-    (ObjCAViT's options among them, ``benchkit.build_flagship_model``)."""
+    (ObjCAViT's options among them, ``benchkit.build_flagship_model``).
+    With a process ``grid``, the model's attention stacks split over its
+    model axis (``parallel/tp.py::tp_shard_model``) and the pipeline serves
+    its data rank's rows."""
     from objcavit_torch.utils.benchkit import build_flagship_model
 
     model = build_flagship_model(dtype=dtype, seed=seed, device=device, attn_impl=attn_impl,
                                  encoder_impl=encoder_impl, **overrides)
-    return DepthPipeline(model, eval_dims=eval_dims)
+    if grid is not None:
+        from objcavit_torch.parallel.tp import tp_shard_model
+
+        tp_shard_model(model, grid)
+    return DepthPipeline(model, eval_dims=eval_dims, grid=grid)
 
 
 def build_adabins_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,

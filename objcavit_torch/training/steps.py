@@ -24,7 +24,11 @@ In a process group (``objcavit_torch.parallel``) each rank runs the step on
 its rows of the global batch; the BatchNorms, the losses and the random
 draws span the global batch and the gradients are averaged over the ranks
 before the clipping (``parallel/collectives.py``), so the step is the one
-the JAX package's sharded step takes.
+the JAX package's sharded step takes. Under a process grid
+(``parallel/mesh.py``) all of that runs over the data axis, and a model
+split over the model axis (``parallel/tp.py::tp_shard_model``) clips by the
+whole model's gradient norm (``parallel/tp.py::clip_grad_norm_``); AdamW and
+the schedules are elementwise and run on each rank's slices.
 
 The eval step runs flip-TTA as one forward on the 2B batch of the images and
 their mirrors, as the JAX package does (the reference runs two forwards,
@@ -49,6 +53,7 @@ from objcavit_torch.metrics import MetricsPreprocessConfig, metrics_preprocess, 
 from objcavit_torch.models.adabins import AdaBins
 from objcavit_torch.models.graphbins import N_QUERIES, BinsDepthModel, GraphBins
 from objcavit_torch.parallel.collectives import GradientReducer
+from objcavit_torch.parallel.tp import clip_grad_norm_
 from objcavit_torch.serving import image_seq_len
 
 
@@ -148,7 +153,7 @@ class TrainStep:
         if self.grad_reducer is not None:
             self.grad_reducer()
         if self.gradient_clip_val > 0:
-            torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.gradient_clip_val)
+            clip_grad_norm_(self.model, self.gradient_clip_val)
         if self.scheduler is not None:
             self.last_lr = float(self.optimizer.param_groups[0]["lr"])
         self.optimizer.step()
@@ -169,10 +174,11 @@ def make_train_step(model: BinsDepthModel, optimizer: torch.optim.Optimizer, sch
                     generator: torch.Generator | None = None) -> TrainStep:
     """The train step over ``model`` (fp32 parameters) with ``optimizer`` and
     ``scheduler`` from ``training/optim.py::build_optimizer``. Made in a
-    process group, it averages the gradients over the group
-    (``GradientReducer``): with the losses and BatchNorms over the global
-    batch, the step is the single-process step on the global batch. Every
-    rank draws from ``generator`` seeded alike."""
+    process group, it averages the gradients over the group's data axis
+    (``GradientReducer``; the whole group without a grid): with the losses
+    and BatchNorms over the global batch, the step is the single-process
+    step on the global batch. Every rank draws from ``generator`` seeded
+    alike."""
     loss_fn = make_train_loss_fn(model, loss_wrapper, min_depth, augment_on_device,
                                  compute_dtype)
     reducer = GradientReducer(model.parameters()) if dist.is_initialized() else None

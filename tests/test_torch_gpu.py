@@ -1343,3 +1343,42 @@ def test_tiny_graphbins_artifact_gives_the_eager_bits_and_launches(cuda, tmp_pat
     got, loaded = launched(art)
     assert eager == loaded == [4, 1, 10, 5, 2]
     assert torch.equal(got, want)
+
+
+@gpu
+def test_tiny_tp_grid_on_the_card_launches_kernel5_on_each_ranks_heads(cuda, tmp_path):
+    """Two processes on the card over gloo (NCCL refuses two ranks on one
+    card) as a 1 x 2 grid, the tiny GraphBins in bf16 on kernel 5's route
+    split over its model axis: each rank's forward launches kernel 5 ten
+    times at B 2, H 2 (2 of the 4 heads), each launch within kernel 5's
+    check of its plain version (one bf16 ulp + 1e-4 of the largest entry);
+    both ranks give the same depth bits, within rel L2 0.02 of one process's
+    forward (the split reorders out_proj's and linear2's bf16 sums)."""
+    from objcavit_torch.parallel.launch import launch
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    gen = torch.Generator().manual_seed(1)
+    inputs = (torch.randn((2, 384, 352, 3), generator=gen), 0.05 * torch.randn((2, 6, 512)),
+              300 * torch.rand((2, 6, 4)), torch.tensor([[True] * 3 + [False] * 3,
+                                                          [True] + [False] * 5]))
+    torch.save({"inputs": inputs}, tmp_path / "tp_card_in.pt")
+    saved = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = repo
+    try:
+        rc = launch([sys.executable, os.path.join(repo, "tests", "torch_dist_workers.py"),
+                     "tp_card", str(tmp_path)], 2, timeout=300)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = saved
+    assert rc == 0
+    ranks = [torch.load(tmp_path / f"tp_card_{r}.pt", weights_only=False) for r in range(2)]
+    for r in ranks:
+        assert r["launches"] == 10 and r["heads"] == [(2, 2)] and r["excess"] <= 0
+    assert torch.equal(ranks[0]["depth"], ranks[1]["depth"])
+    model = build_flagship_model(device="cuda", encoder_name="efficientnet-tiny",
+                                 attn_impl="kernel")
+    with torch.no_grad():
+        want = model(*(t.cuda() for t in inputs))["depth_pred"].cpu()
+    assert float((ranks[0]["depth"] - want).norm() / want.norm()) < 0.02

@@ -306,8 +306,8 @@ def test_options_once_unported_build(model, kwargs):
 def test_port_imports_no_jax():
     """Every objcavit_torch module (walked with pkgutil, the language modules,
     kernels 5, 7 and 8's, the eval protocol's, the host core's binding,
-    profiling, the multi-process package, the export and the kernels' ops
-    among them) imports without
+    profiling, the multi-process package with its grid and tensor
+    parallelism, the export and the kernels' ops among them) imports without
     jax, flax or objcavit_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -330,7 +330,8 @@ def test_port_imports_no_jax():
         "        'objcavit_torch.data.native', 'objcavit_torch.kernels.build',\n"
         "        'objcavit_torch.utils.profiling', 'objcavit_torch.parallel.distributed',\n"
         "        'objcavit_torch.parallel.collectives', 'objcavit_torch.parallel.launch',\n"
-        "        'objcavit_torch.serving_export', 'objcavit_torch.kernels.ops'}\n"
+        "        'objcavit_torch.serving_export', 'objcavit_torch.kernels.ops',\n"
+        "        'objcavit_torch.parallel.mesh', 'objcavit_torch.parallel.tp'}\n"
         "assert want <= set(names), want - set(names)\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

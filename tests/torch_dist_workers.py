@@ -18,7 +18,20 @@ JAX here: the test process holds the JAX side. Tasks:
   generator, then in fp32 (loss and reduced gradients) on the uniform draws
   JAX made for the global batch, replayed in place of ``torch.rand``;
 * ``cli``: ``cli.main`` on a params file (a ``--debug`` fit), with the
-  files each rank writes.
+  files each rank writes;
+* ``tp_grid`` (tests/test_torch_tp.py, a 2 x 2 grid): the tiny GraphBins of
+  tests/test_parallel_2d.py split over the model axis, its eval forward on
+  this rank's rows in fp32 and fp64, the gathered state dict,
+  ``DepthPipeline(grid=...)``'s served depth and ``spatial=True``'s error,
+  and ``tp_step``'s step on this rank's rows;
+* ``tp_step`` (a 1 x 2 grid): one fp64 train step of that model, split, with
+  augmentation, dropout and clipping (its loss, the norm the clipping saw,
+  the gathered gradients and parameters, the local shapes after the step),
+  and a split miniViT's forward;
+* ``tp_card`` (tests/test_torch_gpu.py, a 1 x 2 grid over gloo on one
+  card): the tiny GraphBins in bf16 on kernel 5's route, split, one
+  forward: its depth, kernel 5's launches and each launch's (B, H) and
+  error against the plain version.
 """
 
 from __future__ import annotations
@@ -39,6 +52,8 @@ from objcavit_torch.losses.losses import mse_loss
 from objcavit_torch.metrics import metrics_sync
 from objcavit_torch.models.common import BatchNorm2d
 from objcavit_torch.models.graphbins import GraphBins
+from objcavit_torch.models.minivit import MiniViT
+from objcavit_torch.parallel import make_grid, tp_gather_state_dict, tp_shard_model
 from objcavit_torch.parallel.collectives import GradientReducer, rand_rows
 from objcavit_torch.parallel.distributed import (
     initialize_distributed,
@@ -49,8 +64,11 @@ from objcavit_torch.parallel.distributed import (
 )
 from objcavit_torch.training import checkpoint
 from objcavit_torch.training.loop import Trainer
+from objcavit_torch.serving import DepthPipeline
+from objcavit_torch.training import steps
 from objcavit_torch.training.optim import build_optimizer
 from objcavit_torch.training.steps import make_train_step
+from objcavit_torch.utils.benchkit import build_flagship_model
 
 
 class IndexDataset:
@@ -241,6 +259,107 @@ def task_step(work: str) -> dict:
     return out
 
 
+def tiny_tp_model(inp: dict, dtype: torch.dtype) -> GraphBins:
+    """tests/test_parallel_2d.py's tiny GraphBins from ``inp``'s weights, in ``dtype``."""
+    model = GraphBins(encoder_name=inp["enc"], n_bins=inp["n_bins"], n_queries=inp["n_queries"],
+                      dims_train=inp["dims"], dims_test=inp["dims"], dropout_rate=inp["dropout"])
+    model.load_state_dict(inp["state"])
+    return model.to(dtype)
+
+
+def _local_shapes(model, specs) -> dict:
+    return {n: tuple(model.get_parameter(n).shape) for n in specs}
+
+
+def task_tp_grid(work: str) -> dict:
+    inp = torch.load(os.path.join(work, "tp_grid_in.pt"), weights_only=False)
+    grid = make_grid(*inp["grid"])
+    rows = slice(grid.data_index, None, grid.n_data)
+    out = {"place": (process_index(), grid.data_index, grid.model_index)}
+    for label, dtype in (("fp32", torch.float32), ("fp64", torch.float64)):
+        model = tiny_tp_model(inp, dtype).eval()
+        specs = tp_shard_model(model, grid)
+        with torch.no_grad():
+            out[label] = model(*tensors(inp["inputs"], dtype, rows).values())["depth_pred"]
+    out["specs"], out["local_shapes"] = specs, _local_shapes(model, specs)
+    out["gathered"] = tp_gather_state_dict(model, grid)
+    pipe = DepthPipeline(model.float(), eval_dims=inp["dims"], n_obj_max=inp["n_obj"], grid=grid)
+    out["served"] = pipe(inp["frames"])
+    try:
+        DepthPipeline(model, eval_dims=inp["dims"], grid=grid, spatial=True)
+    except NotImplementedError as e:
+        out["spatial_error"] = str(e)
+    out["step"] = tp_step(inp["step"], grid)
+    return out
+
+
+def tp_step(inp: dict, grid) -> dict:
+    """One fp64 train step of the tiny GraphBins split over ``grid``'s model
+    axis, on this rank's rows of the global batch: its loss, the norm the
+    clipping saw, the gathered (clipped) gradients and parameters after the
+    step, the specs and the local shapes after it."""
+    rows = slice(grid.data_index, None, grid.n_data)
+    dtype = torch.float64
+    model = tiny_tp_model(inp, dtype)
+    optimizer, scheduler = build_optimizer(model, inp["lr"], inp["wd"], inp["total_steps"])
+    specs = tp_shard_model(model, grid)  # after the optimizer: it keeps the same parameters
+    step = make_train_step(model, optimizer, scheduler, LossWrapper(*inp["losses"]),
+                           inp["min_depth"], augment_on_device=True,
+                           gradient_clip_val=inp["clip"], compute_dtype=dtype,
+                           generator=torch.Generator().manual_seed(inp["seed"]))
+    seen = {}
+    real_clip = steps.clip_grad_norm_
+
+    def clip(m, max_norm):
+        seen["norm"] = float(real_clip(m, max_norm))
+        seen["grads"] = tp_gather_state_dict(m, grid, grads=True)  # clipped
+        return seen["norm"]
+
+    steps.clip_grad_norm_ = clip
+    try:
+        loss = step(tensors(inp["batch"], dtype, rows), tensors(inp["objects"], dtype, rows))
+    finally:
+        steps.clip_grad_norm_ = real_clip
+    return {"loss": float(loss), "norm": seen["norm"], "grads": seen["grads"], "specs": specs,
+            "local_shapes": _local_shapes(model, specs),
+            "state": tp_gather_state_dict(model, grid)}
+
+
+def task_tp_step(work: str) -> dict:
+    inp = torch.load(os.path.join(work, "tp_step_in.pt"), weights_only=False)
+    grid = make_grid(*inp["grid"])
+    out = tp_step(inp, grid)
+    dtype = torch.float64
+    vit = MiniViT(**inp["minivit"]["kwargs"]).to(dtype).eval()
+    vit.load_state_dict(inp["minivit"]["state"])
+    out["minivit_specs"] = tp_shard_model(vit, grid)
+    with torch.no_grad():
+        out["minivit"] = vit(torch.from_numpy(inp["minivit"]["x"]))
+    return out
+
+
+def task_tp_card(work: str) -> dict:
+    from objcavit_torch.kernels import attention as kattn
+    from objcavit_torch.utils.kernel_io import attention_plain_outputs, record_attention_io
+
+    inp = torch.load(os.path.join(work, "tp_card_in.pt"), weights_only=False)
+    grid = make_grid(1, 2)
+    model = build_flagship_model(device="cuda", encoder_name="efficientnet-tiny",
+                                 attn_impl="kernel")
+    tp_shard_model(model, grid)
+    before = kattn.fused_mha_fwd.launches
+    with torch.no_grad(), record_attention_io() as records:
+        depth = model(*(t.cuda() for t in inp["inputs"]))["depth_pred"]
+    torch.cuda.synchronize()
+    errs = []
+    for rec in records:
+        for _, got, want in attention_plain_outputs(rec):
+            bound = 2.0 ** -7 * want.float().abs() + 1e-4 * float(want.float().abs().max())
+            errs.append(float(((got.float() - want.float()).abs() - bound).max()))
+    return {"depth": depth.cpu(), "launches": kattn.fused_mha_fwd.launches - before,
+            "heads": sorted({tuple(r["q"].shape[::2]) for r in records}), "excess": max(errs)}
+
+
 def task_cli(work: str) -> dict:
     with open(os.path.join(work, "cli_argv.json")) as f:
         argv = json.load(f)
@@ -266,11 +385,15 @@ def main() -> None:
     if task == "cli":  # cli.main joins and leaves the group itself
         out = task_cli(work)
     else:
-        if not initialize_distributed(device=os.environ.get(cli.ENV_DEVICE, "cuda")):
+        # two ranks share the one card in tp_card: NCCL refuses that, gloo does not
+        backend = "gloo" if task == "tp_card" else None
+        if not initialize_distributed(backend=backend,
+                                      device=os.environ.get(cli.ENV_DEVICE, "cuda")):
             raise SystemExit("no OBJCAVIT_* env: start this through objcavit_torch.parallel.launch")
         try:
-            out = {"group": task_group, "step": task_step,
-                   "empty_grads": task_empty_grads}[task](work)
+            out = {"group": task_group, "step": task_step, "empty_grads": task_empty_grads,
+                   "tp_grid": task_tp_grid, "tp_step": task_tp_step,
+                   "tp_card": task_tp_card}[task](work)
         finally:
             shutdown_distributed()
     torch.save(out, os.path.join(work, f"{task}_{rank}.pt"))
