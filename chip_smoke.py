@@ -304,6 +304,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    wall ms a request and a step of the ranks beside one process's, a
    one-card gloo time. Alone (after the build): ``cs.phase_tp()``.
 
+18. spatial serving (``objcavit_torch/parallel/spatial.py``), in phase 17's
+   two ranks: the flagship (attention replicated) on kernel 5's route and
+   kernels 7 and 8's as a 1 x 2 grid's ``DepthPipeline(spatial=True)``:
+   bands of 256 and 224 of the 480 rows, (a) bs 1 and (b) bs 8, each
+   request 4 launches of kernel 1's row-window form (in its concat layout),
+   32 of kernel 8's halo form, 7 of kernel 7, 10 of kernel 5 at (B, 4
+   heads) on the gathered tokens and 1 of kernel 2 on each rank, the first
+   request's launches of the two new forms and of kernel 5 held against
+   their plain versions; the depth bit for bit on both ranks and within
+   ``TP_SERVE_REL`` of one process's server on the same frames; (c) wall ms
+   a request of the ranks beside one process's, a one-card gloo time;
+   AdaBins-B5 served spatially at bs 1 (4 kernel-5 launches) against one
+   process's. Phase 3 times both new forms at rank 0's band shapes
+   (``check_row_window_kernels``). Alone (after the build): ``cs.phase_tp()``.
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -341,6 +356,7 @@ from objcavit_torch.utils import profiling
 
 COUNTERS = {
     "resize": kresize.resize_bilinear_align_corners,  # either form of kernel 1
+    "resize_rows": kresize.resize_bilinear_align_corners_rows,  # its row-window form
     "bins": kbins.conv_bins_depth_batched,
     "bins_shared": kbins.conv_bins_depth,
     "bins_expectation_fwd": kexp.bins_expectation_fwd,
@@ -350,6 +366,7 @@ COUNTERS = {
     "attention_bwd": kattn.fused_mha_bwd,
     "se_project": kse.se_gate_project,
     "mbconv_head": kmb.mbconv_expand_dw_pool,
+    "mbconv_rows": kmb.mbconv_expand_dw_pool_rows,  # kernel 8's halo form
     "mbconv_bs": kmb.mbconv_bs_expand_dw_pool,
     "dw_conv": kmb.dw_conv_silu_pool,
 }
@@ -373,6 +390,7 @@ def zero_counters() -> None:
         fn.launches = 0
     kattn.fused_mha_bwd.cluster_launches = 0
     kresize.resize_bilinear_align_corners.concat_launches = 0
+    kresize.resize_bilinear_align_corners_rows.concat_launches = 0
 
 
 def read_counters() -> dict:
@@ -444,6 +462,7 @@ from objcavit_torch import cli
 from objcavit_torch.losses import LossWrapper
 from objcavit_torch.models.yolov7 import n_anchors
 from objcavit_torch.ops.bins import bins_head_depth
+from objcavit_torch.ops.resize import interp_taps
 from objcavit_torch.utils.mbconv_ab import DW_CASES, MBCONV_SHAPES, cudnn_depthwise, mbconv_bound
 from objcavit_torch.utils.resize_se_ab import RESIZE_SHAPES, SE_SHAPES
 from objcavit_torch.serving_export import (
@@ -484,8 +503,10 @@ from objcavit_torch.utils.attention_ab import fwd_bound as attn_fwd_bound
 from objcavit_torch.utils.bins_ab import bins_cost, max_sm_mhz, sfu_ms
 from objcavit_torch.utils.benchkit import (
     TRAIN_LOSSES,
+    build_adabins_model,
     build_adabins_train,
     build_detector,
+    build_flagship_model,
     build_flagship_train,
     init_weights_,
 )
@@ -503,6 +524,8 @@ from objcavit_torch.utils.kernel_io import (
     record_detect_head_io,
     record_encoder_kernel_io,
     record_kernel_io,
+    record_resize_rows_io,
+    resize_rows_errors,
     se_project_errors,
     share_edge_grids,
     skip_mismatches,
@@ -961,6 +984,82 @@ def phase_kernels() -> dict:
     out.update(check_attention(g, dev))
     out.update(check_encoder_kernels(g))
     out.update(check_final_upscale_kernels(g, dev, out.pop("attention_long")))
+    out.update(check_row_window_kernels(g))
+    return out
+
+
+def band_rows(rows: int) -> tuple[int, int]:
+    """Rank 0's rows [0, hi) at a level of ``rows`` rows of the 480: its
+    band of SPATIAL_BANDS' first 256."""
+    return 0, rows * SPATIAL_BANDS[0][1] // EVAL_DIMS[0]
+
+
+def check_row_window_kernels(gen) -> dict:
+    """Phase 18's two new kernel forms at rank 0's band shapes (the 256 top
+    rows of 480), batch 8, each against its plain version and timed beside
+    it as CUDA-graph replays, with its bound (bytes over 3.35 TB/s, or its
+    operations): kernel 1's row-window form at the four upsamples (the whole
+    low-resolution input, the band's output rows beside the skip's band:
+    the input rows its taps reach read once, the skip band read and the
+    window written once) and kernel 8's halo form at the eight shapes of the
+    32 stride-1 MBConv blocks (the band and the k // 2 rows below it read
+    once, the band's y written once; the expand's products on the halo rows
+    too). No one PyTorch call computes either: library_ms null."""
+    rows, err_rows = [], 0.0
+    for hi, wi, c, ho, wo, cs in RESIZE_SHAPES:
+        y0, y1 = band_rows(ho)
+        x = torch.randn((BATCH, hi, wi, c), generator=gen, device="cuda").to(torch.bfloat16)
+        skip = torch.randn((BATCH, y1 - y0, wo, cs), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        kernel = lambda: kresize.resize_bilinear_align_corners_rows(  # noqa: E731
+            x, ho, wo, y0, y1, skip)
+        plain = lambda: kresize.resize_rows_plain(x, ho, wo, y0, y1, skip)  # noqa: E731
+        record = {"args": (x, ho, wo, y0, y1, skip), "out": kernel()}
+        errs = resize_rows_errors(record)
+        if errs["bad"]:
+            raise AssertionError(f"kernel 1 rows {(hi, wi, c)}->{(ho, wo)} [{y0}, {y1}): {errs}")
+        ms, plain_ms = graph_times(kernel, plain)
+        lo_tap, hi_tap, _ = interp_taps(hi, ho, True)
+        in_rows = int(hi_tap[y1 - 1]) - int(lo_tap[y0]) + 1
+        part = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                **bound(2 * BATCH * (c * in_rows * wi + cs * (y1 - y0) * wo
+                                     + (c + cs) * (y1 - y0) * wo),
+                        fp32=6 * BATCH * c * (y1 - y0) * wo)}
+        log(f"kernel resize rows ({BATCH},{hi},{wi},{c})->({ho},{wo}) rows [{y0}, {y1}) + skip "
+            f"{cs}: max_abs_err {errs['y']}, skip bit for bit; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (CUDA-graph replays), bound {part['bound_ms']:.4f} ms")
+        rows.append((1, part))
+        err_rows = max(err_rows, errs["y"])
+        del x, skip, record
+    halo, err_halo = [], 0.0
+    for h, w, k, cin, m, blocks in MBCONV_SHAPES:
+        _, n = band_rows(h)
+        p = k // 2
+        args = mbconv_inputs(gen, BATCH, n + p, w, cin, m, k)
+        y, pool = kmb.mbconv_expand_dw_pool_rows(*args, k, 0, p)
+        torch.cuda.synchronize()
+        errs = mbconv_head_errors(*args, k, y, pool, MB_RTOL, MB_ATOL, POOL_RTOL, rows=(0, p))
+        if errs["bad"]:
+            raise AssertionError(f"kernel 8 halo form {(n, w, k, cin, m)}: {errs}")
+        ms, plain_ms = graph_times(lambda: kmb.mbconv_expand_dw_pool_rows(*args, k, 0, p),
+                                   lambda: kmb.mbconv_expand_dw_pool_rows_plain(*args, k, 0, p))
+        part = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                **bound(2 * BATCH * w * ((n + p) * cin + n * m) + 2 * (cin + k * k) * m + 8 * m
+                        + 4 * BATCH * m, bf16=2 * BATCH * (n + p) * w * cin * m,
+                        fp32=2 * k * k * BATCH * n * w * m)}
+        log(f"kernel mbconv head, halo form ({BATCH},{n}+{p},{w},{cin}) k{k} -> M {m} rows [0, "
+            f"{n}) (x{blocks} a forward): max_abs_err y {errs['y']} pool {errs['pool']}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA-graph replays), bound "
+            f"{part['bound_ms']:.4f} ms ({part['bound_by']})")
+        halo.append((blocks, part))
+        err_halo = max(err_halo, errs["y"])
+        del args, y, pool
+    out = {"resize_rows": total_of(rows, err_rows), "mbconv_rows": total_of(halo, err_halo)}
+    r, mb = out["resize_rows"], out["mbconv_rows"]
+    log(f"kernel 1's row-window form, rank 0's band of a forward (4 launches): {r['ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; kernel 8's halo form "
+        f"(32 launches): {mb['ms']:.4f} ms, plain {mb['plain_ms']:.4f} ms, bound "
+        f"{mb['bound_ms']:.4f} ms ({mb['bound_by']})")
     return out
 
 
@@ -4142,7 +4241,7 @@ def phase_export() -> dict:
 # (NCCL refuses two ranks on one card), each holding 2 of the flagship's 4
 # heads and 512 of its FFN's 1024 columns, against one process
 TP_GRID = (1, 2)  # (n_data, n_model)
-TP_TIMEOUT = 300  # seconds the two processes may take before they are killed
+TP_TIMEOUT = 480  # seconds the two processes may take (phases 17 and 18) before they are killed
 TP_FLAG = "--tp-rank"
 TP_FFN = 1024  # the flagship's FFN width
 TP_FRAMES_SEED = 1717
@@ -4171,6 +4270,23 @@ TP_SERVE_REL = FEATURE_REL_BOUND
 TP_STEP_BOUNDS = {"fp64 plain": (DIST_FP64_REL, {g: DIST_FP64_REL for g in TRAIN_GRAD_GROUPS}),
                   "bf16 kernel": (DIST_BF16_LOSS_REL, {g: b for g, (_, b) in
                                                        TRAIN_GRAD_GROUPS.items()})}
+
+# phase 18: spatial serving on phase 17's 1 x 2 grid, the flagship's attention
+# replicated: each rank's band of the 480 rows, 8 + 7 units of 32
+SPATIAL_BANDS = [(0, 256), (256, 480)]
+SPATIAL_REQUEST_LAUNCHES = {"resize_rows": 4, "mbconv_rows": 32, "se_project": 7,
+                            "attention_fwd": 10, "bins": 1}
+SPATIAL_ADABINS_LAUNCHES = {**SPATIAL_REQUEST_LAUNCHES, "attention_fwd": 4}
+SPATIAL_BATCHES = (1, BATCH)  # (a) and (b): frames [:1] and [:8] of phase 17's first request
+SPATIAL_TIMED = 2  # timed requests a batch, after the counted one
+SPATIAL_BUDGET_S = 60.0  # past this many seconds on a rank, phase 18 times one request, not two
+# (a) and (b)'s depth against one process's server on the same frames: the
+# bands differ from the whole image only where a conv, cuDNN's choice of
+# algorithm for the band's shape, or a sum (the SE means: each band's fp32
+# sum, then the two added) rounds in another order, each a bf16 rounding or
+# less at the place it happens, far less than the bf16 route carries against
+# fp32 (phase 4, FEATURE_REL_BOUND): the depth's rel L2 is held there too
+SPATIAL_SERVE_REL = TP_SERVE_REL
 
 
 def check_split(what: str, model, grid) -> dict[str, tuple]:
@@ -4225,6 +4341,8 @@ def tp_serve(what: str, grid=None) -> dict:
         torch.cuda.synchronize()
         ms.append(1000 * (time.perf_counter() - t0))
     out = {"depths": [d.cpu() for d in depths], "launches": launches, "heads": heads, "ms": ms}
+    if grid is None:  # phase 18's references: one process's server on its frames
+        out["spatial"] = spatial_reference(pipe, frames[0])
     del pipe, depths
     torch.cuda.empty_cache()
     return out
@@ -4307,6 +4425,113 @@ def tp_train(what: str, grid=None) -> dict:
     return out
 
 
+def timed_requests(pipe, frames, n: int) -> list[float]:
+    """Wall ms of ``n`` synchronised requests of ``frames``."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe(frames)
+        torch.cuda.synchronize()
+        ms.append(1000 * (time.perf_counter() - t0))
+    return ms
+
+
+def spatial_reference(pipe, frames: np.ndarray) -> dict:
+    """Phase 18's one-process references: ``pipe``'s (phase 17's one-process
+    flagship server) depth and wall ms on each of SPATIAL_BATCHES' frames,
+    and AdaBins-B5's depth at bs 1; the seconds they took."""
+    t0, out = time.perf_counter(), {}
+    for b in SPATIAL_BATCHES:
+        out[f"bs {b}"] = {"depth": pipe(frames[:b]).cpu(),
+                          "ms": timed_requests(pipe, frames[:b], SPATIAL_TIMED)}
+    adabins = DepthPipeline(build_adabins_model(dtype=torch.bfloat16, seed=0, attn_impl="kernel",
+                                                encoder_impl="kernel"), eval_dims=EVAL_DIMS)
+    out["adabins"] = {"depth": adabins(frames[:1]).cpu(),
+                      "ms": timed_requests(adabins, frames[:1], SPATIAL_TIMED)}
+    del adabins
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def spatial_request(what: str, pipe, frames: np.ndarray, want: dict, heads: int,
+                    timed: int = SPATIAL_TIMED) -> dict:
+    """One counted request of phase 18 after a warm-up: its launches
+    (``want``), the launches of the two new forms and of kernel 5 against
+    their plain versions (kernel 5 at (B, ``heads``)), the depth's range;
+    then ``timed`` timed requests. -> depth, launches, the new forms'
+    largest errors, wall ms."""
+    pipe(frames)  # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    with record_resize_rows_io() as resized, record_encoder_kernel_io() as encoder, \
+            record_attention_io() as attn:
+        depth = pipe(frames)
+    torch.cuda.synchronize()
+    launches = expect_launches(what, **want)
+    errs = {"resize_rows": 0.0, "mbconv_rows": 0.0}
+    if any(r["args"][5] is None for r in resized):
+        raise AssertionError(f"{what}: a row-window launch without its skip (the concat layout)")
+    for i, r in enumerate(resized):
+        e = resize_rows_errors(r)
+        if e["bad"]:
+            raise AssertionError(f"{what}: kernel 1's row-window launch {i}: {e}")
+        errs["resize_rows"] = max(errs["resize_rows"], e["y"])
+    for i, r in enumerate(rec for rec in encoder if rec["kind"] == "mbconv_head_rows"):
+        x, we, be, wd, bd, k, top, bottom = r["args"]
+        e = mbconv_head_errors(x, we, be, wd, bd, k, *r["out"], MB_RTOL, MB_ATOL, POOL_RTOL,
+                               rows=(top, bottom))
+        if e["bad"]:
+            raise AssertionError(f"{what}: kernel 8's halo-form launch {i}: {e}")
+        errs["mbconv_rows"] = max(errs["mbconv_rows"], e["y"])
+    got_heads = sorted({tuple(r["q"].shape[::2]) for r in attn})
+    if got_heads != [(frames.shape[0], heads)]:
+        raise AssertionError(f"{what}: kernel 5's (B, H) {got_heads}")
+    check_attention_records(what, attn, residual=False)
+    del resized, encoder, attn
+    log(f"  {what}: kernel 1's row-window form max abs err {errs['resize_rows']}, kernel 8's "
+        f"halo form {errs['mbconv_rows']} against their plain versions, every launch in "
+        f"tolerance; kernel 5 at (B, H) {got_heads}")
+    return {"depth": depth.cpu(), "launches": launches, "errs": errs,
+            "ms": timed_requests(pipe, frames, timed)}
+
+
+def spatial_rank(what: str, grid) -> dict:
+    """Phase 18 on one rank of ``grid``: the flagship (attention replicated)
+    and AdaBins-B5 on kernel 5's route and kernels 7 and 8's, served
+    spatially; the plan's bands, then (a) bs 1, (b) bs 8 of phase 17's
+    first request's frames and AdaBins at bs 1 (``spatial_request``; one
+    timed request each, not SPATIAL_TIMED, once the rank has spent
+    SPATIAL_BUDGET_S). -> each request's outputs, the rank's seconds."""
+    t0 = time.perf_counter()
+    model = build_flagship_model(dtype=torch.bfloat16, seed=0, attn_impl="kernel",
+                                 encoder_impl="kernel")
+    pipe = DepthPipeline(model, eval_dims=EVAL_DIMS, grid=grid, spatial=True)
+    bands = pipe.bands().bands()
+    if bands != SPATIAL_BANDS:
+        raise AssertionError(f"(18) {what}: bands {bands}, want {SPATIAL_BANDS}")
+    frames = np.random.default_rng(TP_FRAMES_SEED).integers(0, 256, (BATCH, *EVAL_DIMS, 3),
+                                                            dtype=np.uint8)
+    out = {}
+
+    def timed() -> int:
+        return SPATIAL_TIMED if time.perf_counter() - t0 < SPATIAL_BUDGET_S else 1
+
+    for b in SPATIAL_BATCHES:
+        out[f"bs {b}"] = spatial_request(f"(18) {what}, bs {b}", pipe, frames[:b],
+                                         SPATIAL_REQUEST_LAUNCHES, ATTN_HEADS, timed())
+    del pipe, model
+    adabins = DepthPipeline(build_adabins_model(dtype=torch.bfloat16, seed=0, attn_impl="kernel",
+                                                encoder_impl="kernel"),
+                            eval_dims=EVAL_DIMS, grid=grid, spatial=True)
+    out["adabins"] = spatial_request(f"(18) {what}, AdaBins-B5 bs 1", adabins, frames[:1],
+                                     SPATIAL_ADABINS_LAUNCHES, ATTN_HEADS, timed())
+    del adabins
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def tp_rank(spec_path: str) -> None:
     """One process of phase 17, started by ``parallel.launch`` with its
     rank's env: joins a gloo group on the card, makes the 1 x 2 grid, runs
@@ -4319,7 +4544,7 @@ def tp_rank(spec_path: str) -> None:
         grid = make_grid(*TP_GRID)
         what = f"rank {process_index()} (model index {grid.model_index})"
         out = {"rank": process_index(), "serve": tp_serve(what, grid),
-               "train": tp_train(what, grid)}
+               "train": tp_train(what, grid), "spatial": spatial_rank(what, grid)}
         torch.save(out, os.path.join(spec["work"], f"rank_{process_index()}.pt"))
     finally:
         shutdown_distributed()
@@ -4348,7 +4573,7 @@ def phase_tp() -> dict:
         ranks_s = time.perf_counter() - t0
         text = out.getvalue()
         log("\n".join(line for line in text.splitlines() if "(a) " in line or "(b) " in line
-                      or "Error" in line))
+                      or "(18) " in line or "Error" in line))
         if rc != 0:
             raise AssertionError(f"tp: the ranks exited {rc}:\n{text[-6000:]}")
         ranks = [torch.load(os.path.join(work, f"rank_{r}.pt"), weights_only=False)
@@ -4394,15 +4619,45 @@ def phase_tp() -> dict:
             f"{[[round(t, 3) for t in r[part]['ms']] for r in ranks]}, one process "
             f"{[round(t, 3) for t in one[part]['ms']]}")
     log(f"tp: {time.perf_counter() - t0:.1f} s (the ranks {ranks_s:.1f}, one process "
-        f"{one_s:.1f})")
+        f"{one_s:.1f}; phase 18's share below)")
+    bad += check_spatial(ranks, one["serve"]["spatial"])
     if bad:
         raise AssertionError(f"tp: {bad}")
-    launches = collections.Counter()
+    launches, spatial = collections.Counter(), collections.Counter()
     for r in ranks:
         launches.update(r["serve"]["launches"])
         launches.update(r["train"]["launches"])
+        for key in ("bs 1", f"bs {BATCH}", "adabins"):
+            spatial.update(r["spatial"][key]["launches"])
     torch.cuda.empty_cache()
-    return dict(launches)
+    return {"tp": dict(launches), "spatial": dict(spatial)}
+
+
+def check_spatial(ranks: list[dict], one: dict) -> list[str]:
+    """Phase 18's checks across the ranks: each request's depth the same
+    bits on both ranks and within SPATIAL_SERVE_REL of one process's; (c)
+    the wall ms. -> what failed."""
+    bad = []
+    cases = [(f"bs {b}", f"({'ab'[i]}) bs {b}") for i, b in enumerate(SPATIAL_BATCHES)]
+    for key, label in cases + [("adabins", "AdaBins-B5 bs 1")]:
+        got = [r["spatial"][key]["depth"] for r in ranks]
+        want = one[key]["depth"]
+        same = all(torch.equal(g, got[0]) for g in got[1:])
+        rel = rel_l2(got[0], want)
+        check_depth(f"(18) {label}, rank 0", got[0], 0.001, 10.0, batch=want.shape[0])
+        log(f"  (18) {label}: depth on the ranks {'bit for bit alike' if same else 'DIFFERS'}; "
+            f"against one process's server rel L2 {rel:.3e} (bound {SPATIAL_SERVE_REL}), max "
+            f"abs err {float((got[0] - want).abs().max()):.4e} m")
+        log(f"  (18) (c) {label}: wall ms a request, a one-card gloo time (not a claim): ranks "
+            f"{[[round(t, 3) for t in r['spatial'][key]['ms']] for r in ranks]}, one process "
+            f"{[round(t, 3) for t in one[key]['ms']]}")
+        if not same or rel > SPATIAL_SERVE_REL:
+            bad.append(f"(18) {label}")
+    ranks_s = max(r["spatial"]["seconds"] for r in ranks)
+    log(f"spatial: {ranks_s + one['seconds']:.1f} s: {ranks_s:.1f} on the ranks (inside phase "
+        f"17's launch), {one['seconds']:.1f} for the one-process references (inside its "
+        f"one-process run)")
+    return bad
 
 
 WATCH_REGRESSOR = {"kernel": 0.11606, "plain": 0.09133}
@@ -4483,7 +4738,13 @@ def main() -> None:
         f"{ex}, (c) {exf}; the kernels line adds (a) and (b) to kernels 1 (concat), 2, 5, 6, "
         f"7 and 8's counts and (c) to the final-upscale entries of kernels 1, 2 and 5 and to "
         f"kernel 1's concat form")
-    tp = phase_tp()
+    tp_phase = phase_tp()
+    tp, spatial = tp_phase["tp"], tp_phase["spatial"]
+    log(f"  spatial paths (both ranks: bs 1, bs {BATCH} and AdaBins-B5 bs 1, a counted request "
+        f"each): kernel 1's row-window form {spatial['resize_rows']}, kernel 8's halo form "
+        f"{spatial['mbconv_rows']}, kernel-7 {spatial['se_project']}, kernel-5 "
+        f"{spatial['attention_fwd']}, kernel-2 {spatial['bins']}; the kernels line adds them to "
+        f"kernels 2, 5 and 7's counts")
     log(f"  tensor-parallel paths (both ranks: {TP_REQUESTS} counted requests, {TP_STEPS} bf16 "
         f"steps): kernel-5 launches {tp['attention_fwd']} + {tp['attention_bwd']}, kernel-4 "
         f"{tp['bins_expectation_fwd']} + {tp['bins_expectation_bwd']}, kernel-1 concat "
@@ -4501,6 +4762,10 @@ def main() -> None:
               + dp[CONCAT_COUNTER] + host[CONCAT_COUNTER] + dist[CONCAT_COUNTER]
               + ex.get(CONCAT_COUNTER, 0) + exf.get(CONCAT_COUNTER, 0) + tp[CONCAT_COUNTER],
               "resize_concat"),
+        entry("resize_bilinear_align_corners_rows (kernel 1's row-window form in its concat "
+              "layout: spatial serving, timed at rank 0's band, rows 0-255 of 480)",
+              "resize_bilinear.cu", "resize_pallas.py:104", spatial["resize_rows"],
+              "resize_rows"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form, a function path)",
               "resize_bilinear.cu", "resize_pallas.py:104", serving["resize_bare"], "resize"),
         entry("resize_bilinear_align_corners_nhwc_bf16 (kernel 1's bare form at the final "
@@ -4510,7 +4775,7 @@ def main() -> None:
               "resize_final"),
         entry("conv_bins_depth_batched", "bins_depth.cu", "pallas_bins.py:214",
               serving["bins"] + served["bins"] + v2["bins"] + dp["bins"] + host["bins"]
-              + dist["bins"] + ex["bins"] + tp["bins"], "bins"),
+              + dist["bins"] + ex["bins"] + tp["bins"] + spatial["bins"], "bins"),
         entry("conv_bins_depth_batched (full resolution, (8, 480, 640, 128))", "bins_depth.cu",
               "pallas_bins.py:214", fu["bins"] + exf["bins"], "bins_final"),
         entry("conv_bins_depth (kernel 2, shared W)", "bins_depth.cu", "pallas_bins.py:163",
@@ -4534,7 +4799,7 @@ def main() -> None:
         entry("fused_mha_fwd", "attention.cu", "pallas_attention.py:91",
               attn_serving["attention_fwd"] + served["attention_fwd"] + trained["attention_fwd"]
               + v2["attention_fwd"] + dist["attention_fwd"] + ex["attention_fwd"]
-              + tp["attention_fwd"], "attention_fwd"),
+              + tp["attention_fwd"] + spatial["attention_fwd"], "attention_fwd"),
         entry("fused_mha_bwd", "attention.cu", "pallas_attention.py:108",
               attn_train["attention_bwd"] + trained["attention_bwd"] + v2["attention_bwd"]
               + dist["attention_bwd"] + tp["attention_bwd"], "attention_bwd"),
@@ -4546,10 +4811,13 @@ def main() -> None:
               "attention_bwd_final"),
         entry("se_gate_project", "se_project.cu", "se_project_pallas.py:80",
               encoder_serving["se_project"] + v2["se_project"] + dp["se_project"]
-              + ex["se_project"] + tp["se_project"], "se_project"),
+              + ex["se_project"] + tp["se_project"] + spatial["se_project"], "se_project"),
         entry("mbconv_expand_dw_pool", "mbconv_head.cu", "mbconv_pallas.py:153",
               encoder_serving["mbconv_head"] + dp["mbconv_head"] + ex["mbconv_head"]
               + tp["mbconv_head"], "mbconv_head"),
+        entry("mbconv_expand_dw_pool_rows (kernel 8's halo form: spatial serving, a band and "
+              "its k // 2 halo rows as one tensor, timed at rank 0's band)", "mbconv_head.cu",
+              "mbconv_pallas.py:153", spatial["mbconv_rows"], "mbconv_rows"),
         entry("mbconv_bs_expand_dw_pool (kernel 8 on an (H, W, B, C) tensor map)", "mbconv_head.cu",
               "mbconv_bs.py:180", encoder_functions["mbconv_bs"], "mbconv_bs"),
         entry("dw_conv_silu_pool (a ring of input rows by TMA, rolling tap rows; a function path)",

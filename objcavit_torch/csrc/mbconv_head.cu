@@ -73,6 +73,15 @@
 //      pool itself and there is no second launch; else each item writes its
 //      partial and a second kernel adds them in order. No atomics: y and the pool
 //      are the same on every run.
+// The row-window form (spatial serving, objcavit_torch/parallel/spatial.py):
+// x is a band of the image with the k / 2 rows above and below it that lie
+// in the image, as one tensor, and the kernel writes and pools only the
+// output rows [row_lo, row_hi) of that tensor, the band's. The segments
+// cover the window alone; the band groups reach k / 2 rows past it, into
+// the halo rows, which the expand reads as any other row. Past the tensor
+// TMA fills zeros and the epilogue zeroes the expanded rows, which is the
+// image's own zero padding at an edge band: the halo holds every row an
+// inner band's taps reach. y holds the window's rows alone.
 // A depthwise item is one output row, 8 columns and the warp's 64 channels
 // (a channel pair a lane): it reads k rows of 8 + 2p expanded pixels once
 // each, as bf16 pairs (128 bytes a pixel, conflict-free at the ring's
@@ -108,6 +117,7 @@ constexpr int kSkip = OBJCAVIT_MBCONV_SKIP;
 
 struct Plan {
   int nb, h, w, cin, m;
+  int row_lo, h_out;  // the output window: rows [row_lo, row_lo + h_out) of x's h
   int strip_w, band_w, g, seg_groups, segments, strips;
   int kchunks, stages, with_pool, direct_pool;
   int items;  // (slab, image, strip, segment) work items, slab-major
@@ -181,8 +191,8 @@ __device__ __forceinline__ Item decode_item(int i, const Plan& P) {
   it.b = rest / (P.strips * P.segments);
   it.unit = rest % (P.strips * P.segments);
   it.w0 = (it.unit / P.segments) * P.strip_w;
-  it.r0 = (it.unit % P.segments) * P.seg_groups * P.g;
-  it.n_groups = min(P.seg_groups, (P.h - it.r0 + P.g - 1) / P.g);
+  it.r0 = P.row_lo + (it.unit % P.segments) * P.seg_groups * P.g;
+  it.n_groups = min(P.seg_groups, (P.row_lo + P.h_out - it.r0 + P.g - 1) / P.g);
   return it;
 }
 
@@ -407,7 +417,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int t0 = dw; t0 < items; t0 += kDwWarps) {
             const int o = t0 / runs, c0 = (t0 % runs) * kRun;
             const int ro = d * P.g + o;  // output row in the segment = its first band row
-            if (it.r0 + ro >= P.h) break;  // items run row by row
+            if (it.r0 + ro >= P.row_lo + P.h_out) break;  // items run row by row
             float2 acc[kRun];
 #pragma unroll
             for (int t = 0; t < kRun; ++t) acc[t] = make_float2(0.0f, 0.0f);
@@ -430,7 +440,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   acc[t].y += v[t + j].y * wr[r * K + j].y;
                 }
             }
-            const int h = it.r0 + ro;
+            const int h = it.r0 + ro - P.row_lo;  // y's row
 #pragma unroll
             for (int t = 0; t < kRun; ++t) {
               const int c = c0 + t, w = it.w0 + c;
@@ -516,34 +526,24 @@ int launch_mbconv(const CUtensorMap& tm, const void* we, const void* be, const v
 
 }  // namespace
 
-// x: B images of H x W pixels of Cin bf16 channels at element strides (xsb,
-// xsh, xsw), channels contiguous: NHWC, or (H, W, B, C) (xsb < xsw); y the
-// same with M channels at (ysb, ysh, ysw). wd (k*k, M) bf16, bd (M,) fp32.
-// Cin % 8 == 0, M % 8 == 0, strides multiples of 8, pointers 16-byte
-// aligned; k is 3 or 5.
-// we (Cin, M) bf16 and be (M,) fp32 are the 1x1 expand; strip_w,
-// group_rows, seg_groups, grid, stages and smem are
-// kernels/mbconv.py::mbconv_plan's (smem must be its smem_bytes); with_pool
-// != 0: pool (B, M) fp32 gets the spatial sum of the fp32 y and, unless the
-// plan has one strip and one segment, partial is scratch of strips x
-// segments x B x M fp32.
-// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
-// for a plan the kernel does not take or a tensor map the driver refuses.
-extern "C" int objcavit_mbconv_head(const void* x, const void* we, const void* be, const void* wd,
-                                    const void* bd, void* y, void* partial, void* pool, int nb,
-                                    int h, int w, int cin, int m, int ksize, long long xsb,
-                                    long long xsh, long long xsw, long long ysb, long long ysh,
-                                    long long ysw, int with_pool, int strip_w, int group_rows,
-                                    int seg_groups, int grid, int stages, long long smem,
-                                    void* stream) {
-  if (nb == 0 || h == 0 || w == 0 || m == 0) return (int)cudaSuccess;
+namespace {
+
+int mbconv_head(const void* x, const void* we, const void* be, const void* wd, const void* bd,
+                void* y, void* partial, void* pool, int nb, int h, int w, int cin, int m,
+                int ksize, long long xsb, long long xsh, long long xsw, long long ysb,
+                long long ysh, long long ysw, int with_pool, int strip_w, int group_rows,
+                int seg_groups, int grid, int stages, long long smem, int row_lo, int row_hi,
+                void* stream) {
+  if (nb == 0 || h == 0 || w == 0 || m == 0 || row_lo == row_hi) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   if (ksize != 3 && ksize != 5) return (int)cudaErrorInvalidValue;
+  if (row_lo < 0 || row_hi < row_lo || row_hi > h) return (int)cudaErrorInvalidValue;
   const int p = ksize / 2;
   Plan P;
   P.nb = nb, P.h = h, P.w = w, P.cin = cin, P.m = m;
+  P.row_lo = row_lo, P.h_out = row_hi - row_lo;
   P.strip_w = strip_w, P.band_w = strip_w + 2 * p, P.g = group_rows, P.seg_groups = seg_groups;
-  const int groups = group_rows > 0 ? (h + group_rows - 1) / group_rows : 0;
+  const int groups = group_rows > 0 ? (P.h_out + group_rows - 1) / group_rows : 0;
   P.segments = seg_groups > 0 ? (groups + seg_groups - 1) / seg_groups : 0;
   P.strips = strip_w > 0 ? (w + strip_w - 1) / strip_w : 0;
   P.kchunks = (cin + kKChunk - 1) / kKChunk, P.stages = stages;
@@ -575,4 +575,48 @@ extern "C" int objcavit_mbconv_head(const void* x, const void* we, const void* b
   pool_reduce_kernel<<<(bm + 255) / 256, 256, 0, s>>>((const float*)partial, (float*)pool,
                                                       P.strips * P.segments, bm);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: B images of H x W pixels of Cin bf16 channels at element strides (xsb,
+// xsh, xsw), channels contiguous: NHWC, or (H, W, B, C) (xsb < xsw); y the
+// same with M channels at (ysb, ysh, ysw). wd (k*k, M) bf16, bd (M,) fp32.
+// Cin % 8 == 0, M % 8 == 0, strides multiples of 8, pointers 16-byte
+// aligned; k is 3 or 5.
+// we (Cin, M) bf16 and be (M,) fp32 are the 1x1 expand; strip_w,
+// group_rows, seg_groups, grid, stages and smem are
+// kernels/mbconv.py::mbconv_plan's (smem must be its smem_bytes); with_pool
+// != 0: pool (B, M) fp32 gets the spatial sum of the fp32 y and, unless the
+// plan has one strip and one segment, partial is scratch of strips x
+// segments x B x M fp32.
+// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
+// for a plan the kernel does not take or a tensor map the driver refuses.
+extern "C" int objcavit_mbconv_head(const void* x, const void* we, const void* be, const void* wd,
+                                    const void* bd, void* y, void* partial, void* pool, int nb,
+                                    int h, int w, int cin, int m, int ksize, long long xsb,
+                                    long long xsh, long long xsw, long long ysb, long long ysh,
+                                    long long ysw, int with_pool, int strip_w, int group_rows,
+                                    int seg_groups, int grid, int stages, long long smem,
+                                    void* stream) {
+  return mbconv_head(x, we, be, wd, bd, y, partial, pool, nb, h, w, cin, m, ksize, xsb, xsh, xsw,
+                     ysb, ysh, ysw, with_pool, strip_w, group_rows, seg_groups, grid, stages, smem,
+                     0, h, stream);
+}
+
+// The row-window form: x holds h rows (an image's band and its halo rows),
+// y the output rows [row_lo, row_hi) of them alone (row_hi - row_lo rows at
+// y's strides), and the pool sums those rows; the plan is mbconv_plan's for
+// row_hi - row_lo rows. 0 <= row_lo <= row_hi <= h; the rest as above.
+extern "C" int objcavit_mbconv_head_rows(const void* x, const void* we, const void* be,
+                                         const void* wd, const void* bd, void* y, void* partial,
+                                         void* pool, int nb, int h, int w, int cin, int m,
+                                         int ksize, long long xsb, long long xsh, long long xsw,
+                                         long long ysb, long long ysh, long long ysw,
+                                         int with_pool, int strip_w, int group_rows,
+                                         int seg_groups, int grid, int stages, long long smem,
+                                         int row_lo, int row_hi, void* stream) {
+  return mbconv_head(x, we, be, wd, bd, y, partial, pool, nb, h, w, cin, m, ksize, xsb, xsh, xsw,
+                     ysb, ysh, ysw, with_pool, strip_w, group_rows, seg_groups, grid, stages, smem,
+                     row_lo, row_hi, stream);
 }

@@ -58,6 +58,16 @@
 // input span fits (at most 55 KB a block: four blocks of 256 threads an
 // SM, which __launch_bounds__ holds to 64 registers) and the band (4 rows).
 //
+// The row-window form (spatial serving, objcavit_torch/parallel/spatial.py):
+// a rank that serves a band of the image's rows writes only the output rows
+// [row_lo, row_hi) of the Ho-row upsample of the whole low-resolution input,
+// beside its band of the skip. Output row y reads input rows y (Hi - 1) /
+// (Ho - 1) of the whole input, so x is whole (the decoder gathers it: it
+// holds a quarter of the output's pixels) and the window is the H tap
+// tables from row_lo on: the same kernel, on row_hi - row_lo output rows.
+// Its bound is the window's bytes: the input rows its taps reach, read
+// once, and the window's output (and skip) rows.
+//
 // Arithmetic, as the plain version in objcavit_torch/ops/resize.py: H lerp
 // then W lerp, in fp32, rounded to bf16 once. Row and column taps (lo, hi,
 // frac) are computed on the host in float64 (ops/resize.py::interp_taps):
@@ -365,4 +375,21 @@ extern "C" int objcavit_resize_bilinear_ac_concat_bf16(
   const void* taps[6] = {h_lo, h_hi, h_frac, w_lo, w_hi, w_frac};
   return resize(x, skip, y, taps, b, hi, wi, c, cs, ho, wo, slice_c, strip_w, cols, band_rows,
                 stream);
+}
+
+// The row-window form: y (B, row_hi - row_lo, Wo, C + Cs) gets output rows
+// [row_lo, row_hi) of the upsample of x to (ho, wo) in channels [0, C) and,
+// where skip is not null, skip (B, row_hi - row_lo, Wo, Cs) in [C, C + Cs)
+// (Cs = 0 without it); the taps are the whole (ho, wo) tables, the plan
+// resize_plan's for the window's rows. 0 <= row_lo <= row_hi <= ho.
+extern "C" int objcavit_resize_bilinear_ac_window_bf16(
+    const void* x, const void* skip, void* y, const void* h_lo, const void* h_hi,
+    const void* h_frac, const void* w_lo, const void* w_hi, const void* w_frac, int b, int hi,
+    int wi, int c, int cs, int ho, int wo, int row_lo, int row_hi, int slice_c, int strip_w,
+    int cols, int band_rows, void* stream) {
+  if (row_lo < 0 || row_hi < row_lo || row_hi > ho) return (int)cudaErrorInvalidValue;
+  const void* taps[6] = {(const int*)h_lo + row_lo, (const int*)h_hi + row_lo,
+                         (const float*)h_frac + row_lo, w_lo, w_hi, w_frac};
+  return resize(x, skip, y, taps, b, hi, wi, c, cs, row_hi - row_lo, wo, slice_c, strip_w, cols,
+                band_rows, stream);
 }

@@ -62,6 +62,10 @@ SIGNATURES = {
     "objcavit_resize_bilinear_ac_concat_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    "objcavit_resize_bilinear_ac_window_bf16": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P,
+    ),
     "objcavit_conv_bins_depth_batched": (
         _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P,
     ),
@@ -76,6 +80,9 @@ SIGNATURES = {
     "objcavit_attention_long_fwd_blocks": (_I, _I, _IP),
     "objcavit_mbconv_head": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _LL, _P),
+    "objcavit_mbconv_head_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _LL,
+                                  _I, _I, _P),
     "objcavit_dw_silu_pool": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _P),
     "objcavit_se_project": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

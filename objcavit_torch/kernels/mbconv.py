@@ -9,6 +9,10 @@ designs answer that.
   and its spatial sum on NHWC tensors; replaces
   ``objcavit_tpu/ops/mbconv_pallas.py::mbconv_expand_dw_pool``, the MBConv
   body of ``EfficientNetEncoder(fused_mbconv_head=True)``.
+* Kernel 8's row-window form, ``mbconv_expand_dw_pool_rows``: kernel 8 on
+  a band of the image and its halo rows as one tensor (spatial serving,
+  ``parallel/spatial.py``), writing and pooling the band's rows alone; the
+  same kernel, another window of output rows, its own counter.
 * Kernel 9, ``mbconv_bs_expand_dw_pool``: the same on (H, W, B, C) tensors;
   replaces ``objcavit_tpu/ops/mbconv_bs.py::mbconv_bs_expand_dw_pool``. The
   kernel reads and writes through strides, so only they differ.
@@ -44,6 +48,7 @@ from objcavit_torch.kernels.bins import check_no_grad
 from objcavit_torch.kernels.build import check_launch, load_library
 
 _ENTRY = "objcavit_mbconv_head"
+_ROWS_ENTRY = "objcavit_mbconv_head_rows"
 _DW_ENTRY = "objcavit_dw_silu_pool"
 KSIZES = (3, 5)
 CHANNEL_ALIGN = 8  # Cin and M: 16-byte rows of bf16
@@ -465,6 +470,16 @@ def mbconv_by_plan(x, we, be, wd, bd, ksize: int, plan: MBConvPlan | None = None
     return y.to(x.dtype), pool
 
 
+def mbconv_expand_dw_pool_rows_plain(x, we, be, wd, bd, ksize: int, top: int, bottom: int):
+    """Plain PyTorch version of kernel 8's row-window form: rows [top, H -
+    bottom) of kernel 8's plain version on x (B, H, W, Cin), and the pool
+    of those rows alone: (y (B, H - top - bottom, W, M) in x's dtype, pool
+    (B, M) fp32)."""
+    e = expand_plain(x, we, be).to(x.dtype)
+    y = depthwise_silu_plain(e, wd, bd, ksize)[:, top:x.shape[1] - bottom]
+    return y.to(x.dtype), y.sum((1, 2))
+
+
 def mbconv_bs_expand_dw_pool_plain(x_t, we, be, wd, bd, ksize: int):
     """Plain PyTorch version of kernel 9: kernel 8's on (H, W, B, Cin),
     giving (y (H, W, B, M), pool (B, M) fp32)."""
@@ -515,32 +530,40 @@ def check_mbconv_inputs(x, we, be, wd, bd, ksize: int, expand: bool) -> None:
         raise ValueError("mbconv kernel needs 16-byte aligned inputs")
 
 
-def _launch(x, we, be, wd, bd, ksize: int, batch_minor: bool):
-    """Launch kernel 8 on x (B, H, W, Cin), or (H, W, B, Cin) with ``batch_minor``."""
+def _launch(x, we, be, wd, bd, ksize: int, batch_minor: bool, rows: tuple[int, int] | None = None):
+    """Launch kernel 8 on x (B, H, W, Cin), or (H, W, B, Cin) with
+    ``batch_minor``; with ``rows`` (top, bottom), the row-window form on
+    NHWC x: y and the pool of rows [top, H - bottom)."""
     check_mbconv_inputs(x, we, be, wd, bd, ksize, expand=True)
     if batch_minor:
         h, w, b, cin = x.shape
     else:
         b, h, w, cin = x.shape
     m = we.shape[1]
-    y = torch.empty((*x.shape[:3], m), dtype=x.dtype, device=x.device)
+    lo, hi = (0, h) if rows is None else (rows[0], h - rows[1])
+    if not 0 <= lo <= hi <= h:
+        raise ValueError(f"mbconv kernel: no window of rows [{lo}, {hi}) in {h} rows")
+    y = torch.empty((b, hi - lo, w, m) if rows is not None else (*x.shape[:3], m),
+                    dtype=x.dtype, device=x.device)
     # element strides of an image, a row and a column, for x and for y
-    strides = [(c, w * b * c, b * c) if batch_minor else (h * w * c, w * c, c) for c in (cin, m)]
-    plan = mbconv_plan(h, w, cin, m, ksize)
+    strides = [(c, w * b * c, b * c) if batch_minor else (r * w * c, w * c, c)
+               for c, r in ((cin, h), (m, hi - lo))]
+    plan = mbconv_plan(hi - lo, w, cin, m, ksize)
     scratch = pool_scratch(plan, b)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count \
         if x.device.type == "cuda" else PLAN_SMS
     partial = None if scratch is None else torch.empty(scratch, dtype=torch.float32,
                                                        device=x.device)
     pool = torch.empty((b, m), dtype=torch.float32, device=x.device)
-    rc = getattr(load_library(), _ENTRY)(
+    entry, window = (_ENTRY, ()) if rows is None else (_ROWS_ENTRY, (lo, hi))
+    rc = getattr(load_library(), entry)(
         x.data_ptr(), we.data_ptr(), be.data_ptr(), wd.data_ptr(), bd.data_ptr(), y.data_ptr(),
         None if partial is None else partial.data_ptr(), pool.data_ptr(), b, h, w, cin, m, ksize,
         *strides[0], *strides[1], 1, plan.strip_w, plan.group_rows, plan.seg_groups,
-        plan.grid(b, sms), plan.stages, plan.smem,
+        plan.grid(b, sms), plan.stages, plan.smem, *window,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    check_launch(_ENTRY, rc)
+    check_launch(entry, rc)
     return y, pool
 
 
@@ -607,6 +630,26 @@ def mbconv_expand_dw_pool_cuda(x, we, be, wd, bd, ksize: int):
     return out
 
 
+def mbconv_expand_dw_pool_rows(x, we, be, wd, bd, ksize: int, top: int, bottom: int):
+    """Kernel 8's row-window form. x (B, H, W, Cin) bf16 holds an image's
+    band with ``top`` rows above it and ``bottom`` below it (the halo rows
+    that lie in the image; past the tensor the expanded rows are zero, the
+    image's padding); the rest as kernel 8 -> (y (B, H - top - bottom, W, M)
+    bf16, pool (B, M) fp32): kernel 8's y on the band's rows, and their
+    sum."""
+    if not _route("mbconv_expand_dw_pool_rows", x, we, be, wd, bd):
+        return mbconv_expand_dw_pool_rows_plain(x, we, be, wd, bd, ksize, top, bottom)
+    return mbconv_expand_dw_pool_rows_cuda(x, we, be, wd, bd, ksize, top, bottom)
+
+
+def mbconv_expand_dw_pool_rows_cuda(x, we, be, wd, bd, ksize: int, top: int, bottom: int):
+    """The row-window form's launch on CUDA tensors: its checks, its plan,
+    the kernel, the count."""
+    out = _launch(x, we, be, wd, bd, ksize, batch_minor=False, rows=(top, bottom))
+    mbconv_expand_dw_pool_rows.launches += 1
+    return out
+
+
 def mbconv_bs_expand_dw_pool(x_t, we, be, wd, bd, ksize: int):
     """Kernel 9. Kernel 8 on x_t (H, W, B, Cin) -> (y (H, W, B, M), pool
     (B, M) fp32)."""
@@ -630,5 +673,6 @@ def dw_conv_silu_pool(x, w, b, ksize: int, with_pool: bool = True):
 
 
 mbconv_expand_dw_pool.launches = 0
+mbconv_expand_dw_pool_rows.launches = 0
 mbconv_bs_expand_dw_pool.launches = 0
 dw_conv_silu_pool.launches = 0

@@ -18,6 +18,15 @@ any device, when autograd would need its gradient. The decoder calls the
 concat form for bf16 outside training only: an fp32 model on the card takes
 the plain version there, the reference route, and launches no kernel.
 
+``resize_bilinear_align_corners_rows(x, out_h, out_w, y0, y1, skip=None)``
+is the row-window form (spatial serving, ``parallel/spatial.py``): output
+rows [y0, y1) of the (out_h, out_w) upsample of the whole x, with a band of
+the skip beside them where one is given (the concat form's layout) or
+alone. The same kernel from the window's H taps on; its own counter,
+``resize_bilinear_align_corners_rows.launches`` (``.concat_launches`` for
+those with a skip), which the two whole-image forms' counter does not
+include. Its plain version is ``resize_rows_plain``.
+
 ``resize_plan`` picks the kernel's channel slice, column strips and row
 bands for a shape; the C entry points take it.
 """
@@ -36,6 +45,7 @@ from objcavit_torch.ops.resize import device_taps, interp_taps, resize_bilinear
 
 _ENTRY = "objcavit_resize_bilinear_ac_nhwc_bf16"
 _ENTRY_CONCAT = "objcavit_resize_bilinear_ac_concat_bf16"
+_ENTRY_WINDOW = "objcavit_resize_bilinear_ac_window_bf16"
 
 SLOTS = 4  # input rows a block holds in shared memory (csrc kSlots)
 SMEM_BUDGET = 55 * 1024  # a block's shared memory: four blocks an SM
@@ -97,6 +107,28 @@ def resize_into_concat_plain(x: torch.Tensor, skip: torch.Tensor) -> torch.Tenso
     """Plain version of the concat form: cat([upsample of x to skip's size, skip], -1)."""
     return torch.cat([resize_bilinear_align_corners_plain(x, skip.shape[1], skip.shape[2]), skip],
                      -1)
+
+
+def resize_rows_plain(x: torch.Tensor, out_h: int, out_w: int, y0: int, y1: int,
+                      skip: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the row-window form: rows [y0, y1) of
+    ``resize_bilinear_align_corners_plain(x, out_h, out_w)`` (the same
+    taps, fp32 lerp, one rounding), then ``skip`` along channels where one
+    is given."""
+    _, h, w, _ = x.shape
+    y = x.to(torch.promote_types(x.dtype, torch.float32))
+    if h != out_h:
+        lo, hi, frac = (t[y0:y1] for t in device_taps(h, out_h, True, x.device))
+        f = frac.view(1, -1, 1, 1)
+        y = y.index_select(1, lo) * (1.0 - f) + y.index_select(1, hi) * f
+    else:
+        y = y[:, y0:y1]
+    if w != out_w:
+        lo, hi, frac = device_taps(w, out_w, True, x.device)
+        f = frac.view(1, 1, -1, 1)
+        y = y.index_select(2, lo) * (1.0 - f) + y.index_select(2, hi) * f
+    y = y.to(x.dtype)
+    return y if skip is None else torch.cat([y, skip], -1)
 
 
 def check_resize_inputs(x: torch.Tensor, out_h: int, out_w: int) -> None:
@@ -164,6 +196,36 @@ def _launch(x: torch.Tensor, skip: torch.Tensor | None, out_h: int, out_w: int) 
     return y
 
 
+def resize_rows_cuda(x: torch.Tensor, out_h: int, out_w: int, y0: int, y1: int,
+                     skip: torch.Tensor | None = None) -> torch.Tensor:
+    """The row-window form's launch on CUDA tensors: its checks, then the
+    kernel on the window's rows, and its counters."""
+    if skip is None:
+        check_resize_inputs(x, out_h, out_w)
+    else:
+        check_concat_inputs(x, skip)
+        if skip.shape[1] != y1 - y0 or skip.shape[2] != out_w:
+            raise ValueError(f"the window's skip must be (B, {y1 - y0}, {out_w}, Cs), got "
+                             f"{tuple(skip.shape)}")
+    if not 0 <= y0 <= y1 <= out_h:
+        raise ValueError(f"resize kernel: no window of rows [{y0}, {y1}) in {out_h} rows")
+    b, hi, wi, c = x.shape
+    cs = 0 if skip is None else skip.shape[3]
+    plan = resize_plan(hi, wi, c, y1 - y0, out_w, cs)
+    taps = (*device_taps(hi, out_h, True, x.device), *device_taps(wi, out_w, True, x.device))
+    y = torch.empty((b, y1 - y0, out_w, c + cs), dtype=x.dtype, device=x.device)
+    rc = getattr(load_library(), _ENTRY_WINDOW)(
+        x.data_ptr(), None if skip is None else skip.data_ptr(), y.data_ptr(),
+        *(t.data_ptr() for t in taps), b, hi, wi, c, cs, out_h, out_w, y0, y1,
+        plan.slice_c, plan.strip_w, plan.cols, plan.band_rows,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check_launch(_ENTRY_WINDOW, rc)
+    resize_bilinear_align_corners_rows.launches += 1
+    resize_bilinear_align_corners_rows.concat_launches += skip is not None
+    return y
+
+
 def resize_cuda(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """The bare form's launch on a CUDA tensor: its checks, then the kernel."""
     check_resize_inputs(x, out_h, out_w)
@@ -207,5 +269,20 @@ def resize_bilinear_align_corners_into_concat(x: torch.Tensor, skip: torch.Tenso
     return resize_into_concat_cuda(x, skip)
 
 
+def resize_bilinear_align_corners_rows(x: torch.Tensor, out_h: int, out_w: int, y0: int, y1: int,
+                                       skip: torch.Tensor | None = None) -> torch.Tensor:
+    """x (B, Hi, Wi, C) -> (B, y1 - y0, out_w, C (+ Cs)): rows [y0, y1) of
+    the align_corners=True upsample of x to (out_h, out_w), and ``skip``
+    (B, y1 - y0, out_w, Cs) after them along channels where one is given."""
+    check_no_grad("resize_bilinear_align_corners_rows", x, *([] if skip is None else [skip]))
+    if x.device.type == "cpu" and (skip is None or skip.device.type == "cpu"):
+        return resize_rows_plain(x, out_h, out_w, y0, y1, skip)
+    if x.device.type != "cuda":
+        raise ValueError(f"resize kernel runs on CUDA tensors, got {x.device}")
+    return resize_rows_cuda(x, out_h, out_w, y0, y1, skip)
+
+
 resize_bilinear_align_corners.launches = 0
+resize_bilinear_align_corners_rows.launches = 0
+resize_bilinear_align_corners_rows.concat_launches = 0
 resize_bilinear_align_corners.concat_launches = 0  # those of the concat form

@@ -52,6 +52,17 @@ dropout). The encoder sets each block's rate (``drop_path_rate``). A block
 in eval mode, or at rate 0, draws nothing, so the fused routes (eval only)
 are untouched.
 
+Spatial serving (``parallel/spatial.py``): inside a split forward every
+conv taller than one row (``Conv2d``, ``Conv2dSame``) takes its halo rows
+from the model ranks above and below it under the plan, its height padding
+taken from the whole image, and the SE means (``SqueezeExcite``,
+``SqueezeExcitation``, kernel 8's pool) are the whole image's: the band's
+sum, summed over the model group, over the image's H x W. Kernel 7's gate
+then comes from that mean. Kernel 8 takes its band with its ``k // 2``
+halo rows as one tensor and writes and pools the band's rows alone
+(``kernels/mbconv.py::mbconv_expand_dw_pool_rows``). Outside a split
+forward the modules run as they do without it.
+
 Not ported: ``SpaceToDepthConv`` (an exact rewrite of the stride-2 stem for
 the TPU's layout; the plain strided conv with the same weights stands here).
 """
@@ -69,6 +80,8 @@ from objcavit_torch.kernels.mbconv import (
     mbconv_eligible,
     mbconv_expand_dw_pool,
     mbconv_expand_dw_pool_plain,
+    mbconv_expand_dw_pool_rows,
+    mbconv_expand_dw_pool_rows_plain,
     pack_mbconv,
 )
 from objcavit_torch.kernels.se_project import (
@@ -77,6 +90,7 @@ from objcavit_torch.kernels.se_project import (
     se_gate_project_plain,
     se_project_eligible,
 )
+from objcavit_torch.parallel import spatial
 from objcavit_torch.parallel.collectives import batch_norm as global_batch_norm
 from objcavit_torch.parallel.collectives import rand_rows
 from objcavit_torch.parallel.mesh import current_grid
@@ -120,17 +134,44 @@ class BatchNorm2d(nn.BatchNorm2d):
         return super().forward(x)
 
 
+def spatial_mean(x: torch.Tensor) -> torch.Tensor:
+    """The spatial mean of NCHW ``x``, (B, C, 1, 1): the whole image's in a
+    split forward (``parallel/spatial.py::mean_hw``)."""
+    if spatial.active() is not None:
+        return spatial.mean_hw(x)
+    return x.mean((2, 3), keepdim=True)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d``, which in a split forward (``parallel/spatial.py``)
+    takes its halo rows for a height of more than one row."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.active() is None:
+            return super().forward(x)
+        ph, pw = self.padding
+        return spatial.conv2d(x, self.weight, self.bias, self.stride, self.dilation, self.groups,
+                              ph, (pw, pw))
+
+
 class Conv2dSame(nn.Conv2d):
     """Conv2d with TensorFlow's SAME padding, asymmetric where it must be
     (more padding after than before), as the ``tf_efficientnet_*`` weights
-    were trained with. Symmetric cases pass their padding to the conv."""
+    were trained with. Symmetric cases pass their padding to the conv. In a
+    split forward the height's padding is the whole image's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ih, iw = x.shape[-2:]
         kh, kw = self.weight.shape[-2:]
         sh, sw = self.stride
+        split = spatial.active() is not None
+        if split:
+            ih = spatial.whole_rows(ih)
         ph = max((math.ceil(ih / sh) - 1) * sh + kh - ih, 0)
         pw = max((math.ceil(iw / sw) - 1) * sw + kw - iw, 0)
+        if split:
+            return spatial.conv2d(x, self.weight, self.bias, self.stride, self.dilation,
+                                  self.groups, ph // 2, (pw // 2, pw - pw // 2))
         if ph % 2 == 0 and pw % 2 == 0:
             return F.conv2d(x, self.weight, self.bias, self.stride,
                             (ph // 2, pw // 2), self.dilation, self.groups)
@@ -168,7 +209,7 @@ class SqueezeExcite(nn.Module):
 
     def forward(self, x: torch.Tensor, pooled: torch.Tensor | None = None,
                 gate_only: bool = False) -> torch.Tensor:
-        s = x.mean((2, 3), keepdim=True) if pooled is None else pooled
+        s = spatial_mean(x) if pooled is None else pooled
         gate = torch.sigmoid(self.conv_expand(F.silu(self.conv_reduce(s))))
         return gate if gate_only else x * gate
 
@@ -180,8 +221,8 @@ class ConvNormAct(nn.Sequential):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  groups: int = 1, act: bool = True):
-        layers = [nn.Conv2d(in_ch, out_ch, kernel_size, stride, kernel_size // 2, groups=groups,
-                            bias=False),
+        layers = [Conv2d(in_ch, out_ch, kernel_size, stride, kernel_size // 2, groups=groups,
+                         bias=False),
                   BatchNorm2d(out_ch, eps=BN_EPS)]
         super().__init__(*layers, *([nn.SiLU()] if act else []))
 
@@ -196,7 +237,7 @@ class SqueezeExcitation(nn.Module):
         self.fc2 = nn.Conv2d(se_channels, channels, 1)
 
     def forward(self, x: torch.Tensor, gate_only: bool = False) -> torch.Tensor:
-        gate = torch.sigmoid(self.fc2(F.silu(self.fc1(x.mean((2, 3), keepdim=True)))))
+        gate = torch.sigmoid(self.fc2(F.silu(self.fc1(spatial_mean(x)))))
         return gate if gate_only else x * gate
 
 
@@ -318,10 +359,19 @@ class MBConv(FusedRoutes, nn.Module):
             self.fused_route = "plain"
 
     def expand_dw_pool(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Kernel 8's route: (y NCHW channels_last, pool (B, M) fp32)."""
+        """Kernel 8's route: (y NCHW channels_last, pool (B, M) fp32). In a
+        split forward, the band with its ``k // 2`` halo rows (none past the
+        image) through the kernel's row-window form: y and the pool of the
+        band's rows."""
         self.check_fused_route(x)
         p = self.packed("head", pack_mbconv, self.conv_pw.weight, self.conv_pw.bias,
                         self.conv_dw.weight, self.conv_dw.bias)
+        if spatial.active() is not None:
+            xh, top, bottom = spatial.halo(x, p.ksize // 2, p.ksize // 2, pad=False)
+            fn = (mbconv_expand_dw_pool_rows_plain if x.dtype == torch.float32
+                  else mbconv_expand_dw_pool_rows)
+            y, pool = fn(xh.permute(0, 2, 3, 1), p.we, p.be, p.wd, p.bd, p.ksize, top, bottom)
+            return y.permute(0, 3, 1, 2), pool
         fn = mbconv_expand_dw_pool_plain if x.dtype == torch.float32 else mbconv_expand_dw_pool
         y, pool = fn(x.permute(0, 2, 3, 1), p.we, p.be, p.wd, p.bd, p.ksize)
         return y.permute(0, 3, 1, 2), pool
@@ -330,7 +380,10 @@ class MBConv(FusedRoutes, nn.Module):
         route = self.route()
         if route == "mbconv_head":
             h, pool = self.expand_dw_pool(x)
-            pooled = (pool / (x.shape[2] * x.shape[3])).to(x.dtype)[:, :, None, None]
+            rows = x.shape[2]
+            if spatial.active() is not None:
+                pool, rows = spatial.band_sum(pool), spatial.whole_rows(rows)
+            pooled = (pool / (rows * x.shape[3])).to(x.dtype)[:, :, None, None]
             h = self.se(h, pooled=pooled)
         else:
             h = conv_bn_act(self.conv_pw, self.bn1, x)

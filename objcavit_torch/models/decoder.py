@@ -31,6 +31,17 @@ names (``conv2``, ``up1..up4._net.{0,1,3,4}``, ``conv3``):
   Pallas resize too (C = 128 passes its ``resize_eligible``) before its
   split conv.
 
+Spatial serving (``parallel/spatial.py``): in a split forward each rank
+holds its band of every skip. The bottleneck is gathered over the model
+group and ``conv2`` runs on the whole of it (its ring of bias belongs to
+the image's edges); each later stage's input is gathered before its
+upsample, since an align-corners output row reads input rows across the
+whole image. Each upsample then writes the band's output rows alone, beside
+the skip's band: kernel 1's row-window form in bf16
+(``kernels/resize.py::resize_bilinear_align_corners_rows``, in its concat
+layout where the concat form takes the skip), its plain version in fp32.
+The 3x3 convs take their 1-row halos (``models/common.py::Conv2d``).
+
 The up-stages' BatchNorms are ``models/common.py::BatchNorm2d``: over the
 global batch in a process group. Modules take and return NHWC tensors;
 inside, they are NCHW views in ``torch.channels_last`` memory, which is the
@@ -39,6 +50,8 @@ same memory.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 
@@ -46,10 +59,13 @@ from objcavit_torch.kernels.resize import (
     concat_takes_skip,
     resize_bilinear_align_corners,
     resize_bilinear_align_corners_into_concat,
+    resize_bilinear_align_corners_rows,
+    resize_rows_plain,
 )
-from objcavit_torch.models.common import BatchNorm2d
+from objcavit_torch.models.common import BatchNorm2d, Conv2d
 from objcavit_torch.models.efficientnet import EfficientNetEncoder, encoder_spec
 from objcavit_torch.ops.resize import resize_bilinear
+from objcavit_torch.parallel import spatial
 
 DECODER_BN_EPS = 1e-5
 ENCODER_IMPLS = ("plain", "kernel")
@@ -59,6 +75,8 @@ def upsample_concat(x: torch.Tensor, skip: torch.Tensor, train: bool) -> torch.T
     """NCHW channels_last x and skip -> cat([x upsampled to skip's size with
     align_corners=True, skip], channels), NCHW channels_last."""
     x_nhwc, (ho, wo) = x.permute(0, 2, 3, 1), skip.shape[2:]
+    if spatial.active() is not None:
+        return upsample_concat_rows(x_nhwc, skip, train)
     if x.dtype == torch.bfloat16 and not train:
         if concat_takes_skip(skip.shape[1]):
             return resize_bilinear_align_corners_into_concat(
@@ -69,16 +87,33 @@ def upsample_concat(x: torch.Tensor, skip: torch.Tensor, train: bool) -> torch.T
     return torch.cat([up.permute(0, 3, 1, 2), skip], dim=1)
 
 
+def upsample_concat_rows(x_nhwc: torch.Tensor, skip: torch.Tensor, train: bool) -> torch.Tensor:
+    """``upsample_concat`` in a split forward: the whole low-resolution x
+    (NHWC), this rank's band of the skip (NCHW channels_last) -> the band's
+    rows of the concat, NCHW channels_last."""
+    y0, y1, ho = spatial.band_window(skip.shape[2])
+    wo = skip.shape[3]
+    skip_nhwc = skip.permute(0, 2, 3, 1)
+    if x_nhwc.dtype == torch.bfloat16 and not train:
+        if concat_takes_skip(skip.shape[1]):
+            return resize_bilinear_align_corners_rows(x_nhwc, ho, wo, y0, y1,
+                                                      skip_nhwc).permute(0, 3, 1, 2)
+        up = resize_bilinear_align_corners_rows(x_nhwc, ho, wo, y0, y1)
+    else:
+        up = resize_rows_plain(x_nhwc, ho, wo, y0, y1)
+    return torch.cat([up.permute(0, 3, 1, 2), skip], dim=1)
+
+
 class UpSampleWithSkip(nn.Module):
     bn_folds = (("_net.0", "_net.1"), ("_net.3", "_net.4"))
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self._net = nn.Sequential(
-            nn.Conv2d(in_channels, out_channels, 3, 1, 1),
+            Conv2d(in_channels, out_channels, 3, 1, 1),
             BatchNorm2d(out_channels, eps=DECODER_BN_EPS),
             nn.LeakyReLU(0.01),
-            nn.Conv2d(out_channels, out_channels, 3, 1, 1),
+            Conv2d(out_channels, out_channels, 3, 1, 1),
             BatchNorm2d(out_channels, eps=DECODER_BN_EPS),
             nn.LeakyReLU(0.01),
         )
@@ -105,7 +140,7 @@ class Decoder(nn.Module):
         self.up4 = UpSampleWithSkip(f // 8 + s0, f // 16)
         if do_final_upscale:  # its skip is the RGB image
             self.final_upscale = UpSampleWithSkip(f // 16 + 3, f // 16)
-        self.conv3 = nn.Conv2d(f // 16, num_classes, 3, 1, 1)
+        self.conv3 = Conv2d(f // 16, num_classes, 3, 1, 1)
 
     def stages(self) -> list[UpSampleWithSkip]:
         """The up-stages in order: up1..up4, then final_upscale if built."""
@@ -122,8 +157,15 @@ class Decoder(nn.Module):
                 raise ValueError("a decoder with do_final_upscale takes the image as its last skip")
             skips.append(image)
         skips = [t.permute(0, 3, 1, 2) for t in skips]
-        x = self.conv2(features[4].permute(0, 3, 1, 2))
-        for stage, skip in zip(self.stages(), skips):
+        bottleneck = features[4].permute(0, 3, 1, 2)
+        split = spatial.active() is not None
+        if split:  # conv2's ring of bias lies on the whole image's edges
+            bottleneck = spatial.gather_rows(bottleneck, 2)
+        with spatial.suspended() if split else contextlib.nullcontext():
+            x = self.conv2(bottleneck)
+        for i, (stage, skip) in enumerate(zip(self.stages(), skips)):
+            if split and i:
+                x = spatial.gather_rows(x, 2)
             x = stage(x, skip)
         return self.conv3(x).permute(0, 2, 3, 1)
 

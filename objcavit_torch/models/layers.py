@@ -25,7 +25,10 @@ process's.
 * ``PatchTransformerEncoder``: miniViT's patch embedding conv
   (``embedding_convPxP``, kernel = stride), the learned
   ``positional_encodings`` (max_seq_len, E) table sliced to the token
-  count, and the 4-layer ``transformer_encoder``.
+  count, and the 4-layer ``transformer_encoder``. In a split forward
+  (``parallel/spatial.py``) the embedding runs on the band, whose rows are
+  whole patch rows, and the tokens are gathered over the model group in
+  row order before the table: the encoder sees the whole image's.
 * ``pixelwise_dot_product``: the range-attention maps of the bins head's
   training route.
 * ``BinRegressor``: E -> 256 -> 256 -> dim_out with LeakyReLU, as the
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 
 from objcavit_torch.models.common import PatchEmbedConv
 from objcavit_torch.ops.attention import mha_core
+from objcavit_torch.parallel import spatial
 from objcavit_torch.parallel.collectives import copy_to_model, rand_rows, reduce_from_model
 
 
@@ -154,7 +158,10 @@ class PatchTransformerEncoder(nn.Module):
 
     def forward(self, x, generator=None):
         """x (B, H, W, C) NHWC -> (B, (H // p) (W // p), E)."""
-        emb = self.embedding_convPxP(x.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+        emb = self.embedding_convPxP(x.permute(0, 3, 1, 2))
+        if spatial.active() is not None:
+            emb = spatial.gather_rows(emb, 2)
+        emb = emb.flatten(2).transpose(1, 2)
         s = emb.shape[1]
         if s > self.positional_encodings.shape[0]:
             raise ValueError(f"{s} patch tokens exceed max_seq_len "

@@ -8,7 +8,9 @@ widths, tokens 1..K are the queries of the range-attention maps against a
 ``"linear"`` (ReLU + 0.1, then sum 1; AdaBins' own), ``"softmax"``, or
 else a sigmoid then sum 1, as in JAX. The maps stay factored as (feat,
 queries) for the bins head. ``attn_impl`` is the route of the four
-self-attentions, ``"plain"`` or ``"kernel"`` (kernel 5).
+self-attentions, ``"plain"`` or ``"kernel"`` (kernel 5). In a split
+forward (``parallel/spatial.py``) the transformer reads the gathered
+tokens, ``conv3x3`` takes its 1-row halo and the features stay the band's.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from objcavit_torch.models.common import Conv2d
 from objcavit_torch.models.layers import BinRegressor, PatchTransformerEncoder
 
 
@@ -29,7 +32,7 @@ class MiniViT(nn.Module):
         self.norm = norm
         self.patch_transformer = PatchTransformerEncoder(
             in_channels, patch_size, embed_dim, num_heads, max_seq_len, dropout_rate, attn_impl)
-        self.conv3x3 = nn.Conv2d(in_channels, embed_dim, 3, 1, 1)
+        self.conv3x3 = Conv2d(in_channels, embed_dim, 3, 1, 1)
         self.regressor = BinRegressor(embed_dim, dim_out)
 
     def forward(self, x, generator=None):

@@ -32,6 +32,17 @@ Reference quirks kept exactly (they change the numbers):
   (B, S, 2) tensor); every other patch samples out of range and reads 0.
   In "obj" mode x is normalised by the image's height and y by its width.
 
+Spatial serving (``parallel/spatial.py``): in a split forward the image
+features are this rank's band of rows, a whole number of patch rows. The
+patch embedding runs on the band and the tokens are gathered over the
+model group in row order; the patch coordinates and every position are the
+whole image's (the level's rows from the plan), so SACA and the regressor
+see one process's tokens (a model ``tp_shard_model`` split sees them on
+every model rank alike, as its split attention expects). ``conv3x3`` takes
+its 1-row halo and ``feat`` stays the band's, for the bins head. Every
+positional strategy and option reads coordinates only, so each runs on
+bands.
+
 The grid strategies give fp32 embeddings (a table in the model dtype times
 fp32 weights), as JAX's do. JAX adds them to the model-dtype embeddings in
 fp32 and its projections cast the sum to the model dtype, so q, k and v
@@ -48,7 +59,7 @@ import math
 import torch
 import torch.nn as nn
 
-from objcavit_torch.models.common import PatchEmbedConv
+from objcavit_torch.models.common import Conv2d, PatchEmbedConv
 from objcavit_torch.models.layers import (
     BinRegressor,
     MultiHeadAttention,
@@ -56,6 +67,7 @@ from objcavit_torch.models.layers import (
 )
 from objcavit_torch.ops.grid_sample import grid_sample_bilinear
 from objcavit_torch.ops.roi_align import ps_roi_align_1x1
+from objcavit_torch.parallel import spatial
 from objcavit_torch.parallel.collectives import global_max
 
 PAD_VALUE = 0.0001
@@ -201,7 +213,7 @@ class ObjCAViT(nn.Module):
         if use_2_saca:
             self.saca_2 = SelfAttnCrossAttn(embed_dim, num_heads, 1024, dropout_rate, attn_impl,
                                             no_obj_sa)
-        self.conv3x3 = nn.Conv2d(im_feature_dim, embed_dim, 3, 1, 1)
+        self.conv3x3 = Conv2d(im_feature_dim, embed_dim, 3, 1, 1)
         self.regressor = BinRegressor(embed_dim, dim_out)
 
     def positions(self, xywh, feat_shape: tuple[int, int], space: str, dtype) -> torch.Tensor:
@@ -227,6 +239,9 @@ class ObjCAViT(nn.Module):
         """
         dtype = image_features.dtype
         b, fh, fw, _ = image_features.shape
+        split = spatial.active() is not None
+        if split:  # a band of the features: the image's rows at this level
+            fh = spatial.whole_rows(fh)
         p = self.patch_size
         if fh % p or fw % p:
             raise ValueError(f"feature size {fh}x{fw} must divide the patch size {p}")
@@ -244,7 +259,10 @@ class ObjCAViT(nn.Module):
                 f"{s} image tokens cannot give the regression token and "
                 f"{self.n_query_channels} queries"
             )
-        img_emb = self.image_embedding_convPxP(feat_nchw).permute(0, 2, 3, 1).reshape(b, s, -1)
+        img_emb = self.image_embedding_convPxP(feat_nchw)
+        if split:
+            img_emb = spatial.gather_rows(img_emb, 2)
+        img_emb = img_emb.permute(0, 2, 3, 1).reshape(b, s, -1)
         # patch centres in feature pixels, plus the patch size as w and h;
         # one image's worth, the same for every image
         dev = image_features.device

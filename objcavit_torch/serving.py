@@ -28,8 +28,20 @@ does not divide it, as JAX's ``shard_batch`` replicates it), through a
 model split over the model axis where the caller split it
 (``parallel/tp.py::tp_shard_model``; ``build_flagship_pipeline(grid=...)``
 does), and gather the depth over the data axis: every rank returns the
-global batch's. JAX's ``spatial=True`` (the image height over the model
-axis) is not ported yet (ROADMAP §A.3) and raises.
+global batch's.
+
+``DepthPipeline(grid=..., spatial=True)`` is JAX's spatial mode (the image
+height over the mesh's model axis, ``objcavit_tpu/serving.py:150-176``):
+the ranks of one model group serve the same images, each the conv pyramid
+on its own band of rows under ``parallel/spatial.py``'s plan
+(``pipe.bands(h)`` shows it), exchanging only the rows that cross a band
+edge; every rank normalises the whole request (the provider sees it whole)
+and feeds the model its band. The depth bands are gathered over the model
+group, then the rows over the data group, then resized to the input size
+with ``output_at_input_res``. A height the plan does not split (see
+``parallel/spatial.py``) is served whole on every model rank, logged once
+and shown by the plan. ``FusedDepthPipeline`` and ``serving_export`` have
+no spatial mode, as in JAX.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ import numpy as np
 import torch
 
 from objcavit_torch.ops.resize import resize_bilinear
+from objcavit_torch.parallel import spatial as spatial_split
 from objcavit_torch.parallel.collectives import gather_data
 from objcavit_torch.utils.device import card_device
 
@@ -71,11 +84,8 @@ class DepthPipeline:
     def __init__(self, model, eval_dims: tuple[int, int] = (480, 640),
                  n_obj_max: int | None = None, output_at_input_res: bool = False,
                  provider=None, unk_feature=None, grid=None, spatial: bool = False):
-        if spatial:
-            raise NotImplementedError(
-                "spatial serving (the image height split over the grid's model axis, "
-                "objcavit_tpu/serving.py's spatial=True) is not ported: ROADMAP §A.3")
         self.grid = grid
+        self.spatial = spatial
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.eval_dims = tuple(eval_dims)
@@ -133,6 +143,30 @@ class DepthPipeline:
             return frames
         return frames[self.grid.data_index::self.grid.n_data]
 
+    def bands(self, h: int | None = None) -> spatial_split.BandPlan | None:
+        """The band plan of a request of ``h`` eval rows (the eval height by
+        default) on the grid's model axis; None for a server that is not
+        spatial."""
+        if not self.spatial:
+            return None
+        h = self.eval_dims[0] if h is None else h
+        if self.grid is None:
+            return spatial_split.BandPlan(h, 1, reason="the server has no grid")
+        return spatial_split.band_plan(h, self.grid)
+
+    def _depth(self, x: torch.Tensor, *objects) -> torch.Tensor:
+        """The model's depth on normalised ``x``: on a spatial server, this
+        rank's band through the model under the plan, then every rank's band."""
+        plan = self.bands(x.shape[1])
+        if plan is None or not plan.split:
+            if plan is not None:
+                spatial_split.log_whole(plan)
+            return self.model(x, *objects)["depth_pred"]
+        lo, hi = plan.bands()[plan.index]
+        with spatial_split.serving(plan):
+            depth = self.model(x[:, lo:hi], *objects)["depth_pred"]
+            return spatial_split.gather_rows(depth, 1)
+
     def _global(self, depth: torch.Tensor, b: int) -> torch.Tensor:
         """The request's depth from every data rank's rows, in the request's order."""
         if not self._split(b):
@@ -146,14 +180,12 @@ class DepthPipeline:
         sentinel objects) -> depth, resized to the input size with
         ``output_at_input_res``. ``__call__`` runs it for a pipeline without
         a provider, and ``serving_export`` traces it. Under a grid, this
-        rank's rows of ``frames`` through the model, then every rank's."""
+        rank's rows of ``frames`` through the model (on a spatial server,
+        its band of them), then every rank's."""
         b, frames = frames.shape[0], self._rows(frames)
         x = self.normalise(frames)
-        if self.model.takes_objects:
-            out = self.model(x, *self._sentinel_objects(frames.shape[0]))
-        else:
-            out = self.model(x)
-        return self._global(self._at_input_res(out["depth_pred"], frames), b)
+        objects = self._sentinel_objects(frames.shape[0]) if self.model.takes_objects else ()
+        return self._global(self._at_input_res(self._depth(x, *objects), frames), b)
 
     @torch.inference_mode()
     def __call__(self, frames_u8) -> torch.Tensor:
@@ -167,7 +199,7 @@ class DepthPipeline:
         objs = self.provider(x.cpu().numpy())
         feats, xywh, valid = (torch.as_tensor(np.asarray(objs[k]), device=self.device)
                               for k in ("features", "xywh", "valid"))
-        depth = self._at_input_res(self.model(x, feats, xywh, valid)["depth_pred"], frames)
+        depth = self._at_input_res(self._depth(x, feats, xywh, valid), frames)
         return self._global(depth, b)
 
 

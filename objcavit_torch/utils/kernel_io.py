@@ -42,7 +42,10 @@ Encoder: ``record_encoder_kernel_io`` records each call of kernel 8 (the
 fused MBConv head) and kernel 7 (the SE-gate project) from the encoder's
 blocks, their arguments and outputs; ``mbconv_head_errors`` and
 ``se_project_errors`` hold a call's outputs against the plain versions on
-the same tensors.
+the same tensors. Spatial serving: ``record_resize_rows_io`` records each
+launch of kernel 1's row-window form and ``resize_rows_errors`` holds it
+against its plain version; ``mbconv_head_errors(rows=...)`` holds kernel
+8's halo form.
 
 The hooks only read tensors; the step runs as it would without them.
 """
@@ -64,7 +67,8 @@ from objcavit_torch.kernels.bins_expectation import (
     bins_expectation_plain,
 )
 from objcavit_torch.kernels.mbconv import depthwise_silu_plain, expand_plain
-from objcavit_torch.kernels.resize import resize_bilinear_align_corners_plain
+from objcavit_torch.kernels import resize as kresize
+from objcavit_torch.kernels.resize import resize_bilinear_align_corners_plain, resize_rows_plain
 from objcavit_torch.kernels.se_project import project_plain
 from objcavit_torch.ops.bins import bins_head_operands
 
@@ -167,6 +171,46 @@ def skip_mismatches(record: dict) -> int:
     bits = {2: torch.int16, 4: torch.int32}
     return sum(int((got.view(bits[got.element_size()]) != skip.view(bits[skip.element_size()]))
                    .sum()) for skip, got in record["skips"])
+
+
+@contextlib.contextmanager
+def record_resize_rows_io():
+    """Yield a list that gets one dict per launch of kernel 1's row-window
+    form (``kernels/resize.py`` calls ``resize_rows_cuda`` through its module
+    attribute, which this wraps for the duration): 'args' (x, out_h, out_w,
+    y0, y1, skip) and 'out'."""
+    real = kresize.resize_rows_cuda
+    records: list[dict] = []
+
+    def call(*args):
+        out = real(*args)
+        records.append({"args": args, "out": out})
+        return out
+
+    kresize.resize_rows_cuda = call
+    try:
+        yield records
+    finally:
+        kresize.resize_rows_cuda = real
+
+
+@torch.inference_mode()
+def resize_rows_errors(record: dict, rtol: float = 2.0 ** -7, atol: float = 1e-5) -> dict:
+    """A row-window launch's output against its plain version on the same
+    inputs: the upsample within one bf16 ulp (``rtol`` of the plain value,
+    plus ``atol``: both lerp in fp32 in one order and round once, and an
+    fp32 value next to a rounding boundary may round the other way), the
+    skip slice bit for bit. -> the max abs error and the count
+    of values out of tolerance ('bad')."""
+    x, out_h, out_w, y0, y1, skip = (list(record["args"]) + [None])[:6]
+    got = record["out"]
+    want = resize_rows_plain(x, out_h, out_w, y0, y1, skip)
+    c = x.shape[3]
+    err = (got[..., :c].float() - want[..., :c].float()).abs()
+    bad = int((err > atol + rtol * want[..., :c].float().abs()).sum())
+    if skip is not None:
+        bad += int((got[..., c:].view(torch.int16) != skip.view(torch.int16)).sum())
+    return {"y": float(err.max()), "bad": bad + int((~torch.isfinite(got)).sum())}
 
 
 @contextlib.contextmanager
@@ -392,12 +436,15 @@ def share_edge_grids(m: int, cin: int, ncp: int, max_grid: int = 264) -> list[in
 def record_encoder_kernel_io():
     """Yield a list that gets one dict per call of kernel 8 or kernel 7 from
     the encoder's blocks (``models/common.py`` calls them through its module
-    attributes ``mbconv_expand_dw_pool`` and ``se_gate_project``, which this
-    wraps for the duration): 'kind' ('mbconv_head' or 'se_project'), 'args'
-    (the call's arguments) and 'out' (its outputs)."""
+    attributes ``mbconv_expand_dw_pool``, ``mbconv_expand_dw_pool_rows`` and
+    ``se_gate_project``, which this wraps for the duration): 'kind'
+    ('mbconv_head', 'mbconv_head_rows', kernel 8's row-window form, or
+    'se_project'), 'args' (the call's arguments) and 'out' (its outputs)."""
     originals = {"mbconv_head": common.mbconv_expand_dw_pool,
+                 "mbconv_head_rows": common.mbconv_expand_dw_pool_rows,
                  "se_project": common.se_gate_project}
-    names = {"mbconv_head": "mbconv_expand_dw_pool", "se_project": "se_gate_project"}
+    names = {"mbconv_head": "mbconv_expand_dw_pool",
+             "mbconv_head_rows": "mbconv_expand_dw_pool_rows", "se_project": "se_gate_project"}
     records: list[dict] = []
 
     def recording(kind):
@@ -430,7 +477,7 @@ def _dw_abs(t: torch.Tensor, wd: torch.Tensor, ksize: int) -> torch.Tensor:
 
 @torch.inference_mode()
 def mbconv_head_errors(x, we, be, wd, bd, ksize: int, y, pool, rtol: float, atol: float,
-                       pool_rtol: float) -> dict:
+                       pool_rtol: float, rows: tuple[int, int] | None = None) -> dict:
     """Kernel 8's (or, with ``we`` None, kernel 10's) outputs ``y`` (NHWC, in
     x's dtype) and ``pool`` (or None) against the plain version on the same
     inputs, x NHWC. Each y may differ by its rounding, ``atol + rtol
@@ -441,8 +488,10 @@ def mbconv_head_errors(x, we, be, wd, bd, ksize: int, y, pool, rtol: float, atol
     and __expf's error of a rounding boundary, each adding one bf16 ulp
     times its |tap weight|), SiLU's slope (<= 1.1) and __expf's error. The
     pool, the sum of the fp32 y, may differ by the sum of those bounds plus
-    ``pool_rtol`` sum |y| (fp32 sums in another order). Returns the max abs
-    errors, 'flips' and the count of values out of tolerance ('bad')."""
+    ``pool_rtol`` sum |y| (fp32 sums in another order). With ``rows`` (top,
+    bottom), kernel 8's row-window form: y and the pool hold x's rows
+    [top, H - bottom) alone. Returns the max abs errors, 'flips' and the
+    count of values out of tolerance ('bad')."""
     flip_spread = None
     if we is not None:
         e32 = expand_plain(x, we, be)
@@ -458,6 +507,9 @@ def mbconv_head_errors(x, we, be, wd, bd, ksize: int, y, pool, rtol: float, atol
     if flip_spread is not None:
         slack_z = slack_z + _dw_abs(flip_spread, wd, ksize)
     slack = 1.1 * slack_z + 4 * UNIT * y32.abs()
+    if rows is not None:
+        window = slice(rows[0], x.shape[1] - rows[1])
+        y32, slack = y32[:, window], slack[:, window]
     want = y32.to(x.dtype).float()
     err = (y.float() - want).abs()
     bad = int((err > atol + rtol * want.abs() + slack).sum()) + int((~torch.isfinite(y)).sum())

@@ -25,6 +25,7 @@ import yaml
 import objcavit_tpu.training.loop as jax_loop
 from objcavit_tpu.config import check_and_validate_args as jax_check_and_validate_args
 from objcavit_tpu.config import load_args as jax_load_args
+from objcavit_tpu.parallel import make_mesh
 from objcavit_tpu.training.optim import build_optimizer as jax_build_optimizer
 from objcavit_tpu.training.optim import current_lr as jax_current_lr
 
@@ -101,7 +102,12 @@ def run_both_fits(tmp_path, **overrides) -> dict:
     last metrics, the port's LR at each update and JAX's build_optimizer
     keywords. JAX's train step donates its state, and JAX's SWA keeps that
     state's params as the average (loop.py:370), which the next step deletes
-    (ROADMAP §C): JAX's fit runs here with the donation off."""
+    (ROADMAP §C): JAX's fit runs here with the donation off. JAX's Trainer
+    lays its fit out on ``make_mesh()``, the 8 virtual CPU devices of
+    tests/conftest.py: here on a mesh of one device, the single-process run
+    the port's is, which computes the same steps (a batch sharded over the
+    data axis sums the same rows) without 8 partitions of every program on
+    the CPU."""
     warm = str(tmp_path / "warm.ckpt")
     _write_reference_ckpt(warm)
     overrides = {"basic.from_checkpoint": warm, "basic.use_adabins_dataloader": True,
@@ -146,6 +152,7 @@ def run_both_fits(tmp_path, **overrides) -> dict:
                    lambda *a, **k: real_jax_build(*a, **k).clone(dropout_rate=0.0))
         mp.setattr(jax, "jit", lambda f, *a, donate_argnums=None, **k: real_jit(f, *a, **k))
         mp.setattr(jax_loop.Trainer, "_tb_writer", lambda self, run_dir: None)  # not compared
+        mp.setattr(jax_loop, "make_mesh", lambda: make_mesh(n_data=1))
         cfg = write_config(tmp_path, "jax", **overrides)
         args = jax_load_args(cfg, debug=False, log_debug=False, validate=False,
                              inference=False)

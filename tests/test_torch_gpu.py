@@ -1382,3 +1382,41 @@ def test_tiny_tp_grid_on_the_card_launches_kernel5_on_each_ranks_heads(cuda, tmp
     with torch.no_grad():
         want = model(*(t.cuda() for t in inputs))["depth_pred"].cpu()
     assert float((ranks[0]["depth"] - want).norm() / want.norm()) < 0.02
+
+
+@gpu
+def test_tiny_spatial_grid_on_the_card_launches_both_row_window_forms(cuda, tmp_path):
+    """Two processes on the card over gloo as a 1 x 2 grid serve the tiny
+    GraphBins in bf16 on ``encoder_impl="kernel"``, split, spatially: bands
+    of 192 of the 384 rows; each rank launches kernel 1's row-window form 4
+    times and kernel 8's halo form twice a request, every launch within its
+    check of the plain version (``kernel_io.resize_rows_errors``,
+    ``mbconv_head_errors``); both ranks give the same depth bits, within
+    rel L2 0.02 of one process's server."""
+    from objcavit_torch.parallel.launch import launch
+    from objcavit_torch.serving import DepthPipeline
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    frames = torch.randint(0, 256, (2, 384, 352, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1)).numpy()
+    torch.save({"frames": frames}, tmp_path / "spatial_card_in.pt")
+    saved = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = repo
+    try:
+        rc = launch([sys.executable, os.path.join(repo, "tests", "torch_dist_workers.py"),
+                     "spatial_card", str(tmp_path)], 2, timeout=300)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = saved
+    assert rc == 0
+    ranks = [torch.load(tmp_path / f"spatial_card_{r}.pt", weights_only=False) for r in range(2)]
+    for r in ranks:
+        assert r["plan"] == [(0, 192), (192, 384)]
+        assert r["launches"] == [4, 2] and r["bad"] == 0
+    assert torch.equal(ranks[0]["depth"], ranks[1]["depth"])
+    model = build_flagship_model(device="cuda", encoder_name="efficientnet-tiny",
+                                 attn_impl="kernel", encoder_impl="kernel")
+    want = DepthPipeline(model, eval_dims=(384, 352), n_obj_max=6)(frames).cpu()
+    assert float((ranks[0]["depth"] - want).norm() / want.norm()) < 0.02

@@ -12,11 +12,20 @@ tests/test_torch_distributed.py starts them (``tests/torch_dist_workers.py``):
 * a 2 x 2 grid's eval forward in fp32 against JAX's ``tp_shard_params``
   forward on ``make_mesh(n_data=4, n_model=2)``, at test_parallel_2d.py's
   tolerance, and in fp64 against one process's at rel 1e-10; its gathered
-  state dict; ``DepthPipeline(grid=...)`` and ``spatial=True``;
+  state dict; ``DepthPipeline(grid=...)``;
 * a 1 x 2 grid's fp64 train step (augmentation, dropout, clipping at 0.1)
   against one process's on the same draws at rel 1e-10, the norm the
   clipping saw, and the split parameters still split after the step;
-* a split miniViT (AdaBins' head) against one process's.
+* a split miniViT (AdaBins' head) against one process's;
+* spatial serving (``DepthPipeline(spatial=True)``, ``parallel/spatial.py``)
+  in the same launches: on the 2 x 2 grid at bs 4, the model whole and
+  split; on the 1 x 2 grid at bs 1 (test_parallel_2d.py's ``-v`` case),
+  on uneven bands (3 units: 2 + 1), on a height of fewer units than
+  model ranks (served whole, as the plan says) and for the tiny AdaBins;
+  fp32 against JAX's ``DepthPipeline(mesh=..., spatial=True)`` at
+  test_parallel_2d.py's tolerance, fp64 against one process's at rel
+  1e-10, and each plan's bands; ObjCAViT's options, the final upsample
+  and a V2 encoder on bands in fp64 against one process's.
 
 Each comparison states its tolerance.
 """
@@ -29,13 +38,17 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+from objcavit_tpu.models import AdaBins as JaxAdaBins
 from objcavit_tpu.models import GraphBins as JaxGraphBins
 from objcavit_tpu.parallel import count_tp_sharded as jax_count_tp_sharded
 from objcavit_tpu.parallel import make_mesh, shard_batch, tp_shard_params
 from objcavit_tpu.parallel import tp_spec_for as jax_tp_spec_for
 from objcavit_tpu.utils.torch_import import convert_state_dict
 
+from objcavit_tpu.serving import DepthPipeline as JaxDepthPipeline
+
 from objcavit_torch.losses import LossWrapper
+from objcavit_torch.models.adabins import AdaBins
 from objcavit_torch.models.graphbins import GraphBins
 from objcavit_torch.models.minivit import MiniViT
 from objcavit_torch.parallel import count_tp_sharded, current_grid, make_grid, tp_spec_for
@@ -242,19 +255,53 @@ def test_gathered_state_dict_is_the_single_process_one(weights, grid_run):
             assert torch.equal(got[k], v.to(got[k].dtype)), k
 
 
-def test_grid_server_returns_the_global_depth_and_refuses_spatial(weights, grid_run):
+def test_grid_server_returns_the_global_depth(weights, grid_run):
     """DepthPipeline(grid=...) on the 2 x 2 grid: every rank returns the
     whole request's depth, the same bits, within rtol 1e-5, atol 1e-6 of
-    one process's server (fp32; the split reorders sums); spatial=True
-    raises NotImplementedError naming the ROADMAP item."""
+    one process's server (fp32; the split reorders sums)."""
     sd, _ = weights
     model = tiny_tp_model(_inp(sd), torch.float32)
     want = DepthPipeline(model, eval_dims=(H, W), n_obj_max=NOBJ)(grid_run["frames"])
     ranks = grid_run["ranks"]
     for r in ranks:
         assert torch.equal(r["served"], ranks[0]["served"])
-        assert "ROADMAP §A.3" in r["spatial_error"]
     np.testing.assert_allclose(ranks[0]["served"].numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------------ spatial serving
+
+
+def _jax_spatial(model, variables, frames, n_data: int) -> np.ndarray:
+    """JAX's spatial server on make_mesh(n_data, 2) at the frames' size."""
+    pipe = JaxDepthPipeline(model, variables, eval_dims=frames.shape[1:3], n_obj_max=NOBJ,
+                            mesh=make_mesh(n_data=n_data, n_model=2), spatial=True)
+    return np.asarray(pipe(frames), np.float32)
+
+
+def _one_process(model, frames) -> torch.Tensor:
+    return DepthPipeline(model, eval_dims=frames.shape[1:3], n_obj_max=NOBJ)(frames)
+
+
+def test_spatial_grid_matches_jax_and_one_process(weights, grid_run):
+    """DepthPipeline(spatial=True) on the 2 x 2 grid, bs 4 at 64x96: bands
+    of 32 rows on each model rank; every rank returns the whole request's
+    depth, the same bits; the model whole and split over the model axis
+    (its attention on the tokens every model rank gathered) within
+    test_parallel_2d.py's rtol 2e-4, atol 2e-5 of JAX's spatial server on
+    make_mesh(n_data=2, n_model=2) in fp32, and within rel L2 1e-10 of one
+    process's server in fp64."""
+    sd, variables = weights
+    frames = grid_run["frames"]
+    want = _jax_spatial(_jax_model(), variables, frames, n_data=2)
+    one = _one_process(tiny_tp_model(_inp(sd), torch.float64).eval(), frames)
+    ranks = [r["spatial"] for r in grid_run["ranks"]]
+    for r in ranks:
+        assert r["plan"] == ([(0, 32), (32, 64)], None)
+        for key in ("whole fp32", "split fp32", "whole fp64", "split fp64"):
+            assert torch.equal(r[key], ranks[0][key]), key
+    for name in ("whole", "split"):
+        np.testing.assert_allclose(ranks[0][f"{name} fp32"].numpy(), want, rtol=2e-4, atol=2e-5)
+        assert _rel(ranks[0][f"{name} fp64"], one) < FP64_REL, name
 
 
 # ----------------------------------------------------------- 1 x 2, a step
@@ -273,6 +320,42 @@ def _minivit():
     return {"kwargs": MINIVIT, "state": vit.state_dict(), "x": x}
 
 
+ADABINS = {"encoder_name": ENC, "n_bins": N_BINS, "n_queries": N_QUERIES,
+           "min_depth": MIN_DEPTH, "max_depth": MAX_DEPTH}
+# the 1 x 2 grid's spatial requests, one image each: (rows, columns)
+SPATIAL_FRAMES = {"bs1": (H, W), "uneven": (96, 64), "whole": (32, 192)}
+SPATIAL_BANDS = {"bs1": ([(0, 32), (32, 64)], None), "uneven": ([(0, 64), (64, 96)], None),
+                 "whole": ([(0, 32), (0, 32)], "32 rows are 1 of 32-row units, fewer than 2 model ranks"),
+                 "adabins": ([(0, 32), (32, 64)], None)}
+
+
+# ObjCAViT's options, the final upsample and a V2 encoder on bands: every
+# option reads coordinates only, so none is refused spatially
+SPATIAL_OPTIONS = {
+    "grid_roi_align+use_2_saca+final_upscale": {
+        "encoder_name": ENC, "n_bins": N_BINS, "n_queries": 23, "dims_train": (H, W),
+        "dims_test": (H, W), "pos_strategy": "grid_random_roi_align", "use_2_saca": True,
+        "do_final_upscale": True},
+    "grid_random+no_obj_sa+v2": {
+        "encoder_name": "efficientnet-v2-tiny", "n_bins": N_BINS, "n_queries": N_QUERIES,
+        "dims_train": (H, W), "dims_test": (H, W), "pos_strategy": "grid_random",
+        "no_obj_sa": True},
+}
+
+
+def _spatial_inp() -> dict:
+    rng = np.random.default_rng(11)
+    frames = {k: rng.integers(0, 256, (1, h, w, 3)).astype(np.uint8)
+              for k, (h, w) in SPATIAL_FRAMES.items()}
+    adabins = init_weights_(AdaBins(**ADABINS), torch.Generator().manual_seed(5))
+    options = {name: {"kwargs": kw, "frames": frames["bs1"], "state": init_weights_(
+        GraphBins(**kw), torch.Generator().manual_seed(6)).eval().state_dict()}
+        for name, kw in SPATIAL_OPTIONS.items()}
+    return {"frames": frames, "options": options,
+            "adabins": {"kwargs": ADABINS, "state": adabins.state_dict(),
+                        "frames": rng.integers(0, 256, (1, H, W, 3)).astype(np.uint8)}}
+
+
 def _step_inp(sd: dict, **extra) -> dict:
     batch, objects = _step_inputs()
     return _inp(sd, batch=batch, objects=objects, lr=LR, wd=WD, total_steps=TOTAL_STEPS,
@@ -283,7 +366,7 @@ def _step_inp(sd: dict, **extra) -> dict:
 def step_run(weights, tmp_path_factory):
     work = tmp_path_factory.mktemp("tp_step")
     sd, _ = weights
-    inp = _step_inp(sd, grid=(1, 2), minivit=_minivit())
+    inp = _step_inp(sd, grid=(1, 2), minivit=_minivit(), spatial=_spatial_inp(), n_obj=NOBJ)
     torch.save(inp, work / "tp_step_in.pt")
     return {"ranks": run_ranks("tp_step", work, 2), "single": _single_step(inp), "inp": inp}
 
@@ -397,3 +480,58 @@ def test_split_minivit_matches_one_process(step_run):
         for got, w in zip(r["minivit"], want):
             assert _rel(got, w) < FP64_REL
 
+
+@pytest.mark.parametrize("case", ["bs1", "uneven", "whole", "adabins"])
+def test_spatial_one_by_two_matches_jax_and_one_process(weights, step_run, case):
+    """DepthPipeline(spatial=True) on the 1 x 2 grid, one image: at 64x96
+    (test_parallel_2d.py's -v case, bs 1), at 96x64 (3 units on 2 ranks:
+    bands of 64 and 32 rows), at 32 rows (1 unit for 2 ranks: served whole
+    on both, as the plan says) and the tiny AdaBins (its miniViT on the
+    gathered tokens). Both ranks return the same bits; the plan's bands;
+    fp32 within test_parallel_2d.py's rtol 2e-4, atol 2e-5 of JAX's spatial
+    server on make_mesh(n_data=1, n_model=2) (of one process's fp32 server
+    where the port serves whole), fp64 within rel L2 1e-10 of one
+    process's server."""
+    sd, variables = weights
+    inp = step_run["inp"]["spatial"]
+    ranks = [r["spatial"] for r in step_run["ranks"]]
+    if case == "adabins":
+        frames = inp["adabins"]["frames"]
+        model = AdaBins(**ADABINS).eval()
+        model.load_state_dict(inp["adabins"]["state"])
+        jax_model = JaxAdaBins(encoder_name=ENC, n_bins=N_BINS, min_depth=MIN_DEPTH,
+                               max_depth=MAX_DEPTH)
+        variables = convert_state_dict({f"model.{k}": v.numpy() for k, v in
+                                        inp["adabins"]["state"].items()}, "adabins", ENC)
+    else:
+        frames = inp["frames"][case]
+        model = tiny_tp_model(_inp(sd), torch.float32).eval()
+        jax_model = _jax_model()
+    for label in ("fp32", "fp64"):
+        got = [r[f"{case} {label}"] for r in ranks]
+        assert [g["plan"] for g in got] == [SPATIAL_BANDS[case]] * 2
+        assert torch.equal(got[0]["depth"], got[1]["depth"])
+    if case == "whole":
+        want = _one_process(model, frames).numpy()
+    else:
+        want = _jax_spatial(jax_model, variables, frames, n_data=1)
+    got = ranks[0][f"{case} fp32"]["depth"]
+    assert got.shape == (1, frames.shape[1] // 2, frames.shape[2] // 2, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+    assert _rel(ranks[0][f"{case} fp64"]["depth"], _one_process(model.double(), frames)) < FP64_REL
+
+
+@pytest.mark.parametrize("name", list(SPATIAL_OPTIONS))
+def test_spatial_serves_every_option_on_bands(step_run, name):
+    """ObjCAViT's options (both grid strategies, use_2_saca, no_obj_sa),
+    the final upsample (the image's band as its skip, the features at full
+    resolution) and a V2 encoder (torchvision's symmetric padding) served
+    on the 1 x 2 grid's bands of 32 rows: both ranks the same bits, within
+    rel L2 1e-10 of one process's server in fp64."""
+    spec = step_run["inp"]["spatial"]["options"][name]
+    ranks = [r["spatial"][f"{name} fp64"] for r in step_run["ranks"]]
+    assert [r["plan"] for r in ranks] == [([(0, 32), (32, 64)], None)] * 2
+    assert torch.equal(ranks[0]["depth"], ranks[1]["depth"])
+    model = GraphBins(**spec["kwargs"]).double().eval()
+    model.load_state_dict(spec["state"])
+    assert _rel(ranks[0]["depth"], _one_process(model, spec["frames"])) < FP64_REL

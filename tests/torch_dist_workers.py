@@ -22,16 +22,24 @@ JAX here: the test process holds the JAX side. Tasks:
 * ``tp_grid`` (tests/test_torch_tp.py, a 2 x 2 grid): the tiny GraphBins of
   tests/test_parallel_2d.py split over the model axis, its eval forward on
   this rank's rows in fp32 and fp64, the gathered state dict,
-  ``DepthPipeline(grid=...)``'s served depth and ``spatial=True``'s error,
-  and ``tp_step``'s step on this rank's rows;
+  ``DepthPipeline(grid=...)``'s served depth, ``spatial=True``'s depth of
+  the model whole and split, in fp32 and fp64, with the plan, and
+  ``tp_step``'s step on this rank's rows;
 * ``tp_step`` (a 1 x 2 grid): one fp64 train step of that model, split, with
   augmentation, dropout and clipping (its loss, the norm the clipping saw,
   the gathered gradients and parameters, the local shapes after the step),
-  and a split miniViT's forward;
+  a split miniViT's forward, and ``spatial=True``'s depth of the tiny
+  GraphBins and AdaBins on each request of ``inp['spatial']`` (one image
+  each: even, uneven and too few bands), in fp32 and fp64, and of the
+  option models of ``inp['spatial']['options']`` in fp64, with the plans;
 * ``tp_card`` (tests/test_torch_gpu.py, a 1 x 2 grid over gloo on one
   card): the tiny GraphBins in bf16 on kernel 5's route, split, one
   forward: its depth, kernel 5's launches and each launch's (B, H) and
-  error against the plain version.
+  error against the plain version;
+* ``spatial_card`` (tests/test_torch_gpu.py, the same grid): that model on
+  ``encoder_impl="kernel"`` served spatially: its depth, the launches of
+  kernel 1's row-window form and kernel 8's halo form, and each launch's
+  error against its plain version.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from objcavit_torch.data.loader import DeviceLoader
 from objcavit_torch.losses import LossWrapper
 from objcavit_torch.losses.losses import mse_loss
 from objcavit_torch.metrics import metrics_sync
+from objcavit_torch.models.adabins import AdaBins
 from objcavit_torch.models.common import BatchNorm2d
 from objcavit_torch.models.graphbins import GraphBins
 from objcavit_torch.models.minivit import MiniViT
@@ -285,12 +294,24 @@ def task_tp_grid(work: str) -> dict:
     out["gathered"] = tp_gather_state_dict(model, grid)
     pipe = DepthPipeline(model.float(), eval_dims=inp["dims"], n_obj_max=inp["n_obj"], grid=grid)
     out["served"] = pipe(inp["frames"])
-    try:
-        DepthPipeline(model, eval_dims=inp["dims"], grid=grid, spatial=True)
-    except NotImplementedError as e:
-        out["spatial_error"] = str(e)
+    out["spatial"] = {}
+    for label, dtype in (("fp32", torch.float32), ("fp64", torch.float64)):
+        for name, m in (("whole", tiny_tp_model(inp, dtype).eval()), ("split", model.to(dtype))):
+            served = serve_spatially(m, inp, inp["frames"], grid)
+            out["spatial"][f"{name} {label}"] = served["depth"]
+            out["spatial"]["plan"] = served["plan"]
     out["step"] = tp_step(inp["step"], grid)
     return out
+
+
+def serve_spatially(model, inp: dict, frames, grid) -> dict:
+    """``DepthPipeline(grid=grid, spatial=True)`` of ``model`` on
+    ``frames``, at their height: the depth, the plan's bands and why it
+    serves whole (None where it splits)."""
+    pipe = DepthPipeline(model, eval_dims=frames.shape[1:3], n_obj_max=inp["n_obj"], grid=grid,
+                         spatial=True)
+    plan = pipe.bands()
+    return {"depth": pipe(frames), "plan": (plan.bands(), plan.reason)}
 
 
 def tp_step(inp: dict, grid) -> dict:
@@ -335,6 +356,19 @@ def task_tp_step(work: str) -> dict:
     out["minivit_specs"] = tp_shard_model(vit, grid)
     with torch.no_grad():
         out["minivit"] = vit(torch.from_numpy(inp["minivit"]["x"]))
+    out["spatial"] = {}
+    for label, dtype in (("fp32", torch.float32), ("fp64", torch.float64)):
+        for name, frames in inp["spatial"]["frames"].items():
+            model = tiny_tp_model(inp, dtype).eval()
+            out["spatial"][f"{name} {label}"] = serve_spatially(model, inp, frames, grid)
+        adabins = AdaBins(**inp["spatial"]["adabins"]["kwargs"]).to(dtype).eval()
+        adabins.load_state_dict(inp["spatial"]["adabins"]["state"])
+        out["spatial"][f"adabins {label}"] = serve_spatially(
+            adabins, inp, inp["spatial"]["adabins"]["frames"], grid)
+    for name, spec in inp["spatial"]["options"].items():
+        model = GraphBins(**spec["kwargs"]).double().eval()
+        model.load_state_dict(spec["state"])
+        out["spatial"][f"{name} fp64"] = serve_spatially(model, inp, spec["frames"], grid)
     return out
 
 
@@ -360,6 +394,42 @@ def task_tp_card(work: str) -> dict:
             "heads": sorted({tuple(r["q"].shape[::2]) for r in records}), "excess": max(errs)}
 
 
+def task_spatial_card(work: str) -> dict:
+    """The tiny GraphBins in bf16 on ``encoder_impl="kernel"``, split over a
+    1 x 2 grid and served spatially: the depth, the plan, the launches of
+    kernel 1's row-window form and kernel 8's halo form, and each launch's
+    count of values out of its check against the plain version."""
+    from objcavit_torch.kernels import mbconv as kmb
+    from objcavit_torch.kernels import resize as kresize
+    from objcavit_torch.utils.kernel_io import (
+        mbconv_head_errors,
+        record_encoder_kernel_io,
+        record_resize_rows_io,
+        resize_rows_errors,
+    )
+
+    inp = torch.load(os.path.join(work, "spatial_card_in.pt"), weights_only=False)
+    grid = make_grid(1, 2)
+    model = build_flagship_model(device="cuda", encoder_name="efficientnet-tiny",
+                                 attn_impl="kernel", encoder_impl="kernel")
+    tp_shard_model(model, grid)
+    frames = inp["frames"]
+    pipe = DepthPipeline(model, eval_dims=frames.shape[1:3], n_obj_max=6, grid=grid, spatial=True)
+    counters = (kresize.resize_bilinear_align_corners_rows, kmb.mbconv_expand_dw_pool_rows)
+    before = [f.launches for f in counters]
+    with record_resize_rows_io() as resized, record_encoder_kernel_io() as encoder:
+        depth = pipe(frames)
+    torch.cuda.synchronize()
+    bad = sum(resize_rows_errors(r)["bad"] for r in resized)
+    for r in encoder:
+        if r["kind"] == "mbconv_head_rows":
+            x, we, be, wd, bd, k, top, bottom = r["args"]
+            bad += mbconv_head_errors(x, we, be, wd, bd, k, *r["out"], 2.0 ** -7, 1e-5, 1e-4,
+                                      rows=(top, bottom))["bad"]
+    return {"depth": depth.cpu(), "plan": pipe.bands().bands(), "bad": bad,
+            "launches": [f.launches - b for f, b in zip(counters, before)]}
+
+
 def task_cli(work: str) -> dict:
     with open(os.path.join(work, "cli_argv.json")) as f:
         argv = json.load(f)
@@ -382,18 +452,23 @@ def task_cli(work: str) -> dict:
 def main() -> None:
     task, work = sys.argv[1], sys.argv[2]
     rank = int(os.environ["OBJCAVIT_PROCESS_ID"])
+    if task in ("tp_grid", "tp_step"):
+        # the tiny model's ranks on one intra-op thread each: a rank's
+        # OpenMP regions spin against the other ranks and the test workers
+        # (tests/test_torch_fit.py::one_torch_thread)
+        torch.set_num_threads(1)
     if task == "cli":  # cli.main joins and leaves the group itself
         out = task_cli(work)
     else:
         # two ranks share the one card in tp_card: NCCL refuses that, gloo does not
-        backend = "gloo" if task == "tp_card" else None
+        backend = "gloo" if task in ("tp_card", "spatial_card") else None
         if not initialize_distributed(backend=backend,
                                       device=os.environ.get(cli.ENV_DEVICE, "cuda")):
             raise SystemExit("no OBJCAVIT_* env: start this through objcavit_torch.parallel.launch")
         try:
             out = {"group": task_group, "step": task_step, "empty_grads": task_empty_grads,
                    "tp_grid": task_tp_grid, "tp_step": task_tp_step,
-                   "tp_card": task_tp_card}[task](work)
+                   "tp_card": task_tp_card, "spatial_card": task_spatial_card}[task](work)
         finally:
             shutdown_distributed()
     torch.save(out, os.path.join(work, f"{task}_{rank}.pt"))
