@@ -1,0 +1,7 @@
+"""Host ms for the server's call to return a request, its mean over the window."""
+
+from h100bench import readers
+
+
+def read(r):
+    return readers.enqueue_ms(r)
