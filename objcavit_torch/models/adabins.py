@@ -20,6 +20,7 @@ import torch.nn as nn
 from objcavit_torch.models.decoder import DenseFeatureExtractor
 from objcavit_torch.models.graphbins import N_QUERIES, BinsDepthModel
 from objcavit_torch.models.minivit import MiniViT
+from objcavit_torch.utils.profiling import annotate
 
 MAX_SEQ_LEN = 500  # miniViT's positional table without do_final_upscale
 MAX_SEQ_LEN_FINAL_UPSCALE = 1200  # miniViT's positional table with do_final_upscale
@@ -55,5 +56,7 @@ class AdaBins(BinsDepthModel):
         """image (B, H, W, 3) ImageNet-normalised NHWC; ``generator`` feeds
         the dropout and the stochastic depth in training mode."""
         dense = self.dense_feature_extractor(image.to(self.dtype), generator)
-        widths, feat, queries = self.adaptive_bins_layer(dense, generator)
-        return self.bins_head(widths, feat, queries)
+        with annotate("model.attention"):
+            widths, feat, queries = self.adaptive_bins_layer(dense, generator)
+        with annotate("model.bins_head"):
+            return self.bins_head(widths, feat, queries)

@@ -66,6 +66,7 @@ from objcavit_torch.models.common import BatchNorm2d, Conv2d
 from objcavit_torch.models.efficientnet import EfficientNetEncoder, encoder_spec
 from objcavit_torch.ops.resize import resize_bilinear
 from objcavit_torch.parallel import spatial
+from objcavit_torch.utils.profiling import annotate
 
 DECODER_BN_EPS = 1e-5
 ENCODER_IMPLS = ("plain", "kernel")
@@ -193,4 +194,7 @@ class DenseFeatureExtractor(nn.Module):
 
     def forward(self, image: torch.Tensor, generator=None) -> torch.Tensor:
         """``generator`` feeds the encoder's stochastic depth in training mode."""
-        return self.decoder(self.encoder["original_model"](image, generator), image)
+        with annotate("model.encoder"):
+            features = self.encoder["original_model"](image, generator)
+        with annotate("model.decoder"):
+            return self.decoder(features, image)

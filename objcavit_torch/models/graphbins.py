@@ -27,6 +27,9 @@ features at the image's full resolution (the decoder's fifth upsample), so
 four times the image tokens; ObjCAViT still places the objects on them with
 a feature stride of 2, as JAX does. ``drop_path_rate`` is the encoder's
 stochastic depth. ``BinsDepthModel`` holds what GraphBins and AdaBins share.
+Under a profiler the forward's stages are spans (``utils/profiling.py``):
+``model.encoder`` and ``model.decoder`` (``DenseFeatureExtractor``),
+``model.attention`` (ObjCAViT; AdaBins' miniViT) and ``model.bins_head``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch.nn as nn
 from objcavit_torch.models.decoder import DenseFeatureExtractor
 from objcavit_torch.models.objcavit import ObjCAViT
 from objcavit_torch.ops.bins import bins_head_depth_factored
+from objcavit_torch.utils.profiling import annotate
 
 N_QUERIES = 128
 
@@ -131,7 +135,9 @@ class GraphBins(BinsDepthModel):
         slots (B, N, F), (B, N, 4), (B, N) bool; ``generator`` feeds the
         dropout and the stochastic depth in training mode."""
         dense = self.dense_feature_extractor(image.to(self.dtype), generator)
-        widths, feat, queries = self.objcavit(
-            dense, object_features, object_xywh, object_valid, generator
-        )
-        return self.bins_head(widths, feat, queries)
+        with annotate("model.attention"):
+            widths, feat, queries = self.objcavit(
+                dense, object_features, object_xywh, object_valid, generator
+            )
+        with annotate("model.bins_head"):
+            return self.bins_head(widths, feat, queries)

@@ -42,6 +42,15 @@ with ``output_at_input_res``. A height the plan does not split (see
 ``parallel/spatial.py``) is served whole on every model rank, logged once
 and shown by the plan. ``FusedDepthPipeline`` and ``serving_export`` have
 no spatial mode, as in JAX.
+
+Under a profiler, each layer of a request is a span
+(``utils/profiling.py::annotate``): ``serving.request`` around the call,
+inside it ``serving.h2d`` (the frames' copy), ``serving.normalise``,
+``serving.forward`` (the model, whose stages are ``model.*`` spans) and
+``serving.output``; ``stream_depth`` adds ``stream.feed_wait``,
+``stream.host_copy`` and ``stream.finish``. Counters, always on:
+``serving.batches``, ``serving.images`` and the copied frame bytes,
+``serving.h2d_pageable_bytes`` or ``serving.h2d_pinned_bytes``.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from objcavit_torch.ops.resize import resize_bilinear
 from objcavit_torch.parallel import spatial as spatial_split
 from objcavit_torch.parallel.collectives import gather_data
 from objcavit_torch.utils.device import card_device
+from objcavit_torch.utils.profiling import annotate, count
 
 # ImageNet statistics (objcavit_tpu/data/preprocess.py)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -125,8 +135,9 @@ class DepthPipeline:
     def normalise(self, frames: torch.Tensor) -> torch.Tensor:
         """uint8 (B, H, W, 3) on the device -> /255, resized to the eval size,
         ImageNet-normalised fp32."""
-        x = resize_bilinear(frames.float() / 255.0, *self.eval_dims, align_corners=False)
-        return (x - self.mean) / self.std
+        with annotate("serving.normalise"):
+            x = resize_bilinear(frames.float() / 255.0, *self.eval_dims, align_corners=False)
+            return (x - self.mean) / self.std
 
     def _at_input_res(self, depth: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
         if self.output_at_input_res:
@@ -158,14 +169,21 @@ class DepthPipeline:
         """The model's depth on normalised ``x``: on a spatial server, this
         rank's band through the model under the plan, then every rank's band."""
         plan = self.bands(x.shape[1])
-        if plan is None or not plan.split:
-            if plan is not None:
-                spatial_split.log_whole(plan)
-            return self.model(x, *objects)["depth_pred"]
-        lo, hi = plan.bands()[plan.index]
-        with spatial_split.serving(plan):
-            depth = self.model(x[:, lo:hi], *objects)["depth_pred"]
-            return spatial_split.gather_rows(depth, 1)
+        with annotate("serving.forward"):
+            if plan is None or not plan.split:
+                if plan is not None:
+                    spatial_split.log_whole(plan)
+                return self.model(x, *objects)["depth_pred"]
+            lo, hi = plan.bands()[plan.index]
+            with spatial_split.serving(plan):
+                depth = self.model(x[:, lo:hi], *objects)["depth_pred"]
+                return spatial_split.gather_rows(depth, 1)
+
+    def _output(self, depth: torch.Tensor, frames: torch.Tensor, b: int) -> torch.Tensor:
+        """The model's depth as the request returns it: at the input size
+        with ``output_at_input_res``, every data rank's rows under a grid."""
+        with annotate("serving.output"):
+            return self._global(self._at_input_res(depth, frames), b)
 
     def _global(self, depth: torch.Tensor, b: int) -> torch.Tensor:
         """The request's depth from every data rank's rows, in the request's order."""
@@ -185,32 +203,45 @@ class DepthPipeline:
         b, frames = frames.shape[0], self._rows(frames)
         x = self.normalise(frames)
         objects = self._sentinel_objects(frames.shape[0]) if self.model.takes_objects else ()
-        return self._global(self._at_input_res(self._depth(x, *objects), frames), b)
+        return self._output(self._depth(x, *objects), frames, b)
 
     @torch.inference_mode()
     def __call__(self, frames_u8) -> torch.Tensor:
         """frames_u8: (B, H, W, 3) uint8 (numpy or tensor) -> (B, h, w, 1)
         fp32 depth in metres on the model's device."""
-        frames = device_frames(frames_u8, self.device)
-        if self.provider is None or not self.model.takes_objects:
-            return self.serve(frames)
-        b, frames = frames.shape[0], self._rows(frames)
-        x = self.normalise(frames)
-        objs = self.provider(x.cpu().numpy())
-        feats, xywh, valid = (torch.as_tensor(np.asarray(objs[k]), device=self.device)
-                              for k in ("features", "xywh", "valid"))
-        depth = self._at_input_res(self._depth(x, feats, xywh, valid), frames)
-        return self._global(depth, b)
+        with annotate("serving.request"):
+            frames = device_frames(frames_u8, self.device)
+            _count_request(frames)
+            if self.provider is None or not self.model.takes_objects:
+                return self.serve(frames)
+            b, frames = frames.shape[0], self._rows(frames)
+            x = self.normalise(frames)
+            objs = self.provider(x.cpu().numpy())
+            feats, xywh, valid = (torch.as_tensor(np.asarray(objs[k]), device=self.device)
+                                  for k in ("features", "xywh", "valid"))
+            return self._output(self._depth(x, feats, xywh, valid), frames, b)
 
 
 def device_frames(frames_u8, device) -> torch.Tensor:
-    """A request's frames on ``device``; ValueError unless (B, H, W, 3) uint8."""
-    frames = torch.as_tensor(frames_u8).to(device)
+    """A request's frames on ``device``; ValueError unless (B, H, W, 3) uint8.
+    A copy from the host to a card counts its bytes, as
+    ``serving.h2d_pinned_bytes`` or ``serving.h2d_pageable_bytes``."""
+    with annotate("serving.h2d"):
+        host = torch.as_tensor(frames_u8)
+        frames = host.to(device)
+        if host.device.type == "cpu" and frames.device.type != "cpu":
+            kind = "pinned" if host.is_pinned() else "pageable"
+            count(f"serving.h2d_{kind}_bytes", host.nbytes)
     if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[3] != 3:
         raise ValueError(
             f"frames must be uint8 (B, H, W, 3), got {frames.dtype} {tuple(frames.shape)}"
         )
     return frames
+
+
+def _count_request(frames: torch.Tensor) -> None:
+    count("serving.batches")
+    count("serving.images", frames.shape[0])
 
 
 def build_flagship_pipeline(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,
@@ -307,13 +338,16 @@ def stream_depth(pipeline, frames_iter, batch_size: int = 8):
     pending = None  # (frames, n, host depth, copy event)
     try:
         while True:
-            item = q.get()
+            with annotate("stream.feed_wait"):
+                item = q.get()
             if isinstance(item, BaseException):
                 raise item
             if item is stop:
                 break
             frames, n = item
-            launched = (frames, n, *host_copy(pipeline(frames)))
+            depth = pipeline(frames)
+            with annotate("stream.host_copy"):
+                launched = (frames, n, *host_copy(depth))
             if pending is not None:
                 yield _finish(pending)
             pending = launched
@@ -324,10 +358,11 @@ def stream_depth(pipeline, frames_iter, batch_size: int = 8):
 
 
 def _finish(pending):
-    frames, n, depth, done = pending
-    if done is not None:
-        done.synchronize()
-    return frames[:n], depth.numpy()[:n]
+    with annotate("stream.finish"):
+        frames, n, depth, done = pending
+        if done is not None:
+            done.synchronize()
+        return frames[:n], depth.numpy()[:n]
 
 
 class FusedDepthPipeline:
@@ -496,23 +531,26 @@ class FusedDepthPipeline:
             x_det = resize_bilinear(x_det, *det_hw, align_corners=False)
         det = self._detections(x_det)
         feats, xywh, valid = self._objects(det, det_hw)
-        depth = self.model(normed, feats, xywh, valid)["depth_pred"]
+        with annotate("serving.forward"):
+            depth = self.model(normed, feats, xywh, valid)["depth_pred"]
         return depth, {"n_candidates": det["n_candidates"], "pre_topk": det["pre_topk"]}
 
     @torch.inference_mode()
     def __call__(self, frames_u8) -> torch.Tensor:
         """frames_u8: (B, H, W, 3) uint8 (numpy or tensor) -> (B, h/2, w/2, 1)
         fp32 depth in metres on the model's device."""
-        frames = device_frames(frames_u8, self.device)
-        stride = self.det_stride
-        if frames.shape[0] % stride:
-            raise ValueError(f"video det_stride={stride} needs the clip length divisible by it, "
-                             f"got batch {frames.shape[0]}")
-        self._check_pending_saturation()
-        depth, meta = self.serve(frames)
-        self.last_det_meta = meta
-        self._pending_sat = (meta["n_candidates"], meta["pre_topk"])
-        return depth
+        with annotate("serving.request"):
+            frames = device_frames(frames_u8, self.device)
+            stride = self.det_stride
+            if frames.shape[0] % stride:
+                raise ValueError(f"video det_stride={stride} needs the clip length divisible "
+                                 f"by it, got batch {frames.shape[0]}")
+            _count_request(frames)
+            self._check_pending_saturation()
+            depth, meta = self.serve(frames)
+            self.last_det_meta = meta
+            self._pending_sat = (meta["n_candidates"], meta["pre_topk"])
+            return depth
 
 
 def build_fused_flagship(dtype=torch.bfloat16, eval_dims=(480, 640), seed: int = 0,

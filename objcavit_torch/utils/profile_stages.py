@@ -78,7 +78,6 @@ import torch
 from objcavit_torch.serving import build_adabins_pipeline, build_flagship_pipeline
 from objcavit_torch.utils.profiling import served_rate
 from objcavit_torch.utils.profiling import trace_calls as trace
-from objcavit_torch.utils.profiling import union_us  # noqa: F401  (its earlier home)
 from objcavit_torch.utils.benchkit import build_adabins_train, build_flagship_train
 
 SMI = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",

@@ -7,8 +7,13 @@ Port of ``objcavit_tpu/utils/profiling.py``:
   Chrome trace (``chrome://tracing``, Perfetto or TensorBoard's profile
   plugin read it); without ``logdir`` nothing is written and the caller
   reads the yielded profiler (``trace_calls`` does);
-* ``annotate(name)``: a named range on the trace's timeline
-  (``record_function``), mirrored onto the card's;
+* ``annotate(name)``: the program's span, a ``record_function`` range on
+  the profiler's own timeline (mirrored onto the card's) while a profiler
+  runs, and one shared null context, which records nothing, while none
+  runs or while ``torch.export`` or ``torch.compile`` traces; spans opened
+  inside one another on a thread nest;
+* ``count(name, n)`` and ``counters()``: the program's counters, always
+  on, in one dict of ints for the process; ``counters()`` is a copy;
 * ``enable_nan_debugging()``: autograd's anomaly mode with its NaN check,
   so a backward that makes a NaN raises at the operator that made it;
 * ``device_memory_stats()``: each card's bytes in use, peak and limit;
@@ -24,6 +29,7 @@ import collections
 import contextlib
 import os
 import statistics
+import threading
 import time
 from typing import Iterator
 
@@ -46,10 +52,29 @@ def trace(logdir: str | None = None) -> Iterator[profile]:
         prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    with record_function(name):
-        yield
+_OFF = contextlib.nullcontext()
+_COUNTS: dict[str, int] = {}
+_COUNTS_LOCK = threading.Lock()
+
+
+def annotate(name: str) -> contextlib.AbstractContextManager:
+    """``with annotate(name):`` spans the block as ``name`` while a profiler
+    runs; else it costs one check of the profiler's state. Never a profiler
+    node in an exported or compiled program."""
+    if (not torch.autograd._profiler_enabled() or torch.compiler.is_exporting()
+            or torch.compiler.is_compiling()):
+        return _OFF
+    return record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    with _COUNTS_LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
 
 
 def enable_nan_debugging(enable: bool = True) -> None:

@@ -19,7 +19,7 @@ from objcavit_torch.serving import DepthPipeline, build_flagship_pipeline, image
 from objcavit_torch.utils.benchkit import build_flagship, build_flagship_model
 from objcavit_torch.utils.fold_bn import fold_batchnorm
 from objcavit_torch.utils.kernel_io import plain_outputs, record_kernel_io, skip_mismatches
-from objcavit_torch.utils.profile_stages import union_us
+from objcavit_torch.utils.profiling import union_us
 from tests.test_torch_modules import (
     H,
     W,
